@@ -8,8 +8,9 @@ caller asks for ``device="cpu"``.
 """
 
 from factormodeling_tpu_torch.backtest import SimulationSettings, run_simulation
-from factormodeling_tpu_torch.convert import ResearchConfig, convert
+from factormodeling_tpu_torch.convert import (ResearchConfig, convert,
+                                              convert_warm_state)
 from factormodeling_tpu_torch.parallel import build_research_step, result_summary
 
 __all__ = ["ResearchConfig", "SimulationSettings", "build_research_step",
-           "convert", "result_summary", "run_simulation"]
+           "convert", "convert_warm_state", "result_summary", "run_simulation"]

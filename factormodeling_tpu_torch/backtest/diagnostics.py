@@ -26,8 +26,10 @@ class SolverDiagnostics(NamedTuple):
     """Per-date solver and invariant telemetry (all ``[D]``), field for field
     the JAX package's record: ADMM primal residual (NaN without a solver),
     solver acceptance, pre-shift leg sums, traded days, polish acceptance
-    and residuals, the scheme stats, and the Anderson / iterations-to-
-    converge tallies (constant 0 in the port, which has neither)."""
+    and residuals, the scheme stats, the Anderson accept / rollback tallies
+    per solved day (0 with ``qp_anderson=0``), and the iterations-to-
+    converge read, which stays 0: the JAX package fills it only under its
+    probes layer, which the port has not ported."""
 
     primal_residual: torch.Tensor
     solver_ok: torch.Tensor

@@ -1,43 +1,57 @@
-"""The turnover-penalized MVO weight scheme (port of
-``factormodeling_tpu/backtest/mvo.py``: ``mvo_turnover`` in ``scan`` mode
-with the trailing sample covariance).
+"""MVO weight schemes (port of ``factormodeling_tpu/backtest/mvo.py``):
+per-date minimum-variance ``mvo`` and the turnover-penalized
+``mvo_turnover`` in ``scan`` mode, each with the trailing sample covariance
+or the rolling statistical risk model.
 
-Each date's covariance keeps the factored form
+The sample covariance keeps the factored form
 
     Sigma_shrunk = alpha I + s C'C,
     alpha = (1 - lam) * 1e-6 + lam * mean(diag(sample + 1e-6 I)),
     s     = (1 - lam) / (T - 1),   C = centered zero-filled window rows,
 
-which the ADMM solver consumes through a Woodbury identity. Yesterday's
-weights enter today's L1 term, so the days run in order: the JAX
-``lax.scan`` becomes a Python loop over dates whose every ladder decision is
-a ``torch.where`` on the device, so the loop queues work and never waits on
+which the ADMM solver consumes through a Woodbury identity.
+``covariance="risk_model"`` swaps it for a statistical factor model
+(:mod:`factormodeling_tpu_torch.risk`) refit every ``risk_refit_every``
+days on the ``risk_lookback`` rows before the refit day:
+``Sigma = B diag(f) B' + diag(idio)`` rides the same Woodbury path with the
+per-asset idio diagonal as a vector alpha and ``V = B'``.
+
+Plain ``mvo`` solves its independent dates in chunks of ``mvo_batch``
+lanes, one lane-batched solve per chunk (one segment-kernel launch per
+segment for the whole chunk); lane ``i`` of a chunk warm-starts from lane
+``i`` of the chunk before, and a ragged tail solves as a narrower chunk that
+keeps its lanes' chains. ``mvo_turnover`` feeds yesterday's weights into
+today's L1 term, so its days run in order, one lane each: the JAX
+``lax.scan`` becomes a Python loop whose every ladder decision is a
+``torch.where`` on the device, so the loop queues work and never waits on
 the card. Fallback ladder: either leg empty or < 2 names -> flat day; no
-prior dates -> equal-scheme weights; one prior date, a NaN signal on a
-present name, solver failure or infeasible caps -> equal weight per leg.
+history (no prior date; the first refit block under the risk model) ->
+equal-scheme weights; one prior date, a NaN signal on a present name
+(turnover only), solver failure or infeasible caps -> equal weight per leg.
 
-The QP runs in float64 whatever the panels' dtype (:data:`QP_DTYPE`); the
-weights come back in the panels' dtype. With the reference's numbers
-(turnover penalty 0.1 per unit of weight moved, daily return variances of
-order 4e-4 on weights of order 1/N) the L1 term dwarfs the variance term,
-so a day's QP is close to a degenerate
-LP whose ties only the variance term breaks; float32 cannot resolve that
-tie-break, and a float32 solve picks another optimal vertex than the float64
-solve on most days once one day differs (yesterday's weights are today's L1
-center, so a difference persists). Measured on an H100 at 1332 days x 1000
-names (``python -m factormodeling_tpu_torch.qp_precision``): the same
-kernel in float32 vs float64 differed by > 1e-4 on 66-68% of days, the two
-kernels in float32 on 99.7%; in float64 the two kernels agree exactly. The
-day loop is launch-bound, so float64 costs no time that matters.
+The QP and the risk-model fits run in float64 whatever the panels' dtype
+(:data:`QP_DTYPE`), for both schemes and both covariances; the weights come
+back in the panels' dtype. With the reference's numbers (turnover penalty
+0.1 per unit of weight moved, daily return variances of order 4e-4 on
+weights of order 1/N) the L1 term dwarfs the variance term, so a turnover
+day's QP is close to a degenerate LP whose ties only the variance term
+breaks; float32 cannot resolve that tie-break, and a float32 solve picks
+another optimal vertex than the float64 solve on most days once one day
+differs (yesterday's weights are today's L1 center, so a difference
+persists). Measured on an H100 at 1332 days x 1000 names (``python -m
+factormodeling_tpu_torch.qp_precision``): the same kernel in float32 vs
+float64 differed by > 1e-4 on 66-68% of days, the two kernels in float32 on
+99.7%; in float64 the two kernels agree exactly. The day loop is
+launch-bound, so float64 costs no time that matters.
 
-Not ported yet: plain ``mvo``, ``turnover_mode="parallel"`` and
-``covariance="risk_model"``.
+Not ported yet: ``turnover_mode="parallel"``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from factormodeling_tpu_torch import risk as _risk
 from factormodeling_tpu_torch.backtest.diagnostics import SchemeStats
 from factormodeling_tpu_torch.backtest.settings import SimulationSettings
 from factormodeling_tpu_torch.backtest.weights import equal_weights, leg_masks
@@ -50,94 +64,173 @@ from factormodeling_tpu_torch.solvers.portfolio import (
     legs_feasible,
 )
 
-__all__ = ["mvo_turnover_weights"]
+__all__ = ["mvo_turnover_weights", "mvo_weights"]
 
 _JITTER = 1e-6
 
-#: working precision of the turnover QP (see the module docstring)
+#: working precision of the MVO QPs and risk-model fits (see the module
+#: docstring)
 QP_DTYPE = torch.float64
 
 
-def _window_factors(returns0: torch.Tensor, today: int, lookback: int):
-    """(C, t_used) of the factored covariance for one date: the centered
-    zero-filled window of (at most ``lookback``) return rows strictly before
-    ``today`` — ``returns0`` is the NaN-zeroed panel — and the usable-row
-    count. ``today`` is a host integer: the window's placement depends only
-    on the date index, never on the data."""
+def _window_factors(returns0: torch.Tensor, todays: torch.Tensor,
+                    lookback: int):
+    """(C [B, L, N], t_used [B]) of the factored covariance for the dates
+    ``todays`` (``[B]``, on the device): the centered zero-filled window of
+    (at most ``lookback``) return rows strictly before each date —
+    ``returns0`` is the NaN-zeroed panel — and the usable-row count."""
     d, n = returns0.shape
     lookback = min(lookback, d)
-    start = max(today - lookback, 0)
-    t_used = today - start
-    c = torch.zeros((lookback, n), dtype=returns0.dtype, device=returns0.device)
-    rows = returns0[start:start + t_used]
-    mean = rows.sum(0, keepdim=True) / max(t_used, 1)
-    c[:t_used] = rows - mean
-    return c, t_used
+    start = torch.clamp(todays - lookback, min=0)
+    t_used = todays - start
+    offs = torch.arange(lookback, device=returns0.device)
+    used = (offs[None, :] < t_used[:, None])[..., None]        # [B, L, 1]
+    rows = returns0[torch.clamp(start[:, None] + offs[None, :], max=d - 1)]
+    rows = torch.where(used, rows, 0.0)
+    mean = rows.sum(1, keepdim=True) / torch.clamp(t_used, min=1)[:, None, None]
+    return torch.where(used, rows - mean, 0.0), t_used
 
 
-def _shrunk_terms(c: torch.Tensor, t_used: int, lam: float):
-    """alpha and per-row scale of Sigma_shrunk = alpha I + s C'C."""
-    denom = float(max(t_used - 1, 1))
+def _shrunk_terms(c: torch.Tensor, t_used: torch.Tensor, lam: float):
+    """alpha and per-row scale of Sigma_shrunk = alpha I + s C'C, per lane
+    (``[B]`` each)."""
+    denom = torch.clamp(t_used - 1, min=1).to(c.dtype)
     s_row = (1.0 - lam) / denom
-    avg_var = (c * c).sum() / denom / c.shape[1] + _JITTER
+    avg_var = (c * c).sum((-2, -1)) / denom / c.shape[-1] + _JITTER
     alpha = (1.0 - lam) * _JITTER + lam * avg_var
     return alpha, s_row
 
 
-def _solve_day(signal_row: torch.Tensor, returns0: torch.Tensor, today: int,
-               w_prev: torch.Tensor, s: SimulationSettings, b: torch.Tensor,
-               warm: ADMMWarmState | None, force_fallback: torch.Tensor):
-    """One turnover day's solve with the full fallback ladder. Returns
-    ``(w [N], primal_residual [], solver_ok [], warm_state, polish)`` with
-    ``polish = (polished, pre_residual, post_residual)``."""
-    dtype = returns0.dtype
-    pos = signal_row > 0
-    neg = signal_row < 0
-    c, t_used = _window_factors(returns0, today, s.lookback_period)
-    alpha, s_row = _shrunk_terms(c, t_used, s.shrinkage_intensity)
-    s_vec = torch.zeros(c.shape[0], dtype=dtype, device=c.device)
-    s_vec[:t_used] = s_row
+def _risk_model_stack(returns: torch.Tensor, s: SimulationSettings):
+    """Rolling refits of the statistical risk model, stacked along a refit
+    axis ``R = ceil(D / risk_refit_every)``: ``(loadings [R, N, k],
+    factor_var [R, k], idio [R, N])``.
 
-    lo, hi, E, b = leg_constraints(signal_row, s.max_weight, dtype, b=b)
-    q = (-s.return_weight) * torch.nan_to_num(signal_row).to(dtype)
+    Model ``j`` is fit on the (at most ``risk_lookback``) rows of
+    ``returns`` (with NaN) strictly before day ``j * risk_refit_every``,
+    NaN-padded to ``risk_lookback`` rows, so no estimate sees its own block;
+    block 0's model is fit on no rows and its days take the no-history
+    ladder."""
+    d, n = returns.shape
+    lb = min(s.risk_lookback, d)
+    out = []
+    for day in range(0, d, s.risk_refit_every):
+        start = max(day - lb, 0)
+        n_used = day - start
+        rows = torch.full((lb, n), float("nan"), dtype=returns.dtype,
+                          device=returns.device)
+        rows[:n_used] = returns[start:day]
+        m = _risk.statistical_risk_model(rows, s.risk_factors)
+        # the model's factor variances divide by (lb - 1) whatever the
+        # padding: rescale to the observed rows' denominator
+        scale = (lb - 1.0) / max(n_used - 1.0, 1.0)
+        out.append((m.loadings, m.factor_var * scale, m.idio_var))
+    return tuple(torch.stack(col) for col in zip(*out))
+
+
+def _risk_model_for_day(stacks, todays: torch.Tensor, s: SimulationSettings):
+    """The dates' ``(loadings [B, N, k], factor_var [B, k], idio [B, N],
+    history [B])`` from the refit stack; ``history`` is the row count behind
+    each block's fit, which drives the ladder like the sample window's
+    ``t_used``."""
+    loadings_s, fvar_s, idio_s = stacks
+    j = torch.div(todays, s.risk_refit_every, rounding_mode="floor")
+    hist = torch.clamp(j * s.risk_refit_every,
+                       max=min(s.risk_lookback, s.returns.shape[0]))
+    return loadings_s[j], fvar_s[j], idio_s[j], hist
+
+
+def _cold_state(n: int, batch: int, dtype, device) -> ADMMWarmState:
+    """Cold warm-states for ``batch`` lanes (zeros; rho NaN -> the solver
+    starts from its own rho)."""
+    z = torch.zeros((batch, n), dtype=dtype, device=device)
+    return ADMMWarmState(z=z, u=torch.zeros_like(z),
+                         rho=torch.full((batch,), float("nan"), dtype=dtype,
+                                        device=device))
+
+
+def _solve_day(signal_rows: torch.Tensor, returns0: torch.Tensor,
+               todays: torch.Tensor, w_prev: torch.Tensor,
+               s: SimulationSettings, b: torch.Tensor, turnover: bool,
+               risk_model=None, warm: ADMMWarmState | None = None,
+               force_fallback: torch.Tensor | None = None,
+               may_lack_history: bool = True):
+    """One lane-batched solve of the dates ``todays`` with the full fallback
+    ladder. ``signal_rows``/``w_prev`` are ``[B, N]`` in the QP dtype;
+    ``risk_model`` is ``None`` (the sample covariance) or the dates'
+    ``(loadings, factor_var, idio, history)``. Returns ``(w [B, N],
+    primal_residual [B], solver_ok [B], warm_state, telemetry)`` with
+    ``telemetry = (polished, pre_residual, post_residual, aa_accepted,
+    aa_rejected, iters_to_converge)``. ``may_lack_history=False`` tells
+    that no date has an empty window (the history is a function of the
+    date alone), which skips building the equal-scheme fallback."""
+    dtype = returns0.dtype
+    lanes, n = signal_rows.shape
+    pos = signal_rows > 0
+    neg = signal_rows < 0
+    if risk_model is None:
+        c, t_used = _window_factors(returns0, todays, s.lookback_period)
+        alpha, s_row = _shrunk_terms(c, t_used, s.shrinkage_intensity)
+        s_vec = torch.where(
+            torch.arange(c.shape[1], device=c.device)[None, :] < t_used[:, None],
+            s_row[:, None], 0.0)
+    else:
+        loadings, factor_var, idio, t_used = risk_model
+        alpha, c, s_vec = idio, loadings.mT, factor_var   # V = B': [B, k, N]
+
+    lo, hi, E, b = leg_constraints(signal_rows, s.max_weight, dtype, b=b)
+    if turnover:
+        q = (-s.return_weight) * torch.nan_to_num(signal_rows)
+        l1, center = s.turnover_penalty, w_prev
+    else:
+        q = torch.zeros_like(lo)
+        l1, center = 0.0, torch.zeros_like(lo)
     # the reference objective is w' Sigma w (not halved) plus the L1 term;
     # the solver minimizes 1/2 x'Px + ..., so P = 2 Sigma
-    prob = BoxQPProblem(q=q, lo=lo, hi=hi, E=E, b=b, l1=s.turnover_penalty,
-                        center=w_prev.to(dtype))
+    prob = BoxQPProblem(q=q, lo=lo, hi=hi, E=E, b=b, l1=l1, center=center)
     res = admm_solve_lowrank(2.0 * alpha, c, 2.0 * s_vec, prob, rho=s.qp_rho,
-                             iters=s.resolved_qp_iters(True), warm_start=warm,
-                             polish=s.qp_polish, kernel=s.solver_kernel)
+                             iters=s.resolved_qp_iters(turnover),
+                             warm_start=warm, polish=s.qp_polish,
+                             anderson=s.qp_anderson, kernel=s.solver_kernel)
     w = res.x
 
-    solver_ok = (torch.isfinite(w).all() & legs_feasible(signal_row, s.max_weight)
-                 & ~force_fallback)
-    if t_used < 2:
-        solver_ok = solver_ok & False
-    w = torch.where(solver_ok, w, _x0_legs(signal_row))
+    solver_ok = (torch.isfinite(w).all(-1)
+                 & legs_feasible(signal_rows, s.max_weight) & (t_used >= 2))
+    if force_fallback is not None:
+        solver_ok = solver_ok & ~force_fallback
+    w = torch.where(solver_ok[:, None], w, _x0_legs(signal_rows))
 
-    # post-solve pruning + per-leg renorm
-    pruned = torch.where(torch.abs(w) < 1e-6, 0.0, w)
-    long_den = torch.where(pos, pruned, 0.0).sum()
-    short_den = -torch.where(neg, pruned, 0.0).sum()
-    renorm = torch.where(
-        pos, pruned / torch.where(long_den > 0, long_den, 1.0),
-        torch.where(neg, pruned / torch.where(short_den > 0, short_den, 1.0),
-                    0.0))
-    w = torch.where(solver_ok & (long_den > 0) & (short_den > 0), renorm, w)
+    if turnover:
+        # post-solve pruning + per-leg renorm
+        pruned = torch.where(torch.abs(w) < 1e-6, 0.0, w)
+        long_den = torch.where(pos, pruned, 0.0).sum(-1, keepdim=True)
+        short_den = -torch.where(neg, pruned, 0.0).sum(-1, keepdim=True)
+        renorm = torch.where(
+            pos, pruned / torch.where(long_den > 0, long_den, 1.0),
+            torch.where(neg, pruned / torch.where(short_den > 0, short_den,
+                                                  1.0), 0.0))
+        w = torch.where(solver_ok[:, None] & (long_den > 0) & (short_den > 0),
+                        renorm, w)
 
-    if t_used < 1:   # no history at all -> equal-scheme fallback
-        w = equal_weights(signal_row[None, :], s.pct)[0][0]
-    nan = torch.full((), float("nan"), dtype=dtype, device=w.device)
+    if may_lack_history:   # no history at all -> equal-scheme fallback
+        w = torch.where((t_used >= 1)[:, None], w,
+                        equal_weights(signal_rows, s.pct)[0])
+    nan = torch.full((lanes,), float("nan"), dtype=dtype, device=w.device)
     solved = solver_ok & (t_used >= 2)
-    resid = res.primal_residual if t_used >= 2 else nan
-    polish = (res.polished & solved,
-              torch.where(solved, res.polish_pre_residual, nan),
-              torch.where(solved, res.polish_post_residual, nan))
+    zero_i = torch.zeros((), dtype=torch.int32, device=w.device)
+    itc = res.iters_to_converge if res.iters_to_converge is not None else zero_i
+    telemetry = (res.polished & solved,
+                 torch.where(solved, res.polish_pre_residual, nan),
+                 torch.where(solved, res.polish_post_residual, nan),
+                 torch.where(solved, res.aa_accepted, zero_i),
+                 torch.where(solved, res.aa_rejected, zero_i),
+                 torch.where(solved, itc, zero_i))
     # a rejected solve's iterates describe a discarded problem: reset cold
-    state = ADMMWarmState(z=torch.where(solver_ok, res.z, 0.0),
-                          u=torch.where(solver_ok, res.u, 0.0),
+    state = ADMMWarmState(z=torch.where(solver_ok[:, None], res.z, 0.0),
+                          u=torch.where(solver_ok[:, None], res.u, 0.0),
                           rho=torch.where(solver_ok, res.rho, nan))
-    return w, resid, solver_ok | (t_used < 2), state, polish
+    return (w, torch.where(t_used >= 2, res.primal_residual, nan),
+            solver_ok | (t_used < 2), state, telemetry)
 
 
 def _universe_count(signal: torch.Tensor, s: SimulationSettings):
@@ -154,68 +247,133 @@ def _nan_signal_days(signal: torch.Tensor, s: SimulationSettings):
     return torch.zeros(signal.shape[:-1], dtype=torch.bool, device=signal.device)
 
 
+class _Panels:
+    """What every solve of one run shares: the QP-dtype panels, the risk
+    model's refit stack, and the leg equality right-hand side."""
+
+    def __init__(self, signal: torch.Tensor, s: SimulationSettings):
+        dev = signal.device
+        self.signal = signal.to(QP_DTYPE)
+        self.returns0 = torch.nan_to_num(s.returns).to(QP_DTYPE)
+        self.stacks = (_risk_model_stack(s.returns.to(QP_DTYPE), s)
+                       if s.covariance == "risk_model" else None)
+        self.b = torch.tensor([1.0, -1.0], dtype=QP_DTYPE, device=dev)
+        self.days = torch.arange(signal.shape[0], device=dev)
+
+    def solve(self, first: int, count: int, w_prev, s: SimulationSettings,
+              turnover: bool, warm, force_fallback=None):
+        todays = self.days[first:first + count]
+        rm = (None if self.stacks is None
+              else _risk_model_for_day(self.stacks, todays, s))
+        # the dates without history: day 0, or the first refit block
+        no_hist = s.risk_refit_every if self.stacks is not None else 1
+        return _solve_day(self.signal[first:first + count], self.returns0,
+                          todays, w_prev, s, self.b, turnover, risk_model=rm,
+                          warm=warm if s.qp_warm_start else None,
+                          force_fallback=force_fallback,
+                          may_lack_history=first < no_hist)
+
+
+def _stack_rows(rows, out_dtype):
+    """Concatenate per-solve outputs ``(w, resid, ok, telemetry)`` along
+    the date axis; float outputs go back to the panels' dtype."""
+    w, resid, ok = (torch.cat(col) for col in list(zip(*rows))[:3])
+    tele = tuple(torch.cat(col) for col in zip(*(r[3] for r in rows)))
+    polished, pre, post, acc, rej, itc = tele
+    return (w.to(out_dtype), resid.to(out_dtype), ok,
+            (polished, pre.to(out_dtype), post.to(out_dtype), acc, rej, itc))
+
+
+def mvo_weights(signal: torch.Tensor, s: SimulationSettings):
+    """Per-date minimum-variance weights: chunks of ``mvo_batch`` dates
+    solve as one lane batch; lane ``i`` warm-starts from lane ``i`` of the
+    chunk before (disable with ``qp_warm_start=False``), and the ragged
+    tail is a narrower chunk on the first lanes' chains. Returns
+    ``(weights [D, N], long_count [D], short_count [D], resid, ok,
+    telemetry, stats)``; ``stats.qp_solves == D``."""
+    d, n = signal.shape
+    pos, neg, flat = leg_masks(signal)
+    panels = _Panels(signal, s)
+    batch = min(s.mvo_batch, d)
+    warm = _cold_state(n, batch, QP_DTYPE, signal.device)
+    zeros = torch.zeros((batch, n), dtype=QP_DTYPE, device=signal.device)
+    rows = []
+    for first in range(0, d, batch):
+        count = min(batch, d - first)
+        lane_warm = ADMMWarmState(*(a[:count] for a in warm))
+        w, resid, ok, state, tele = panels.solve(first, count, zeros[:count],
+                                                 s, False, lane_warm)
+        rows.append((w, resid, ok, tele))
+        if count == batch:
+            warm = state
+    w, resid, ok, tele = _stack_rows(rows, s.returns.dtype)
+    stats = SchemeStats(*(torch.tensor(v, dtype=torch.int32,
+                                       device=signal.device)
+                          for v in (d, 0, 0, 0)))
+    return _finalize(w, signal, s, pos, neg, flat, resid, ok, tele, stats)
+
+
 def mvo_turnover_weights(signal: torch.Tensor, s: SimulationSettings):
     """Turnover-penalized weights: yesterday's (pre-shift) weights feed
     today's L1 turnover term, and each day warm-starts from yesterday's
     solver exit state (disable with ``qp_warm_start=False``). Returns
-    ``(weights [D, N], long_count [D], short_count [D], resid, ok, polish,
-    stats)``."""
+    ``(weights [D, N], long_count [D], short_count [D], resid, ok,
+    telemetry, stats)``."""
     if s.turnover_mode != "scan":
         raise NotImplementedError(
             "turnover_mode='parallel' is not ported yet (see ROADMAP.md)")
-    if s.covariance != "sample":
-        raise NotImplementedError(
-            "covariance='risk_model' is not ported yet (see ROADMAP.md)")
-    if s.qp_anderson:
-        raise NotImplementedError(
-            "the Anderson-accelerated solver (qp_anderson > 0) is not ported "
-            "yet (see ROADMAP.md)")
     d, n = signal.shape
-    dtype, dev = QP_DTYPE, signal.device
     pos, neg, flat = leg_masks(signal)
     zero_day = flat | (_universe_count(signal, s) < 2)
     nan_sig_day = _nan_signal_days(signal, s)
-    returns0 = torch.nan_to_num(s.returns).to(dtype)
-    signal_q = signal.to(dtype)
-    b = torch.tensor([1.0, -1.0], dtype=dtype, device=dev)
+    panels = _Panels(signal, s)
 
-    w_prev = torch.zeros(n, dtype=dtype, device=dev)
-    warm = None
+    w_prev = torch.zeros((1, n), dtype=QP_DTYPE, device=signal.device)
+    warm = _cold_state(n, 1, QP_DTYPE, signal.device)
     rows = []
     for today in range(d):
-        w, resid, ok, state, polish = _solve_day(
-            signal_q[today], returns0, today, w_prev, s, b,
-            warm if s.qp_warm_start else None, nan_sig_day[today])
+        w, resid, ok, state, tele = panels.solve(
+            today, 1, w_prev, s, True, warm, nan_sig_day[today:today + 1])
         # the reference reads the last stored row as yesterday's weights,
         # which is the zero row on flat days
         w = torch.where(zero_day[today], 0.0, w)
-        rows.append((w, resid, ok) + polish)
+        rows.append((w, resid, ok, tele))
         w_prev, warm = w, state
-    w, resid, ok, polished, pre, post = (torch.stack(col) for col in zip(*rows))
-    out_dtype = s.returns.dtype
-    w, resid, pre, post = (a.to(out_dtype) for a in (w, resid, pre, post))
-    stats = SchemeStats(*(torch.tensor(v, dtype=torch.int32, device=dev)
+    w, resid, ok, tele = _stack_rows(rows, s.returns.dtype)
+    stats = SchemeStats(*(torch.tensor(v, dtype=torch.int32,
+                                       device=signal.device)
                           for v in (d, 0, 0, d)))
-    return _finalize(w, signal, s, pos, neg, flat, resid, ok,
-                     (polished, pre, post), stats)
+    return _finalize(w, signal, s, pos, neg, flat, resid, ok, tele, stats)
 
 
-def _finalize(w, signal, s, pos, neg, flat, resid, ok, polish, stats):
+def _no_hist_days(d: int, s: SimulationSettings, device):
+    """Days that fall to the equal scheme for lack of history: day 0 under
+    the sample window; the whole first refit block under the risk model."""
+    days = torch.arange(d, device=device)
+    if s.covariance == "risk_model":
+        return days < s.risk_refit_every
+    return days == 0
+
+
+def _finalize(w, signal, s, pos, neg, flat, resid, ok, tele, stats):
     zero_day = flat | (_universe_count(signal, s) < 2)
     w = torch.where(zero_day[..., None], 0.0, w)
     zero = torch.zeros_like(pos.sum(-1))
     lc = pos.sum(-1)
     sc = neg.sum(-1)
-    # day 0 has no history and falls back to the equal scheme: its k counts
-    no_hist = torch.arange(signal.shape[0], device=signal.device) == 0
+    # no-history days fall back to the equal scheme: its k counts
+    no_hist = _no_hist_days(signal.shape[0], s, signal.device)
     k_long = torch.clamp(torch.floor(lc * s.pct), min=1.0).to(lc.dtype)
     k_short = torch.clamp(torch.floor(sc * s.pct), min=1.0).to(sc.dtype)
     lc = torch.where(no_hist, k_long, lc)
     sc = torch.where(no_hist, k_short, sc)
     ok = ok | zero_day | no_hist
     dead = zero_day | no_hist
-    polished, pre, post = polish
-    polish = (polished & ~dead, torch.where(dead, float("nan"), pre),
-              torch.where(dead, float("nan"), post))
+    polished, pre, post, acc, rej, itc = tele
+    zero_i = torch.zeros((), dtype=acc.dtype, device=acc.device)
+    tele = (polished & ~dead, torch.where(dead, float("nan"), pre),
+            torch.where(dead, float("nan"), post),
+            torch.where(dead, zero_i, acc), torch.where(dead, zero_i, rej),
+            torch.where(dead, zero_i, itc))
     return (w, torch.where(zero_day, zero, lc), torch.where(zero_day, zero, sc),
-            resid, ok, polish, stats)
+            resid, ok, tele, stats)

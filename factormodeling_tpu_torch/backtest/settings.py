@@ -4,9 +4,8 @@ Market data panels are dense ``[D, N]`` tensors plus an optional universe
 mask; every knob keeps the JAX package's name, default and validation (see
 that module for the rationale behind each default). The fields stay even
 where the port has not implemented the option yet: the engine raises
-``NotImplementedError`` for those (``method="mvo"``,
-``covariance="risk_model"``, ``turnover_mode="parallel"``,
-``qp_anderson > 0``, a ``degrade`` policy).
+``NotImplementedError`` for those (``turnover_mode="parallel"``, a
+``degrade`` policy).
 """
 
 from __future__ import annotations

@@ -1,11 +1,17 @@
 """Carry the research step's inputs and static config into the port.
 
 This system has no model weights: what a run carries across from the JAX
-package is its numpy input panels and the plain config keywords of
-``build_research_step``. :func:`convert` puts the panels on a device as
-tensors (keeping their dtype unless one is given; the universe stays bool)
-and gathers the config into a :class:`ResearchConfig`, so the same numpy
-inputs can feed both packages.
+package is its numpy input panels, the plain config keywords of
+``build_research_step`` and, for a solve resumed where the JAX package
+left off, the ADMM solver's warm state. :func:`convert` puts the panels on
+a device as tensors (keeping their dtype unless one is given; the universe
+stays bool) and gathers the config into a :class:`ResearchConfig`, so the
+same numpy inputs can feed both packages. The ``sim_kwargs`` cross as they
+are: every ``SimulationSettings`` knob has the JAX package's name and
+meaning (``method``, ``covariance="risk_model"`` with the ``risk_*``
+knobs, ``qp_anderson``, ``mvo_batch``, ...), and they are validated when
+the config is made. :func:`convert_warm_state` carries a solver exit state
+``(z, u, rho)``, one problem's or a lane batch's.
 """
 
 from __future__ import annotations
@@ -17,8 +23,10 @@ import numpy as np
 import torch
 
 from factormodeling_tpu_torch._device import resolve_device
+from factormodeling_tpu_torch.backtest.settings import SimulationSettings
+from factormodeling_tpu_torch.solvers.admm_qp import ADMMWarmState
 
-__all__ = ["ResearchConfig", "ResearchInputs", "convert"]
+__all__ = ["ResearchConfig", "ResearchInputs", "convert", "convert_warm_state"]
 
 
 class ResearchInputs(NamedTuple):
@@ -57,6 +65,8 @@ def convert(factors, returns, factor_ret, cap_flag, investability, universe,
     ``device="cpu"`` for the CPU). ``dtype`` (e.g. ``torch.float32``) casts
     the float panels; by default they keep their numpy dtype."""
     dev = resolve_device(device)
+    SimulationSettings(returns=None, cap_flag=None, investability_flag=None,
+                       **dict(sim_kwargs or {}))
 
     def put(x, is_mask=False):
         t = torch.tensor(np.asarray(x))   # a copy: numpy views may be read-only
@@ -76,3 +86,13 @@ def convert(factors, returns, factor_ret, cap_flag, investability, universe,
                             sim_kwargs=dict(sim_kwargs or {}),
                             device=str(dev))
     return inputs, config
+
+
+def convert_warm_state(z, u, rho, *, device=None, dtype=torch.float64) -> ADMMWarmState:
+    """A solver exit state from numpy arrays (e.g. the fields of the JAX
+    package's ``ADMMWarmState``) as the port's, on ``device`` (``None`` is
+    the card): ``z``/``u`` ``[N]`` or ``[B, N]`` per lane, ``rho`` ``[]`` or
+    ``[B]`` (NaN marks a cold lane)."""
+    dev = resolve_device(device)
+    return ADMMWarmState(*(torch.tensor(np.asarray(a), dtype=dtype, device=dev)
+                           for a in (z, u, rho)))
