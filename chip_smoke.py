@@ -5,15 +5,21 @@ card and check it. Run from the repository root: ``python3 chip_smoke.py``.
 Phases, in order (any failure exits non-zero before the last line):
 
 1. the card: ``nvidia-smi`` name and power limit, ``torch`` device name;
-2. the build: both CUDA kernels compiled from ``factormodeling_tpu_torch/
-   csrc`` in parallel (one ``nvcc`` each), with their build seconds and the
-   ``ptxas`` register / shared-memory report;
+2. the build: the four CUDA kernel libraries compiled from
+   ``factormodeling_tpu_torch/csrc`` in parallel (one ``nvcc`` each), with
+   their build seconds and the ``ptxas`` register / shared-memory report;
 3. the kernel phases at the research step's shapes, each kernel against its
    plain PyTorch version on the same inputs, within a stated tolerance,
    with CUDA-event times per launch: rank-IC; the ADMM segment; its
    Anderson form (depth 5, the conv tally, a last segment) in float64 and
    float32; and its lane form, 32 lanes in one launch against 32 separate
-   plain calls;
+   plain calls; then, at the JAX package's ``bench.py`` shapes, the
+   window-streaming kernel's four forms (decay, rank, std, zscore) called
+   through the public ops at D=5040, N=5000, W=150 with an edge panel
+   (windows past every tile, D < W, constant and +-inf windows, float64, a
+   ragged universe) and the ``conv1d`` time of the decay's weighted sum; and
+   the fused z-score/group-neutralize kernel at [50, 1260, 3000], G=11, held
+   against its plain version and the composition, with an edge panel;
 4. three paths of ``build_research_step`` at F=50 factors, D=1332 dates,
    N=1000 assets (data from ``--seed``), icir_top selection, zscore blend,
    ``solver_kernel="fused"``: (1) mvo_turnover with the sample covariance,
@@ -23,7 +29,13 @@ Phases, in order (any failure exits non-zero before the last line):
    against the path's schedule, leg-sum and weight-cap invariants, a finite
    summary; then the same step with ``solver_kernel="reference"``, held
    against the fused run;
-5. one ``kernels`` JSON line; then the last line
+5. path 4, the notebook's decay-window sensitivity sweep at F=50, D=1332,
+   N=1000: ``fmt.ops.cs_zscore_group_neutralize(..., use_kernel=True)`` on
+   the factor stack with an 11-industry map, the equal-weight static zscore
+   composite, and ``fmt.analytics.decay_sensitivity`` over the 18 default
+   windows with the equal-weight backtest; one fused-kernel launch and 17
+   window launches, each result held against the plain versions;
+6. one ``kernels`` JSON line; then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs one card and exits non-zero, printing no result, without one or
@@ -65,6 +77,28 @@ LEG_TOL = 1e-4       # leg sums after the f32 post-solve renorm
 CAP_TOL = 1e-3       # |w| above max_weight on unpolished days: the box
                      # violation the primal residual allows
 DW_TOL, DW_SHARE = 1e-4, 0.01   # fused vs reference: per-day max |dw|, share
+
+# the window-streaming kernel at bench.py's rolling_ops shape
+K4_D, K4_N, K4_W, K4_NAN = 5040, 5000, 150, 0.002
+# kernel vs plain: the same operations in the same order, all rounded to
+# nearest (no contracted multiply-add), so equal to the bit where PyTorch's
+# division and square root are correctly rounded; rank is held exactly (its
+# counts are exact, only the last division rounds); the others allow a few
+# units in the last place of values of order 1-10
+K4_TOL = {"float32": {"decay": 1e-6, "rank": 0.0, "std": 1e-6,
+                      "zscore": 1e-5},
+          "float64": {"decay": 1e-12, "rank": 0.0, "std": 1e-12,
+                      "zscore": 1e-11}}
+# operations per lag and cell, for the bound: decay valid test, select,
+# multiply, add, count; rank two compares, two adds, valid test, count;
+# std / zscore pass 1 valid test, add, count, min, max and pass 2 valid
+# test, subtract, multiply, add
+K4_OPS = {"decay": 5, "rank": 6, "std": 9, "zscore": 9}
+# the fused z-score/group-neutralize kernel at bench.py's composite_ops shape
+K5_F, K5_D, K5_N, K5_G, K5_NAN = 50, 1260, 3000, 11, 0.03
+K5_TOL = 2e-5   # the JAX package's own tolerance for its fused kernel: f32
+                # row moments and group sums over ~3000 / ~270 terms summed
+                # in another order
 
 
 def log(msg: str) -> None:
@@ -293,6 +327,277 @@ def anderson_phase(torch, seed: int) -> dict:
     return entry
 
 
+def _held(torch, name: str, got, want, tol: float) -> float:
+    """Max |got - want| over the cells where both are defined, after
+    checking that both are NaN at the same cells; raises beyond ``tol``."""
+    if not torch.equal(torch.isnan(got), torch.isnan(want)):
+        raise AssertionError(f"{name}: NaN pattern differs from its reference")
+    err = float((got - want).abs().nan_to_num().max()) if got.numel() else 0.0
+    if not err <= tol:
+        raise AssertionError(f"{name}: max |err| {err} > {tol}")
+    return err
+
+
+def window_edge_panel(rng, shape, dtype):
+    """A panel with NaNs, a constant window, constant +inf and -inf runs,
+    alternating signed zeros and heavy ties in its first columns."""
+    x = rng.normal(size=shape)
+    x[rng.uniform(size=shape) < 0.02] = np.nan
+    x2 = x.reshape(-1, *shape[-2:])
+    x2[0, 10:400, 3] = 7.25
+    x2[0, 5:380, 4] = np.inf
+    x2[0, 20:25, 5] = -np.inf
+    x2[0, :, 6] = np.where(np.arange(shape[-2]) % 2, 0.0, -0.0)
+    x2[0, :, 7] = np.round(x2[0, :, 7])
+    return x.astype(dtype)
+
+
+def window_phase(torch, fmt, seed: int) -> dict:
+    """The window-streaming kernel's four forms through the public ops at
+    D=5040, N=5000, W=150 (float32, 0.2% NaN): one launch each, held against
+    the plain versions; then the edge panel. Returns the JSON entries."""
+    import torch.nn.functional as tF
+
+    from factormodeling_tpu_torch.ops import _cuda_window as cw
+
+    ops = {"decay": fmt.ops.ts_decay, "rank": fmt.ops.ts_rank,
+           "std": fmt.ops.ts_std, "zscore": fmt.ops.ts_zscore}
+    plain = {"decay": cw.decay_streaming_plain,
+             "rank": cw.ts_rank_streaming_plain,
+             "std": cw.ts_std_streaming_plain,
+             "zscore": cw.ts_zscore_streaming_plain}
+    wrapper = {"decay": cw.decay_streaming, "rank": cw.ts_rank_streaming,
+               "std": cw.ts_std_streaming, "zscore": cw.ts_zscore_streaming}
+    rng = np.random.default_rng(seed + 3)
+    x = rng.normal(size=(K4_D, K4_N)).astype(np.float32)
+    x[rng.uniform(size=x.shape) < K4_NAN] = np.nan
+    x = torch.from_numpy(x).cuda()
+    cells = K4_D * K4_N
+    entries = {}
+    for form, op in ops.items():
+        before = cw.launches
+        out = op(x, K4_W)
+        torch.cuda.synchronize()
+        if cw.launches != before + 1:
+            raise AssertionError(f"fmt.ops.ts_{form} launched the window "
+                                 f"kernel {cw.launches - before} times, not 1")
+        tol = K4_TOL["float32"][form]
+        err = _held(torch, f"window {form}", out, plain[form](x, K4_W), tol)
+        ms = cuda_ms(torch, lambda: wrapper[form](x, K4_W), 20)
+        plain_ms = cuda_ms(torch, lambda: plain[form](x, K4_W), 2)
+        b_ms, b_by = bound(8.0 * cells, float(K4_OPS[form]) * cells * K4_W)
+        lib_ms = None
+        if form == "decay":
+            # the weighted sum as one convolution along the date axis, on
+            # the zero-filled panel (no full-window mask)
+            xz = tF.pad(x.nan_to_num(0.0).T.contiguous()[:, None, :],
+                        (K4_W - 1, 0))
+            w = (torch.arange(1, K4_W + 1, dtype=x.dtype, device=x.device)
+                 / (K4_W * (K4_W + 1) / 2.0)).view(1, 1, K4_W)
+            conv = tF.conv1d(xz, w)[:, 0, :].T
+            full = ~torch.isnan(out)
+            conv_err = float((conv[full] - out[full]).abs().max())
+            lib_ms = cuda_ms(torch, lambda: tF.conv1d(xz, w), 20)
+            log(f"library conv1d (zero-filled, no window mask) {lib_ms:.4f} "
+                f"ms; max |conv1d - kernel| on full windows {conv_err:.3e}")
+        log(f"kernel window_stream {form} float32 D={K4_D} N={K4_N} W={K4_W}: "
+            f"max_abs_err {err:.3e} (tol {tol}), {ms:.4f} ms/launch, plain "
+            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        entries[form] = dict(
+            name=f"window_{form}", route="cuda",
+            source="factormodeling_tpu_torch/csrc/window_stream.cu",
+            replaces="factormodeling_tpu/ops/_pallas_window.py:169",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms)
+    del x
+
+    # edge panel: several 8-row tiles, windows past every tile, D < W,
+    # constant and +-inf windows, signed zeros, ties; float32 and float64
+    worst = 0.0
+    for shape, dname, windows in (((2, 1040, 130), "float32", (16, 100, 350)),
+                                  ((1040, 130), "float64", (100,)),
+                                  ((3, 40, 33), "float32", (100,))):
+        xe = torch.from_numpy(window_edge_panel(rng, shape, dname)).cuda()
+        for w in windows:
+            for form in ops:
+                got = wrapper[form](xe, w)
+                worst = max(worst, _held(torch, f"window {form} edge {dname} "
+                                         f"{shape} W={w}", got,
+                                         plain[form](xe, w),
+                                         K4_TOL[dname][form]))
+                if shape[-2] < w and not torch.isnan(got).all():
+                    raise AssertionError(f"window {form}: W={w} > D gave a "
+                                         "defined cell")
+    # a ragged universe: the compacted columns end in NaN; the card's public
+    # op against the CPU op (the XLA formulation) in float64
+    xr = window_edge_panel(rng, (300, 200), "float64")
+    uni = rng.uniform(size=xr.shape) > 0.15
+    xr_t, uni_t = torch.from_numpy(xr), torch.from_numpy(uni)
+    worst_r = 0.0
+    for form, op in ops.items():
+        worst_r = max(worst_r, _held(torch, f"ts_{form} ragged universe",
+                        op(xr_t.cuda(), 20, universe=uni_t.cuda()).cpu(),
+                        op(xr_t, 20, universe=uni_t), 1e-10))
+    log(f"kernel window_stream edge panel (W=16/100/350 over 8-row tiles, "
+        f"D < W, constant and +-inf windows, float64): max_abs_err vs plain "
+        f"{worst:.3e}; ragged universe vs the CPU op (float64) max_abs_err "
+        f"{worst_r:.3e} (tol 1e-10)")
+    return entries
+
+
+def group_phase(torch, fmt, seed: int) -> dict:
+    """The fused z-score/group-neutralize kernel through
+    ``cs_zscore_group_neutralize(..., use_kernel=True)`` at [50, 1260,
+    3000], G=11, against its plain version and the composition; then an
+    edge panel at N=200."""
+    from factormodeling_tpu_torch.ops import _cuda_fused as cf
+
+    rng = np.random.default_rng(seed + 4)
+    x = rng.normal(size=(K5_F, K5_D, K5_N)).astype(np.float32)
+    x[rng.uniform(size=x.shape) < K5_NAN] = np.nan
+    gid = rng.integers(0, K5_G, size=(K5_D, K5_N)).astype(np.int32)
+    gid[rng.uniform(size=gid.shape) < 0.01] = -1
+    x, gid = torch.from_numpy(x).cuda(), torch.from_numpy(gid).cuda()
+    op = fmt.ops.cs_zscore_group_neutralize
+    before = cf.launches
+    out = op(x, gid, K5_G, use_kernel=True)
+    torch.cuda.synchronize()
+    if cf.launches != before + 1:
+        raise AssertionError("cs_zscore_group_neutralize(use_kernel=True) "
+                             f"launched {cf.launches - before} times, not 1")
+    err = _held(torch, "zscore_group plain", out,
+                cf.zscore_group_neutralize_plain(x, gid, K5_G), K5_TOL)
+    err_c = _held(torch, "zscore_group composition", out, op(x, gid, K5_G),
+                  K5_TOL)
+    if not torch.equal(out.nan_to_num(), cf.zscore_group_neutralize_fused(
+            x, gid, K5_G).nan_to_num()):
+        raise AssertionError("zscore_group: two runs differ")
+    ms = cuda_ms(torch, lambda: cf.zscore_group_neutralize_fused(x, gid, K5_G),
+                 20)
+    plain_ms = cuda_ms(torch, lambda: cf.zscore_group_neutralize_plain(
+        x, gid, K5_G), 3)
+    comp_ms = cuda_ms(torch, lambda: op(x, gid, K5_G), 3)
+    cells = K5_F * K5_D * K5_N
+    b_ms, b_by = bound(8.0 * cells + 4.0 * K5_D * K5_N,
+                       (10.0 + 2.0 * K5_G) * cells)
+    log(f"kernel zscore_group float32 F={K5_F} D={K5_D} N={K5_N} G={K5_G}: "
+        f"max_abs_err {err:.3e} vs plain, {err_c:.3e} vs the composition "
+        f"(tol {K5_TOL}), bitwise equal over two runs; {ms:.4f} ms/launch, "
+        f"plain {plain_ms:.4f} ms, composition {comp_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by})")
+    del x, gid, out
+
+    # edge panel: gid -1 rows, a constant date, an all-NaN date, an empty
+    # group, a single-member group, an id past the groups
+    xe = rng.normal(size=(2, 600, 200)).astype(np.float32)
+    xe[rng.uniform(size=xe.shape) < 0.1] = np.nan
+    xe[0, 3, :] = 7.5
+    xe[1, 4, :] = np.nan
+    ge = rng.integers(-1, 4, size=(600, 200)).astype(np.int32)  # group 4 empty
+    ge[6, :128] = -1
+    ge[7, :] = 0
+    ge[7, 9] = 3
+    ge[8, 11] = K5_G + 2
+    xe, ge = torch.from_numpy(xe).cuda(), torch.from_numpy(ge).cuda()
+    got = op(xe, ge, 5, use_kernel=True)
+    e1 = _held(torch, "zscore_group edge plain", got,
+               cf.zscore_group_neutralize_plain(xe, ge, 5), K5_TOL)
+    e2 = _held(torch, "zscore_group edge composition", got, op(xe, ge, 5),
+               K5_TOL)
+    if not (torch.isnan(got[0, 3]).all() and torch.isnan(got[1, 4]).all()
+            and torch.isnan(got[:, 8, 11]).all()):
+        raise AssertionError("zscore_group edge: constant / all-NaN date or "
+                             "an id past the groups not NaN")
+    log(f"kernel zscore_group edge panel N=200: max_abs_err {e1:.3e} vs "
+        f"plain, {e2:.3e} vs the composition")
+    return dict(name="zscore_group_neutralize", route="cuda",
+                source="factormodeling_tpu_torch/csrc/zscore_group.cu",
+                replaces="factormodeling_tpu/ops/_pallas_fused.py:79",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
+def decay_path(torch, fmt, seed: int) -> dict:
+    """Path 4: the notebook's decay-window sensitivity sweep. The factor
+    stack is z-scored and industry-neutralized by the fused kernel, blended
+    into the static equal-weight zscore composite, and swept over the 18
+    default decay windows with the equal-weight backtest. Returns the
+    kernels' launches in the timed run."""
+    from factormodeling_tpu_torch.composite import composite_weighted
+    from factormodeling_tpu_torch.metrics import _cuda_rank_ic as rk
+    from factormodeling_tpu_torch.ops import _cuda_admm as ak
+    from factormodeling_tpu_torch.ops import _cuda_fused as cf
+    from factormodeling_tpu_torch.ops import _cuda_window as cw
+
+    factors, returns, _, cap, invest, universe = make_inputs(F, D, N, seed)
+    rng = np.random.default_rng(seed + 5)
+    ind = rng.integers(0, 11, size=(D, N))
+    ind[rng.uniform(size=ind.shape) < 0.01] = -1
+    t = {k: torch.from_numpy(v).cuda() for k, v in dict(
+        factors=factors, returns=returns, cap=cap, invest=invest,
+        universe=universe, ind=ind.astype(np.int32)).items()}
+    names = factor_names(F)
+    periods = fmt.analytics.DEFAULT_DECAY_PERIODS
+
+    def sweep(d):
+        settings = fmt.SimulationSettings(
+            returns=t["returns"][:d], cap_flag=t["cap"][:d],
+            investability_flag=t["invest"][:d], universe=t["universe"][:d],
+            method="equal")
+        neutral = fmt.ops.cs_zscore_group_neutralize(
+            t["factors"][:, :d], t["ind"][:d], 11,
+            universe=t["universe"][:d], use_kernel=True)
+        composite = composite_weighted(
+            neutral, names, torch.full((d, F), 1.0 / F,
+                                       device=t["factors"].device),
+            method="zscore", universe=t["universe"][:d])
+        sens = fmt.analytics.decay_sensitivity(composite, settings, periods,
+                                               universe=t["universe"][:d])
+        return neutral, composite, sens
+
+    sweep(130)   # warm-up: library handles, allocator, kernel loads
+    torch.cuda.synchronize()
+    rk.launches = ak.launches = cw.launches = cf.launches = 0
+    t0 = time.perf_counter()
+    neutral, composite, sens = sweep(D)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {"window_stream": cw.launches, "zscore_group": cf.launches,
+                "rank_ic_postsort": rk.launches, "admm_segment": ak.launches}
+    log(f"path decay_sensitivity: F={F} D={D} N={N} G=11, "
+        f"{len(periods)} windows: {secs:.3f} s wall; launches "
+        f"{json.dumps(launches)}")
+    want_k4 = sum(w >= 2 for w in periods)
+    if launches["zscore_group"] != 1 or launches["window_stream"] != want_k4:
+        raise AssertionError(f"decay path: launches {launches}, expected 1 "
+                             f"zscore_group and {want_k4} window_stream")
+    ann = sens.annualized_return.cpu().numpy()
+    sharpe = sens.sharpe.cpu().numpy()
+    log("path decay_sensitivity windows " + json.dumps(list(periods)))
+    log("path decay_sensitivity sharpe " + json.dumps(
+        [round(float(v), 6) for v in sharpe]))
+    log("path decay_sensitivity annualized_return " + json.dumps(
+        [round(float(v), 6) for v in ann]))
+    if not (np.isfinite(ann).all() and np.isfinite(sharpe).all()):
+        raise AssertionError("decay path: non-finite annualized return or "
+                             "Sharpe")
+    # hold every stage against the plain versions (outside the counted run)
+    masked = torch.where(t["universe"], t["factors"], float("nan"))
+    err_n = _held(torch, "decay path neutralized stack", neutral,
+                  cf.zscore_group_neutralize_plain(masked, t["ind"], 11),
+                  K5_TOL)
+    decayed = fmt.analytics.batched_ts_decay(composite, periods,
+                                             t["universe"])
+    err_d = max(_held(torch, f"decay path window {w}", decayed[k],
+                      cw.decay_streaming_plain(composite, w),
+                      K4_TOL["float32"]["decay"])
+                for k, w in enumerate(periods))
+    log(f"path decay_sensitivity held: neutralized stack vs plain max_abs_err "
+        f"{err_n:.3e} (tol {K5_TOL}); 18 decayed signals vs plain max_abs_err "
+        f"{err_d:.3e} (tol {K4_TOL['float32']['decay']})")
+    return launches
+
+
 #: the three paths' backtest settings (beside max_weight and the kernel)
 PATHS = {
     "turnover": dict(method="mvo_turnover", lookback_period=T_LOOKBACK,
@@ -437,18 +742,37 @@ def main() -> int:
         for line in info["ptxas"]:
             log(f"  {line}")
 
+    import factormodeling_tpu_torch as fmt
+
+    torch.backends.cudnn.allow_tf32 = False         # full f32 convolution
     kernels = {"rank_ic_postsort": rank_ic_phase(torch, rk, args.seed),
                "admm_segment": admm_phase(torch, args.seed),
                "admm_segment_anderson": anderson_phase(torch, args.seed)}
+    t0 = time.perf_counter()
+    window = window_phase(torch, fmt, args.seed)
+    kernels.update({f"window_{form}": e for form, e in window.items()})
+    kernels["zscore_group_neutralize"] = group_phase(torch, fmt, args.seed)
+    log(f"ops kernel phases: {time.perf_counter() - t0:.1f} s wall")
     launches = {path: path_phase(torch, args.seed, path, kernels,
                                  warm_up=path == "turnover")
                 for path in PATHS}
+    t0 = time.perf_counter()
+    decay_launches = decay_path(torch, fmt, args.seed)
+    log(f"decay path phase (warm-up, run, checks): "
+        f"{time.perf_counter() - t0:.1f} s wall")
     # each kernel's launches on the path that runs its form
     kernels["rank_ic_postsort"]["launches"] = (
         launches["turnover"]["rank_ic_postsort"])
     kernels["admm_segment"]["launches"] = launches["turnover"]["admm_segment"]
     kernels["admm_segment_anderson"]["launches"] = (
         launches["turnover_risk_anderson"]["admm_segment"])
+    # the decay path runs the decay form only; the rank, std and zscore
+    # forms run in the kernel phase alone
+    for form in window:
+        kernels[f"window_{form}"]["launches"] = (
+            decay_launches["window_stream"] if form == "decay" else 0)
+    kernels["zscore_group_neutralize"]["launches"] = (
+        decay_launches["zscore_group"])
 
     log(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s wall")
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",

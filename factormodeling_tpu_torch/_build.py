@@ -25,7 +25,9 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 
 #: kernel library name -> source file under csrc/
-KERNEL_SOURCES = {"rank_ic": "rank_ic.cu", "admm_segment": "admm_segment.cu"}
+KERNEL_SOURCES = {"rank_ic": "rank_ic.cu", "admm_segment": "admm_segment.cu",
+                  "window_stream": "window_stream.cu",
+                  "zscore_group": "zscore_group.cu"}
 
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

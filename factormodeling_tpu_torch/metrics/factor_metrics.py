@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import torch
 
-from factormodeling_tpu_torch.metrics._cuda_rank_ic import rank_ic_postsort
+from factormodeling_tpu_torch.metrics._cuda_rank_ic import (
+    rank_ic_postsort, rank_ic_postsort_plain)
 from factormodeling_tpu_torch.ops._window import masked_shift, rolling_sum, shift
 
 __all__ = ["daily_factor_stats", "nan_mean_std", "rolling_metrics"]
@@ -40,13 +41,17 @@ def _rank_ic(f: torch.Tensor, r: torch.Tensor, valid: torch.Tensor) -> torch.Ten
     """Pearson(rank(f), r) along the asset axis, the whole stack at once:
     one ``torch.sort`` of the keys (NaN last), the returns gathered along
     as payload, then the post-sort stage (:func:`rank_ic_postsort`: the
-    CUDA kernel on the card, its plain version on the CPU)."""
+    CUDA kernel on a float32 card tensor, the plain version otherwise)."""
     key = torch.where(valid, f, float("nan"))
     rr = torch.where(valid, r, 0.0).expand(key.shape)
     n = key.shape[-1]
     s_key, idx = torch.sort(key, dim=-1)
     r_s = torch.gather(rr, -1, idx)
-    ic, _ = rank_ic_postsort(s_key.reshape(-1, n), r_s.reshape(-1, n))
+    # the kernel takes float32, the type the JAX package routes to its
+    # Pallas kernel; other types take the plain post-sort, as XLA's there
+    post = (rank_ic_postsort if key.dtype == torch.float32
+            else rank_ic_postsort_plain)
+    ic, _ = post(s_key.reshape(-1, n), r_s.reshape(-1, n))
     return ic.reshape(key.shape[:-1])
 
 
