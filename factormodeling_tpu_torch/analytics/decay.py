@@ -25,8 +25,7 @@ __all__ = ["DEFAULT_DECAY_PERIODS", "DecaySensitivity", "batched_ts_decay",
            "decay_sensitivity"]
 
 # the reference helper's default sweep grid (pipeline.ipynb cell 6)
-DEFAULT_DECAY_PERIODS = (1, 3, 5, 10, 25, 50, 75, 100, 125, 150, 175, 200,
-                         225, 250, 275, 300, 325, 350)
+DEFAULT_DECAY_PERIODS = (1, 3, 5, 10) + tuple(range(25, 351, 25))
 
 
 class DecaySensitivity(NamedTuple):

@@ -13,6 +13,9 @@ import torch
 import factormodeling_tpu_torch as fmt
 from factormodeling_tpu.analytics import batched_ts_decay as jax_batched
 from factormodeling_tpu.analytics import decay_sensitivity as jax_sweep
+from factormodeling_tpu.analytics.decay import (
+    DEFAULT_DECAY_PERIODS as JAX_PERIODS,
+)
 from factormodeling_tpu.backtest import SimulationSettings as JaxSettings
 from factormodeling_tpu_torch.analytics.decay import _annualize
 from factormodeling_tpu_torch.ops import _cuda_window as cw
@@ -72,6 +75,10 @@ def test_batched_ts_decay_matches_jax_on_a_stack():
     assert got.shape == (3, 2, 40, 12)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-12,
                                rtol=0, equal_nan=True)
+
+
+def test_default_decay_periods_match_jax():
+    assert fmt.analytics.DEFAULT_DECAY_PERIODS == tuple(JAX_PERIODS)
 
 
 @pytest.mark.parametrize("d", [252, 126, 300])
