@@ -19,7 +19,8 @@ Phases, in order (any failure exits non-zero before the last line):
    (windows past every tile, D < W, constant and +-inf windows, float64, a
    ragged universe) and the ``conv1d`` time of the decay's weighted sum; and
    the fused z-score/group-neutralize kernel at [50, 1260, 3000], G=11, held
-   against its plain version and the composition, with an edge panel;
+   against its plain version and the composition, with an edge panel and
+   rows wider than its shared-memory tile;
 4. three paths of ``build_research_step`` at F=50 factors, D=1332 dates,
    N=1000 assets (data from ``--seed``), icir_top selection, zscore blend,
    ``solver_kernel="fused"``: (1) mvo_turnover with the sample covariance,
@@ -34,7 +35,9 @@ Phases, in order (any failure exits non-zero before the last line):
    the factor stack with an 11-industry map, the equal-weight static zscore
    composite, and ``fmt.analytics.decay_sensitivity`` over the 18 default
    windows with the equal-weight backtest; one fused-kernel launch and 17
-   window launches, each result held against the plain versions;
+   window launches; the neutralized stack and the timed run's decayed
+   signals held against the plain versions, and the sweep's daily returns,
+   annualized returns and Sharpes against the same sweep on the CPU;
 6. one ``kernels`` JSON line; then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -99,6 +102,13 @@ K5_F, K5_D, K5_N, K5_G, K5_NAN = 50, 1260, 3000, 11, 0.03
 K5_TOL = 2e-5   # the JAX package's own tolerance for its fused kernel: f32
                 # row moments and group sums over ~3000 / ~270 terms summed
                 # in another order
+K5_WIDE = 20000  # a row wider than the kernel's shared-memory tile (16384)
+# path 4 on the card against the same sweep on the CPU (the XLA formulation
+# of ts_decay, the same backtest): a decayed value that rounds the other way
+# at a leg's quantile boundary swaps one name on one day, which moves that
+# day's return by ~1e-4 and a Sharpe by ~1e-3
+SWEEP_R_TOL, SWEEP_R_SHARE = 1e-6, 0.01   # per-(window, day) |dr|, share
+SWEEP_SHARPE_TOL, SWEEP_ANN_TOL = 1e-2, 1e-3
 
 
 def log(msg: str) -> None:
@@ -510,6 +520,31 @@ def group_phase(torch, fmt, seed: int) -> dict:
                              "an id past the groups not NaN")
     log(f"kernel zscore_group edge panel N=200: max_abs_err {e1:.3e} vs "
         f"plain, {e2:.3e} vs the composition")
+    # rows wider than the shared-memory tile keep their z-values in the
+    # output row: the same kernel, the same fixed-order sums
+    xw = rng.normal(size=(2, 24, K5_WIDE)).astype(np.float32)
+    xw[rng.uniform(size=xw.shape) < K5_NAN] = np.nan
+    gw = rng.integers(-1, K5_G, size=(24, K5_WIDE)).astype(np.int32)
+    gw = torch.from_numpy(gw).cuda()
+    wide = []
+    for dtype, tol in ((torch.float32, K5_TOL), (torch.float64, 1e-12)):
+        xt = torch.from_numpy(xw).to("cuda", dtype)
+        before = cf.launches
+        got = op(xt, gw, K5_G, use_kernel=True)
+        torch.cuda.synchronize()
+        if cf.launches != before + 1:
+            raise AssertionError(f"zscore_group N={K5_WIDE}: the public op "
+                                 "did not launch the kernel")
+        wide.append(_held(torch, f"zscore_group N={K5_WIDE} {dtype}", got,
+                          cf.zscore_group_neutralize_plain(xt, gw, K5_G),
+                          tol))
+        if not torch.equal(got.nan_to_num(), cf.zscore_group_neutralize_fused(
+                xt, gw, K5_G).nan_to_num()):
+            raise AssertionError(f"zscore_group N={K5_WIDE}: two runs differ")
+    log(f"kernel zscore_group wide rows N={K5_WIDE} (past the "
+        f"shared-memory tile): max_abs_err vs plain {wide[0]:.3e} float32 "
+        f"(tol {K5_TOL}), {wide[1]:.3e} float64 (tol 1e-12); bitwise equal "
+        f"over two runs")
     return dict(name="zscore_group_neutralize", route="cuda",
                 source="factormodeling_tpu_torch/csrc/zscore_group.cu",
                 replaces="factormodeling_tpu/ops/_pallas_fused.py:79",
@@ -586,15 +621,40 @@ def decay_path(torch, fmt, seed: int) -> dict:
     err_n = _held(torch, "decay path neutralized stack", neutral,
                   cf.zscore_group_neutralize_plain(masked, t["ind"], 11),
                   K5_TOL)
-    decayed = fmt.analytics.batched_ts_decay(composite, periods,
-                                             t["universe"])
-    err_d = max(_held(torch, f"decay path window {w}", decayed[k],
+    err_d = max(_held(torch, f"decay path window {w}", sens.decayed[k],
                       cw.decay_streaming_plain(composite, w),
                       K4_TOL["float32"]["decay"])
                 for k, w in enumerate(periods))
     log(f"path decay_sensitivity held: neutralized stack vs plain max_abs_err "
-        f"{err_n:.3e} (tol {K5_TOL}); 18 decayed signals vs plain max_abs_err "
-        f"{err_d:.3e} (tol {K4_TOL['float32']['decay']})")
+        f"{err_n:.3e} (tol {K5_TOL}); the timed run's 18 decayed signals vs "
+        f"plain max_abs_err {err_d:.3e} (tol {K4_TOL['float32']['decay']})")
+    # the whole sweep again on the CPU from the same composite
+    cpu = {k: v.cpu() for k, v in t.items()}
+    t0 = time.perf_counter()
+    ref = fmt.analytics.decay_sensitivity(
+        composite.cpu(), fmt.SimulationSettings(
+            returns=cpu["returns"], cap_flag=cpu["cap"],
+            investability_flag=cpu["invest"], universe=cpu["universe"],
+            method="equal"), periods, universe=cpu["universe"])
+    cpu_secs = time.perf_counter() - t0
+    r_card = sens.log_return.cpu()
+    dr = (r_card - ref.log_return).abs()
+    r_share = float(((dr > SWEEP_R_TOL)
+                     | (r_card.isnan() != ref.log_return.isnan()))
+                    .double().mean())
+    dr = dr.nan_to_num(0.0)
+    d_sh = float((sens.sharpe.cpu() - ref.sharpe).abs().max())
+    d_ann = float((sens.annualized_return.cpu()
+                   - ref.annualized_return).abs().max())
+    log(f"path decay_sensitivity vs the CPU sweep ({cpu_secs:.1f} s): max "
+        f"|d sharpe| {d_sh:.3e} (tol {SWEEP_SHARPE_TOL}), max |d annualized "
+        f"return| {d_ann:.3e} (tol {SWEEP_ANN_TOL}), max |d daily return| "
+        f"{float(dr.max()):.3e}, share of (window, day) with |dr| > "
+        f"{SWEEP_R_TOL}: {r_share:.5f} (limit {SWEEP_R_SHARE})")
+    if not (d_sh <= SWEEP_SHARPE_TOL and d_ann <= SWEEP_ANN_TOL
+            and r_share <= SWEEP_R_SHARE):
+        raise AssertionError("decay path: the card's sweep and the CPU's "
+                             "differ")
     return launches
 
 

@@ -33,6 +33,7 @@ class DecaySensitivity(NamedTuple):
     annualized_return: torch.Tensor   # [K] (prod(1+r))**(252/D) - 1
     sharpe: torch.Tensor              # [K] mean/std(ddof=1) * sqrt(252)
     log_return: torch.Tensor          # [K, D] daily net returns per window
+    decayed: torch.Tensor             # [K, *signal.shape] the swept signals
 
 
 def batched_ts_decay(x: torch.Tensor, windows: Sequence[int],
@@ -76,7 +77,9 @@ def decay_sensitivity(
     Mirrors the reference helper's metrics: it treats the result frame's
     ``log_return`` column as a simple return (the reference's own naming
     quirk) and computes ``(prod(1+r))**(252/D) - 1`` and
-    ``mean(r)/std(r, ddof=1) * sqrt(252)`` over all D rows.
+    ``mean(r)/std(r, ddof=1) * sqrt(252)`` over all D rows. Beside the
+    JAX package's fields, the result keeps the decayed signals the
+    backtests ran on (``decayed``), which the sweep builds in full anyway.
     """
     periods = tuple(int(p) for p in decay_periods)
     decayed = batched_ts_decay(signal, periods, universe)        # [K, D, N]
@@ -84,4 +87,4 @@ def decay_sensitivity(
                      for sig in decayed])                        # [K, D]
     ann, sharpe = _annualize(r)
     return DecaySensitivity(decay_periods=periods, annualized_return=ann,
-                            sharpe=sharpe, log_return=r)
+                            sharpe=sharpe, log_return=r, decayed=decayed)

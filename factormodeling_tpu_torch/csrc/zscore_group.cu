@@ -17,16 +17,19 @@
 // D = 1260, N = 3000 (0.46 ms at 3.35 TB/s), against about 10 + 2 G
 // operations per cell.
 //
-// Design. The row and its ids sit in shared memory (8 B per asset in float32,
-// 24 KB at N = 3000; 12 B in double), loaded once with coalesced reads; the
-// count, sum and centered sum of squares are block reductions (warp shuffles,
-// then the warps' partials in warp order); the z-values overwrite the row in
-// shared memory; for each group every warp reduces its threads' partial sums
-// and counts into a [warps x G] table, and one thread per group adds the
-// table's column in warp order. No floating-point atomics: every sum is taken
-// in a fixed order, so two runs agree bit for bit. G <= 32; the widest row is
-// MAX_WIDTH (16384 assets: 196 KB of dynamic shared memory in double, beside
-// the 4.4 KB of tables, within the 227 KB a block can use).
+// Design. A row of up to SMEM_WIDTH assets and its ids sit in shared memory
+// (8 B per asset in float32, 24 KB at N = 3000; 12 B in double), loaded once
+// with coalesced reads; a wider row keeps its z-values in the output row and
+// reads its ids from device memory, both through L1/L2, so every N is taken.
+// The count, sum and centered sum of squares are block reductions (warp
+// shuffles, then the warps' partials in warp order); the z-values overwrite
+// the row; for each group every warp reduces its threads' partial sums and
+// counts into a [warps x G] table, and one thread per group adds the table's
+// column in warp order. No floating-point atomics: every sum is taken in a
+// fixed order, so two runs agree bit for bit, and the two row layouts give
+// the same bits. G <= 32; SMEM_WIDTH is 16384 assets (196 KB of dynamic
+// shared memory in double, beside the 4.4 KB of tables, within the 227 KB a
+// block can use).
 //
 // Prediction, written before the first run on the card: at R = 50, D = 1260,
 // N = 3000, G = 11 in float32, 0.9-1.5 ms, 2-3x the bytes bound: 63,000 blocks
@@ -41,7 +44,7 @@
 #define ZG_THREADS 256
 #define ZG_WARPS (ZG_THREADS / 32)
 #define ZG_MAX_GROUPS 32
-#define MAX_WIDTH 16384
+#define SMEM_WIDTH 16384
 #define FULL_MASK 0xffffffffu
 
 template <typename T>
@@ -74,13 +77,13 @@ __device__ __forceinline__ T block_sum(T v, T* s_red) {
   return tot;
 }
 
-template <typename T>
+// kShared: the row and its ids in shared memory (N <= SMEM_WIDTH); else the
+// z-values live in the output row and the ids are read where they lie.
+template <typename T, bool kShared>
 __global__ void __launch_bounds__(ZG_THREADS)
 zscore_group_kernel(const T* __restrict__ x, const int* __restrict__ gids,
                     T* __restrict__ out, int D, int N, int G) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* z = reinterpret_cast<T*>(smem_raw);   // [N] the row, then its z-values
-  int* g = reinterpret_cast<int*>(z + N);  // [N] its group ids
   __shared__ T s_red[ZG_WARPS];
   __shared__ T s_sum[ZG_WARPS][ZG_MAX_GROUPS], s_cnt[ZG_WARPS][ZG_MAX_GROUPS];
   __shared__ T s_mean[ZG_MAX_GROUPS];
@@ -90,6 +93,10 @@ zscore_group_kernel(const T* __restrict__ x, const int* __restrict__ gids,
   const T* xr = x + row * (int64_t)N;
   const int* gr = gids + (row % D) * (int64_t)N;
   T* orow = out + row * (int64_t)N;
+  // [N] the row, then its z-values; [N] its group ids
+  T* z = kShared ? reinterpret_cast<T*>(smem_raw) : orow;
+  int* g_smem = reinterpret_cast<int*>(reinterpret_cast<T*>(smem_raw) + N);
+  const int* g = kShared ? g_smem : gr;
 
   // each thread touches only its own cells i = tid (mod ZG_THREADS) until
   // the group tables, so the block barriers inside block_sum suffice
@@ -97,7 +104,7 @@ zscore_group_kernel(const T* __restrict__ x, const int* __restrict__ gids,
   for (int i = threadIdx.x; i < N; i += ZG_THREADS) {
     const T v = xr[i];
     z[i] = v;
-    g[i] = gr[i];
+    if (kShared) g_smem[i] = gr[i];
     if (!isnan(v)) {
       sum += v;
       cnt += T(1);
@@ -154,19 +161,25 @@ zscore_group_kernel(const T* __restrict__ x, const int* __restrict__ gids,
 template <typename T>
 static int launch(const T* x, const int* gids, T* out, long long rows, int D,
                   int N, int G, void* stream) {
-  if (G < 1 || G > ZG_MAX_GROUPS || N > MAX_WIDTH || D < 1)
-    return (int)cudaErrorInvalidValue;
+  if (G < 1 || G > ZG_MAX_GROUPS || D < 1) return (int)cudaErrorInvalidValue;
   if (rows <= 0 || N <= 0) return 0;
   if (rows > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
+  if (N > SMEM_WIDTH) {
+    zscore_group_kernel<T, false><<<(unsigned)rows, ZG_THREADS, 0,
+                                    (cudaStream_t)stream>>>(x, gids, out, D,
+                                                             N, G);
+    return (int)cudaGetLastError();
+  }
   const int smem = N * (int)(sizeof(T) + sizeof(int));
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        zscore_group_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        zscore_group_kernel<T, true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  zscore_group_kernel<T><<<(unsigned)rows, ZG_THREADS, smem,
-                           (cudaStream_t)stream>>>(x, gids, out, D, N, G);
+  zscore_group_kernel<T, true><<<(unsigned)rows, ZG_THREADS, smem,
+                                 (cudaStream_t)stream>>>(x, gids, out, D, N,
+                                                         G);
   return (int)cudaGetLastError();
 }
 

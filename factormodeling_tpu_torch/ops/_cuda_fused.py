@@ -12,11 +12,12 @@ zscore_group_neutralize_fused``. Semantics are the composition's:
 Bound on an H100: bytes. Each cell is read and written once and the ids
 ``[D, N]`` are read once per date: 1.5 GB at ``[50, 1260, 3000]`` in
 float32, ~0.46 ms at 3.35 TB/s. The kernel runs one thread block per row
-with the row and its ids in shared memory, so the moments, the z-values and
-the per-group sums never touch device memory again; the group sums come
-from per-warp tables added in a fixed order, so the result is deterministic.
-The TPU kernel's padding of the asset axis to the 128-lane multiple has no
-counterpart: the block loops over any N up to :data:`MAX_FUSED_WIDTH`.
+with the row and its ids in shared memory (up to 16384 assets; a wider row
+keeps its z-values in the output row, through L1/L2), so the moments, the
+z-values and the per-group sums are taken from one load of the row; the
+group sums come from per-warp tables added in a fixed order, so the result
+is deterministic. The TPU kernel's padding of the asset axis to the 128-lane
+multiple has no counterpart: the block loops over any N.
 
 On a CUDA tensor :func:`zscore_group_neutralize_fused` launches the kernel
 or raises; on a CPU tensor it runs :func:`zscore_group_neutralize_plain`.
@@ -30,14 +31,11 @@ import torch
 
 from factormodeling_tpu_torch import _build
 
-__all__ = ["MAX_FUSED_GROUPS", "MAX_FUSED_WIDTH",
-           "zscore_group_neutralize_fused", "zscore_group_neutralize_plain"]
+__all__ = ["MAX_FUSED_GROUPS", "zscore_group_neutralize_fused",
+           "zscore_group_neutralize_plain"]
 
 #: most groups the kernel takes (its per-warp tables are 32 wide)
 MAX_FUSED_GROUPS = 32
-#: widest row the kernel takes: the row and its ids (12 B per asset in
-#: float64) must fit the 227 KB of shared memory a block can use on Hopper
-MAX_FUSED_WIDTH = 16384
 
 #: kernel launches since the count was last set to 0
 launches = 0
@@ -98,9 +96,6 @@ def zscore_group_neutralize_fused(x: torch.Tensor, gids: torch.Tensor,
         raise TypeError(f"zscore_group kernel takes float32 or float64, got "
                         f"{x.dtype}")
     d, n = x.shape[-2:]
-    if n > MAX_FUSED_WIDTH:
-        raise ValueError(f"zscore_group kernel takes N <= {MAX_FUSED_WIDTH}, "
-                         f"got N={n}")
     if not x.is_contiguous():
         raise ValueError("zscore_group kernel takes a contiguous x")
     g32 = gids.to(torch.int32).contiguous()

@@ -125,18 +125,17 @@ def cs_zscore_group_neutralize(x: torch.Tensor, group_ids, num_groups: int,
 
     ``use_kernel=True`` is the JAX package's ``use_pallas=True``: on a CUDA
     tensor it launches the one-pass kernel (:mod:`._cuda_fused`) when
-    ``0 < num_groups <= 32``, the group ids are at most 2-D and shared across
-    ``x``'s leading axes, and the rows are at most
-    :data:`~._cuda_fused.MAX_FUSED_WIDTH` wide. Every other case takes the
-    composition, as the JAX package routes (its further ``N >= 128``
-    condition is the TPU's lane padding and is not copied). The two paths
+    ``0 < num_groups <= 32`` and the group ids are at most 2-D and shared
+    across ``x``'s leading axes; the kernel takes rows of any width. Every
+    other case takes the composition, as the JAX package routes (its
+    further ``N >= 128`` condition is the TPU's lane padding and is not
+    copied). The two paths
     agree up to the order of their float sums."""
     x = _mask_input(x, universe)
     gids = torch.as_tensor(group_ids, device=x.device)
     if (use_kernel and x.device.type == "cuda" and x.ndim >= 2
             and gids.ndim <= 2 and gids.shape == x.shape[x.ndim - gids.ndim:]
-            and 0 < num_groups <= _cf.MAX_FUSED_GROUPS
-            and x.shape[-1] <= _cf.MAX_FUSED_WIDTH):
+            and 0 < num_groups <= _cf.MAX_FUSED_GROUPS):
         return _cf.zscore_group_neutralize_fused(
             x.contiguous(), gids.expand(x.shape[-2:]), num_groups)
     return group_neutralize(cs_zscore(x), gids, num_groups)

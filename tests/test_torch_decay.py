@@ -62,6 +62,11 @@ def test_decay_sensitivity_matches_jax(with_universe):
                                    np.asarray(getattr(want, name)), atol=TOL,
                                    rtol=0, equal_nan=True, err_msg=name)
     assert np.isfinite(got.sharpe.numpy()).all()
+    want_decayed = jax_batched(
+        jnp.asarray(signal), WINDOWS,
+        jnp.asarray(universe) if with_universe else None)
+    np.testing.assert_allclose(got.decayed.numpy(), np.asarray(want_decayed),
+                               atol=TOL, rtol=0, equal_nan=True)
 
 
 def test_batched_ts_decay_matches_jax_on_a_stack():

@@ -167,6 +167,19 @@ def test_fused_wrapper_and_public_dispatch_on_cpu():
         cf.zscore_group_neutralize_fused(xt, gt[:, :5], g)
 
 
+def test_fused_wrapper_takes_rows_of_any_width_on_cpu():
+    """No width limit: a row wider than the kernel's shared-memory tile
+    (16384 assets) goes through the wrapper and the public op alike."""
+    x, gid, g = _group_case(2, d=12, n=20000)
+    xt, gt = torch.from_numpy(x).double(), torch.from_numpy(gid)
+    comp = ops.group_neutralize(ops.cs_zscore(xt), gt, g)
+    torch.testing.assert_close(cf.zscore_group_neutralize_fused(xt, gt, g),
+                               comp, atol=1e-12, rtol=0, equal_nan=True)
+    torch.testing.assert_close(
+        ops.cs_zscore_group_neutralize(xt, gt, g, use_kernel=True), comp,
+        atol=0, rtol=0, equal_nan=True)
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
@@ -216,16 +229,20 @@ def test_window_kernel_on_ragged_universe_matches_cpu_op():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [200, 3000, cf.MAX_FUSED_WIDTH])
-def test_fused_kernel_matches_plain_on_card(n):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [200, 3000, 16384, 16385, 40000])
+def test_fused_kernel_matches_plain_on_card(n, dtype):
+    """Rows in shared memory (N <= 16384) and rows kept in the output row
+    (wider): the public op launches the kernel once at every width."""
     _card()
-    x, gid, g = _group_case(12, d=64, n=max(n, 256))
-    xt = torch.from_numpy(np.ascontiguousarray(x[..., :n])).cuda()
+    x, gid, g = _group_case(12, f=2, d=16 if n > 3000 else 64, n=max(n, 256))
+    xt = torch.from_numpy(np.ascontiguousarray(x[..., :n])).to("cuda", dtype)
     gt = torch.from_numpy(np.ascontiguousarray(gid[:, :n])).cuda()
     before = cf.launches
     got = ops.cs_zscore_group_neutralize(xt, gt, g, use_kernel=True)
     assert cf.launches == before + 1
+    tol = 2e-5 if dtype == torch.float32 else 1e-12
     torch.testing.assert_close(got, cf.zscore_group_neutralize_plain(xt, gt, g),
-                               atol=2e-5, rtol=0, equal_nan=True)
+                               atol=tol, rtol=0, equal_nan=True)
     again = cf.zscore_group_neutralize_fused(xt, gt, g)
     assert torch.equal(got.nan_to_num(), again.nan_to_num())  # deterministic
