@@ -5,7 +5,7 @@ card and check it. Run from the repository root: ``python3 chip_smoke.py``.
 Phases, in order (any failure exits non-zero before the last line):
 
 1. the card: ``nvidia-smi`` name and power limit, ``torch`` device name;
-2. the build: the four CUDA kernel libraries compiled from
+2. the build: the six CUDA kernel libraries compiled from
    ``factormodeling_tpu_torch/csrc`` in parallel (one ``nvcc`` each), with
    their build seconds and the ``ptxas`` register / shared-memory report;
 3. the kernel phases at the research step's shapes, each kernel against its
@@ -20,7 +20,11 @@ Phases, in order (any failure exits non-zero before the last line):
    ragged universe) and the ``conv1d`` time of the decay's weighted sum; and
    the fused z-score/group-neutralize kernel at [50, 1260, 3000], G=11, held
    against its plain version and the composition, with an edge panel and
-   rows wider than its shared-memory tile;
+   rows wider than its shared-memory tile; the fused rank-IC sort (K3) at
+   the research step's 66,600 rows of 1000 against its plain version, the
+   post-sort route (``torch.sort`` + K1) and an edge panel of widths 128 to
+   8192; the FP32 probe (K6) against its plain version, then its rate at
+   [64, 50400, 128] through ``fp32_probe.measure``;
 4. three paths of ``build_research_step`` at F=50 factors, D=1332 dates,
    N=1000 assets (data from ``--seed``), icir_top selection, zscore blend,
    ``solver_kernel="fused"``: (1) mvo_turnover with the sample covariance,
@@ -38,7 +42,14 @@ Phases, in order (any failure exits non-zero before the last line):
    window launches; the neutralized stack and the timed run's decayed
    signals held against the plain versions, and the sweep's daily returns,
    annualized returns and Sharpes against the same sweep on the CPU;
-6. one ``kernels`` JSON line; then the last line
+6. path 5, factor scoring and selection at F=50, D=1332, N=1000 with
+   ``FM_RANK_IC_FUSED=1``: ``fmt.metrics.single_factor_metrics`` (one K3
+   launch; held against the post-sort route with the switch unset), then
+   ``build_research_step`` with ``icir_top`` (K3 again), ``mvo``, ``pca``
+   and ``regression`` selection at window 60, each blended and backtested
+   with equal weights; two K3 launches in all; then the same path on the
+   CPU from the same inputs, held against the card;
+7. one ``kernels`` JSON line; then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs one card and exits non-zero, printing no result, without one or
@@ -48,6 +59,7 @@ without the package beside it. It imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -103,6 +115,40 @@ K5_TOL = 2e-5   # the JAX package's own tolerance for its fused kernel: f32
                 # row moments and group sums over ~3000 / ~270 terms summed
                 # in another order
 K5_WIDE = 20000  # a row wider than the kernel's shared-memory tile (16384)
+# the fused rank-IC sort (K3): the JAX package's tolerance for its fused
+# kernel (tests/test_pallas_rank_ic.py), f32 moment sums in two orders
+K3_TOL = 2e-5
+K3_EDGE_WIDTHS = (128, 300, 4096, 4097, 8192)
+# the FP32 probe (K6) against its plain version at a small shape
+K6_SMALL, K6_K = (4, 1000, 129), 64
+# path 5 on the card against the same path on the CPU, |d| / (1 + |v|):
+# per-date correlations and factor returns carry float32 rounding of ~1e-6,
+# which the IR ratios (std ~0.03) amplify to ~3e-5; the t-test p-value's
+# prefactor is exp of three float32 lgamma terms of ~3.7e3 at df/2 ~ 665,
+# each rounded to ~2e-4, so |d p| reaches ~7e-4 (float32 against float64:
+# 4.8e-4 on a 50 x 400 CPU draw; card against CPU at the path's shape:
+# 2.0e-4)
+P5_METRIC_TOL = {"factor_return_pvalue": 1e-3}
+P5_METRIC_TOL_REST = 1e-4
+# pca: the leading eigenvector moves by ~ |dC| / (l1 - l2) with |dC| up to
+# F * sqrt(T) * eps * l1 (float32 windows of T = 60 returns, F = 50
+# factors; ~400 eps l1), and the row normalization divides it by the sum S
+# of the clipped loadings (down to ~2e-4 on some dates) and at most doubles
+# it besides: per date |dw| <= K * eps * l1 / ((l1 - l2) S) of the card's
+# covariance. That worst case (K ~ 1e3) assumes every rounding aligns; the
+# card against the CPU at the path's shape reads K ~ 11 on its worst date,
+# so the gate holds K = 1e2;
+# regression: a ridge solve, 6.8e-8 float32 against float64 on a 50 x 400
+# draw
+P5_PCA_GAP_K = 1e2
+P5_W_TOL = {"regression": 1e-5}
+# icir_top and mvo: a score within rounding of a threshold or a top-x
+# boundary, or a near-degenerate QP, can move one date's weights; the form
+# of the fused-vs-reference gate
+P5_DW_TOL, P5_DW_SHARE = 1e-4, 0.01
+P5_SELECTORS = {"icir_top": {}, "mvo": {"qp_iters": 500}, "pca": {},
+                "regression": {}}
+
 # path 4 on the card against the same sweep on the CPU (the XLA formulation
 # of ts_decay, the same backtest): a decayed value that rounds the other way
 # at a leg's quantile boundary swaps one name on one day, which moves that
@@ -658,6 +704,332 @@ def decay_path(torch, fmt, seed: int) -> dict:
     return launches
 
 
+def rank_sort_edge(rng, rows: int, n: int):
+    """Rows with NaNs and, in its first rows, heavy ties, a constant row, an
+    all-NaN row, signed zeros and denormals (tied with 0), +-inf, NaNs with
+    other payload bits (one of them negative) and a single valid cell."""
+    f = rng.normal(size=(rows, n)).astype(np.float32)
+    f[rng.uniform(size=f.shape) < 0.05] = np.nan
+    f[0] = np.round(f[0] * 2.0)
+    f[1] = 3.0
+    f[2] = np.nan
+    f[3, ::2] = -0.0
+    f[3, 1::2] = 0.0
+    f[3, :5] = (1.0, -1.0, np.inf, 1e-40, -1e-40)
+    f[4, :5] = (np.inf, -np.inf, np.inf, -np.inf, 0.0)
+    f.view(np.uint32)[5, :4] = (0xFFC00000, 0x7FC00001, 0xFFFFFFFF,
+                                0x7F800001)
+    f[6, 1:] = np.nan
+    return f
+
+
+def rank_sort_phase(torch, rk, seed: int) -> dict:
+    """K3 at the research step's rows (F*D rows of N) against its plain
+    version and the post-sort route (``torch.sort`` + gather + K1), then an
+    edge panel of widths 128 to 8192 (8192: 96 KB of dynamic shared
+    memory)."""
+    from factormodeling_tpu_torch.metrics import _cuda_rank_sort as rs
+
+    rng = np.random.default_rng(seed + 6)
+    worst = 0.0
+    for n in K3_EDGE_WIDTHS:
+        f = rank_sort_edge(rng, 600, n)
+        key = torch.from_numpy(f).cuda()
+        rr = torch.where(torch.isnan(key), 0.0, torch.from_numpy(
+            rng.normal(scale=0.02, size=f.shape).astype(np.float32)).cuda())
+        ic, cnt = rs.rank_ic_fused(key, rr)
+        ic0, cnt0 = rs.rank_ic_fused_plain(key, rr)
+        torch.cuda.synchronize()
+        want_cnt = torch.from_numpy((~np.isnan(f)).sum(-1).astype(np.float32))
+        if not (torch.equal(cnt.cpu(), want_cnt) and torch.equal(cnt, cnt0)):
+            raise AssertionError(f"rank_ic_fused n={n}: n_valid not exact")
+        if not torch.equal(torch.isfinite(ic), torch.isfinite(ic0)):
+            raise AssertionError(f"rank_ic_fused n={n}: finite pattern "
+                                 "differs from plain")
+        if torch.isfinite(ic[[1, 2, 6]]).any() or not torch.isfinite(
+                ic[[0, 3, 4, 5]]).all():
+            raise AssertionError(f"rank_ic_fused n={n}: a constant, all-NaN "
+                                 "or one-cell row is finite, or a tied, "
+                                 "signed-zero, inf or NaN-payload row is not")
+        err = float((ic - ic0).abs().nan_to_num().max())
+        if not err <= K3_TOL:
+            raise AssertionError(f"rank_ic_fused n={n}: max |err| {err} > "
+                                 f"{K3_TOL}")
+        worst = max(worst, err)
+    log(f"kernel rank_ic_fused edge panel n={list(K3_EDGE_WIDTHS)} (ties, a "
+        f"constant row, all-NaN, +-0.0 and denormals, +-inf, NaN payload "
+        f"bits, one valid cell): n_valid exact, max_abs_err vs plain "
+        f"{worst:.3e} (tol {K3_TOL})")
+
+    rows, n = F * D, N
+    f = rng.normal(size=(rows, n)).astype(np.float32)
+    f[rng.uniform(size=f.shape) < 0.03] = np.nan
+    f[:500] = np.round(f[:500] * 2.0)            # heavy exact ties
+    key = torch.from_numpy(f).cuda()
+    rr = torch.where(torch.isnan(key), 0.0, torch.from_numpy(
+        rng.normal(scale=0.02, size=f.shape).astype(np.float32)).cuda())
+    ic, cnt = rs.rank_ic_fused(key, rr)
+    ic0, cnt0 = rs.rank_ic_fused_plain(key, rr)
+
+    def post_sort_route():
+        s_key, idx = torch.sort(key, dim=-1)
+        return rk.rank_ic_postsort(s_key, torch.gather(rr, -1, idx))
+
+    ic1, cnt1 = post_sort_route()
+    s_key, _ = torch.sort(key, dim=-1)
+    tie_free = ~(s_key[:, 1:] == s_key[:, :-1]).any(-1)
+    torch.cuda.synchronize()
+    if not (torch.equal(cnt, cnt0) and torch.equal(cnt, cnt1)):
+        raise AssertionError("rank_ic_fused: n_valid differs from plain or "
+                             "the post-sort route")
+    err = _held(torch, "rank_ic_fused vs plain", ic, ic0, K3_TOL)
+    err1 = _held(torch, "rank_ic_fused vs torch.sort + K1", ic, ic1, K3_TOL)
+    # the same post-sort body: rows without ties sum in the same order
+    if not torch.equal(ic[tie_free].nan_to_num(), ic1[tie_free].nan_to_num()):
+        raise AssertionError("rank_ic_fused: a tie-free row differs from the "
+                             "post-sort route")
+    ms = cuda_ms(torch, lambda: rs.rank_ic_fused(key, rr), 20)
+    plain_ms = cuda_ms(torch, lambda: rs.rank_ic_fused_plain(key, rr), 3)
+    route_ms = cuda_ms(torch, post_sort_route, 20)
+    sort_ms = cuda_ms(torch, lambda: torch.sort(key, dim=-1), 20)
+    w = max(rs.MIN_WIDTH, 1 << (n - 1).bit_length())
+    stages = w.bit_length() - 1
+    exchanges = stages * (stages + 1) // 2 * (w // 2) * rows
+    # each input read once, two floats out per row; the ranks and moments'
+    # ~12 operations per element (the sort's compares are integer work)
+    b_ms, b_by = bound(8.0 * rows * n + 8.0 * rows, 12.0 * rows * n)
+    log(f"kernel rank_ic_fused R={rows} n={n} (W={w}, "
+        f"{exchanges:.4g} compare-exchanges, {16.0 * exchanges / 1e9:.1f} GB "
+        f"of shared-memory loads): max_abs_err {err:.3e} vs plain, {err1:.3e} "
+        f"vs torch.sort + K1 (tol {K3_TOL}), {int(tie_free.sum())} tie-free "
+        f"rows bitwise equal to it; {ms:.4f} ms/launch, plain {plain_ms:.4f} "
+        f"ms, torch.sort + gather + K1 {route_ms:.4f} ms (torch.sort alone "
+        f"{sort_ms:.4f} ms), bound {b_ms:.4f} ms ({b_by})")
+    return dict(name="rank_ic_fused", route="cuda",
+                source="factormodeling_tpu_torch/csrc/rank_sort.cu",
+                replaces="factormodeling_tpu/metrics/_pallas_rank_sort.py:222",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
+def fp32_probe_phase(torch) -> dict:
+    """K6 against its plain version at a small ragged shape, then its rate
+    through the probe's entry point, ``fp32_probe.measure``, at
+    [64, 50400, 128] with k = 64 and 256; returns the JSON entry with the
+    launches of that run."""
+    from factormodeling_tpu_torch import fp32_probe as fp
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(K6_SMALL, generator=gen, device="cuda")
+    got, want = fp.probe(x, K6_K), fp.probe_plain(x, K6_K)
+    torch.cuda.synchronize()
+    tol = fp.plain_tolerance(want, K6_K)
+    err = float((got - want).abs().max())
+    if not err <= tol:
+        raise AssertionError(f"fp32_probe: max |err| {err} > {tol}")
+    log(f"kernel fp32_probe {list(K6_SMALL)} k={K6_K}: max_abs_err {err:.3e} "
+        f"vs plain (tol {tol:.3e}: k float32 roundings of the final "
+        f"magnitude that the FMA skips)")
+
+    fp.launches = 0
+    rows = fp.measure()
+    launches = fp.launches
+    for row in rows:
+        log(f"kernel fp32_probe {row['shape']} k={row['k']}: {row['ms']:.4f} "
+            f"ms/launch, {row['fma_per_s'] / 1e12:.2f} T FMA/s (FMA counted "
+            f"as one), {row['share_of_peak']:.1%} of the data-sheet "
+            f"{fp.PEAK_FMA_PER_S / 1e12} T FMA/s, bound {row['bound_ms']:.4f} "
+            f"ms ({row['bound_by']})")
+    rate = rows[-1]
+    xb = torch.randn(fp.SHAPE, generator=gen, device="cuda")
+    plain_ms = cuda_ms(torch, lambda: fp.probe_plain(xb, rate["k"]), 1)
+    log(f"kernel fp32_probe plain k={rate['k']}: {plain_ms:.4f} ms")
+    return dict(name="fp32_probe", route="cuda",
+                source="factormodeling_tpu_torch/csrc/fp32_probe.cu",
+                replaces="tools/vpu_probe.py:16", launches=launches,
+                max_abs_err=err, ms=rate["ms"], plain_ms=plain_ms,
+                bound_ms=rate["bound_ms"], bound_by=rate["bound_by"],
+                library_ms=None)
+
+
+def _scoring_run(torch, fmt, inputs, dev: str):
+    """Path 5 once on ``dev``: the metric table, then one research step per
+    selector with equal-weight backtests. Returns (table, outputs, seconds
+    per piece)."""
+    names = factor_names(inputs.factors.shape[0])
+    secs = {}
+    t0 = time.perf_counter()
+    table = fmt.metrics.single_factor_metrics(inputs.factors, inputs.returns,
+                                              universe=inputs.universe)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    secs["single_factor_metrics"] = time.perf_counter() - t0
+    outs = {}
+    for method, kw in P5_SELECTORS.items():
+        step = fmt.build_research_step(names=names, window=WINDOW,
+                                       select_method=method, select_kwargs=kw,
+                                       sim_kwargs=dict(method="equal"),
+                                       device=dev)
+        t0 = time.perf_counter()
+        outs[method] = step(*inputs)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        secs[method] = time.perf_counter() - t0
+    return table, outs, secs
+
+
+@contextlib.contextmanager
+def rank_ic_switch(on: bool):
+    """``FM_RANK_IC_FUSED`` set to 1 (on) or removed (off) inside the block,
+    whatever the caller's environment held, and restored after it."""
+    prev = os.environ.pop("FM_RANK_IC_FUSED", None)
+    if on:
+        os.environ["FM_RANK_IC_FUSED"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("FM_RANK_IC_FUSED", None)
+        if prev is not None:
+            os.environ["FM_RANK_IC_FUSED"] = prev
+
+
+def scoring_path(torch, fmt, seed: int) -> dict:
+    """Path 5: the metric table and rolling selection by icir_top, mvo, pca
+    and regression, each blended and backtested with equal weights, with
+    the fused rank-IC kernel switched on. Returns the kernels' launches in
+    the timed run."""
+    from factormodeling_tpu_torch.metrics import _cuda_rank_ic as rk
+    from factormodeling_tpu_torch.metrics import _cuda_rank_sort as rs
+    from factormodeling_tpu_torch.ops import _cuda_admm as ak
+
+    arrays = make_inputs(F, D, N, seed)
+    names = factor_names(F)
+    card = fmt.convert(*arrays, names=names, window=WINDOW, device="cuda")[0]
+    host = fmt.convert(*arrays, names=names, window=WINDOW, device="cpu")[0]
+    cut = type(card)(*(a[:, :130] if a.ndim == 3 else a[:130] for a in card))
+    with rank_ic_switch(True):
+        _scoring_run(torch, fmt, cut, "cuda")   # warm-up on a cut range
+        torch.cuda.synchronize()
+        rs.launches = rk.launches = ak.launches = 0
+        t0 = time.perf_counter()
+        table, outs, secs = _scoring_run(torch, fmt, card, "cuda")
+        total = time.perf_counter() - t0
+        launches = {"rank_ic_fused": rs.launches,
+                    "rank_ic_postsort": rk.launches,
+                    "admm_segment": ak.launches}
+        t0 = time.perf_counter()
+        table_h, outs_h, secs_h = _scoring_run(torch, fmt, host, "cpu")
+        total_h = time.perf_counter() - t0
+    log(f"path scoring_selection: F={F} D={D} N={N} window {WINDOW}: "
+        f"{total:.3f} s wall on the card ("
+        + ", ".join(f"{k} {v:.3f} s" for k, v in secs.items())
+        + f"); launches {json.dumps(launches)}")
+    if launches != {"rank_ic_fused": 2, "rank_ic_postsort": 0,
+                    "admm_segment": 0}:
+        raise AssertionError(f"scoring path: launches {launches}, expected 2 "
+                             "rank_ic_fused and nothing else")
+
+    # the metric table: finite, and against the post-sort route (switch
+    # unset, outside the counted run): rank-IC columns close, the rest equal
+    cols = fmt.metrics.METRIC_COLUMNS
+    tab = torch.stack([table[c] for c in cols])            # [7, F]
+    if not torch.isfinite(tab).all():
+        raise AssertionError("scoring path: non-finite metric table")
+    before = rs.launches, rk.launches
+    with rank_ic_switch(False):
+        unset = fmt.metrics.single_factor_metrics(card.factors, card.returns,
+                                                  universe=card.universe)
+    if rs.launches != before[0] or rk.launches == before[1]:
+        raise AssertionError("scoring path: the switch-unset table did not "
+                             "take torch.sort + K1")
+    err_rank = max(float((table[c] - unset[c]).abs().max())
+                   for c in ("rank_IC", "rank_IC_IR"))
+    same = all(torch.equal(table[c], unset[c]) for c in cols
+               if c not in ("rank_IC", "rank_IC_IR"))
+    log(f"path scoring_selection metric table {len(cols)} x {F}: finite; vs "
+        f"torch.sort + K1 (switch unset) rank columns max |d| "
+        f"{err_rank:.3e} (tol {RANK_IC_TOL}), other columns identical "
+        f"{same}")
+    if not (err_rank <= RANK_IC_TOL and same):
+        raise AssertionError("scoring path: the fused and post-sort routes' "
+                             "tables differ")
+    err_tab = {c: float(((table[c].cpu() - table_h[c]).abs()
+                         / (1.0 + table_h[c].abs())).max()) for c in cols}
+
+    errs = {}
+    for method, out in outs.items():
+        sel = out.selection
+        rowsum = sel.sum(1)
+        if not (bool((sel >= 0).all())
+                and bool(((rowsum - 1.0).abs() <= 1e-5)
+                         .logical_or(rowsum == 0).all())
+                and bool((rowsum > 0).any())):
+            raise AssertionError(f"scoring path {method}: weights negative, "
+                                 "a row summing to neither 1 nor 0, or no "
+                                 "date selected")
+        summ = {k: float(v) for k, v in out.summary._asdict().items()}
+        if not all(np.isfinite(v) for v in summ.values()):
+            raise AssertionError(f"scoring path {method}: non-finite summary "
+                                 f"{summ}")
+        dw = (sel.cpu() - outs_h[method].selection).abs().max(-1).values
+        share = float((dw > P5_DW_TOL).double().mean())
+        errs[method] = (float(dw.max()), share)
+        summ_h = {k: float(v)
+                  for k, v in outs_h[method].summary._asdict().items()}
+        log(f"path scoring_selection {method}: {int((rowsum > 0).sum())} "
+            f"dates selected; summary {json.dumps(summ)}; vs the CPU: max "
+            f"|dw| {errs[method][0]:.3e}, share of dates with |dw| > "
+            f"{P5_DW_TOL}: {share:.4f}, max |d sharpe| "
+            f"{abs(summ['sharpe'] - summ_h['sharpe']):.3e}")
+    log(f"path scoring_selection on the CPU: {total_h:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in secs_h.items())
+        + "); metric table vs the card max |d| / (1 + |v|) per column "
+        + json.dumps({c: float(f"{v:.3e}") for c, v in err_tab.items()})
+        + f" (tol {P5_METRIC_TOL_REST}, p-value "
+        f"{P5_METRIC_TOL['factor_return_pvalue']})")
+    if not all(v <= P5_METRIC_TOL.get(c, P5_METRIC_TOL_REST)
+               for c, v in err_tab.items()):
+        raise AssertionError("scoring path: the card's and the CPU's metric "
+                             "tables differ")
+    # pca against a per-date bound from the card's own eigenvalue gaps
+    from factormodeling_tpu_torch.selection.selectors import (
+        SelectionContext, _windowed_moments)
+    ctx = SelectionContext(metrics_win={}, factor_ret=card.factor_ret,
+                           ret_win_sum=card.factor_ret, window=WINDOW)
+    mu, cov = _windowed_moments(ctx, torch.arange(D, device="cuda"),
+                                use_shrinkage=True)
+    finite = torch.isfinite(cov).all(-1).all(-1) & torch.isfinite(mu).all(-1)
+    ev, vec = torch.linalg.eigh(torch.where(finite[:, None, None], cov,
+                                            torch.eye(F, device="cuda")))
+    lead = vec[..., -1]
+    dot = (lead * mu).sum(-1)
+    lead = lead * torch.sign(torch.where(dot == 0.0, 1.0, dot))[:, None]
+    clipped_sum = lead.clamp(min=0.0).sum(-1)
+    bound_t = (P5_PCA_GAP_K * torch.finfo(torch.float32).eps * ev[:, -1]
+               / ((ev[:, -1] - ev[:, -2]) * clipped_sum)).cpu()
+    dw_pca = (outs["pca"].selection.cpu()
+              - outs_h["pca"].selection).abs().max(-1).values
+    ratio = float((dw_pca / bound_t)[finite.cpu()].nan_to_num().max())
+    log(f"path scoring_selection pca: max over dates of |dw| / "
+        f"({P5_PCA_GAP_K:g} eps l1 / ((l1 - l2) S)) {ratio:.3e} (limit 1); "
+        f"smallest relative gap "
+        f"{float(((ev[:, -1] - ev[:, -2]) / ev[:, -1])[finite].min()):.3e}, "
+        f"smallest S {float(clipped_sum[finite].min()):.3e}")
+    if not ratio <= 1.0:
+        raise AssertionError("scoring path pca: the card's and the CPU's "
+                             "weights differ beyond the eigenvalue-gap bound")
+    for method, (dw_max, share) in errs.items():
+        if method == "pca":
+            continue
+        ok = (dw_max <= P5_W_TOL[method] if method in P5_W_TOL
+              else share <= P5_DW_SHARE)
+        if not ok:
+            raise AssertionError(f"scoring path {method}: the card's and the "
+                                 f"CPU's weights differ (max |dw| {dw_max}, "
+                                 f"share {share})")
+    return launches
+
+
 #: the three paths' backtest settings (beside max_weight and the kernel)
 PATHS = {
     "turnover": dict(method="mvo_turnover", lookback_period=T_LOOKBACK,
@@ -813,12 +1185,21 @@ def main() -> int:
     kernels.update({f"window_{form}": e for form, e in window.items()})
     kernels["zscore_group_neutralize"] = group_phase(torch, fmt, args.seed)
     log(f"ops kernel phases: {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    kernels["rank_ic_fused"] = rank_sort_phase(torch, rk, args.seed)
+    kernels["fp32_probe"] = fp32_probe_phase(torch)
+    log(f"rank-sort and probe kernel phases: {time.perf_counter() - t0:.1f} s "
+        f"wall")
     launches = {path: path_phase(torch, args.seed, path, kernels,
                                  warm_up=path == "turnover")
                 for path in PATHS}
     t0 = time.perf_counter()
     decay_launches = decay_path(torch, fmt, args.seed)
     log(f"decay path phase (warm-up, run, checks): "
+        f"{time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    scoring_launches = scoring_path(torch, fmt, args.seed)
+    log(f"scoring path phase (warm-up, run, CPU run, checks): "
         f"{time.perf_counter() - t0:.1f} s wall")
     # each kernel's launches on the path that runs its form
     kernels["rank_ic_postsort"]["launches"] = (
@@ -833,6 +1214,8 @@ def main() -> int:
             decay_launches["window_stream"] if form == "decay" else 0)
     kernels["zscore_group_neutralize"]["launches"] = (
         decay_launches["zscore_group"])
+    kernels["rank_ic_fused"]["launches"] = scoring_launches["rank_ic_fused"]
+    # fp32_probe's launches are those of its own entry point's run
 
     log(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s wall")
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",

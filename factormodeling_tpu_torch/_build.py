@@ -3,9 +3,10 @@
 Each source in ``csrc/`` has a plain C interface and compiles on its own
 into a shared library for Hopper (``sm_90a``). The build runs at first use,
 into ``build/kernels/`` beside the package (listed in ``.gitignore``), named
-by a hash of the source and the flags, so an edited source rebuilds and an
-unchanged one loads at once. Several sources build in parallel, one ``nvcc``
-process each (:func:`build`). A missing ``nvcc`` or a failed build raises.
+by a hash of the source, the headers it includes and the flags, so an
+edited source or header rebuilds and an unchanged one loads at once.
+Several sources build in parallel, one ``nvcc`` process each
+(:func:`build`). A missing ``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -27,10 +29,13 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 #: kernel library name -> source file under csrc/
 KERNEL_SOURCES = {"rank_ic": "rank_ic.cu", "admm_segment": "admm_segment.cu",
                   "window_stream": "window_stream.cu",
-                  "zscore_group": "zscore_group.cu"}
+                  "zscore_group": "zscore_group.cu",
+                  "rank_sort": "rank_sort.cu", "fp32_probe": "fp32_probe.cu"}
 
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_INCLUDE = re.compile(r'^\s*#include\s+"([^"]+)"', re.MULTILINE)
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 #: name -> {"seconds": build wall time, "ptxas": register/smem report lines};
@@ -53,9 +58,14 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    h = hashlib.sha1(source_path(name).read_bytes()
-                     + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{h}.so"
+    """The library's path, named by a hash of its source, every header of
+    ``csrc/`` the source includes (``#include "..."``), and the flags."""
+    src = source_path(name).read_bytes()
+    h = hashlib.sha1(src)
+    for header in sorted(set(_INCLUDE.findall(src.decode()))):
+        h.update((CSRC / header).read_bytes())
+    h.update(" ".join(_NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names=tuple(KERNEL_SOURCES)) -> dict:

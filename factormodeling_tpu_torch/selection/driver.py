@@ -21,18 +21,26 @@ from factormodeling_tpu_torch.selection.selectors import (
     SelectionContext,
     factor_momentum_selector,
     icir_top_selector,
+    mvo_selector,
+    pca_selector,
+    regression_selector,
 )
 
 __all__ = ["rolling_selection", "build_selection_context",
            "finalize_selection", "selection_metric_needs"]
 
 _ALL_STATS = ("ic", "rank_ic", "factor_return")
-#: daily stats each built-in selector reads, keyed by function identity
+#: daily stats each built-in selector reads, keyed by function identity (a
+#: custom selector registered over a built-in name gets the full table);
+#: momentum and the covariance-based selectors read the factor returns only
 _METRIC_NEEDS = {
     icir_top_selector: lambda kw: (("rank_ic",)
                                    if kw.get("use_rank_icir", True)
                                    else ("ic",)),
     factor_momentum_selector: lambda kw: (),
+    mvo_selector: lambda kw: (),
+    pca_selector: lambda kw: (),
+    regression_selector: lambda kw: (),
 }
 
 

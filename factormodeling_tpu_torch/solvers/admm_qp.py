@@ -32,8 +32,11 @@ the caller's fallback ladder to catch.
 CUDA kernel (:func:`factormodeling_tpu_torch.ops._cuda_admm.admm_segment`)
 against explicit small inverses built here per rho
 (:func:`segment_operands`); problems wider than ``_FUSED_SEGMENT_MAX_N``
-take the reference loop, the JAX package's one routing rule. Not ported
-yet: the dense-P solver.
+take the reference loop, the JAX package's one routing rule.
+
+:func:`admm_solve_dense` is the dense-P path for small n (the
+factor-selection MVO): ``P [(B,) n, n]`` with one Cholesky of
+``P + rho I`` per lane and rho, on the same lane-generic loop.
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ from factormodeling_tpu_torch.ops._cuda_admm import (_CONV_TOL, admm_segment,
                                                      anderson_step,
                                                      _AA_PLAIN_TAIL)
 
-__all__ = ["ADMMResult", "ADMMWarmState", "BoxQPProblem",
+__all__ = ["ADMMResult", "ADMMWarmState", "BoxQPProblem", "admm_solve_dense",
            "admm_solve_lowrank", "first_segment_inputs", "segment_operands"]
 
 
@@ -489,37 +492,44 @@ def _scaled_lowrank(alpha, V, s, prob: BoxQPProblem, vvt=None):
     return op, prob.q / scale[:, None], prob.l1 / scale[:, None]
 
 
+def _on_device(a, dtype, dev) -> torch.Tensor:
+    """``a`` as a tensor on ``dev``: a Python number becomes a fill on the
+    device (a blocking host-to-device copy would make every solve wait for
+    the card)."""
+    if isinstance(a, (int, float)):
+        return torch.full((), float(a), dtype=dtype, device=dev)
+    return torch.as_tensor(a, dtype=dtype, device=dev)
+
+
+def _problem_lanes(prob: BoxQPProblem, warm, single: bool, lanes: int,
+                   dtype, dev):
+    """Give one problem a lane axis of 1 (``single``) and normalize ``l1``
+    to ``[B, 1]`` or ``[B, n]``. Returns ``(prob, warm)``."""
+    l1 = _on_device(prob.l1, dtype, dev)
+    if single:
+        prob = BoxQPProblem(q=prob.q[None], lo=prob.lo[None], hi=prob.hi[None],
+                            E=prob.E[None], b=prob.b[None],
+                            l1=l1.reshape(1, -1), center=prob.center[None])
+        if warm is not None:
+            warm = ADMMWarmState(z=warm.z[None], u=warm.u[None],
+                                 rho=torch.as_tensor(warm.rho).reshape(1))
+        return prob, warm
+    l1 = l1.reshape(1, 1) if l1.ndim == 0 else l1
+    l1 = l1[:, None] if l1.ndim == 1 else l1
+    return dataclasses.replace(prob, l1=l1.expand(lanes, l1.shape[-1])), warm
+
+
 def _as_lanes(alpha, V, s, prob: BoxQPProblem, warm):
     """Give one problem a lane axis of 1 and normalize ``alpha`` to ``[B]``
     or ``[B, n]`` and ``l1`` to ``[B, 1]`` or ``[B, n]``. Returns
     ``(single, alpha, V, s, prob, warm)``."""
     dtype, dev = V.dtype, V.device
-
-    def on_device(a):
-        # a Python number becomes a fill on the device: a blocking
-        # host-to-device copy would make every solve wait for the card
-        if isinstance(a, (int, float)):
-            return torch.full((), float(a), dtype=dtype, device=dev)
-        return torch.as_tensor(a, dtype=dtype, device=dev)
-
-    alpha, l1 = on_device(alpha), on_device(prob.l1)
+    alpha = _on_device(alpha, dtype, dev)
     single = V.ndim == 2
     if single:
-        V, s = V[None], s[None]
-        alpha = alpha[None]
-        l1 = l1.reshape(1, -1)
-        prob = BoxQPProblem(q=prob.q[None], lo=prob.lo[None], hi=prob.hi[None],
-                            E=prob.E[None], b=prob.b[None], l1=l1,
-                            center=prob.center[None])
-        if warm is not None:
-            warm = ADMMWarmState(z=warm.z[None], u=warm.u[None],
-                                 rho=torch.as_tensor(warm.rho).reshape(1))
-        return True, alpha, V, s, prob, warm
-    lanes = V.shape[0]
-    l1 = l1.reshape(1, 1) if l1.ndim == 0 else l1
-    l1 = l1[:, None] if l1.ndim == 1 else l1
-    return (False, alpha, V, s,
-            dataclasses.replace(prob, l1=l1.expand(lanes, l1.shape[-1])), warm)
+        V, s, alpha = V[None], s[None], alpha[None]
+    prob, warm = _problem_lanes(prob, warm, single, V.shape[0], dtype, dev)
+    return single, alpha, V, s, prob, warm
 
 
 def first_segment_inputs(alpha, V, s, prob: BoxQPProblem, *, rho: float = 2.0):
@@ -611,6 +621,63 @@ def admm_solve_lowrank(alpha, V: torch.Tensor, s: torch.Tensor,
                                           is None else int(polish_passes)),
                            anderson=int(anderson), collect=bool(collect),
                            fused_segment=fused)
+    if single:
+        res = ADMMResult(*(None if f is None else f[0] for f in res))
+    return res
+
+
+def admm_solve_dense(P: torch.Tensor, prob: BoxQPProblem, *, rho: float = 2.0,
+                     iters: int = 500, relax: float = 1.7,
+                     warm_start: ADMMWarmState | None = None,
+                     polish: bool = True,
+                     polish_passes: int | None = None,
+                     anderson: int = 0,
+                     kernel: str = "reference") -> ADMMResult:
+    """Dense-P path (small n: factor-selection MVO): ``P [n, n]`` symmetric
+    PSD, or ``B`` lanes ``P [B, n, n]`` with every other operand on the
+    same leading axis.
+
+    The problem is scaled by ``trace(P) / n`` per lane; ``(P + rho I)`` is
+    factored by Cholesky per lane and rho, and the polish's masked solve
+    factors ``M P M + diag(1 - m) + delta I``. Other keywords as in
+    :func:`admm_solve_lowrank`. ``kernel`` must stay ``"reference"``: the
+    fused segment kernel consumes the low-rank operands only."""
+    if kernel != "reference":
+        raise ValueError("the fused segment kernel supports the low-rank "
+                         "path only; admm_solve_dense takes "
+                         "kernel='reference'")
+    single = P.ndim == 2
+    if single:
+        P = P[None]
+    prob, warm_start = _problem_lanes(prob, warm_start, single, P.shape[0],
+                                      P.dtype, P.device)
+    n = P.shape[-1]
+    scale = torch.clamp(torch.diagonal(P, dim1=-2, dim2=-1).sum(-1) / n,
+                        min=1e-12)                         # [B]
+    ps = P / scale[:, None, None]
+    q = prob.q / scale[:, None]
+    l1 = prob.l1 / scale[:, None]
+    eye = torch.eye(n, dtype=P.dtype, device=P.device)
+
+    def make_solver(rho):
+        low = _chol(ps + rho[:, None, None] * eye)
+        return lambda r: _cho_solve(low, r)
+
+    def mv(v):
+        return _apply(ps, v)
+
+    def masked_solver(m):
+        h = (ps * (m[:, :, None] * m[:, None, :])
+             + torch.diag_embed((1.0 - m) + _POLISH_DELTA))
+        low = _chol(h)
+        return lambda r: _cho_solve(low, r)
+
+    res = _admm_iterations(make_solver, prob, q, l1, rho, iters, relax,
+                           warm=warm_start,
+                           polish_ops=(mv, masked_solver) if polish else None,
+                           polish_passes=(_POLISH_PASSES if polish_passes
+                                          is None else int(polish_passes)),
+                           anderson=int(anderson))
     if single:
         res = ADMMResult(*(None if f is None else f[0] for f in res))
     return res
