@@ -10,10 +10,19 @@ Phases, in order (any failure exits non-zero before the last line):
    their build seconds and the ``ptxas`` register / shared-memory report;
 3. the kernel phases at the research step's shapes, each kernel against its
    plain PyTorch version on the same inputs, within a stated tolerance,
-   with CUDA-event times per launch: rank-IC; the ADMM segment; its
-   Anderson form (depth 5, the conv tally, a last segment) in float64 and
-   float32; and its lane form, 32 lanes in one launch against 32 separate
-   plain calls; then, at the JAX package's ``bench.py`` shapes, the
+   with CUDA-event times per launch: rank-IC; the ADMM segment (one lane a
+   cluster of C blocks; its C, shared memory and ``ptxas`` line printed),
+   timed as back-to-back launches of its C entry on preallocated operands
+   beside the wrapper's time per call: plain (path 1's shape) in float64
+   and float32; its lane form, 32 lanes in one launch (path 2's shape)
+   against 32 separate plain calls and bitwise against the kernel's own
+   single-lane launches; its Anderson form (depth 5, the conv tally, a
+   last segment) on a plain-MVO day at T=60, in both types and as 32 lanes
+   (no path launches these; the accelerated path is stable there, so they
+   hold the tight gates); and the launches path 3 itself makes on the last
+   days of a short run (T=20, the L1 term on, warm-started), each day's
+   plain form and Anderson form against the plain version; then, at the
+   JAX package's ``bench.py`` shapes, the
    window-streaming kernel's four forms (decay, rank, std, zscore) called
    through the public ops at D=5040, N=5000, W=150 with an edge panel
    (windows past every tile, D < W, constant and +-inf windows, float64, a
@@ -88,6 +97,13 @@ AA_TOL = {"float32": 1e-4,   # float32 rounding of the reassociated sums over
                              # 20 dependent iterations, which each accepted
                              # extrapolation (gamma up to ~1e2) amplifies
           "float64": 1e-10}  # the same at float64 rounding; tallies equal
+# path 3's days (turnover, L1 on, warm-started): the accept/reject chain of
+# the accelerated path is chaotic, and the kernel parts from the plain
+# version by up to ~1e-3 on iterates of size ~2e-2 with one block a lane as
+# with eight (segment_phases.py); a quarter of the iterates' size catches
+# what is not that chaos (a wrong sign, a lost slice), while each day's
+# plain form is held within ADMM_TOL
+AA_PATH_TOL = 5e-3
 LEG_TOL = 1e-4       # leg sums after the f32 post-solve renorm
 CAP_TOL = 1e-3       # |w| above max_weight on unpolished days: the box
                      # violation the primal residual allows
@@ -239,34 +255,6 @@ def rank_ic_phase(torch, rk, seed: int) -> dict:
                 bound_by=b_by, library_ms=None)
 
 
-def segment_ops(torch, dtype, seed: int, lanes: int, l1: float):
-    """The first-segment operands of ``lanes`` MVO days (days 150, 151, ...
-    of a random 200 x N panel) at T=60, N=1000, as the solver builds them:
-    plain-MVO days for ``l1 = 0``, turnover days around equal leg weights
-    otherwise. Lane axis kept for ``lanes > 1``."""
-    from factormodeling_tpu_torch.backtest.mvo import (_shrunk_terms,
-                                                       _window_factors)
-    from factormodeling_tpu_torch.solvers.admm_qp import (BoxQPProblem,
-                                                          first_segment_inputs)
-    from factormodeling_tpu_torch.solvers.portfolio import (equal_leg_fallback,
-                                                            leg_constraints)
-
-    rng = np.random.default_rng(seed + 2)
-    returns = torch.tensor(rng.normal(scale=0.02, size=(200, N)), dtype=dtype,
-                           device="cuda")
-    sig = torch.tensor(rng.normal(size=(lanes, N)), dtype=dtype, device="cuda")
-    todays = torch.arange(150, 150 + lanes, device="cuda")
-    c, t_used = _window_factors(returns, todays, T_LOOKBACK)
-    alpha, s_row = _shrunk_terms(c, t_used, 0.1)
-    s_vec = s_row[:, None].expand(lanes, T_LOOKBACK)
-    lo, hi, E, b = leg_constraints(sig, MAX_WEIGHT, dtype)
-    center = equal_leg_fallback(sig) if l1 else torch.zeros_like(sig)
-    prob = BoxQPProblem(q=torch.zeros_like(sig), lo=lo, hi=hi, E=E, b=b,
-                        l1=l1, center=center)
-    ops = first_segment_inputs(2.0 * alpha, c, 2.0 * s_vec, prob)
-    return tuple(o[0] for o in ops) if lanes == 1 else ops
-
-
 def segment_bound(ops, seg_len: int, anderson: int, dname: str):
     """The least time of one segment launch: each operand read once, each
     output written once; the iteration's operations, with the Anderson
@@ -284,53 +272,193 @@ def segment_bound(ops, seg_len: int, anderson: int, dname: str):
     return bound(nbytes, flops, dname)
 
 
-def admm_phase(torch, seed: int) -> dict:
-    """The segment kernel in both instantiations against its plain version;
-    the float64 one (what the backtest's QP runs) goes into the JSON line."""
-    from factormodeling_tpu_torch.ops import _cuda_admm as ak
+def _lane_axis(ops):
+    return ops if ops[1].ndim == 3 else tuple(o[None] for o in ops)
 
+
+def segment_device_ms(torch, ak, ops, reps: int, **kw):
+    """The kernel's device time per launch: ``reps`` back-to-back launches
+    of the C entry on operands checked and outputs allocated once (no
+    wrapper work between them), CUDA events around all of them."""
+    launch, plan = ak.segment_launcher(*_lane_axis(ops), **kw)
+    return cuda_ms(torch, launch, reps), plan
+
+
+def segment_ptxas() -> str:
+    """The segment library's ``ptxas`` lines from this run's build."""
+    from factormodeling_tpu_torch import _build
+
+    lines = _build.BUILD_LOG.get("admm_segment", {}).get("ptxas", [])
+    return " | ".join(lines) or "(built before this run: no report)"
+
+
+def lanes_vs_single(torch, ak, ops, kw, tol: float, label: str):
+    """``LANES`` lanes in one launch against ``LANES`` single-lane plain
+    calls (within ``tol``, float64 tallies equal) and against the kernel's
+    own single-lane launches of the same lanes, bit for bit."""
+    out = ak.admm_segment(*ops, **kw)
+    err, same = 0.0, True
+    for i in range(LANES):
+        lane = tuple(o[i] for o in ops)
+        ref = ak.admm_segment_plain(*lane, **kw)
+        err = max(err, max(float((a[i] - b_).abs().max())
+                           for a, b_ in zip(out[:4], ref[:4])))
+        same = same and all(int(a[i]) == int(b_) for a, b_ in zip(out[4:],
+                                                                   ref[4:]))
+        one = ak.admm_segment(*lane, **kw)
+        if not all(torch.equal(a[i], b_) for a, b_ in zip(out, one)):
+            raise AssertionError(f"admm_segment {label}: lane {i} of the "
+                                 f"{LANES}-lane launch differs from its "
+                                 "single-lane launch")
+    torch.cuda.synchronize()
+    if not (err <= tol and same):
+        raise AssertionError(f"admm_segment {label}: max |err| {err} "
+                             f"(tol {tol}), tallies equal {same}")
+    return err
+
+
+def admm_phase(torch, seed: int) -> tuple:
+    """The segment kernel in both instantiations against its plain version,
+    its device time (the C entry alone) beside the wrapper's time, then the
+    plain lane form: 32 lanes in one launch (path 2's shape) against 32
+    plain calls and bitwise against the kernel's single-lane launches.
+    Returns the float64 entries (what the backtest's QP runs)."""
+    from factormodeling_tpu_torch.ops import _cuda_admm as ak
+    from factormodeling_tpu_torch.segment_phases import sample_day_operands
+
+    kw = dict(relax=1.7, seg_len=SEG_LEN)
+    log("kernel admm_segment ptxas: " + segment_ptxas())
     entry = None
     for dtype in (torch.float32, torch.float64):
         dname = str(dtype).split(".")[-1]
-        ops = segment_ops(torch, dtype, seed, 1, 0.1)
+        ops = sample_day_operands(dtype, seed + 2, 1, 0.1)
         assert ops[1].shape == (T_LOOKBACK, N) and ops[4].shape == (K_LEGS, N)
-        out = ak.admm_segment(*ops, relax=1.7, seg_len=SEG_LEN)
-        ref = ak.admm_segment_plain(*ops, relax=1.7, seg_len=SEG_LEN)
+        out = ak.admm_segment(*ops, **kw)
+        ref = ak.admm_segment_plain(*ops, **kw)
         torch.cuda.synchronize()
         err = max(float((a - b_).abs().max()) for a, b_ in zip(out, ref))
         tol = ADMM_TOL[dname]
         if not err <= tol:
             raise AssertionError(f"admm_segment {dname}: max |err| {err} > {tol}")
-        ms = cuda_ms(torch, lambda: ak.admm_segment(*ops, relax=1.7,
-                                                    seg_len=SEG_LEN), 50)
-        plain_ms = cuda_ms(torch, lambda: ak.admm_segment_plain(
-            *ops, relax=1.7, seg_len=SEG_LEN), 5)
-        b_ms, b_by = segment_bound(ops, SEG_LEN, 0, dname)
+        ms, plan = segment_device_ms(torch, ak, ops, 200, **kw)
+        wrap_ms = cuda_ms(torch, lambda: ak.admm_segment(*ops, **kw), 50)
+        plain_ms = cuda_ms(torch, lambda: ak.admm_segment_plain(*ops, **kw), 5)
+        entry = _segment_entry("admm_segment", ak, ops, kw, err, ms, wrap_ms,
+                               plain_ms, dname)
         log(f"kernel admm_segment {dname} T={T_LOOKBACK} N={N} K={K_LEGS} "
-            f"seg_len={SEG_LEN}: max_abs_err {err:.3e} (tol {tol}), "
-            f"{ms:.4f} ms/launch, plain {plain_ms:.4f} ms, bound "
-            f"{b_ms:.6f} ms ({b_by})")
-        entry = dict(name="admm_segment", route="cuda",
-                     source="factormodeling_tpu_torch/csrc/admm_segment.cu",
-                     replaces="factormodeling_tpu/ops/_pallas_admm.py:188",
-                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                     bound_by=b_by, library_ms=None)
+            f"seg_len={SEG_LEN}: cluster C={plan.cluster}, "
+            f"{plan.smem_bytes} B shared memory a block (V shared "
+            f"{plan.v_shared}); max_abs_err {err:.3e} (tol {tol}), device "
+            f"{ms:.4f} ms/launch, wrapper {wrap_ms:.4f} ms/call, plain "
+            f"{plain_ms:.4f} ms, bound {entry['bound_ms']:.6f} ms "
+            f"({entry['bound_by']})")
+
+    # path 2's shape: 32 plain-MVO lanes in one launch
+    ops = sample_day_operands(torch.float64, seed + 3, LANES, 0.0)
+    err = lanes_vs_single(torch, ak, ops, kw, ADMM_TOL["float64"],
+                          "plain lanes")
+    ms, _ = segment_device_ms(torch, ak, ops, 100, **kw)
+    wrap_ms = cuda_ms(torch, lambda: ak.admm_segment(*ops, **kw), 20)
+    plain_ms = cuda_ms(torch, lambda: ak.admm_segment_plain(*ops, **kw), 3)
+    lanes = _segment_entry("admm_segment_lanes", ak, ops, kw, err, ms,
+                           wrap_ms, plain_ms, "float64")
+    log(f"kernel admm_segment lanes B={LANES} plain float64 seg_len={SEG_LEN}"
+        f": max_abs_err {err:.3e} vs {LANES} single-lane plain calls (tol "
+        f"{ADMM_TOL['float64']}), bitwise equal to the kernel's single-lane "
+        f"launches; device {ms:.4f} ms/launch, wrapper {wrap_ms:.4f} ms/call, "
+        f"plain (one {LANES}-lane call) {plain_ms:.4f} ms, bound "
+        f"{lanes['bound_ms']:.6f} ms ({lanes['bound_by']})")
+    return entry, lanes
+
+
+def _segment_entry(name: str, ak, ops, kw, err: float, ms: float,
+                   wrap_ms: float, plain_ms: float, dname: str) -> dict:
+    """The JSON line's entry of one segment phase."""
+    b_ms, b_by = segment_bound(ops, kw["seg_len"], kw.get("anderson", 0),
+                               dname)
+    plan = ak.cluster_plan(ops[1].shape[-2], ops[1].shape[-1],
+                           ops[4].shape[-2], kw.get("anderson", 0),
+                           ops[1].dtype)
+    return dict(name=name, route="cuda",
+                source="factormodeling_tpu_torch/csrc/admm_segment.cu",
+                replaces="factormodeling_tpu/ops/_pallas_admm.py:188",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, wrapper_ms=wrap_ms,
+                cluster=plan.cluster, smem_bytes=plan.smem_bytes)
+
+
+def risk_path_phase(torch, seed: int) -> dict:
+    """The Anderson form at path 3's shape: the launches the backtest
+    itself makes on the last days of a short path 3 run (T = 20 risk
+    factors, the L1 term on, warm-started, depth 5, a last segment). Each
+    day's plain form is held within ``ADMM_TOL``; its Anderson form within
+    ``AA_PATH_TOL`` (finite, and some extrapolation taken), since the
+    accelerated path of a turnover day is chaotic. The last day's numbers
+    go into the JSON line."""
+    from factormodeling_tpu_torch.ops import _cuda_admm as ak
+    from factormodeling_tpu_torch.segment_phases import risk_days
+
+    errs, accepted = [], 0
+    for ops, kw in risk_days(seed):
+        plain_kw = dict(kw, anderson=0)
+        out = ak.admm_segment(*ops, **plain_kw)
+        ref = ak.admm_segment_plain(*ops, **plain_kw)
+        p_err = max(float((a - b_).abs().max()) for a, b_ in zip(out, ref))
+        if not p_err <= ADMM_TOL["float64"]:
+            raise AssertionError(f"admm_segment path 3 day, plain form: max "
+                                 f"|err| {p_err} > {ADMM_TOL['float64']}")
+        out = ak.admm_segment(*ops, **kw)
+        ref = ak.admm_segment_plain(*ops, **kw)
+        if not all(bool(torch.isfinite(o).all()) for o in out):
+            raise AssertionError("admm_segment path 3 day: non-finite output")
+        err = max(float((a - b_).abs().max()) for a, b_ in zip(out[:4],
+                                                               ref[:4]))
+        accepted += int(out[4].sum())
+        errs.append(err)
+        log(f"kernel admm_segment path 3 day: plain form max_abs_err "
+            f"{p_err:.3e} (tol {ADMM_TOL['float64']}); anderson={kw['anderson']}"
+            f" max_abs_err {err:.3e} (tol {AA_PATH_TOL}), tallies (acc, rej, "
+            f"conv) {[int(a) for a in out[4:]]} vs plain "
+            f"{[int(a) for a in ref[4:]]}")
+    if not max(errs) <= AA_PATH_TOL:
+        raise AssertionError(f"admm_segment path 3 days: max |err| "
+                             f"{max(errs)} > {AA_PATH_TOL}")
+    if accepted < 1:
+        raise AssertionError("admm_segment path 3 days: no extrapolation taken")
+    ms, plan = segment_device_ms(torch, ak, ops, 200, **kw)
+    wrap_ms = cuda_ms(torch, lambda: ak.admm_segment(*ops, **kw), 50)
+    plain_ms = cuda_ms(torch, lambda: ak.admm_segment_plain(*ops, **kw), 3)
+    entry = _segment_entry("admm_segment_anderson", ak, ops, kw, max(errs),
+                           ms, wrap_ms, plain_ms, "float64")
+    t, n = ops[1].shape[-2:]
+    log(f"kernel admm_segment anderson={kw['anderson']} float64 path 3 day "
+        f"T={t} N={n} K={ops[4].shape[-2]} seg_len={kw['seg_len']} last: "
+        f"cluster C={plan.cluster}, {plan.smem_bytes} B shared memory a "
+        f"block (V shared {plan.v_shared}, history shared "
+        f"{plan.history_shared}); {len(errs)} days max_abs_err "
+        f"{max(errs):.3e} (tol {AA_PATH_TOL}), {accepted} extrapolations; "
+        f"device {ms:.4f} ms/launch, wrapper {wrap_ms:.4f} ms/call, plain "
+        f"{plain_ms:.4f} ms, bound {entry['bound_ms']:.6f} ms "
+        f"({entry['bound_by']})")
     return entry
 
 
 def anderson_phase(torch, seed: int) -> dict:
     """The Anderson form (depth 5, the conv tally, a last segment) on a
-    plain-MVO day in both types, then the lane form: 32 lanes in one launch
-    against 32 separate plain calls. The float64 single-lane numbers go into
-    the JSON line."""
+    plain-MVO day at T=60 in both types, where the accelerated path is
+    stable (no path launches it: path 3's shape is ``risk_path_phase``'s),
+    then its lane form: 32 lanes in one launch against 32 separate plain
+    calls and bitwise against the kernel's single-lane launches. The
+    float64 single-lane numbers go into the JSON line."""
     from factormodeling_tpu_torch.ops import _cuda_admm as ak
+    from factormodeling_tpu_torch.segment_phases import sample_day_operands
 
     kw = dict(relax=1.7, seg_len=AA_SEG_LEN, last=True, anderson=AA_DEPTH,
               collect=True)
     entry = None
     for dtype in (torch.float32, torch.float64):
         dname = str(dtype).split(".")[-1]
-        ops = segment_ops(torch, dtype, seed, 1, 0.0)
+        ops = sample_day_operands(dtype, seed + 2, 1, 0.0)
         out = ak.admm_segment(*ops, **kw)
         ref = ak.admm_segment_plain(*ops, **kw)
         torch.cuda.synchronize()
@@ -345,41 +473,34 @@ def anderson_phase(torch, seed: int) -> dict:
                                  f"conv) {tallies[0]} vs plain {tallies[1]}")
         if tallies[0][0] < 1:
             raise AssertionError("admm_segment anderson: no extrapolation taken")
-        ms = cuda_ms(torch, lambda: ak.admm_segment(*ops, **kw), 50)
+        ms, plan = segment_device_ms(torch, ak, ops, 200, **kw)
+        wrap_ms = cuda_ms(torch, lambda: ak.admm_segment(*ops, **kw), 50)
         plain_ms = cuda_ms(torch, lambda: ak.admm_segment_plain(*ops, **kw), 3)
-        b_ms, b_by = segment_bound(ops, AA_SEG_LEN, AA_DEPTH, dname)
+        entry = _segment_entry("admm_segment_anderson_mvo_day", ak, ops, kw,
+                               err, ms, wrap_ms, plain_ms, dname)
         log(f"kernel admm_segment anderson={AA_DEPTH} {dname} T={T_LOOKBACK} "
-            f"N={N} K={K_LEGS} seg_len={AA_SEG_LEN} last collect: max_abs_err "
-            f"{err:.3e} (tol {tol}), tallies (acc, rej, conv) {tallies[0]} vs "
-            f"plain {tallies[1]}, {ms:.4f} ms/launch, plain {plain_ms:.4f} ms, "
-            f"bound {b_ms:.6f} ms ({b_by})")
-        entry = dict(name="admm_segment_anderson", route="cuda",
-                     source="factormodeling_tpu_torch/csrc/admm_segment.cu",
-                     replaces="factormodeling_tpu/ops/_pallas_admm.py:188",
-                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                     bound_by=b_by, library_ms=None)
+            f"N={N} K={K_LEGS} seg_len={AA_SEG_LEN} last collect, plain-MVO "
+            f"day (no path): cluster C={plan.cluster}, {plan.smem_bytes} B "
+            f"shared memory a block (V shared {plan.v_shared}, history shared "
+            f"{plan.history_shared}); max_abs_err {err:.3e} (tol {tol}), "
+            f"tallies (acc, rej, conv) {tallies[0]} vs plain {tallies[1]}, "
+            f"device {ms:.4f} ms/launch, wrapper {wrap_ms:.4f} ms/call, plain "
+            f"{plain_ms:.4f} ms, bound {entry['bound_ms']:.6f} ms "
+            f"({entry['bound_by']})")
 
-    ops = segment_ops(torch, torch.float64, seed + 1, LANES, 0.0)
-    out = ak.admm_segment(*ops, **kw)
-    err, same = 0.0, True
-    for i in range(LANES):
-        ref = ak.admm_segment_plain(*(o[i] for o in ops), **kw)
-        err = max(err, max(float((a[i] - b_).abs().max())
-                           for a, b_ in zip(out[:4], ref[:4])))
-        same = same and all(int(a[i]) == int(b_) for a, b_ in zip(out[4:],
-                                                                   ref[4:]))
-    torch.cuda.synchronize()
-    if not (err <= AA_TOL["float64"] and same):
-        raise AssertionError(f"admm_segment lanes: max |err| {err}, tallies "
-                             f"equal {same}")
-    ms = cuda_ms(torch, lambda: ak.admm_segment(*ops, **kw), 20)
+    ops = sample_day_operands(torch.float64, seed + 3, LANES, 0.0)
+    err = lanes_vs_single(torch, ak, ops, kw, AA_TOL["float64"],
+                          "anderson lanes")
+    ms, _ = segment_device_ms(torch, ak, ops, 100, **kw)
+    wrap_ms = cuda_ms(torch, lambda: ak.admm_segment(*ops, **kw), 20)
     plain_ms = cuda_ms(torch, lambda: ak.admm_segment_plain(*ops, **kw), 3)
     b_ms, b_by = segment_bound(ops, AA_SEG_LEN, AA_DEPTH, "float64")
-    log(f"kernel admm_segment lanes B={LANES} anderson={AA_DEPTH} float64: "
-        f"max_abs_err {err:.3e} vs {LANES} single-lane plain calls (tol "
-        f"{AA_TOL['float64']}), tallies equal; {ms:.4f} ms/launch, plain "
-        f"(one {LANES}-lane call) {plain_ms:.4f} ms, bound {b_ms:.6f} ms "
-        f"({b_by})")
+    log(f"kernel admm_segment lanes B={LANES} anderson={AA_DEPTH} float64, "
+        f"plain-MVO days (no path): max_abs_err {err:.3e} vs {LANES} "
+        f"single-lane plain calls (tol {AA_TOL['float64']}), tallies equal, "
+        f"bitwise equal to the kernel's single-lane launches; device "
+        f"{ms:.4f} ms/launch, wrapper {wrap_ms:.4f} ms/call, plain (one "
+        f"{LANES}-lane call) {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
     return entry
 
 
@@ -1177,9 +1298,14 @@ def main() -> int:
     import factormodeling_tpu_torch as fmt
 
     torch.backends.cudnn.allow_tf32 = False         # full f32 convolution
-    kernels = {"rank_ic_postsort": rank_ic_phase(torch, rk, args.seed),
-               "admm_segment": admm_phase(torch, args.seed),
-               "admm_segment_anderson": anderson_phase(torch, args.seed)}
+    kernels = {"rank_ic_postsort": rank_ic_phase(torch, rk, args.seed)}
+    kernels["admm_segment"], kernels["admm_segment_lanes"] = admm_phase(
+        torch, args.seed)
+    kernels["admm_segment_anderson_mvo_day"] = anderson_phase(torch,
+                                                              args.seed)
+    t0 = time.perf_counter()
+    kernels["admm_segment_anderson"] = risk_path_phase(torch, args.seed)
+    log(f"path 3 days' segments: {time.perf_counter() - t0:.1f} s wall")
     t0 = time.perf_counter()
     window = window_phase(torch, fmt, args.seed)
     kernels.update({f"window_{form}": e for form, e in window.items()})
@@ -1205,8 +1331,10 @@ def main() -> int:
     kernels["rank_ic_postsort"]["launches"] = (
         launches["turnover"]["rank_ic_postsort"])
     kernels["admm_segment"]["launches"] = launches["turnover"]["admm_segment"]
+    kernels["admm_segment_lanes"]["launches"] = launches["mvo"]["admm_segment"]
     kernels["admm_segment_anderson"]["launches"] = (
         launches["turnover_risk_anderson"]["admm_segment"])
+    kernels["admm_segment_anderson_mvo_day"]["launches"] = 0   # no path
     # the decay path runs the decay form only; the rank, std and zscore
     # forms run in the kernel phase alone
     for form in window:
@@ -1219,8 +1347,9 @@ def main() -> int:
 
     log(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s wall")
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    log(json.dumps({"kernels": [{k: kern[k] for k in order}
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "wrapper_ms", "cluster", "smem_bytes")
+    log(json.dumps({"kernels": [{k: kern[k] for k in order if k in kern}
                                 for kern in kernels.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

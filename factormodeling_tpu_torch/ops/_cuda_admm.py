@@ -15,26 +15,39 @@ refactorization per rho stays outside, in
 :func:`factormodeling_tpu_torch.solvers.admm_qp.segment_operands`.
 
 Operands come with a leading lane axis (``V [B, T, N]``, vectors
-``[B, N]``, ``rho [B]``) or without one; one launch runs every lane, one
-thread block per lane (what ``jax.vmap`` of the ``pallas_call`` computes).
-The kernel comes in float32 and float64; the backtest solves its QP in
-float64 (see :mod:`factormodeling_tpu_torch.backtest.mvo`).
+``[B, N]``, ``rho [B]``) or without one; one launch runs every lane (what
+``jax.vmap`` of the ``pallas_call`` computes). The kernel comes in float32
+and float64; the backtest solves its QP in float64 (see
+:mod:`factormodeling_tpu_torch.backtest.mvo`).
 
 Bound on an H100: neither bytes nor operations — a segment at T = 60,
 N = 1000 moves ~0.6 MB in float64 and does ~7 MFLOP (plus ~1 MFLOP of
 Anderson work at depth 5), a fraction of a microsecond at the card's rates.
-The time goes to the serial chain of dependent iterations, each with its
-block-wide reductions; the kernel runs the whole segment in one launch with
-the iterates in registers, ``V`` hot in L1/L2 and the Anderson history in a
-per-lane device-memory workspace (see the source's note).
+The time goes to the serial chain: ``seg_len`` dependent iterations, each
+of eight phases closed by a block barrier or an exchange with the lane's
+other blocks (2-3 exchanges a plain iteration, 5 under Anderson). One lane
+is one thread-block cluster of ``C`` blocks along the asset axis
+(:func:`cluster_plan`: ``C`` from T, N and the dtype, never from B, so a
+lane's arithmetic does not depend on the launch it shares). Each block
+holds ``kinv``, its slice of ``V`` and its slice of the Anderson history in
+its own shared memory; cross-block sums are pushed into every block's
+shared memory (``st.async``, counted on the receiver's mbarrier) and added
+in block-rank order, so that every block takes the same branch at every
+gate (see the source's note). What does not fit is read from device
+memory instead (the history from a per-block workspace); the plan says
+which. :mod:`factormodeling_tpu_torch.segment_phases` prints the cycles of
+each phase.
 
-On a CUDA tensor :func:`admm_segment` launches the kernel or raises; on a
-CPU tensor it runs :func:`admm_segment_plain`.
+On a CUDA tensor :func:`admm_segment` launches the kernel or raises (a
+cluster launch the card refuses raises too); on a CPU tensor it runs
+:func:`admm_segment_plain`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import itertools
 from typing import NamedTuple
 
 import torch
@@ -42,15 +55,26 @@ import torch
 from factormodeling_tpu_torch import _build
 from factormodeling_tpu_torch.ops._linalg import aa_mix
 
-__all__ = ["MAX_ANDERSON", "MAX_N", "AndersonState", "admm_segment",
-           "admm_segment_plain", "anderson_init", "anderson_step"]
+__all__ = ["MAX_ANDERSON", "MAX_N", "AndersonState", "ClusterPlan",
+           "admm_segment", "admm_segment_plain", "anderson_init",
+           "anderson_step", "cluster_plan", "segment_launcher"]
 
-#: widest problem the kernel takes (1024 threads x 4 coordinates each); the
-#: solver routes wider problems to the reference loop
+#: widest problem the kernel takes; the solver routes wider problems to the
+#: reference loop
 MAX_N = 4096
 _MAX_K = 4
 #: deepest Anderson history the kernel takes
 MAX_ANDERSON = 8
+
+# the kernel's block and shared-memory layout (csrc/admm_segment.cu)
+_THREADS, _COLS = 256, 8         # a block's threads, coordinates per thread
+_RED_MAX, _XCH_MIN = 4, 44       # values a reduction; exchange row floor
+_ROW_GROUP = 4                   # lanes reading one row together
+_MBAR_BYTES = 16                 # the exchange slots' two mbarriers
+_SMEM_LIMIT = 232448             # 227 KB of dynamic shared memory a block
+#: blocks per lane: the cluster size measured fastest at each of the
+#: backtest's three segment shapes (``segment_phases``' sweep; PERF.md)
+CLUSTER = 8
 
 # The safeguarded Anderson accelerator's constants, the JAX package's
 # (``factormodeling_tpu/solvers/admm_qp.py`` gives the measured rationale of
@@ -195,6 +219,79 @@ def admm_segment_plain(d, V, kinv, minv_et_t, ge, xb, q, lo, hi, center,
     return tuple(o[0] for o in out) if single else out
 
 
+class ClusterPlan(NamedTuple):
+    """How the kernel lays out one lane: ``cluster`` blocks of ``cols``
+    coordinates each; whether ``kinv``, a block's slice of ``V`` and its
+    slice of the Anderson history sit in its shared memory (else device
+    memory, read through L2); the block's ``smem_bytes`` of dynamic shared
+    memory."""
+
+    cluster: int
+    cols: int
+    kinv_shared: bool
+    v_shared: bool
+    history_shared: bool
+    smem_bytes: int
+
+
+def _row_stride(n: int, ew: int) -> int:
+    """``row_stride`` in the source: rows of ``n`` elements of ``ew``
+    4-byte words padded so a warp's row groups read distinct banks."""
+    w = 32 // ew
+    return n + (_ROW_GROUP % w - n % w) % w
+
+
+def _smem_elems(t: int, cols: int, m: int, c: int, ew: int,
+                kinv_shared: bool, v_shared: bool,
+                history_shared: bool) -> int:
+    """A block's shared-memory elements, as ``smem_elems`` in the source:
+    rd, t, t2 and the Gram totals, the warp partials, two exchange slots of
+    ``c`` rows, gamma; then kinv, V's slice and the history's where they
+    are placed."""
+    x = max(t, _XCH_MIN)
+    e = cols + t + x + _RED_MAX * (_THREADS // 32) + 2 * c * x + MAX_ANDERSON
+    if kinv_shared:
+        e += t * _row_stride(t, ew)
+    if v_shared:
+        e += t * _row_stride(cols, ew)
+    if history_shared and m:
+        e += (2 * m + 6) * 2 * cols
+    return e
+
+
+def cluster_plan(t: int, n: int, k: int, m: int,
+                 dtype: torch.dtype) -> ClusterPlan:
+    """The kernel's layout of one lane of ``T = t``, ``N = n``, ``K = k``
+    and Anderson depth ``m`` in ``dtype`` — the same for every lane count:
+    :data:`CLUSTER` blocks; ``kinv`` goes into shared memory first, then
+    ``V``'s slice, then the history, each where it fits. Raises
+    ``ValueError`` on what the kernel does not take."""
+    return _plan(t, n, k, m, dtype, CLUSTER)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(t: int, n: int, k: int, m: int, dtype: torch.dtype,
+          c: int) -> ClusterPlan:
+    if n > MAX_N or k > _MAX_K or not 0 <= m <= MAX_ANDERSON:
+        raise ValueError(f"admm_segment kernel takes N <= {MAX_N}, K <= "
+                         f"{_MAX_K} and 0 <= anderson <= {MAX_ANDERSON}, got "
+                         f"N={n}, K={k}, anderson={m}")
+    cols = -(-n // c)
+    if not 1 <= c <= 8 or cols > _THREADS * _COLS:
+        raise ValueError(f"admm_segment kernel: a cluster of {c} blocks "
+                         f"cannot take N={n}")
+    size = torch.finfo(dtype).bits // 8
+    for k_sh, v_sh, h_sh in itertools.product((True, False), (True, False),
+                                              (bool(m), False)):
+        nbytes = _MBAR_BYTES + size * _smem_elems(t, cols, m, c, size // 4,
+                                                  k_sh, v_sh, h_sh)
+        if nbytes <= _SMEM_LIMIT:
+            return ClusterPlan(c, cols, k_sh, v_sh, h_sh, nbytes)
+    raise ValueError(f"admm_segment kernel needs {nbytes} B of shared memory "
+                     f"a block at T={t}, N={n}, C={c}; the limit is "
+                     f"{_SMEM_LIMIT}")
+
+
 _ENTRY = {torch.float32: "fm_admm_segment_f32",
           torch.float64: "fm_admm_segment_f64"}
 
@@ -205,9 +302,78 @@ def _lib(dtype):
         fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 5
                        + [ctypes.c_double] + [ctypes.c_int] * 3
                        + [ctypes.c_double] * 2 + [ctypes.c_int]
-                       + [ctypes.c_double, ctypes.c_void_p])
+                       + [ctypes.c_double] + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def segment_launcher(d, V, kinv, minv_et_t, ge, xb, q, lo, hi, center,
+                     thresh, z, u, rho, *, relax: float, seg_len: int,
+                     last: bool = True, anderson: int = 0,
+                     collect: bool = False):
+    """Check CUDA operands (with the lane axis) once and allocate the
+    outputs; returns ``(launch, plan)``. Each ``launch()`` runs the kernel
+    once on those operands into the same outputs and returns the raw
+    ``(x, z, u, stats)``, ``stats [B, 4]`` holding dz and the three tallies
+    in the operands' dtype. :func:`admm_segment` is one launch of it; a
+    caller timing the kernel alone calls ``launch`` many times."""
+    args = (V, kinv, minv_et_t, ge, d, xb, q, lo, hi, center, thresh, z, u,
+            rho)
+    dev = V.device
+    if dev.type != "cuda" or any(a.device != dev for a in args):
+        raise ValueError("admm_segment: operands must all lie on one CUDA "
+                         "device or all on the CPU")
+    dtype = V.dtype
+    if dtype not in _ENTRY or any(a.dtype != dtype for a in args):
+        raise TypeError("admm_segment kernel takes float32 or float64 "
+                        "operands of one dtype, got "
+                        f"{sorted({str(a.dtype) for a in args})}")
+    b, t, n = V.shape
+    k = ge.shape[1]
+    m = int(anderson)
+    plan = cluster_plan(t, n, k, m, dtype)
+    if (kinv.shape != (b, t, t) or minv_et_t.shape != (b, k, n)
+            or ge.shape != (b, k, n)
+            or any(v.shape != (b, n) for v in (d, xb, q, lo, hi, center,
+                                               thresh, z, u))
+            or rho.shape != (b,)):
+        raise ValueError("admm_segment: operand shapes do not match "
+                         f"V [{b}, {t}, {n}] and K = {k}")
+    ops = tuple(a.contiguous() for a in (d, V, kinv, minv_et_t, ge, xb, q,
+                                         lo, hi, center, thresh, z, u, rho))
+    if any(a.data_ptr() % a.element_size() for a in ops):
+        raise ValueError("admm_segment takes aligned operands")
+    x_out, z_out, u_out = (torch.empty((b, n), dtype=dtype, device=dev)
+                           for _ in range(3))
+    stats = torch.empty((b, 4), dtype=dtype, device=dev)
+    # the Anderson history and scratch of each block, where shared memory
+    # cannot hold them: S, Y [m, 2 cols] and six [2 cols] rows
+    work = (torch.empty((b * plan.cluster, (2 * m + 6) * 2 * plan.cols),
+                        dtype=dtype, device=dev)
+            if m and not plan.history_shared else None)
+    ptrs = [a.data_ptr() for a in ops] + [
+        x_out.data_ptr(), z_out.data_ptr(), u_out.data_ptr(),
+        stats.data_ptr(), None if work is None else work.data_ptr()]
+    tail = (b, t, n, k, int(seg_len), float(relax), m, int(bool(collect)),
+            int(bool(last)), _AA_SAFEGUARD, _AA_STEP_CLAMP, _AA_PLAIN_TAIL,
+            _CONV_TOL, plan.cluster, int(plan.kinv_shared),
+            int(plan.v_shared), int(plan.history_shared))
+    fn = _lib(dtype)
+
+    def launch():
+        global launches
+        with torch.cuda.device(dev):
+            rc = fn(*ptrs, *tail, torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"admm_segment kernel launch failed: CUDA "
+                               f"error {rc} (cluster of {plan.cluster}, "
+                               f"{plan.smem_bytes} B of shared memory a "
+                               "block)")
+        launches += 1
+        return x_out, z_out, u_out, stats
+
+    return launch, plan
 
 
 def admm_segment(d, V, kinv, minv_et_t, ge, xb, q, lo, hi, center, thresh,
@@ -221,72 +387,21 @@ def admm_segment(d, V, kinv, minv_et_t, ge, xb, q, lo, hi, center, thresh,
     solver's scaled units (or all without the lane axis, for one problem).
     Returns ``(x, z, u, dz, aa_accepted, aa_rejected, conv)`` as
     :func:`admm_segment_plain` does: the CUDA kernel on CUDA tensors (one
-    launch for all lanes), the plain version on CPU tensors."""
+    launch for all lanes, a cluster of :func:`cluster_plan`'s blocks each),
+    the plain version on CPU tensors."""
     vecs = (d, xb, q, lo, hi, center, thresh, z, u)
-    args = (V, kinv, minv_et_t, ge) + vecs + (rho,)
     kw = dict(relax=relax, seg_len=seg_len, last=last, anderson=anderson,
               collect=collect)
-    if all(a.device.type == "cpu" for a in args):
+    if all(a.device.type == "cpu" for a in (V, kinv, minv_et_t, ge, rho)
+           + vecs):
         return admm_segment_plain(d, V, kinv, minv_et_t, ge, xb, q, lo, hi,
                                   center, thresh, z, u, rho, **kw)
-    dev = V.device
-    if dev.type != "cuda" or any(a.device != dev for a in args):
-        raise ValueError("admm_segment: operands must all lie on one CUDA "
-                         "device or all on the CPU")
-    dtype = V.dtype
-    if dtype not in _ENTRY or any(a.dtype != dtype for a in args):
-        raise TypeError("admm_segment kernel takes float32 or float64 "
-                        "operands of one dtype, got "
-                        f"{sorted({str(a.dtype) for a in args})}")
     single, V, vecs, (kinv, mt, ge), rho = _lanes(V, vecs, (kinv, minv_et_t,
                                                             ge), rho)
-    b, t, n = V.shape
-    k = ge.shape[1]
-    m = int(anderson)
-    if n > MAX_N or k > _MAX_K or not 0 <= m <= MAX_ANDERSON:
-        raise ValueError(f"admm_segment kernel takes N <= {MAX_N}, K <= "
-                         f"{_MAX_K} and 0 <= anderson <= {MAX_ANDERSON}, got "
-                         f"N={n}, K={k}, anderson={m}")
-    if (kinv.shape != (b, t, t) or mt.shape != (b, k, n)
-            or ge.shape != (b, k, n) or any(v.shape != (b, n) for v in vecs)
-            or rho.shape != (b,)):
-        raise ValueError("admm_segment: operand shapes do not match "
-                         f"V [{b}, {t}, {n}] and K = {k}")
-    smem = V.element_size() * (t * t + n + 2 * t)
-    if smem > 227 * 1024 - 4096:
-        raise ValueError(f"admm_segment kernel needs {smem} B of shared "
-                         f"memory at T={t}, N={n}; the limit is 227 KB less "
-                         "its 4 KB of fixed buffers")
     d, xb, q, lo, hi, center, thresh, z, u = vecs
-    ops = tuple(a.contiguous() for a in (d, V, kinv, mt, ge, xb, q, lo, hi,
-                                         center, thresh, z, u, rho))
-    if any(a.data_ptr() % a.element_size() for a in ops):
-        raise ValueError("admm_segment takes aligned operands")
-    (d, V, kinv, mt, ge, xb, q, lo, hi, center, thresh, z, u, rho) = ops
-    x_out = torch.empty((b, n), dtype=dtype, device=dev)
-    z_out = torch.empty((b, n), dtype=dtype, device=dev)
-    u_out = torch.empty((b, n), dtype=dtype, device=dev)
-    stats = torch.empty((b, 4), dtype=dtype, device=dev)
-    # Anderson history and scratch: S, Y [m, 2N] and six [2N] rows per lane
-    work = (torch.empty((b, (2 * m + 6) * 2 * n), dtype=dtype, device=dev)
-            if m else None)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = _lib(dtype)(
-            d.data_ptr(), V.data_ptr(), kinv.data_ptr(), mt.data_ptr(),
-            ge.data_ptr(), xb.data_ptr(), q.data_ptr(), lo.data_ptr(),
-            hi.data_ptr(), center.data_ptr(), thresh.data_ptr(), z.data_ptr(),
-            u.data_ptr(), rho.data_ptr(), x_out.data_ptr(), z_out.data_ptr(),
-            u_out.data_ptr(), stats.data_ptr(),
-            None if work is None else work.data_ptr(),
-            b, t, n, k, int(seg_len), float(relax), m, int(bool(collect)),
-            int(bool(last)), _AA_SAFEGUARD, _AA_STEP_CLAMP, _AA_PLAIN_TAIL,
-            _CONV_TOL, stream)
-    if rc != 0:
-        raise RuntimeError(f"admm_segment kernel launch failed: CUDA error "
-                           f"{rc}")
-    global launches
-    launches += 1
+    launch, _ = segment_launcher(d, V, kinv, mt, ge, xb, q, lo, hi, center,
+                                 thresh, z, u, rho, **kw)
+    x_out, z_out, u_out, stats = launch()
     tallies = stats[:, 1:].to(torch.int32)
     out = (x_out, z_out, u_out, stats[:, 0], tallies[:, 0], tallies[:, 1],
            tallies[:, 2])
