@@ -26,14 +26,17 @@ Phases, in order (any failure exits non-zero before the last line):
    window-streaming kernel's four forms (decay, rank, std, zscore) called
    through the public ops at D=5040, N=5000, W=150 with an edge panel
    (windows past every tile, D < W, constant and +-inf windows, float64, a
-   ragged universe) and the ``conv1d`` time of the decay's weighted sum; and
+   ragged universe) and the ``conv1d`` time of the decay's weighted sum;
+   the decay form again at path 4's own 17 launches (D=1332, N=1000),
+   summed, with the SASS of its middle loop (``cuobjdump``); and
    the fused z-score/group-neutralize kernel at [50, 1260, 3000], G=11, held
    against its plain version and the composition, with an edge panel and
    rows wider than its shared-memory tile; the fused rank-IC sort (K3) at
    the research step's 66,600 rows of 1000 against its plain version, the
    post-sort route (``torch.sort`` + K1) and an edge panel of widths 128 to
-   8192; the FP32 probe (K6) against its plain version, then its rate at
-   [64, 50400, 128] through ``fp32_probe.measure``;
+   8192 that takes every layout of its sort network; the FP32 probe (K6)
+   against its plain version, then its rate at [64, 50400, 128] through
+   ``fp32_probe.measure``;
 4. three paths of ``build_research_step`` at F=50 factors, D=1332 dates,
    N=1000 assets (data from ``--seed``), icir_top selection, zscore blend,
    ``solver_kernel="fused"``: (1) mvo_turnover with the sample covariance,
@@ -120,11 +123,12 @@ K4_TOL = {"float32": {"decay": 1e-6, "rank": 0.0, "std": 1e-6,
                       "zscore": 1e-5},
           "float64": {"decay": 1e-12, "rank": 0.0, "std": 1e-12,
                       "zscore": 1e-11}}
-# operations per lag and cell, for the bound: decay valid test, select,
-# multiply, add, count; rank two compares, two adds, valid test, count;
-# std / zscore pass 1 valid test, add, count, min, max and pass 2 valid
-# test, subtract, multiply, add
-K4_OPS = {"decay": 5, "rank": 6, "std": 9, "zscore": 9}
+# operations the inputs need, for the bound: (per lag and cell, per input
+# cell). Per lag the form's arithmetic: decay a multiply and an add; rank
+# two compares and two adds; std / zscore an add, a min and a max, then a
+# subtract, a multiply and an add. Per input cell one valid test (decay:
+# and the select of 0); the walk needs no test, select or count per lag
+K4_OPS = {"decay": (2, 2), "rank": (4, 1), "std": (6, 1), "zscore": (6, 1)}
 # the fused z-score/group-neutralize kernel at bench.py's composite_ops shape
 K5_F, K5_D, K5_N, K5_G, K5_NAN = 50, 1260, 3000, 11, 0.03
 K5_TOL = 2e-5   # the JAX package's own tolerance for its fused kernel: f32
@@ -135,6 +139,10 @@ K5_WIDE = 20000  # a row wider than the kernel's shared-memory tile (16384)
 # kernel (tests/test_pallas_rank_ic.py), f32 moment sums in two orders
 K3_TOL = 2e-5
 K3_EDGE_WIDTHS = (128, 300, 4096, 4097, 8192)
+# with those, every layout of the sort network: one warp a row with 4 and
+# 8 words a thread, then teams of 2, 4 and 8 warps with 8, 16 and 32
+# (their own generator, so the phase's rows stay those of earlier runs)
+K3_LAYOUT_WIDTHS = (129, 1000, 1025, 2048)
 # the FP32 probe (K6) against its plain version at a small shape
 K6_SMALL, K6_K = (4, 1000, 129), 64
 # path 5 on the card against the same path on the CPU, |d| / (1 + |v|):
@@ -529,6 +537,13 @@ def window_edge_panel(rng, shape, dtype):
     return x.astype(dtype)
 
 
+def window_bound(cells: int, w: int, form: str):
+    """The least time of one window launch over ``cells`` float32 cells."""
+    per_lag, per_cell = K4_OPS[form]
+    return bound(8.0 * cells, float(per_lag) * cells * w
+                 + float(per_cell) * cells)
+
+
 def window_phase(torch, fmt, seed: int) -> dict:
     """The window-streaming kernel's four forms through the public ops at
     D=5040, N=5000, W=150 (float32, 0.2% NaN): one launch each, held against
@@ -562,7 +577,7 @@ def window_phase(torch, fmt, seed: int) -> dict:
         err = _held(torch, f"window {form}", out, plain[form](x, K4_W), tol)
         ms = cuda_ms(torch, lambda: wrapper[form](x, K4_W), 20)
         plain_ms = cuda_ms(torch, lambda: plain[form](x, K4_W), 2)
-        b_ms, b_by = bound(8.0 * cells, float(K4_OPS[form]) * cells * K4_W)
+        b_ms, b_by = window_bound(cells, K4_W, form)
         lib_ms = None
         if form == "decay":
             # the weighted sum as one convolution along the date axis, on
@@ -588,10 +603,13 @@ def window_phase(torch, fmt, seed: int) -> dict:
             bound_by=b_by, library_ms=lib_ms)
     del x
 
-    # edge panel: several 8-row tiles, windows past every tile, D < W,
-    # constant and +-inf windows, signed zeros, ties; float32 and float64
+    # edge panel: several date tiles, windows past every tile, D < W,
+    # constant and +-inf windows, signed zeros, ties; float32 and float64;
+    # windows of 2 and around the tile (the short walk, a middle of 0-2
+    # dates)
     worst = 0.0
-    for shape, dname, windows in (((2, 1040, 130), "float32", (16, 100, 350)),
+    for shape, dname, windows in (((2, 1040, 130), "float32",
+                                   (16, 100, 350, 2, 15, 17)),
                                   ((1040, 130), "float64", (100,)),
                                   ((3, 40, 33), "float32", (100,))):
         xe = torch.from_numpy(window_edge_panel(rng, shape, dname)).cuda()
@@ -615,11 +633,69 @@ def window_phase(torch, fmt, seed: int) -> dict:
         worst_r = max(worst_r, _held(torch, f"ts_{form} ragged universe",
                         op(xr_t.cuda(), 20, universe=uni_t.cuda()).cpu(),
                         op(xr_t, 20, universe=uni_t), 1e-10))
-    log(f"kernel window_stream edge panel (W=16/100/350 over 8-row tiles, "
-        f"D < W, constant and +-inf windows, float64): max_abs_err vs plain "
-        f"{worst:.3e}; ragged universe vs the CPU op (float64) max_abs_err "
+    log(f"kernel window_stream edge panel (W=2/15/16/17/100/350 over the "
+        f"kernel's date tiles, D < W, constant and +-inf windows, float64): "
+        f"max_abs_err vs plain {worst:.3e}; ragged universe vs the CPU op (float64) max_abs_err "
         f"{worst_r:.3e} (tol 1e-10)")
     return entries
+
+
+def window_path_shape(torch, seed: int) -> dict:
+    """The decay form at path 4's own launches: a [D, N] float32 panel (0.2%
+    NaN) and each window of ``DEFAULT_DECAY_PERIODS`` from 2 on, one launch
+    each held against its plain version at ``K4_TOL`` and timed beside it
+    and beside ``F.conv1d`` of the zero-filled panel; returns the sums over
+    the launches as the decay entry's ``path_*`` fields. Then the SASS of
+    the decay form's float instantiation: its middle loop's instructions."""
+    import torch.nn.functional as tF
+
+    from factormodeling_tpu_torch import _build
+    from factormodeling_tpu_torch.analytics import DEFAULT_DECAY_PERIODS
+    from factormodeling_tpu_torch.ops import _cuda_window as cw
+    from factormodeling_tpu_torch.tile_sweep import sass_middle_loop
+
+    rng = np.random.default_rng(seed + 7)
+    x = rng.normal(size=(D, N)).astype(np.float32)
+    x[rng.uniform(size=x.shape) < K4_NAN] = np.nan
+    x = torch.from_numpy(x).cuda()
+    xt = x.nan_to_num(0.0).T.contiguous()[:, None, :]
+    tol = K4_TOL["float32"]["decay"]
+    windows = [w for w in DEFAULT_DECAY_PERIODS if w >= 2]
+    sums = dict(path_max_abs_err=0.0, path_ms=0.0, path_plain_ms=0.0,
+                path_bound_ms=0.0, path_library_ms=0.0)
+    by = {"bytes": 0, "operations": 0}
+    per_launch = []
+    for w in windows:
+        err = _held(torch, f"window decay D={D} N={N} W={w}",
+                    cw.decay_streaming(x, w), cw.decay_streaming_plain(x, w),
+                    tol)
+        sums["path_max_abs_err"] = max(sums["path_max_abs_err"], err)
+        per_launch.append(cuda_ms(torch, lambda: cw.decay_streaming(x, w), 20))
+        sums["path_ms"] += per_launch[-1]
+        sums["path_plain_ms"] += cuda_ms(
+            torch, lambda: cw.decay_streaming_plain(x, w), 2)
+        b_ms, b_by = window_bound(D * N, w, "decay")
+        sums["path_bound_ms"] += b_ms
+        by[b_by] += 1
+        xz = tF.pad(xt, (w - 1, 0))
+        wt = (torch.arange(1, w + 1, dtype=x.dtype, device=x.device)
+              / (w * (w + 1) / 2.0)).view(1, 1, w)
+        sums["path_library_ms"] += cuda_ms(torch, lambda: tF.conv1d(xz, wt),
+                                           20)
+    log(f"kernel window_stream decay float32 D={D} N={N}, the {len(windows)} "
+        f"windows of path 4 (W={windows[0]}..{windows[-1]}): max_abs_err "
+        f"{sums['path_max_abs_err']:.3e} (tol {tol}); summed over the "
+        f"launches {sums['path_ms']:.4f} ms, plain "
+        f"{sums['path_plain_ms']:.4f} ms, bound {sums['path_bound_ms']:.4f} "
+        f"ms ({by['bytes']} launches bytes-bound, {by['operations']} "
+        f"operations-bound), conv1d {sums['path_library_ms']:.4f} ms; per "
+        f"launch (back-to-back wrapper calls: a launch shorter than the "
+        f"host's launch interval reads that interval) "
+        + json.dumps(dict(zip(windows, (round(v, 4) for v in per_launch)))))
+    sass = sass_middle_loop(_build._lib_path("window_stream"))
+    log("kernel window_stream decay<float> SASS middle loop (cuobjdump): "
+        + json.dumps(sass))
+    return sums
 
 
 def group_phase(torch, fmt, seed: int) -> dict:
@@ -846,18 +922,20 @@ def rank_sort_edge(rng, rows: int, n: int):
 
 def rank_sort_phase(torch, rk, seed: int) -> dict:
     """K3 at the research step's rows (F*D rows of N) against its plain
-    version and the post-sort route (``torch.sort`` + gather + K1), then an
-    edge panel of widths 128 to 8192 (8192: 96 KB of dynamic shared
-    memory)."""
+    version and the post-sort route (``torch.sort`` + gather + K1), after
+    an edge panel of widths 128 to 8192 that takes every layout of the sort
+    network (8192: 96 KB of dynamic shared memory)."""
     from factormodeling_tpu_torch.metrics import _cuda_rank_sort as rs
 
     rng = np.random.default_rng(seed + 6)
+    rng_layout = np.random.default_rng(seed + 8)
     worst = 0.0
-    for n in K3_EDGE_WIDTHS:
-        f = rank_sort_edge(rng, 600, n)
+    for n, rng_n in ([(n, rng) for n in K3_EDGE_WIDTHS]
+                     + [(n, rng_layout) for n in K3_LAYOUT_WIDTHS]):
+        f = rank_sort_edge(rng_n, 600, n)
         key = torch.from_numpy(f).cuda()
         rr = torch.where(torch.isnan(key), 0.0, torch.from_numpy(
-            rng.normal(scale=0.02, size=f.shape).astype(np.float32)).cuda())
+            rng_n.normal(scale=0.02, size=f.shape).astype(np.float32)).cuda())
         ic, cnt = rs.rank_ic_fused(key, rr)
         ic0, cnt0 = rs.rank_ic_fused_plain(key, rr)
         torch.cuda.synchronize()
@@ -877,7 +955,8 @@ def rank_sort_phase(torch, rk, seed: int) -> dict:
             raise AssertionError(f"rank_ic_fused n={n}: max |err| {err} > "
                                  f"{K3_TOL}")
         worst = max(worst, err)
-    log(f"kernel rank_ic_fused edge panel n={list(K3_EDGE_WIDTHS)} (ties, a "
+    log(f"kernel rank_ic_fused edge panel n="
+        f"{list(K3_EDGE_WIDTHS + K3_LAYOUT_WIDTHS)} (ties, a "
         f"constant row, all-NaN, +-0.0 and denormals, +-inf, NaN payload "
         f"bits, one valid cell): n_valid exact, max_abs_err vs plain "
         f"{worst:.3e} (tol {K3_TOL})")
@@ -913,15 +992,15 @@ def rank_sort_phase(torch, rk, seed: int) -> dict:
     plain_ms = cuda_ms(torch, lambda: rs.rank_ic_fused_plain(key, rr), 3)
     route_ms = cuda_ms(torch, post_sort_route, 20)
     sort_ms = cuda_ms(torch, lambda: torch.sort(key, dim=-1), 20)
-    w = max(rs.MIN_WIDTH, 1 << (n - 1).bit_length())
-    stages = w.bit_length() - 1
-    exchanges = stages * (stages + 1) // 2 * (w // 2) * rows
+    lay = rs.sort_layout(n)
     # each input read once, two floats out per row; the ranks and moments'
     # ~12 operations per element (the sort's compares are integer work)
     b_ms, b_by = bound(8.0 * rows * n + 8.0 * rows, 12.0 * rows * n)
-    log(f"kernel rank_ic_fused R={rows} n={n} (W={w}, "
-        f"{exchanges:.4g} compare-exchanges, {16.0 * exchanges / 1e9:.1f} GB "
-        f"of shared-memory loads): max_abs_err {err:.3e} vs plain, {err1:.3e} "
+    log(f"kernel rank_ic_fused R={rows} n={n} (W={lay['w']}, {lay['e']} "
+        f"words a thread, {lay['team']} threads a row, "
+        f"{lay['rows_per_block']} rows a block; stages "
+        f"{json.dumps(lay['stages'])}): max_abs_err {err:.3e} vs plain, "
+        f"{err1:.3e} "
         f"vs torch.sort + K1 (tol {K3_TOL}), {int(tie_free.sum())} tie-free "
         f"rows bitwise equal to it; {ms:.4f} ms/launch, plain {plain_ms:.4f} "
         f"ms, torch.sort + gather + K1 {route_ms:.4f} ms (torch.sort alone "
@@ -1309,6 +1388,7 @@ def main() -> int:
     t0 = time.perf_counter()
     window = window_phase(torch, fmt, args.seed)
     kernels.update({f"window_{form}": e for form, e in window.items()})
+    kernels["window_decay"].update(window_path_shape(torch, args.seed))
     kernels["zscore_group_neutralize"] = group_phase(torch, fmt, args.seed)
     log(f"ops kernel phases: {time.perf_counter() - t0:.1f} s wall")
     t0 = time.perf_counter()
@@ -1348,7 +1428,8 @@ def main() -> int:
     log(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s wall")
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-             "wrapper_ms", "cluster", "smem_bytes")
+             "wrapper_ms", "cluster", "smem_bytes", "path_max_abs_err",
+             "path_ms", "path_plain_ms", "path_bound_ms", "path_library_ms")
     log(json.dumps({"kernels": [{k: kern[k] for k in order if k in kern}
                                 for kern in kernels.values()]}))
     print(json.dumps({"ok": True, "device": {

@@ -38,7 +38,8 @@ _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _INCLUDE = re.compile(r'^\s*#include\s+"([^"]+)"', re.MULTILINE)
 
 _LIBS: dict[str, ctypes.CDLL] = {}
-#: name -> {"seconds": build wall time, "ptxas": register/smem report lines};
+#: name -> {"seconds": build wall time, "ptxas": register, shared-memory and
+#: spill report lines};
 #: empty for a library that was already built
 BUILD_LOG: dict[str, dict] = {}
 
@@ -94,8 +95,9 @@ def build(names=tuple(KERNEL_SOURCES)) -> dict:
         BUILD_LOG[name] = {
             "seconds": seconds,
             "ptxas": [ln.strip() for ln in (stdout + stderr).splitlines()
-                      if "ptxas info" in ln and ("registers" in ln
-                                                 or "Compiling" in ln)]}
+                      if ("ptxas info" in ln and ("registers" in ln
+                                                  or "Compiling" in ln))
+                      or "spill" in ln]}
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return BUILD_LOG

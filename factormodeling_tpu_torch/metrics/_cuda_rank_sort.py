@@ -13,9 +13,13 @@ pattern is one invalid key sorted last; +-inf are valid and ranked);
 
 Bound on an H100: bytes — each row is read once (8 B per cell) and two
 floats per row come back, 0.159 ms at R = 66,600, n = 1000. The kernel
-sorts each row in shared memory with a bitonic network over the padded
-width (the compare-exchanges never touch device memory) and then runs the
-post-sort kernel's own rank-and-moment body (``csrc/rank_common.cuh``).
+sorts each row with a bitonic network over the padded width whose low
+position bits live in registers (:func:`sort_layout`): a team of threads
+holds the row, E words a thread, so the stages of the low bits are
+compare-exchanges between a thread's registers, the next five are warp
+shuffles, and only the bits above those (the team's warps) go through
+shared memory. It then runs the post-sort kernel's own rank-and-moment
+body (``csrc/rank_common.cuh``) over the sorted row in shared memory.
 
 On a CUDA tensor :func:`rank_ic_fused` launches the kernel or raises; on a
 CPU tensor it runs :func:`rank_ic_fused_plain`.
@@ -30,10 +34,14 @@ import torch
 from factormodeling_tpu_torch import _build
 from factormodeling_tpu_torch.metrics._cuda_rank_ic import rank_ic_postsort_plain
 
-__all__ = ["MAX_WIDTH", "MIN_WIDTH", "rank_ic_fused", "rank_ic_fused_plain"]
+__all__ = ["MAX_WIDTH", "MIN_WIDTH", "rank_ic_fused", "rank_ic_fused_plain",
+           "sort_layout"]
 
 #: the row widths the kernel takes (the JAX package's routing range)
 MIN_WIDTH, MAX_WIDTH = 1 << 7, 1 << 13
+#: words a thread holds in registers (``RS_REG_WORDS`` in
+#: ``csrc/rank_sort.cu``), within a team of one warp to one block
+REG_WORDS = 8
 
 _INF_KEY = 0x7F800000    # +inf: the largest valid key
 _NAN_KEY = 0x7FC00000    # the one invalid key, sorted after +inf
@@ -68,6 +76,26 @@ def rank_ic_fused_plain(key: torch.Tensor, rr: torch.Tensor):
     canon = torch.where(k <= _INF_KEY, _flush_zero(key), float("nan"))
     return rank_ic_postsort_plain(torch.gather(canon, -1, idx),
                                   torch.gather(rr, -1, idx))
+
+
+def sort_layout(n: int) -> dict:
+    """The kernel's layout for rows of ``n`` cells: the padded width ``w``,
+    the words a thread holds ``e``, the threads that sort a row ``team``,
+    the rows a block sorts, and the network's stages by where the bit they
+    exchange lives (``register``: bits below log2(e); ``lane``: the next
+    five; ``shared``: the rest)."""
+    w = max(MIN_WIDTH, 1 << (int(n) - 1).bit_length())
+    e = max(min(w // 32, REG_WORDS), w // 256)
+    team = w // e
+    log_w = w.bit_length() - 1
+    kinds = {"register": 0, "lane": 0, "shared": 0}
+    for s in range(1, log_w + 1):
+        for b in range(s):
+            j = 1 << b
+            kinds["register" if j < e else "lane" if j < 32 * e
+                  else "shared"] += 1
+    return dict(w=w, e=e, team=team, rows_per_block=256 // team,
+                stages=kinds)
 
 
 def _lib():

@@ -19,16 +19,20 @@ agree with their twins to the last bit wherever both round the same way
 (the tests and ``chip_smoke.py`` state their tolerances).
 
 Bound on an H100: operations. A ``[D, N]`` float32 panel is read once and
-written once (8 B per cell), but every cell does 4-12 operations per lag
-over W lags: at D = 5040, N = 5000, W = 150 that is ~15-45 GFLOP against
-0.2 GB of traffic. The kernel gives each thread one column (consecutive
-threads on consecutive columns, so every load is coalesced) and 8
-consecutive dates; it walks the dates from the newest down to W - 1 above
-its first, loading each value once into a register and applying it to all
-8 outputs whose window holds it. Each block thus loads its own W - 1 rows
-of history above its tile (a halo, through L1/L2) instead of carrying it
-from the previous tile as the TPU's sequential grid does, so there is no
-shared memory to size against W and any window length runs.
+written once (8 B per cell), but every cell does 2-6 operations per lag
+over W lags (the decay a multiply and an add): at D = 5040, N = 5000,
+W = 150 that is ~7.6-23 GFLOP against 0.2 GB of traffic. The kernel gives
+each thread one column (consecutive threads on consecutive columns, so
+every load is coalesced) and a tile of consecutive dates; it walks the
+dates from the newest down to W - 1 above its first, loading each value
+once into a register and applying it to all the tile's outputs whose
+window holds it. The walk is split into two unrolled ramps and a middle
+that every output takes, so no lag is range-tested, no weight converted
+from an integer and no count kept per lag: the valid test runs once per
+loaded date. Each block loads its own W - 1 rows of history above its
+tile (a halo, through L1/L2) instead of carrying it from the previous
+tile as the TPU's sequential grid does, so there is no shared memory to
+size against W and any window length runs.
 
 On a CUDA tensor each function launches the kernel or raises; on a CPU
 tensor it runs the plain version.

@@ -153,16 +153,122 @@ def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
     assert set(_build.KERNEL_SOURCES) >= {"rank_sort", "fp32_probe"}
 
 
+def _swizzle(p):
+    """Where position p of a sorted row lives in shared memory
+    (``swizzle`` in ``csrc/rank_sort.cu``)."""
+    return p ^ ((p >> 5) & 31)
+
+
+def _network_emulated(words, n):
+    """The kernel's sort of one row (``csrc/rank_sort.cu``), emulated on its
+    layout: thread t of the team loads cells e * team + t into its E
+    registers and holds positions t * E + e; register stages exchange a
+    thread's own words, lane stages the words of lane ^ (j / E), shared
+    stages go through the swizzled row buffer; the sorted row is stored
+    swizzled and read back through the swizzle, as the post-sort body
+    reads it. Returns the row read back and the stages by kind."""
+    lay = rs.sort_layout(n)
+    w, e, team = lay["w"], lay["e"], lay["team"]
+    pad = np.uint64(0xFFFFFFFF00000000)
+    cells = np.arange(e)[None, :] * team + np.arange(team)[:, None]
+    a = np.where(cells < n, words[np.minimum(cells, n - 1)], pad)
+    t = np.arange(team)[:, None]
+    pos = t * e + np.arange(e)[None, :]
+    buf = np.zeros(w, np.uint64)
+    kinds = {"register": 0, "lane": 0, "shared": 0}
+
+    def pick(x, y, keep_min):
+        return np.where((y < x) == keep_min, y, x)
+
+    for s in range(1, w.bit_length()):
+        k2 = 1 << s
+        for b in range(s - 1, -1, -1):
+            j = 1 << b
+            up = (pos & k2) == 0
+            if j < e:
+                kinds["register"] += 1
+                lo = [c for c in range(e) if not c & j]
+                hi = [c | j for c in lo]
+                x, y = a[:, lo].copy(), a[:, hi].copy()
+                swap = (y < x) == up[:, lo]   # one compare a pair
+                a[:, lo] = np.where(swap, y, x)
+                a[:, hi] = np.where(swap, x, y)
+                continue
+            keep_min = ((pos & j) == 0) == up
+            if j < 32 * e:
+                kinds["lane"] += 1
+                m = j // e
+                assert m < 32 and ((np.arange(team) ^ m) // 32
+                                   == np.arange(team) // 32).all()  # a warp
+                a = pick(a, a[np.arange(team) ^ m], keep_min)
+            else:
+                kinds["shared"] += 1
+                buf[_swizzle(pos)] = a
+                a = pick(a, buf[_swizzle(pos ^ j)], keep_min)
+    buf[_swizzle(pos)] = a
+    return buf[_swizzle(np.arange(w))], kinds
+
+
+def _packed_words(rng, n, tied):
+    """Packed (unsigned key << 32 | payload bits) words of one row: the key
+    map of random floats (rounded to a few values where ``tied``) with NaNs,
+    +-0.0 and +-inf, the payload 0 at invalid cells."""
+    f = rng.normal(size=n).astype(np.float32)
+    if tied:
+        f = np.round(f * 1.5)
+    f[rng.uniform(size=n) < 0.05] = np.nan
+    f[: min(n, 4)] = np.array([0.0, -0.0, np.inf, -np.inf],
+                              np.float32)[: min(n, 4)]
+    key = rs._key_i32(torch.from_numpy(f)).numpy().view(np.uint32)
+    pay = np.where(np.isnan(f), 0.0, rng.normal(size=n)).astype(np.float32)
+    if tied:
+        pay[: n // 2] = pay[0]        # identical words, payload and all
+    return ((key ^ np.uint32(0x80000000)).astype(np.uint64) << np.uint64(32)
+            | pay.view(np.uint32).astype(np.uint64))
+
+
+@pytest.mark.parametrize("n", [128, 129, 256, 300, 512, 1000, 1024, 1025,
+                               2048, 4096, 4097, 8192])
+@pytest.mark.parametrize("tied", [False, True])
+def test_register_lane_shared_network_sorts_every_width(n, tied):
+    """The bitonic network on the kernel's register / lane / shared bit
+    layout sorts every padded width from 128 to 8192: the row read back
+    through the swizzle equals ``torch.sort`` of the words (and the padding
+    past n), on random and heavily tied rows; the stage counts are
+    :func:`sort_layout`'s (none through shared memory where a warp sorts
+    the row)."""
+    words = _packed_words(np.random.default_rng(n + 7 * tied), n, tied)
+    got, kinds = _network_emulated(words, n)
+    lay = rs.sort_layout(n)
+    assert kinds == lay["stages"]
+    assert sum(kinds.values()) == (lay["w"].bit_length() - 1) * \
+        lay["w"].bit_length() // 2
+    assert (kinds["shared"] == 0) == (lay["team"] == 32)
+    assert 32 <= lay["team"] <= 256 and lay["team"] * lay["e"] == lay["w"]
+    # torch has no uint64: sort the words as signed int64 with the sign bit
+    # flipped (the same order)
+    flip = np.uint64(1 << 63)
+    srt, _ = torch.sort(torch.from_numpy((words ^ flip).view(np.int64)))
+    want = srt.numpy().view(np.uint64) ^ flip
+    assert np.array_equal(got[:n], want)
+    assert (got[n:] == np.uint64(0xFFFFFFFF00000000)).all()
+    assert np.array_equal(np.sort(_swizzle(np.arange(lay["w"]))),
+                          np.arange(lay["w"]))
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [128, 1000, 4096, rs.MAX_WIDTH])
+@pytest.mark.parametrize("n", [128, 129, 300, 1000, 1024, 1025, 2048,
+                               4096, 8191, rs.MAX_WIDTH])
 def test_kernel_matches_plain_and_post_sort_route_on_card(n):
-    """n = 4096: 48 KB of dynamic shared memory, past the default once the
-    static shared memory is added; n = 8192: 96 KB."""
+    """Every layout of the network: one warp a row (n <= 256), teams of 2,
+    4 and 8 warps with 1, 3 and 6 stages through shared memory, 8 to 32
+    words a thread (n = 300 .. 8192); n = 8192: 96 KB of dynamic shared
+    memory."""
     _card()
     f, r = _panel(n, 300, n)
     key, rr = torch.from_numpy(f).cuda(), torch.from_numpy(r).cuda()
@@ -182,6 +288,12 @@ def test_kernel_matches_plain_and_post_sort_route_on_card(n):
     rows = torch.arange(ic.numel(), device="cuda") != 6
     torch.testing.assert_close(ic[rows], ic1[rows], atol=TOL, rtol=0,
                                equal_nan=True)
+    # a ragged last block (299 rows: teams past the last row sort padding)
+    # gives each row the same bits
+    ic2, cnt2 = rs.rank_ic_fused(key[:299].contiguous(),
+                                 rr[:299].contiguous())
+    assert torch.equal(cnt2, cnt[:299])
+    assert torch.equal(ic2.nan_to_num(-9.0), ic[:299].nan_to_num(-9.0))
 
 
 @pytest.mark.cuda

@@ -115,6 +115,112 @@ def test_window_wrapper_refuses_what_it_cannot_take():
         cw.ts_rank_streaming(torch.zeros(4), 2)
 
 
+def _walk_tile(x, t0, window, rows):
+    """One thread-tile of the kernel's date walk (``csrc/window_stream.cu``:
+    ``walk_long`` with ``middle_block``, or ``walk_short`` when the window
+    is shorter than the tile), emulated step for step in float32 over a
+    [D, N] panel: the dates and the outputs each one feeds, the weights as
+    the kernel forms them (no per-lag conversion) and its two-integer (or
+    bit-mask) NaN rule. Returns each output's decay value (NaN where the
+    rule says so) and the lags each output received, in order."""
+    d, n = x.shape
+    f32 = np.float32
+    acc = [np.zeros(n, f32) for _ in range(rows)]
+    lags = [[] for _ in range(rows)]
+
+    def load(s):
+        return x[s] if 0 <= s < d else np.full(n, np.nan, f32)
+
+    def take(k, w, s, v):
+        j = t0 + k - s
+        assert w.dtype == f32 and w == f32(window - j)   # (T)(W - j)
+        lags[k].append(j)
+        acc[k] = acc[k] + w * np.where(np.isnan(v), f32(0), v)
+
+    if window >= rows:
+        top_bad = np.full(n, rows)
+        wj = [f32(window) - f32(j) for j in range(rows - 1)]
+        for i in range(rows - 1):                       # top ramp
+            s = t0 + rows - 1 - i
+            v = load(s)
+            top_bad = np.where(np.isnan(v), rows - 1 - i, top_bad)
+            for k in range(rows - 1 - i, rows):
+                take(k, wj[k - (rows - 1 - i)], s, v)
+        lo_nan = np.full(n, t0 - window)
+        mid = window - rows + 1
+        base, d0 = f32(window), 0
+        while d0 < mid:                                 # middle blocks
+            w = [base - f32(o) for o in range(2 * rows - 1)]
+            for u in range(min(rows, mid - d0)):
+                s = t0 - d0 - u
+                v = load(s)
+                lo_nan = np.where(np.isnan(v), np.maximum(lo_nan, s), lo_nan)
+                for k in range(rows):
+                    take(k, w[u + k], s, v)
+            base, d0 = base - f32(rows), d0 + rows
+        for m in range(rows - 1):                       # bottom ramp
+            s = t0 - mid - m
+            v = load(s)
+            lo_nan = np.where(np.isnan(v), np.maximum(lo_nan, s), lo_nan)
+            for k in range(rows - 1 - m):
+                take(k, f32(rows - 1 - m - k), s, v)
+        cut = lo_nan - t0 + window - 1
+        bad = [(k >= top_bad) | (k <= cut) for k in range(rows)]
+    else:
+        badm = np.zeros(n, np.uint64)
+        wmask = np.uint64((1 << window) - 1)
+        b = f32(window + rows - 1)
+        for i in range(rows + window - 1):
+            s = t0 + rows - 1 - i
+            v = load(s)
+            badm = np.where(np.isnan(v),
+                            badm | (wmask << np.uint64(rows + window - 2 - i)),
+                            badm)
+            for k in range(rows):
+                if 0 <= k + i - (rows - 1) < window:
+                    take(k, b - f32(k), s, v)
+            b = b - f32(1)
+        bad = [((badm >> np.uint64(k + window - 1)) & np.uint64(1)) == 1
+               for k in range(rows)]
+    denom = f32(window * (window + 1) / 2.0)
+    out = [np.where(bad[k], np.nan, acc[k] / denom) for k in range(rows)]
+    return out, lags
+
+
+def _kernel_tile_rows():
+    """``WIN_ROWS`` as the kernel source defines it."""
+    import re
+    from factormodeling_tpu_torch import _build
+
+    src = _build.source_path("window_stream").read_text()
+    return int(re.search(r"^#define WIN_ROWS (\d+)", src, re.M).group(1))
+
+
+@pytest.mark.parametrize("rows", [8, 16, 32])
+@pytest.mark.parametrize("window", [2, 3, 7, 15, 16, 17, 33, 40, 70])
+def test_split_walk_summation_order_matches_plain(rows, window):
+    """The kernel's split walk (top ramp, unconditional middle in blocks of
+    the tile's rows plus a tail, bottom ramp; the short walk for windows
+    below the tile), emulated on the CPU for tiles of 8, 16 and 32 dates:
+    every output receives its lags in the order j = 0 .. W - 1 with the
+    weight W - j, and the decay values equal ``decay_streaming_plain`` bit
+    for bit, NaN at the same cells (D = 45 is no multiple of any tile, so
+    the last tile is ragged; W = 70 is past D)."""
+    assert _kernel_tile_rows() in (8, 16, 32)
+    x = _panel(window + rows, (45, 6), nan_frac=0.04)
+    x[30:33, 2] = np.nan
+    x[1, 3] = np.nan
+    got = np.empty_like(x)
+    for t0 in range(0, x.shape[0], rows):
+        out, lags = _walk_tile(x, t0, window, rows)
+        for k in range(min(rows, x.shape[0] - t0)):
+            assert lags[k] == list(range(window)), (t0, k)
+            got[t0 + k] = out[k]
+    want = cw.decay_streaming_plain(torch.from_numpy(x), window).numpy()
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    assert np.array_equal(np.nan_to_num(got), np.nan_to_num(want))
+
+
 def _group_case(seed, f=2, d=600, n=256, g=5):
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(f, d, n)).astype(np.float32)
@@ -190,11 +296,16 @@ def _card():
 @pytest.mark.parametrize("shape,window", [((2, 1040, 130), 16),
                                           ((1040, 130), 100),
                                           ((300, 70), 350),
-                                          ((3, 40, 33), 100)])
+                                          ((3, 40, 33), 100)]
+                         + [((1332, 1000), w) for w in (2, 3, 7, 8, 9, 15,
+                                                        16, 17, 31, 32, 33)])
 def test_window_kernel_matches_plain_on_card(dtype, shape, window):
     """Several date tiles, windows longer than any tile, D < W, constant and
-    +-inf windows, signed zeros and ties: the public op launches the kernel
-    once per call and agrees with the plain version (rank exactly)."""
+    +-inf windows, signed zeros and ties, and at the decay sweep's panel
+    shape windows of 2 and 3 and just below, at and above tiles of 8, 16
+    and 32 dates (the short walk, and the long walk with a middle of 0, 1
+    and 2 dates): the public op launches the kernel once per call and
+    agrees with the plain version (rank exactly)."""
     _card()
     x = _panel(10, shape, nan_frac=0.02)
     _edges(x)
