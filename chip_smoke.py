@@ -135,9 +135,20 @@ K5_TOL = 2e-5   # the JAX package's own tolerance for its fused kernel: f32
                 # row moments and group sums over ~3000 / ~270 terms summed
                 # in another order
 K5_WIDE = 20000  # a row wider than the kernel's shared-memory tile (16384)
+# each side of the kernel's forms: one warp of 8 -> 16 cells, one warp ->
+# two, the widest register row, the shared-memory form's ends
+K5_FORM_WIDTHS = (256, 257, 1024, 1025, 8192, 8193, 16384)
+# the most groups the kernel takes, at the top of each team's range
+K5_MAX_G, K5_GROUP_WIDTHS = 32, (1000, 1024, 2048, 4096, 8192)
 # the fused rank-IC sort (K3): the JAX package's tolerance for its fused
 # kernel (tests/test_pallas_rank_ic.py), f32 moment sums in two orders
 K3_TOL = 2e-5
+# the rank-IC post-sort kernel's edge panel: one position a lane (1, 31),
+# three (33), a team of two warps of 17 (1000), five warps (4096) and the
+# widest row, a team of 9 warps (57 positions a lane, 64-bit masks) with
+# one buffer (16384); 1, 31 and 33 take the 4-byte copies, the others the
+# bulk copies
+K1_EDGE_WIDTHS = (1, 31, 33, 1000, 4096, 16384)
 K3_EDGE_WIDTHS = (128, 300, 4096, 4097, 8192)
 # with those, every layout of the sort network: one warp a row with 4 and
 # 8 words a thread, then teams of 2, 4 and 8 warps with 8, 16 and 32
@@ -170,6 +181,17 @@ P5_W_TOL = {"regression": 1e-5}
 # boundary, or a near-degenerate QP, can move one date's weights; the form
 # of the fused-vs-reference gate
 P5_DW_TOL, P5_DW_SHARE = 1e-4, 0.01
+# with the same equal-weight leg members on every day, the card's and the
+# CPU's backtests differ only by float32 rounding of the daily returns
+# (~1e-7 relative), far inside this
+P5_SAME_LEGS_SHARPE_TOL = 1e-4
+# a day whose members (and the day before's, which set its turnover cost)
+# agree: its return is a float32 sum of ~100 weights times returns of
+# ~0.02, ~1e-9 apart in two orders; one swapped name moves it by ~4e-4
+P5_SAME_LEGS_RET_TOL = 1e-6
+# a signal cell this close to 0 has its sign from rounding (the demeaned
+# composite's values are O(1))
+P5_SIGN_NOISE = 1e-6
 P5_SELECTORS = {"icir_top": {}, "mvo": {"qp_iters": 500}, "pca": {},
                 "regression": {}}
 
@@ -253,9 +275,35 @@ def rank_ic_phase(torch, rk, seed: int) -> dict:
     plain_ms = cuda_ms(torch, lambda: rk.rank_ic_postsort_plain(s_key, r_s), 5)
     # each input read once, two floats out per row; ~12 operations per element
     b_ms, b_by = bound(8.0 * rows * m + 8.0 * rows, 12.0 * rows * m)
-    log(f"kernel rank_ic_postsort R={rows} M={m}: max_abs_err {err:.3e} "
-        f"(tol {RANK_IC_TOL}), {ms:.4f} ms/launch, plain {plain_ms:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by})")
+    log(f"kernel rank_ic_postsort R={rows} M={m} ({json.dumps(rk.postsort_layout(m))}): "
+        f"max_abs_err {err:.3e} (tol {RANK_IC_TOL}), {ms:.4f} ms/launch, "
+        f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    del key, payload, s_key, r_s
+    # edge panel: every team layout's boundary, both load forms (M % 4)
+    worst = 0.0
+    for m_e in K1_EDGE_WIDTHS:
+        fe = rng.normal(size=(300, m_e)).astype(np.float32)
+        fe[rng.uniform(size=fe.shape) < 0.05] = np.nan
+        fe[:30] = np.round(fe[:30] * 2.0)        # heavy exact ties
+        fe[30] = 0.0
+        fe[30, ::2] = -0.0                       # -0.0 ties with +0.0
+        fe[31] = np.nan                          # all-invalid row
+        fe[32] = 1.5                             # one giant tie run
+        ke = torch.from_numpy(fe).cuda()
+        pe = torch.where(torch.isnan(ke), 0.0, torch.from_numpy(
+            rng.normal(scale=0.02, size=fe.shape).astype(np.float32)).cuda())
+        sk, ie = torch.sort(ke, dim=-1)
+        re_ = torch.gather(pe, -1, ie)
+        got, got_cnt = rk.rank_ic_postsort(sk, re_)
+        want, want_cnt = rk.rank_ic_postsort_plain(sk, re_)
+        if not torch.equal(got_cnt, want_cnt):
+            raise AssertionError(f"rank_ic_postsort M={m_e}: n_valid differs "
+                                 "from plain")
+        worst = max(worst, _held(torch, f"rank_ic_postsort M={m_e}", got,
+                                 want, RANK_IC_TOL))
+    log(f"kernel rank_ic_postsort edge panel M={list(K1_EDGE_WIDTHS)} (ties, "
+        f"+-0.0, all-invalid and constant rows): n_valid exact, max_abs_err "
+        f"vs plain {worst:.3e} (tol {RANK_IC_TOL})")
     return dict(name="rank_ic_postsort", route="cuda",
                 source="factormodeling_tpu_torch/csrc/rank_ic.cu",
                 replaces="factormodeling_tpu/metrics/_pallas_rank_ic.py:106",
@@ -733,7 +781,8 @@ def group_phase(torch, fmt, seed: int) -> dict:
     cells = K5_F * K5_D * K5_N
     b_ms, b_by = bound(8.0 * cells + 4.0 * K5_D * K5_N,
                        (10.0 + 2.0 * K5_G) * cells)
-    log(f"kernel zscore_group float32 F={K5_F} D={K5_D} N={K5_N} G={K5_G}: "
+    log(f"kernel zscore_group float32 F={K5_F} D={K5_D} N={K5_N} G={K5_G} "
+        f"({json.dumps(cf.kernel_layout(K5_N, K5_G, 4))}): "
         f"max_abs_err {err:.3e} vs plain, {err_c:.3e} vs the composition "
         f"(tol {K5_TOL}), bitwise equal over two runs; {ms:.4f} ms/launch, "
         f"plain {plain_ms:.4f} ms, composition {comp_ms:.4f} ms, bound "
@@ -788,11 +837,81 @@ def group_phase(torch, fmt, seed: int) -> dict:
         f"shared-memory tile): max_abs_err vs plain {wide[0]:.3e} float32 "
         f"(tol {K5_TOL}), {wide[1]:.3e} float64 (tol 1e-12); bitwise equal "
         f"over two runs")
+    # each side of the forms' boundaries (their own generator, so the rows
+    # above stay those of earlier runs)
+    rng_b = np.random.default_rng(seed + 10)
+    forms = {}
+    for n_b in K5_FORM_WIDTHS:
+        xb = rng_b.normal(size=(2, 8, n_b))
+        xb[rng_b.uniform(size=xb.shape) < K5_NAN] = np.nan
+        gb = torch.from_numpy(rng_b.integers(-1, K5_G, size=(8, n_b))
+                              .astype(np.int32)).cuda()
+        for dtype, tol in ((torch.float32, K5_TOL), (torch.float64, 1e-12)):
+            xt = torch.from_numpy(xb).to("cuda", dtype)
+            got = cf.zscore_group_neutralize_fused(xt, gb, K5_G)
+            form = cf.kernel_layout(n_b, K5_G, xt.element_size())["form"]
+            key = f"{n_b} {form} {str(dtype)[6:]}"
+            forms[key] = _held(torch, f"zscore_group N={key}", got,
+                               cf.zscore_group_neutralize_plain(xt, gb, K5_G),
+                               tol)
+    log("kernel zscore_group form boundaries, max_abs_err vs plain (tol "
+        f"{K5_TOL} float32, 1e-12 float64): "
+        + json.dumps({k: float(f"{v:.3e}") for k, v in forms.items()}))
+    # the most groups: in float64 the register form's group tables pass a
+    # block's shared memory, and those rows take the shared-memory form
+    rng_g = np.random.default_rng(seed + 11)
+    most = {}
+    for n_b in K5_GROUP_WIDTHS:
+        xb = rng_g.normal(size=(2, 8, n_b))
+        xb[rng_g.uniform(size=xb.shape) < K5_NAN] = np.nan
+        gb = torch.from_numpy(rng_g.integers(-1, K5_MAX_G, size=(8, n_b))
+                              .astype(np.int32)).cuda()
+        for dtype, tol in ((torch.float32, K5_TOL), (torch.float64, 1e-12)):
+            xt = torch.from_numpy(xb).to("cuda", dtype)
+            got = cf.zscore_group_neutralize_fused(xt, gb, K5_MAX_G)
+            form = cf.kernel_layout(n_b, K5_MAX_G, xt.element_size())["form"]
+            key = f"{n_b} {form} {str(dtype)[6:]}"
+            most[key] = _held(torch, f"zscore_group G={K5_MAX_G} N={key}",
+                              got, cf.zscore_group_neutralize_plain(
+                                  xt, gb, K5_MAX_G), tol)
+    log(f"kernel zscore_group G={K5_MAX_G}, max_abs_err vs plain (tol "
+        f"{K5_TOL} float32, 1e-12 float64): "
+        + json.dumps({k: float(f"{v:.3e}") for k, v in most.items()}))
     return dict(name="zscore_group_neutralize", route="cuda",
                 source="factormodeling_tpu_torch/csrc/zscore_group.cu",
                 replaces="factormodeling_tpu/ops/_pallas_fused.py:79",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None)
+
+
+def group_path_shape(torch, seed: int) -> dict:
+    """The fused kernel at path 4's own launch: [F, D, N] float32 (3% NaN)
+    with an 11-industry map (1% of ids -1), held against its plain version
+    at ``K5_TOL`` and timed beside it and its bound; returns the entry's
+    ``path_*`` fields."""
+    from factormodeling_tpu_torch.ops import _cuda_fused as cf
+
+    rng = np.random.default_rng(seed + 9)
+    x = rng.normal(size=(F, D, N)).astype(np.float32)
+    x[rng.uniform(size=x.shape) < K5_NAN] = np.nan
+    gid = rng.integers(0, K5_G, size=(D, N)).astype(np.int32)
+    gid[rng.uniform(size=gid.shape) < 0.01] = -1
+    x, gid = torch.from_numpy(x).cuda(), torch.from_numpy(gid).cuda()
+    err = _held(torch, f"zscore_group [{F}, {D}, {N}]",
+                cf.zscore_group_neutralize_fused(x, gid, K5_G),
+                cf.zscore_group_neutralize_plain(x, gid, K5_G), K5_TOL)
+    ms = cuda_ms(torch, lambda: cf.zscore_group_neutralize_fused(x, gid, K5_G),
+                 20)
+    plain_ms = cuda_ms(torch, lambda: cf.zscore_group_neutralize_plain(
+        x, gid, K5_G), 3)
+    cells = F * D * N
+    b_ms, b_by = bound(8.0 * cells + 4.0 * D * N, (10.0 + 2.0 * K5_G) * cells)
+    log(f"kernel zscore_group float32 at path 4's launch F={F} D={D} N={N} "
+        f"G={K5_G} ({json.dumps(cf.kernel_layout(N, K5_G, 4))}): max_abs_err "
+        f"{err:.3e} vs plain (tol {K5_TOL}); {ms:.4f} ms/launch, plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(path_max_abs_err=err, path_ms=ms, path_plain_ms=plain_ms,
+                path_bound_ms=b_ms, path_library_ms=None)
 
 
 def decay_path(torch, fmt, seed: int) -> dict:
@@ -1093,6 +1212,63 @@ def rank_ic_switch(on: bool):
             os.environ["FM_RANK_IC_FUSED"] = prev
 
 
+def leg_differences(torch, out, out_h) -> dict:
+    """The equal-weight legs of two research-step outputs (the card's and
+    the CPU's) side by side: the (date, asset) cells long on one side and
+    not on the other, or short on one and not on the other (``flips``), on
+    how many days and at most how many a day, the legs' sizes, how many of
+    the flipped days blend another set of factors (the blend takes a factor
+    in whenever its weight is > 0, as the JAX package's does, so a weight
+    of ~1e-9 on one side and 0 on the other changes a group's proxy and
+    whole legs; trade weights are the signal's shifted one day), the
+    flipped memberships on the other days, how many of those days have a
+    signal whose sign is rounding (a nonzero cell within ``P5_SIGN_NOISE`` of
+    0 on either side: a composite of one ``_eq`` factor takes three values,
+    and its demeaned middle class sits at ~1e-9, long candidates on one
+    side and short on the other) and the memberships on the days left, the
+    days flat on one side only, and the largest daily-return gap overall
+    and on the calm days, where neither the day nor the one before (its
+    turnover cost) has a flipped member."""
+    sim, sim_h = out.sim, out_h.sim
+    w_c = sim.weights.nan_to_num().cpu()
+    w_h = sim_h.weights.nan_to_num()
+    flip = (((w_c > 0) != (w_h > 0)).sum(-1)
+            + ((w_c < 0) != (w_h < 0)).sum(-1))               # [D]
+    flip_day = flip > 0
+    act = ((out.selection.cpu() > 0) != (out_h.selection > 0)).any(-1)
+    act = torch.cat([act.new_zeros(1), act[:-1]])
+    same = flip_day & ~act
+
+    def noisy(sig):
+        return ((sig.abs() <= P5_SIGN_NOISE) & (sig != 0)).any(-1)
+
+    noise = noisy(out.signal.cpu()) | noisy(out_h.signal)
+    noise = torch.cat([noise.new_zeros(1), noise[:-1]])
+    rest = same & ~noise
+    legs = (sim.long_count + sim.short_count).cpu()
+    flat = (sim.long_count == 0).cpu() != (sim_h.long_count == 0)
+    calm = ~(flip_day | torch.cat([flip_day.new_zeros(1), flip_day[:-1]]))
+    d_ret = (sim.result.log_return.cpu() - sim_h.result.log_return).abs()
+    return dict(
+        flips=int(flip.sum()), flip_days=int(flip_day.sum()),
+        most_a_day=int(flip.max()),
+        leg_names=[int(legs.min()), int(legs.max())],
+        flip_days_other_factors=int((flip_day & act).sum()),
+        flips_same_factors=int(flip[same].sum()),
+        flip_days_same_factors=int(same.sum()),
+        most_a_day_same_factors=int(flip[same].max()) if bool(same.any())
+        else 0,
+        flip_days_same_factors_sign_at_rounding=int((same & noise).sum()),
+        flips_rest=int(flip[rest].sum()),
+        most_a_day_rest=int(flip[rest].max()) if bool(rest.any()) else 0,
+        days_flat_one_side=int(flat.sum()),
+        max_d_trade_weight=float((w_c - w_h).abs().max()),
+        max_d_return=float(d_ret.max()),
+        calm_days=int(calm.sum()),
+        calm_max_d_return=float(d_ret[calm].max()) if bool(calm.any())
+        else 0.0)
+
+
 def scoring_path(torch, fmt, seed: int) -> dict:
     """Path 5: the metric table and rolling selection by icir_top, mvo, pca
     and regression, each blended and backtested with equal weights, with
@@ -1176,11 +1352,25 @@ def scoring_path(torch, fmt, seed: int) -> dict:
         errs[method] = (float(dw.max()), share)
         summ_h = {k: float(v)
                   for k, v in outs_h[method].summary._asdict().items()}
+        # the equal-weight legs: (date, asset) cells long on one side and
+        # not on the other, or short on one and not on the other
+        legs = leg_differences(torch, out, outs_h[method])
+        d_sharpe = abs(summ["sharpe"] - summ_h["sharpe"])
         log(f"path scoring_selection {method}: {int((rowsum > 0).sum())} "
             f"dates selected; summary {json.dumps(summ)}; vs the CPU: max "
             f"|dw| {errs[method][0]:.3e}, share of dates with |dw| > "
-            f"{P5_DW_TOL}: {share:.4f}, max |d sharpe| "
-            f"{abs(summ['sharpe'] - summ_h['sharpe']):.3e}")
+            f"{P5_DW_TOL}: {share:.4f}, max |d sharpe| {d_sharpe:.3e}; legs "
+            + json.dumps(legs) + f" (tol {P5_SAME_LEGS_RET_TOL} on "
+            "calm_max_d_return)")
+        flips, d_calm = legs["flips"], legs["calm_max_d_return"]
+        if flips == 0 and not d_sharpe <= P5_SAME_LEGS_SHARPE_TOL:
+            raise AssertionError(f"scoring path {method}: the Sharpe differs "
+                                 f"by {d_sharpe} between the card and the CPU "
+                                 "with the same leg members")
+        if not d_calm <= P5_SAME_LEGS_RET_TOL:
+            raise AssertionError(f"scoring path {method}: a daily return "
+                                 f"differs by {d_calm} between the card and "
+                                 "the CPU with the same leg members")
     log(f"path scoring_selection on the CPU: {total_h:.1f} s ("
         + ", ".join(f"{k} {v:.1f} s" for k, v in secs_h.items())
         + "); metric table vs the card max |d| / (1 + |v|) per column "
@@ -1390,6 +1580,8 @@ def main() -> int:
     kernels.update({f"window_{form}": e for form, e in window.items()})
     kernels["window_decay"].update(window_path_shape(torch, args.seed))
     kernels["zscore_group_neutralize"] = group_phase(torch, fmt, args.seed)
+    kernels["zscore_group_neutralize"].update(group_path_shape(torch,
+                                                               args.seed))
     log(f"ops kernel phases: {time.perf_counter() - t0:.1f} s wall")
     t0 = time.perf_counter()
     kernels["rank_ic_fused"] = rank_sort_phase(torch, rk, args.seed)

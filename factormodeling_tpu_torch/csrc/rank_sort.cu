@@ -42,10 +42,14 @@
 // at p ^ ((p >> 5) & 31)), which keeps both the per-thread stores of E
 // consecutive words and the team's exchanges free of bank conflicts. The
 // block then runs rank_common.cuh's post-sort body, the same code as the
-// post-sort kernel rank_ic.cu, over each of its rows in turn with all its
-// threads, summing the same terms in the same order as before the sort
-// moved into registers. Shared memory: 8 B x 256 E for the rows (16 KB at
-// W = 1024, 64 KB at 8192) and the run-start array (4 n B).
+// post-sort kernel rank_ic.cu with the same team for the row's width
+// (row_layout(n): two warps at n = 1000, so the block's 2 rows go to 4 of
+// its 8 warps; at most 8 warps up to n = 8192), summing the same terms in
+// the same order. Shared memory: 8 B x 256 E for the rows (16 KB at
+// W = 1024, 64 KB at 8192). With that post-sort the kernel takes 1.2667 ms
+// at R = 66,600, n = 1000 (1.4595 with one warp of 33 positions a row, the
+// block-a-row post-sort before it 1.3834; tile_sweep, NVIDIA H100 80GB
+// HBM3, 700 W).
 //
 // Prediction for this network, written before its first run on the card:
 // at R = 66,600, n = 1000 the kernel takes 0.8-1.5 ms (the bitonic network
@@ -82,14 +86,11 @@ __device__ __forceinline__ int swizzle(int p) { return p ^ ((p >> 5) & 31); }
 
 // A sorted row of packed (key << 32 | payload bits) words, swizzled.
 struct PackedRow {
+  typedef unsigned Key;
   const word_t* a;
   __device__ word_t at(int i) const { return a[swizzle(i)]; }
-  __device__ bool same(int i, int j) const {
-    return (unsigned)(at(i) >> 32) == (unsigned)(at(j) >> 32);
-  }
-  __device__ bool valid(int i) const {
-    return (unsigned)(at(i) >> 32) <= RS_INF_U;
-  }
+  __device__ Key key(int i) const { return (unsigned)(at(i) >> 32); }
+  __device__ static bool valid(Key k) { return k <= RS_INF_U; }
   __device__ float payload(int i) const {
     return __uint_as_float((unsigned)at(i));
   }
@@ -124,8 +125,8 @@ rank_sort_kernel(const float* __restrict__ f, const float* __restrict__ r,
                  int rows, int n) {
   using L = SortLayout<W>;
   constexpr int E = L::E, TEAM = L::TEAM, ROWS = L::ROWS;
-  extern __shared__ word_t s_a[];                     // [ROWS][W] rows
-  int* first = reinterpret_cast<int*>(s_a + ROWS * W);  // [n] run start
+  extern __shared__ word_t s_a[];  // [ROWS][W] rows
+  __shared__ TeamScratch sc;
 
   const int team = threadIdx.x / TEAM, t = threadIdx.x % TEAM;
   const int64_t row0 = (int64_t)blockIdx.x * ROWS;
@@ -191,16 +192,17 @@ rank_sort_kernel(const float* __restrict__ f, const float* __restrict__ r,
   for (int e = 0; e < E; ++e) s_row[swizzle(t * E + e)] = a[e];
   __syncthreads();
 
-  // the post-sort body over each of the block's rows, by all its threads
-  for (int q = 0; q < ROWS && row0 + q < rows; ++q) {
-    const PackedRow sorted{s_a + q * W};
-    float sum_r = 0.0f, cnt = 0.0f;
-    for (int i = threadIdx.x; i < n; i += RIC_THREADS) {
-      sum_r += sorted.payload(i);
-      cnt += sorted.valid(i) ? 1.0f : 0.0f;
-    }
-    rank_ic_sorted_row(sorted, first, n, sum_r, cnt, ic_out + row0 + q,
-                       cnt_out + row0 + q);
+  // the post-sort body: the block's rows by teams of row_layout(n).tw
+  // warps, as the post-sort kernel takes a row of n
+  const RowLayout lay = row_layout(n);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int teams = RIC_THREADS / 32 / lay.tw, pteam = warp / lay.tw;
+  int slot = 0;
+  if (pteam < teams) {
+    for (int q = pteam; q < ROWS && row0 + q < rows; q += teams)
+      rank_ic_team_row(PackedRow{s_a + q * W}, n, lay.ch, pteam, lay.tw,
+                       warp - pteam * lay.tw, lane, sc, slot,
+                       ic_out + row0 + q, cnt_out + row0 + q);
   }
 }
 
@@ -214,8 +216,8 @@ template <int W>
 static int launch_width(const float* f, const float* r, float* ic,
                         float* n_valid, int rows, int n, cudaStream_t stream) {
   using L = SortLayout<W>;
-  // the sorted rows and the run-start array
-  const int smem = 8 * L::ROWS * W + 4 * n;
+  // the sorted rows
+  const int smem = 8 * L::ROWS * W;
   // always opted in: the post-sort body's static shared memory counts
   // against the 48 KB default too, so a dynamic size just under it fails
   cudaError_t e = cudaFuncSetAttribute(

@@ -10,9 +10,14 @@ valid count.
 
 Bound on an H100: bytes — each ``[R, M]`` f32 input is read once and the
 work is a few operations per element, so the least time is
-``8 R M / 3.35 TB/s`` (0.16 ms at R = 66,600, M = 1000). The kernel runs one
-thread block per row with the row staged in shared memory; the tie-run scans
-and moment sums never touch device memory again.
+``8 R M / 3.35 TB/s`` (0.16 ms at R = 66,600, M = 1000). A team of warps
+owns a row (:func:`postsort_layout`: one warp up to M = 992, each lane a
+contiguous odd-sized chunk of positions, so its reads from the row in
+shared memory hit 32 distinct banks); the tie-run scans are warp shuffles
+and the moment sums warp sums, with no block barrier in a one-warp row. The
+grid is persistent and each team double-buffers its rows in shared memory,
+loading the next by 1-D bulk copies (the TMA) while it ranks the current
+one.
 
 On a CUDA tensor :func:`rank_ic_postsort` launches the kernel or raises; on
 a CPU tensor it runs :func:`rank_ic_postsort_plain`.
@@ -27,11 +32,19 @@ import torch
 from factormodeling_tpu_torch import _build
 from factormodeling_tpu_torch.ops._rank import sorted_avg_ranks
 
-__all__ = ["MAX_SORTED_WIDTH", "rank_ic_postsort", "rank_ic_postsort_plain"]
+__all__ = ["MAX_SORTED_WIDTH", "postsort_layout", "rank_ic_postsort",
+           "rank_ic_postsort_plain"]
 
-#: widest row the kernel takes: 12 B of shared memory per element must fit
-#: the 227 KB a block can use on Hopper
+#: widest row the kernel takes: one buffer of 8 B an element must fit the
+#: 227 KB a block can use on Hopper
 MAX_SORTED_WIDTH = 16384
+#: positions a lane at most (``RIC_MAX_CHUNK``; ``RIC_WIDE_CHUNK`` for rows
+#: that would take more lanes than the fused sort's block of
+#: ``RIC_THREADS``), teams a block at most (``RIC_MAX_TEAMS``), and the
+#: shared memory a block's row buffers may take (227 KB less the teams'
+#: scratch and the barriers)
+MAX_CHUNK, WIDE_CHUNK, NARROW_LANES, MAX_TEAMS = 31, 63, 256, 15
+SMEM_BUDGET = 227 * 1024 - 1536 - 512
 
 #: kernel launches since the count was last set to 0
 launches = 0
@@ -53,6 +66,26 @@ def rank_ic_postsort_plain(s_key: torch.Tensor, r_s: torch.Tensor):
     cov = (drk * dr).sum(-1)
     var_rank = (drk * drk).sum(-1)
     return cov / torch.sqrt(var_rank * var_r), cnt
+
+
+def postsort_layout(m: int) -> dict:
+    """The kernel's block for rows of ``m`` (``row_layout`` and
+    ``fm_rank_ic_layout`` in the sources): ``team_warps`` warps a row (the
+    fewest whose lanes take at most :data:`MAX_CHUNK` positions, or
+    :data:`WIDE_CHUNK` past :data:`NARROW_LANES` lanes), ``chunk``
+    positions a lane (odd), ``buffers`` row buffers a team (two where they
+    fit), ``teams`` a block and the block's dynamic ``smem_bytes``."""
+    lanes = -(-m // MAX_CHUNK)
+    if lanes > NARROW_LANES:
+        lanes = -(-m // WIDE_CHUNK)
+    tw = -(-lanes // 32) if lanes > 32 else 1
+    chunk = -(-m // (32 * tw)) | 1
+    per_buf = 8 * ((m + 3) & ~3)
+    nbuf = 2 if 4 * per_buf <= SMEM_BUDGET else 1
+    teams = max(1, min(SMEM_BUDGET // (nbuf * per_buf), 1024 // (32 * tw),
+                       MAX_TEAMS))
+    return dict(team_warps=tw, chunk=chunk, buffers=nbuf, teams=teams,
+                smem_bytes=teams * nbuf * per_buf)
 
 
 def _lib():

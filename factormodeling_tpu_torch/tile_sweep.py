@@ -1,7 +1,9 @@
-"""The window-streaming kernel's tile and the fused rank-IC sort, measured
-on the card (``csrc/window_stream.cu``, ``csrc/rank_sort.cu``):
+"""The window-streaming kernel's tile, the fused rank-IC sort, the fused
+z-score/group-neutralize kernel and the rank-IC post-sort kernel, measured
+on the card (``csrc/window_stream.cu``, ``csrc/rank_sort.cu``,
+``csrc/zscore_group.cu``, ``csrc/rank_ic.cu``), in five parts:
 
-1. the tile sweep: the window kernel built once more for each tile of
+1. ``tile``: the window kernel built once more for each tile of
    :data:`ROWS` dates a thread by :data:`THREADS` columns a block (the
    source's ``WIN_ROWS`` / ``WIN_THREADS`` lines rewritten into a copy under
    ``build/kernels/sweep/``), each build's ``ptxas`` registers and spills,
@@ -9,26 +11,41 @@ on the card (``csrc/window_stream.cu``, ``csrc/rank_sort.cu``):
    (D = 5040, N = 5000, W = 150) and summed over the decay sweep's 17
    launches (D = 1332, N = 1000, the windows of ``DEFAULT_DECAY_PERIODS``
    from 2 on), every output held bitwise against the plain version;
-2. the SASS of the decay form's float instantiation (``cuobjdump -sass``):
-   the instructions of its middle loop (the loop with the most ``FMUL``s)
-   by kind, with its ``I2F`` conversions and ``ISETP`` compares;
-3. the rank-IC sort's layout: built for 4, 8, 16 and 32 words a thread
+2. ``layout``: the rank-IC sort built for 4, 8, 16 and 32 words a thread
    (the source's ``RS_REG_WORDS``), each timed at 66,600 rows of 1000 and
    held bitwise against this checkout's build, and each again with its
    post-sort body cut out, which splits the time between the sort and
    the post-sort body;
-4. with ``--parent DIR`` (a directory holding another version's
-   ``window_stream.cu``, ``rank_sort.cu`` and ``rank_common.cuh``, e.g. the
-   parent commit's, from ``git show``): both kernels of that version and of
-   this checkout on the same inputs, in turns (other, this, this, other):
-   every window form at the phase's shape and on an edge panel, the decay
-   form summed over the decay sweep's 17 launches, and the
-   rank-IC sort at 66,600 rows of 1000 and on an edge panel of widths 128
-   to 8192; the outputs bit for bit, and the device times.
+3. ``split`` (with ``--parent DIR`` holding the block-a-row sources of
+   the two kernels, those before their register and team designs; on any
+   other sources its edits raise): those kernels built whole and with a
+   part cut out (:data:`SPLIT_VARIANTS`: load and store alone, no group
+   passes, the ids of one date for every row; the row load alone, no block
+   scans), timed at [50, 1260, 3000] and [50, 1332, 1000] (G = 11) and at
+   66,600 rows of 1000: the split that the redesign started from;
+4. ``variants``: this checkout's z-score/group-neutralize, post-sort and
+   fused-sort kernels built whole and with a part cut out or another walk
+   (:data:`THIS_VARIANTS`: source edits made in a copy), timed at the same
+   shapes, each with its ``ptxas`` report, and the SASS opcode counts of
+   :data:`SASS_OF`;
+5. ``parent`` (with ``--parent DIR``, a directory holding another
+   version's ``window_stream.cu``, ``rank_sort.cu``, ``zscore_group.cu``,
+   ``rank_ic.cu`` and ``rank_common.cuh``, e.g. the parent commit's, from
+   ``git show``): the kernels of that version and of this checkout on the
+   same inputs, timed in turns (other, this, this, other): every window
+   form at the phase's shape and on an edge panel, the decay form summed
+   over the decay sweep's 17 launches, the SASS of the decay form's middle
+   loop; the rank-IC sort at 66,600 rows of 1000 and on an edge panel of
+   widths 128 to 8192; the z-score/group-neutralize kernel at both shapes,
+   on an edge panel and at its forms' width boundaries in float32 and
+   float64; the post-sort kernel at 66,600 rows of 1000 and on edge widths
+   1 to 16384. Window outputs are compared bit for bit; the others by
+   max |diff| against each other and against their plain versions.
 
 Needs the card::
 
     python -m factormodeling_tpu_torch.tile_sweep [--parent DIR]
+        [--parts tile,layout,variants,parent]
 """
 
 from __future__ import annotations
@@ -46,6 +63,9 @@ import torch
 
 from factormodeling_tpu_torch import _build
 from factormodeling_tpu_torch.analytics import DEFAULT_DECAY_PERIODS
+from factormodeling_tpu_torch.metrics import _cuda_rank_ic as rk
+from factormodeling_tpu_torch.metrics import _cuda_rank_sort as rs
+from factormodeling_tpu_torch.ops import _cuda_fused as cf
 from factormodeling_tpu_torch.ops import _cuda_window as cw
 
 ROWS, THREADS = (8, 16, 32), (64, 128, 256)
@@ -58,10 +78,10 @@ K3_ROWS, K3_N = 66_600, 1000
 K3_EDGE_WIDTHS = (128, 129, 300, 1000, 1025, 2048, 4097, 8192)
 #: words a thread holds in the rank-IC sort (``RS_REG_WORDS``), swept
 REG_WORDS = (4, 8, 16, 32)
-_POST_SORT = "  for (int q = 0; q < ROWS && row0 + q < rows; ++q) {"
+_POST_SORT = "  if (pteam < teams) {"
 _SORT_ONLY = ("  if (t == 0 && row < rows)\n"
               "    ic_out[row] = __uint_as_float((unsigned)s_row[swizzle(7)]);"
-              "\n  for (int q = 0; q < 0; ++q) {")
+              "\n  if (false) {")
 _FORMS = {"decay": 0, "rank": 1, "std": 2, "zscore": 3}
 _SWEEP_DIR = _build.BUILD_DIR / "sweep"
 #: the mangled name's mark of window_stream_kernel<float, FORM_DECAY>
@@ -101,26 +121,38 @@ def _nvcc_many(jobs: dict) -> dict:
 
 
 def variant_source(lib: str, tag: str, defines: dict,
-                   replace: tuple = ()) -> Path:
-    """A copy of ``lib``'s source (and the headers beside it) under
-    ``build/kernels/sweep/`` with each ``#define NAME value`` of
-    ``defines`` set and each ``(old, new)`` of ``replace`` made once."""
-    src = _build.source_path(lib).read_text()
+                   replace: tuple = (), src_dir: Path | None = None,
+                   header_replace: dict | None = None) -> Path:
+    """A copy of ``lib``'s source (from ``src_dir``, by default this
+    checkout's ``csrc/``) and the headers beside it, in a directory of its
+    own under ``build/kernels/sweep/``, with each ``#define NAME value`` of
+    ``defines`` set, each ``(old, new)`` of ``replace`` made once in the
+    source and each of ``header_replace[name]`` once in that header."""
+    src_dir = _build.CSRC if src_dir is None else Path(src_dir)
+    src = (src_dir / _build.KERNEL_SOURCES[lib]).read_text()
     for name, val in defines.items():
         src, hits = re.subn(rf"^#define {name} \d+", f"#define {name} {val}",
                             src, flags=re.M)
         if hits != 1:
             raise RuntimeError(f"{lib}: no single #define {name}")
-    for old, new in replace:
-        if src.count(old) != 1:
-            raise RuntimeError(f"{lib}: {old!r} is not in the source once")
-        src = src.replace(old, new)
-    _SWEEP_DIR.mkdir(parents=True, exist_ok=True)
-    for header in _build.CSRC.glob("*.cuh"):
-        shutil.copy(header, _SWEEP_DIR / header.name)
-    path = _SWEEP_DIR / f"{lib}_{tag}.cu"
+    src = _replace_once(lib, src, replace)
+    out_dir = _SWEEP_DIR / f"{lib}_{tag}"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for header in src_dir.glob("*.cuh"):
+        text = _replace_once(header.name, header.read_text(),
+                             (header_replace or {}).get(header.name, ()))
+        (out_dir / header.name).write_text(text)
+    path = out_dir / f"{lib}.cu"
     path.write_text(src)
     return path
+
+
+def _replace_once(name: str, text: str, replace) -> str:
+    for old, new in replace:
+        if text.count(old) != 1:
+            raise RuntimeError(f"{name}: {old!r} is not in the source once")
+        text = text.replace(old, new)
+    return text
 
 
 def _window_entry(lib, dtype=torch.float32):
@@ -263,15 +295,20 @@ def sass_middle_loop(lib_path: Path, symbol: str = _DECAY_F32) -> dict:
                 opcodes=dict(list(c.items())[:12]))
 
 
+#: the libraries ``--parent`` builds from the other version's sources
+PARENT_LIBS = ("window_stream", "rank_sort", "zscore_group", "rank_ic")
+
+
 def _parent_libs(parent: Path) -> dict:
-    """``window_stream`` and ``rank_sort`` built from the sources in
-    ``parent``."""
+    """:data:`PARENT_LIBS` built from the sources in ``parent``."""
     out_dir = _build.BUILD_DIR / f"other_{parent.resolve().name}"
     out_dir.mkdir(parents=True, exist_ok=True)
-    for name in ("window_stream.cu", "rank_sort.cu", "rank_common.cuh"):
+    for name in [_build.KERNEL_SOURCES[n] for n in PARENT_LIBS]:
         shutil.copy(parent / name, out_dir / name)
-    jobs = {out_dir / "libwindow_stream.so": out_dir / "window_stream.cu",
-            out_dir / "librank_sort.so": out_dir / "rank_sort.cu"}
+    for header in parent.glob("*.cuh"):
+        shutil.copy(header, out_dir / header.name)
+    jobs = {out_dir / f"lib{n}.so": out_dir / _build.KERNEL_SOURCES[n]
+            for n in PARENT_LIBS}
     report = _nvcc_many(jobs)
     return {p.stem[3:]: (ctypes.CDLL(str(p)), report[p], p) for p in jobs}
 
@@ -362,27 +399,122 @@ def against_parent(parent: Path) -> dict:
     res["window"] = dict(forms=forms, edge_bitwise_equal=bool(edge_same))
 
     key, rr = _rank_rows(rng, K3_ROWS, K3_N, edge=False)
-    outs = [(torch.empty(K3_ROWS, device="cuda"),
-             torch.empty(K3_ROWS, device="cuda")) for _ in range(2)]
     libs = {"parent": other["rank_sort"][0], "this": this_r}
-    rank_launch(libs["parent"], key, rr, *outs[0])
-    rank_launch(libs["this"], key, rr, *outs[1])
-    same = _bitwise(outs[0][0], outs[1][0]) and torch.equal(outs[0][1],
-                                                            outs[1][1])
-    t = [device_ms(lambda k=k: rank_launch(libs[k], key, rr, *outs[1]))
+    got = {k: rank_launch(libs[k], key, rr,
+                          torch.empty(K3_ROWS, device="cuda"),
+                          torch.empty(K3_ROWS, device="cuda"))
+           for k in libs}
+    plain = rs.rank_ic_fused_plain(key, rr)
+    t = [device_ms(lambda k=k: rank_launch(libs[k], key, rr, *got[k]))
          for k in ("parent", "this", "this", "parent")]
     edge = {}
     for n in K3_EDGE_WIDTHS:
         ke, re_ = _rank_rows(rng, 600, n, edge=True)
-        got = [rank_launch(libs[k], ke, re_, torch.empty(600, device="cuda"),
-                           torch.empty(600, device="cuda"))
-               for k in ("parent", "this")]
-        edge[n] = bool(_bitwise(got[0][0], got[1][0])
-                       and torch.equal(got[0][1], got[1][1]))
-    res["rank_sort"] = dict(rows=K3_ROWS, n=K3_N, bitwise_equal=bool(same),
+        ge = {k: rank_launch(libs[k], ke, re_,
+                             torch.empty(600, device="cuda"),
+                             torch.empty(600, device="cuda")) for k in libs}
+        edge[n] = _compare(ge, rs.rank_ic_fused_plain(ke, re_))
+    res["rank_sort"] = dict(rows=K3_ROWS, n=K3_N, **_compare(got, plain),
                             parent_ms=(t[0] + t[3]) / 2, ms=(t[1] + t[2]) / 2,
-                            turns=t, edge_bitwise_equal=edge)
+                            turns=t, edge=edge)
+    res["zscore_group"] = zscore_against_parent(other["zscore_group"][0])
+    res["rank_ic"] = rank_ic_against_parent(other["rank_ic"][0])
     res["sass_parent"] = sass_middle_loop(other["window_stream"][2])
+    return res
+
+
+def _maxdiff(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Max |a - b| where both are defined (-1 if the NaN patterns differ)."""
+    if not torch.equal(torch.isnan(a), torch.isnan(b)):
+        return -1.0
+    return float((a - b).abs().nan_to_num().max()) if a.numel() else 0.0
+
+
+def _compare(got: dict, plain) -> dict:
+    """This version's and the parent's outputs (a tensor, or (ic, n_valid))
+    against each other and against the plain version: max |diff| (-1 where
+    the NaN patterns differ), n_valid equal."""
+    if isinstance(plain, torch.Tensor):
+        return dict(diff_parent=_maxdiff(got["this"], got["parent"]),
+                    err_this=_maxdiff(got["this"], plain),
+                    err_parent=_maxdiff(got["parent"], plain),
+                    bitwise_equal=_bitwise(got["this"], got["parent"]))
+    return dict(diff_parent=_maxdiff(got["this"][0], got["parent"][0]),
+                err_this=_maxdiff(got["this"][0], plain[0]),
+                err_parent=_maxdiff(got["parent"][0], plain[0]),
+                n_valid_equal=bool(torch.equal(got["this"][1], plain[1])
+                                   and torch.equal(got["parent"][1],
+                                                   plain[1])),
+                bitwise_equal=_bitwise(got["this"][0], got["parent"][0]))
+
+
+def zscore_against_parent(other) -> dict:
+    """K5 of this checkout and of the parent at both shapes (timed in
+    turns), on an edge panel (N = 200, G = 5: ids -1 and past G, a constant
+    and an all-NaN date, an empty and a one-member group), at the forms'
+    width boundaries and on rows of 20,000 in float32 and float64."""
+    this = _build.load("zscore_group")
+    libs = {"parent": other, "this": this}
+    res = {}
+    for shape in K5_SHAPES:
+        x, gid = group_case(shape)
+        got = {k: zg_launch(h, x, gid, K5_G) for k, h in libs.items()}
+        row = _compare(got, cf.zscore_group_neutralize_plain(x, gid, K5_G))
+        o = torch.empty_like(x)
+        t = [device_ms(lambda k=k: zg_launch(libs[k], x, gid, K5_G, o))
+             for k in ("parent", "this", "this", "parent")]
+        res["x".join(map(str, shape))] = dict(
+            row, parent_ms=(t[0] + t[3]) / 2, ms=(t[1] + t[2]) / 2, turns=t,
+            layout=cf.kernel_layout(shape[-1], K5_G, 4))
+        del x, gid, got, o
+    edge = {}
+    for shape, g, dt in (((2, 600, 200), 5, torch.float32),
+                         ((2, 40, 1024), 5, torch.float32),
+                         ((2, 40, 1025), 5, torch.float32),
+                         ((2, 24, 8192), K5_G, torch.float32),
+                         ((2, 24, 8193), K5_G, torch.float32),
+                         ((2, 24, 16385), K5_G, torch.float32),
+                         ((2, 24, 20000), K5_G, torch.float32),
+                         ((2, 24, 3000), K5_G, torch.float64),
+                         ((2, 24, 20000), K5_G, torch.float64)):
+        x, gid = group_case(shape, g, SEED + 3, dt)
+        x[0, 3] = 7.5
+        x[1, 4] = float("nan")
+        gid[5] = min(4, g - 1)
+        gid[7] = 0
+        gid[7, 9] = 3
+        gid[8, 11] = g + 2
+        got = {k: zg_launch(h, x, gid, g) for k, h in libs.items()}
+        edge["x".join(map(str, shape)) + f" {dt}"] = _compare(
+            got, cf.zscore_group_neutralize_plain(x, gid, g))
+    res["edge"] = edge
+    return res
+
+
+def rank_ic_against_parent(other) -> dict:
+    """K1 of this checkout and of the parent at 66,600 rows of 1000 (timed
+    in turns) and on edge rows of widths 1 to 16384 (ties, an all-NaN row,
+    signed zeros)."""
+    this = _build.load("rank_ic")
+    libs = {"parent": other, "this": this}
+    s_key, r_s = sorted_rows(K1_ROWS, K1_M)
+    got = {k: ric_launch(h, s_key, r_s) for k, h in libs.items()}
+    res = dict(rows=K1_ROWS, m=K1_M,
+               **_compare(got, rk.rank_ic_postsort_plain(s_key, r_s)))
+    t = [device_ms(lambda k=k: ric_launch(libs[k], s_key, r_s, *got[k]))
+         for k in ("parent", "this", "this", "parent")]
+    res.update(parent_ms=(t[0] + t[3]) / 2, ms=(t[1] + t[2]) / 2, turns=t,
+               layout=rk.postsort_layout(K1_M))
+    edge = {}
+    for m in K1_EDGE_WIDTHS:
+        sk, rr = sorted_rows(300, m, SEED + m)
+        sk[1] = float("nan")
+        rr[1] = 0.0
+        sk[2] = 0.0
+        sk[2, ::2] = -0.0
+        ge = {k: ric_launch(h, sk, rr) for k, h in libs.items()}
+        edge[m] = _compare(ge, rk.rank_ic_postsort_plain(sk, rr))
+    res["edge"] = edge
     return res
 
 
@@ -427,34 +559,272 @@ def rank_sort_sweep() -> list:
     return rows
 
 
+#: the fused z-score/group-neutralize kernel's shapes: the kernel phase's
+#: (bench.py's composite_ops) and path 4's own; G groups
+K5_SHAPES = ((50, 1260, 3000), (50, 1332, 1000))
+K5_G, K5_NAN = 11, 0.03
+#: the rank-IC post-sort kernel's rows and the widths of its edge panel
+K1_ROWS, K1_M = 66_600, 1000
+K1_EDGE_WIDTHS = (1, 31, 33, 1000, 4096, 16384)
+#: today's K5 and K1 with a part cut out, to split their time: (library,
+#: tag, source edits, header edits). The edits are those of the sources
+#: before the Hopper redesign (the parent of that change).
+SPLIT_VARIANTS = (
+    ("zscore_group", "full", {}, (), {}),
+    ("zscore_group", "load_store", {},
+     (("  sum = block_sum(sum, s_red);\n",
+       "  __syncthreads();\n"
+       "  for (int i = threadIdx.x; i < N; i += ZG_THREADS)\n"
+       "    orow[i] = z[i] + (T)g[i];\n"
+       "  return;\n"
+       "  sum = block_sum(sum, s_red);\n"),), {}),
+    ("zscore_group", "no_group_passes", {},
+     (("for (int grp = 0; grp < G; ++grp) {",
+       "for (int grp = 0; grp < 0; ++grp) {"),), {}),
+    ("zscore_group", "ids_one_date", {},
+     (("const int* gr = gids + (row % D) * (int64_t)N;",
+       "const int* gr = gids;"),), {}),
+    ("rank_ic", "full", {}, (), {}),
+    ("rank_ic", "load_only", {},
+     (("  rank_ic_sorted_row(FloatRow{k, r}, first, m, sum_r, cnt, "
+       "ic_out + row,\n                     cnt_out + row);",
+       "  if (threadIdx.x == 0) {\n"
+       "    ic_out[row] = sum_r + k[0];\n"
+       "    cnt_out[row] = cnt + r[m - 1];\n"
+       "  }"),), {}),
+    ("rank_ic", "no_block_scans", {}, (),
+     {"rank_common.cuh": ((
+         "  const int fcarry = block_excl_prefix_max(run, s_w0);\n"
+         "  const int lcarry = block_excl_suffix_min(first_end, m, s_w1);",
+         "  const int fcarry = run;\n"
+         "  const int lcarry = first_end;"),)}),
+)
+
+
+#: this checkout's K5, K1 and K3 built whole, with a part cut out, and with
+#: another walk or team (``variants`` part): (library, tag, #defines,
+#: source edits, header edits)
+THIS_VARIANTS = (
+    ("zscore_group", "full", {}, (), {}),
+    ("zscore_group", "row_major", {},
+     (("  const int d = u / F;\n  return (u - d * F) * D + d;",
+       "  return u;"),), {}),
+    ("zscore_group", "ids_from_l2", {},
+     (("  return n * (int)(sizeof(T) + 4);", "  return n * (int)sizeof(T);"),
+      ("        bulk_load(sid, gg, 4u * N, &sh.bar[team]);\n", ""),
+      ("        cp_async<4>(sid + i, gg + i);\n", ""),
+      ("gi[c] = i < N ? sid[i] : -1;",
+       "gi[c] = i < N ? gids[(int64_t)(row % D) * N + i] : -1;")), {}),
+    ("zscore_group", "min_blocks3", {"ZG_MIN_BLOCKS": 3}, (), {}),
+    ("zscore_group", "no_group_table", {},
+     (("      GroupAcc<T>& e = tab[gi[c] * 32 + lane];\n"
+       "      e.s += v[c];\n"
+       "      e.c += T(1);\n", ""),), {}),
+    ("zscore_group", "load_store", {},
+     (("    for (int g = 0; g <= G; ++g) tab[g * 32 + lane] = "
+       "GroupAcc<T>{T(0), T(0)};\n",
+       "#pragma unroll\n"
+       "    for (int c = 0; c < C; ++c)\n"
+       "      if (c * TT + t < N)\n"
+       "        __stcs(out + (int64_t)row * N + c * TT + t, v[c] + (T)gi[c]);"
+       "\n    continue;\n"),), {}),
+    ("rank_ic", "full", {}, (), {}),
+    ("rank_ic", "load_only", {},
+     (("    rank_ic_team_row(FloatRow{buf, buf + mpad}, m, ch, team, tw, w, "
+       "lane, sc,\n                     slot, ic_out + row, cnt_out + row);",
+       "    if (t == 0) {\n"
+       "      ic_out[row] = buf[0] + buf[mpad + m - 1];\n"
+       "      cnt_out[row] = buf[m - 1];\n"
+       "    }"),), {}),
+) + tuple(
+    (lib, f"chunk{ch}", {}, (),
+     {"rank_common.cuh": (("#define RIC_MAX_CHUNK 31",
+                           f"#define RIC_MAX_CHUNK {ch}"),)})
+    for ch in (15,) for lib in ("rank_ic", "rank_sort")) + (
+    ("rank_sort", "full", {}, (), {}),)
+#: the instantiations whose SASS the ``variants`` part counts: (library,
+#: mark of the mangled name)
+SASS_OF = (("zscore_group", "zscore_group_regsIfLi32ELb1E"),
+           ("zscore_group", "zscore_group_regsIfLi24ELb1E"),
+           ("rank_ic", "rank_ic_postsort_kernelILb1E"),
+           ("rank_sort", "rank_sort_kernelILi1024E"))
+
+
+def _zg_entry(lib, dtype=torch.float32):
+    fn = getattr(lib, {torch.float32: "fm_zscore_group_f32",
+                       torch.float64: "fm_zscore_group_f64"}[dtype])
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + \
+        [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def zg_launch(lib, x: torch.Tensor, gid: torch.Tensor, g: int, out=None):
+    """One launch of ``lib``'s z-score/group-neutralize kernel on
+    ``x [..., D, N]`` with int32 ``gid [D, N]``; returns the output."""
+    d, n = x.shape[-2:]
+    out = torch.empty_like(x) if out is None else out
+    rc = _zg_entry(lib, x.dtype)(x.data_ptr(), gid.data_ptr(),
+                                 out.data_ptr(), x.numel() // n, d, n, g,
+                                 torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"zscore_group launch failed: {rc}")
+    return out
+
+
+def _ric_entry(lib):
+    fn = lib.fm_rank_ic_postsort
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def ric_launch(lib, s_key, r_s, ic=None, cnt=None):
+    """One launch of ``lib``'s rank-IC post-sort kernel on sorted
+    ``[R, M]`` rows; returns (ic, n_valid)."""
+    rows = s_key.shape[0]
+    ic = torch.empty(rows, device="cuda") if ic is None else ic
+    cnt = torch.empty(rows, device="cuda") if cnt is None else cnt
+    rc = _ric_entry(lib)(s_key.data_ptr(), r_s.data_ptr(), ic.data_ptr(),
+                         cnt.data_ptr(), rows, s_key.shape[1],
+                         torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"rank_ic_postsort launch failed: {rc}")
+    return ic, cnt
+
+
+def group_case(shape, g: int = K5_G, seed: int = SEED, dtype=torch.float32):
+    """x [F, D, N] (normal, 3% NaN) and int32 ids [D, N] in [0, g) with 1%
+    at -1, drawn on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+    x[torch.rand(shape, generator=gen, device="cuda") < K5_NAN] = float("nan")
+    gid = torch.randint(0, g, shape[-2:], generator=gen, device="cuda",
+                        dtype=torch.int32)
+    gid[torch.rand(shape[-2:], generator=gen, device="cuda") < 0.01] = -1
+    return x, gid
+
+
+def sorted_rows(rows: int, m: int, seed: int = SEED):
+    """Rows sorted by key (3% NaN, sent last; the first 1% of rows with
+    heavy exact ties) and the co-sorted payload, 0 at invalid cells."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    key = torch.randn(rows, m, generator=gen, device="cuda")
+    key[torch.rand(rows, m, generator=gen, device="cuda") < 0.03] = \
+        float("nan")
+    key[: rows // 100] = torch.round(key[: rows // 100] * 2.0)
+    r = 0.02 * torch.randn(rows, m, generator=gen, device="cuda")
+    r = torch.where(torch.isnan(key), 0.0, r)
+    s_key, idx = torch.sort(key, dim=-1)
+    return s_key, torch.gather(r, -1, idx)
+
+
+def _bytes_ms(nbytes: float) -> float:
+    return nbytes / 3.35e12 * 1e3
+
+
+def split_sweep(src_dir: Path | None, variants) -> list:
+    """K5, K1 and K3 of the sources in ``src_dir`` (this checkout's when
+    None) built as each of ``variants`` ((library, tag, #defines, source
+    edits, header edits)): each build's device time at K5's two shapes
+    (G = 11), at K1's and K3's 66,600 rows of 1000, beside the bytes bound
+    (3.35 TB/s), and its ``ptxas`` report."""
+    jobs, cases = {}, []
+    for lib, tag, defines, rep, hdr in variants:
+        name = f"{'this' if src_dir is None else 'other'}_{tag}"
+        out = _SWEEP_DIR / f"lib{lib}_{name}.so"
+        jobs[out] = variant_source(lib, name, defines, rep, src_dir, hdr)
+        cases.append((lib, tag))
+    report = _nvcc_many(jobs)
+    rows = []
+
+    def row(lib, tag, shape, ms, nbytes, out):
+        rows.append(dict(kernel=lib, variant=tag, shape=list(shape), ms=ms,
+                         bound_ms=_bytes_ms(nbytes),
+                         ptxas=list(report[out].values())))
+
+    for shape in K5_SHAPES:
+        x, gid = group_case(shape)
+        o = torch.empty_like(x)
+        for out, (lib, tag) in zip(jobs, cases):
+            if lib == "zscore_group":
+                h = ctypes.CDLL(str(out))
+                row(lib, tag, shape,
+                    device_ms(lambda: zg_launch(h, x, gid, K5_G, o)),
+                    8.0 * x.numel() + 4.0 * gid.numel(), out)
+        del x, gid, o
+    s_key, r_s = sorted_rows(K1_ROWS, K1_M)
+    key, rr = _rank_rows(np.random.default_rng(SEED + 9), K3_ROWS, K3_N,
+                         edge=False)
+    for out, (lib, tag) in zip(jobs, cases):
+        h = ctypes.CDLL(str(out))
+        if lib == "rank_ic":
+            ic, cnt = ric_launch(h, s_key, r_s)
+            row(lib, tag, (K1_ROWS, K1_M),
+                device_ms(lambda: ric_launch(h, s_key, r_s, ic, cnt)),
+                8.0 * K1_ROWS * K1_M + 8.0 * K1_ROWS, out)
+        elif lib == "rank_sort":
+            ic, cnt = (torch.empty(K3_ROWS, device="cuda") for _ in range(2))
+            row(lib, tag, (K3_ROWS, K3_N),
+                device_ms(lambda: rank_launch(h, key, rr, ic, cnt)),
+                8.0 * K3_ROWS * K3_N + 8.0 * K3_ROWS, out)
+    return rows
+
+
+PARTS = ("tile", "layout", "split", "variants", "parent")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", type=Path, default=None,
                     help="directory with another version's window_stream.cu, "
-                         "rank_sort.cu and rank_common.cuh")
+                         "rank_sort.cu, zscore_group.cu, rank_ic.cu and "
+                         "rank_common.cuh")
+    ap.add_argument("--parts", default=",".join(PARTS),
+                    help="comma-separated parts to run, of "
+                         f"{', '.join(PARTS)} (split and parent need "
+                         "--parent)")
     args = ap.parse_args()
+    parts = set(args.parts.split(","))
+    if not parts <= set(PARTS):
+        raise SystemExit(f"unknown parts {sorted(parts - set(PARTS))}")
     if not torch.cuda.is_available():
         raise SystemExit("tile_sweep measures the card: no CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(smi, flush=True)
-    _build.build(("window_stream", "rank_sort"))
+    _build.build(("window_stream", "rank_sort", "zscore_group", "rank_ic"))
     for name, info in _build.BUILD_LOG.items():
         for fn, line in ptxas_by_function(info["ptxas"]).items():
             print(f"ptxas {name} {fn}: {line}", flush=True)
-    sass = sass_middle_loop(_build._lib_path("window_stream"))
-    print("sass decay<float> middle loop: " + json.dumps(sass), flush=True)
-    if args.parent is not None:
+    if "split" in parts and args.parent is not None:
+        for row in split_sweep(args.parent, SPLIT_VARIANTS):
+            print("split " + json.dumps(row), flush=True)
+    if "variants" in parts:
+        for lib, mark in SASS_OF:
+            ops = opcode_counts(sass_function(_build._lib_path(lib), mark))
+            print(f"sass {mark}: " + json.dumps(dict(
+                instructions=sum(ops.values()), opcodes=dict(
+                    list(ops.items())[:16]))), flush=True)
+        for row in split_sweep(None, THIS_VARIANTS):
+            print("variant " + json.dumps(row), flush=True)
+    if "parent" in parts and args.parent is not None:
+        sass = sass_middle_loop(_build._lib_path("window_stream"))
+        print("sass decay<float> middle loop: " + json.dumps(sass),
+              flush=True)
         res = against_parent(args.parent)
         for name, report in res.pop("ptxas_parent").items():
             for fn, line in report.items():
                 print(f"ptxas parent {name} {fn}: {line}", flush=True)
         print("against parent: " + json.dumps(res), flush=True)
-    for row in sweep():
-        print("tile " + json.dumps(row), flush=True)
-    for row in rank_sort_sweep():
-        print("rank_sort layout " + json.dumps(row), flush=True)
+    if "tile" in parts:
+        for row in sweep():
+            print("tile " + json.dumps(row), flush=True)
+    if "layout" in parts:
+        for row in rank_sort_sweep():
+            print("rank_sort layout " + json.dumps(row), flush=True)
 
 
 if __name__ == "__main__":

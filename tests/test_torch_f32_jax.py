@@ -1,0 +1,113 @@
+"""The port in float32 on the CPU against the JAX package in its production
+precision (x64 off), for the two modules whose kernels were redesigned for
+Hopper: the fused normalization chain ``cs_zscore_group_neutralize`` (K5's
+function) and ``daily_factor_stats``'s IC and rank-IC (K1's).
+
+The test suite runs JAX in x64 (conftest), so the JAX side runs in a child
+interpreter with x64 never enabled, the idiom of ``tests/test_compat_f32.py``,
+and hands its outputs back as an ``.npz``. Both sides get the same seeded
+float32 inputs. The outputs are held to the smooth-statistics tier of
+``tools/device_goldens.py::check`` (``TOL_SMOOTH``, 3e-4), with NaN at the
+same cells and the pair counts exact.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from factormodeling_tpu_torch import ops
+from factormodeling_tpu_torch.metrics import daily_factor_stats
+from factormodeling_tpu_torch.ops import _cuda_fused as cf
+
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+from tools.device_goldens import TOL_SMOOTH  # noqa: E402
+
+G = 5
+
+_CHILD = r"""
+import os, sys
+sys.path.insert(0, {repo!r})
+import jax
+
+jax.config.update("jax_platforms", "cpu")
+assert not jax.config.jax_enable_x64, "child must run the production f32 path"
+import jax.numpy as jnp
+import numpy as np
+
+from factormodeling_tpu import ops
+from factormodeling_tpu.metrics import daily_factor_stats
+
+d = np.load({inputs!r})
+z = ops.cs_zscore_group_neutralize(jnp.asarray(d["x"]), jnp.asarray(d["gid"]),
+                                   {g}, universe=jnp.asarray(d["uni"]))
+st = daily_factor_stats(jnp.asarray(d["fac"]), jnp.asarray(d["ret"]),
+                        universe=jnp.asarray(d["uni"]),
+                        stats=("ic", "rank_ic"))
+out = dict(z=np.asarray(z), ic=np.asarray(st["ic"]),
+           rank_ic=np.asarray(st["rank_ic"]), n_pairs=np.asarray(st["n_pairs"]))
+assert all(v.dtype != np.float64 for v in out.values())
+np.savez({outputs!r}, **out)
+"""
+
+
+def _inputs(seed=20261017, f=3, d=40, n=300):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(f, d, n)).astype(np.float32)
+    x[rng.uniform(size=x.shape) < 0.05] = np.nan
+    x[0, 3] = 7.5                     # a constant date: z NaN
+    x[1, 4] = np.nan                  # an all-NaN date
+    gid = rng.integers(-1, G, size=(d, n)).astype(np.int32)
+    gid[5] = 0                        # one group takes a date
+    gid[7, 9] = 3
+    gid[8, 11] = G + 2                # an id past the groups
+    fac = np.round(rng.normal(size=(f, d, n)) * 2.0).astype(np.float32)
+    fac[rng.uniform(size=fac.shape) < 0.05] = np.nan
+    fac[2, :, ::3] = -0.0             # -0.0 beside +0.0 ties
+    ret = rng.normal(scale=0.02, size=(d, n)).astype(np.float32)
+    ret[rng.uniform(size=ret.shape) < 0.03] = np.nan
+    uni = rng.uniform(size=(d, n)) > 0.1
+    return dict(x=x, gid=gid, fac=fac, ret=ret, uni=uni)
+
+
+def _held(got, want, name):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape, name
+    assert np.array_equal(np.isnan(got), np.isnan(want)), name
+    worst = float(np.nanmax(np.abs(got - want), initial=0.0))
+    assert worst <= TOL_SMOOTH, f"{name}: max |d| {worst} > {TOL_SMOOTH}"
+
+
+def test_float32_port_matches_jax_x64_off(tmp_path):
+    data = _inputs()
+    inputs, outputs = tmp_path / "in.npz", tmp_path / "out.npz"
+    np.savez(inputs, **data)
+    env = {k: v for k, v in os.environ.items() if k != "JAX_ENABLE_X64"}
+    env["JAX_PLATFORMS"] = "cpu"
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHILD.format(repo=str(REPO), g=G,
+                                             inputs=str(inputs),
+                                             outputs=str(outputs))],
+        capture_output=True, text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    want = np.load(outputs)
+
+    t = {k: torch.from_numpy(v) for k, v in data.items()}
+    z = ops.cs_zscore_group_neutralize(t["x"], t["gid"], G,
+                                       universe=t["uni"])
+    assert z.dtype == torch.float32
+    _held(z.numpy(), want["z"], "cs_zscore_group_neutralize")
+    masked = torch.where(t["uni"], t["x"], float("nan"))
+    _held(cf.zscore_group_neutralize_plain(masked, t["gid"], G).numpy(),
+          want["z"], "zscore_group_neutralize_plain")
+
+    st = daily_factor_stats(t["fac"], t["ret"], universe=t["uni"],
+                            stats=("ic", "rank_ic"))
+    assert st["rank_ic"].dtype == torch.float32
+    np.testing.assert_array_equal(st["n_pairs"].numpy(), want["n_pairs"])
+    _held(st["ic"].numpy(), want["ic"], "ic")
+    _held(st["rank_ic"].numpy(), want["rank_ic"], "rank_ic")

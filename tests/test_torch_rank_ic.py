@@ -145,11 +145,13 @@ def test_rolling_metrics_match_jax_and_factor_return_group_raises():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [1, 37, 1000, 4096, rk.MAX_SORTED_WIDTH])
+@pytest.mark.parametrize("m", [1, 31, 33, 37, 992, 993, 1000, 1001, 4096,
+                               7936, 7937, 8192, rk.MAX_SORTED_WIDTH])
 def test_rank_ic_kernel_matches_plain_on_card(m):
-    """Ragged widths, one element, m = 4096 (48 KB of dynamic shared
-    memory, past the default once the static shared memory is added) and
-    the widest row (196 KB)."""
+    """Ragged widths and one element (4-byte copies), each side of one warp
+    -> two (992, 993) and of 31 -> 63 positions a lane (7936, 7937), m =
+    4096 and 8192 (teams of 5 warps; one buffer a team at 8192) and the
+    widest row (a team of 9 warps, one 128 KB buffer)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
     f, r = _rows(4, rows=300, m=m)
@@ -179,3 +181,172 @@ def test_rank_ic_kernel_refuses_what_it_cannot_take():
         rk.rank_ic_postsort(wide, wide)
     with pytest.raises(ValueError, match="contiguous"):
         rk.rank_ic_postsort(x.T, x.T)
+
+
+def _header_define(name):
+    import re
+    from factormodeling_tpu_torch import _build
+
+    src = (_build.CSRC / "rank_common.cuh").read_text()
+    return int(re.search(rf"^#define {name} (\d+)", src, re.M).group(1))
+
+
+def test_postsort_layout_covers_every_width():
+    """The wrapper's mirror of the kernel's block (``row_layout`` and
+    ``fm_rank_ic_layout``) at every width the kernel takes: the fewest
+    warps whose lanes hold at most ``RIC_MAX_CHUNK`` positions, an odd
+    chunk (so the lanes' reads at an odd stride hit 32 distinct banks) that
+    covers the row, whole teams within 1024 threads, and row buffers within
+    the block's shared memory. The constants are the source's."""
+    assert _header_define("RIC_MAX_CHUNK") == rk.MAX_CHUNK
+    assert _header_define("RIC_WIDE_CHUNK") == rk.WIDE_CHUNK
+    assert _header_define("RIC_THREADS") == rk.NARROW_LANES
+    assert _header_define("RIC_MAX_TEAMS") == rk.MAX_TEAMS
+    banks = np.arange(32)
+    for m in range(1, rk.MAX_SORTED_WIDTH + 1):
+        lay = rk.postsort_layout(m)
+        tw, ch = lay["team_warps"], lay["chunk"]
+        cap = rk.MAX_CHUNK if m <= rk.NARROW_LANES * rk.MAX_CHUNK \
+            else rk.WIDE_CHUNK
+        assert ch % 2 == 1 and ch <= cap
+        assert 32 * tw * ch >= m
+        assert tw == 1 or 32 * (tw - 1) * cap < m
+        if m <= 8192:   # the fused sort's widths: a team fits its block
+            assert 32 * tw <= rk.NARROW_LANES
+        assert lay["teams"] * 32 * tw <= 1024
+        assert 1 <= lay["teams"] <= rk.MAX_TEAMS
+        assert lay["smem_bytes"] <= rk.SMEM_BUDGET
+        assert lay["buffers"] in (1, 2)
+        assert len(set((banks * ch) % 32)) == 32
+    assert rk.postsort_layout(992)["team_warps"] == 1
+    assert rk.postsort_layout(993)["team_warps"] == 2
+    assert rk.postsort_layout(1000)["buffers"] == 2
+
+
+@pytest.mark.cuda
+def test_postsort_layout_mirror_equals_the_source_on_card():
+    """The built library's own block (``fm_rank_ic_layout``) equals the
+    wrapper's mirror at every width the kernel takes."""
+    import ctypes
+
+    from factormodeling_tpu_torch import _build
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    fn = _build.load("rank_ic").fm_rank_ic_layout
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = None
+    out = (ctypes.c_int * 6)()
+    for m in range(1, rk.MAX_SORTED_WIDTH + 1):
+        fn(m, out)
+        lay = rk.postsort_layout(m)
+        assert (out[0], out[1], out[2], out[3], out[5]) == (
+            lay["team_warps"], lay["chunk"], lay["buffers"], lay["teams"],
+            lay["smem_bytes"]), m
+
+
+def _team_sum(p):
+    """A team's total of per-lane partials ``p [..., TW, 32]`` as the
+    kernel adds them: each warp by an xor butterfly (lane l adds lane
+    l ^ o's value to its own, o = 16 .. 1), then the warps in order."""
+    for o in (16, 8, 4, 2, 1):
+        p = p + p[..., np.arange(32) ^ o]
+    tot = p[..., 0, 0]
+    for q in range(1, p.shape[-2]):
+        tot = tot + p[..., q, 0]
+    return tot
+
+
+def _team_body_emulated(s_key, r_s):
+    """The post-sort body (``rank_ic_team_row`` in ``csrc/rank_common.cuh``)
+    over sorted rows ``[R, M]``, emulated in float32 in its order: lane t of
+    the team holds positions t * ch .. t * ch + ch - 1; the payload sum and
+    the three moments run over a lane's positions in order, then the warp's
+    xor butterfly and the team's warps in order (``_team_sum``); multiply
+    and add round apart. Returns (ic, n_valid)."""
+    s_key = np.asarray(s_key, np.float32)
+    r_s = np.asarray(r_s, np.float32)
+    r, m = s_key.shape
+    lay = rk.postsort_layout(m)
+    tw, ch = lay["team_warps"], lay["chunk"]
+    pos = np.arange(32 * tw)[:, None] * ch + np.arange(ch)[None, :]
+    live = pos < m
+    at = np.minimum(pos, m - 1)
+    idx = np.arange(m)
+    start = np.ones((r, m), bool)
+    start[:, 1:] = ~(s_key[:, 1:] == s_key[:, :-1])
+    f = np.maximum.accumulate(np.where(start, idx, -1), axis=1)
+    nxt = np.minimum.accumulate(np.where(start, idx, m)[:, ::-1],
+                                axis=1)[:, ::-1]
+    last = np.concatenate([nxt[:, 1:], np.full((r, 1), m)], 1) - 1
+    rank = (np.float32(0.5) * (f + last).astype(np.float32)
+            + np.float32(1.0))
+    valid = ~np.isnan(s_key)
+
+    def team(p):
+        return _team_sum(p.reshape(r, tw, 32))
+
+    with np.errstate(invalid="ignore", divide="ignore"):
+        sum_r = np.zeros((r, 32 * tw), np.float32)
+        for j in range(ch):
+            sum_r = np.where(live[:, j], sum_r + r_s[:, at[:, j]], sum_r)
+        cnt = valid.sum(1)
+        cs = np.where(cnt > 0, cnt, np.nan).astype(np.float32)
+        mr = team(sum_r) / cs
+        mrank = (cs + np.float32(1.0)) * np.float32(0.5)
+        acc = [np.zeros((r, 32 * tw), np.float32) for _ in range(3)]
+        for j in range(ch):
+            p = at[:, j]
+            ok = live[:, j] & valid[:, p]
+            drk = rank[:, p] - mrank[:, None]
+            dr = r_s[:, p] - mr[:, None]
+            for k, term in enumerate((drk * dr, drk * drk, dr * dr)):
+                acc[k] = np.where(ok, acc[k] + term, acc[k])
+        cov, var_rank, var_r = (team(a) for a in acc)
+        ic = cov / np.sqrt(var_rank * var_r)
+    return ic, cnt.astype(np.float32)
+
+
+@pytest.mark.parametrize("m", [1, 2, 31, 33, 48, 992, 1000, 4096, 7937])
+def test_team_body_summation_order_matches_plain(m):
+    """The post-sort body's order (a lane's odd chunk of positions, the
+    warp's xor butterfly, the team's warps in order), emulated in float32
+    for one warp and teams of 2 and 5 warps, agrees with the plain version
+    within the chip gate's ``RANK_IC_TOL`` (1e-5), with ``n_valid`` exact
+    and NaN at the same rows: exact ties, a giant tie run, an all-invalid
+    row, fewer than 3 valid cells, -0.0 beside +0.0."""
+    f, r = _rows(40 + m, rows=24, m=m)
+    s_key, r_s = (a.astype(np.float32) for a in _sorted(f, r))
+    ic, cnt = _team_body_emulated(s_key, r_s)
+    ic0, cnt0 = rk.rank_ic_postsort_plain(torch.from_numpy(s_key),
+                                          torch.from_numpy(r_s))
+    np.testing.assert_array_equal(cnt, cnt0.numpy())
+    assert np.array_equal(np.isnan(ic), np.isnan(ic0.numpy()))
+    np.testing.assert_allclose(ic, ic0.numpy(), atol=1e-5, rtol=0,
+                               equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 31, 33, 992, 993, 999, 1000, 4096, 7936,
+                               7937, rk.MAX_SORTED_WIDTH])
+def test_rank_ic_kernel_bitwise_equals_emulation_on_card(m):
+    """On the card the kernel gives the emulated order's bits at the
+    boundaries of its layouts (one position a lane, one warp -> two, 31
+    positions a lane -> 63 past 7936, a team of 9 warps with one buffer)
+    and in both load forms (M = 999: 4-byte copies; M = 1000: bulk
+    copies)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    f, r = _rows(50, rows=64, m=m)
+    key = torch.from_numpy(f.astype(np.float32)).cuda()
+    payload = torch.where(torch.isnan(key), 0.0,
+                          torch.from_numpy(r.astype(np.float32)).cuda())
+    s_key, idx = torch.sort(key, dim=-1)
+    r_s = torch.gather(payload, -1, idx)
+    ic, cnt = rk.rank_ic_postsort(s_key, r_s)
+    want_ic, want_cnt = _team_body_emulated(s_key.cpu().numpy(),
+                                            r_s.cpu().numpy())
+    assert np.array_equal(cnt.cpu().numpy(), want_cnt)
+    got = ic.cpu().numpy()
+    assert np.array_equal(np.isnan(got), np.isnan(want_ic))
+    assert np.array_equal(np.nan_to_num(got), np.nan_to_num(want_ic))

@@ -142,7 +142,9 @@ def test_fused_route_keeps_other_types_and_widths_on_the_sort(monkeypatch):
 def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
     """An edited shared header names a new library, so a stale one is
     never loaded."""
-    for name in ("rank_sort.cu", "rank_ic.cu", "rank_common.cuh"):
+    headers = [h.name for h in _build.CSRC.glob("*.cuh")]
+    assert "rank_common.cuh" in headers
+    for name in ["rank_sort.cu", "rank_ic.cu"] + headers:
         (tmp_path / name).write_bytes((_build.CSRC / name).read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     before = {n: _build._lib_path(n) for n in ("rank_sort", "rank_ic")}
@@ -262,13 +264,14 @@ def _card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [128, 129, 300, 1000, 1024, 1025, 2048,
-                               4096, 8191, rs.MAX_WIDTH])
+@pytest.mark.parametrize("n", [128, 129, 300, 992, 993, 1000, 1024, 1025,
+                               2048, 4096, 8191, rs.MAX_WIDTH])
 def test_kernel_matches_plain_and_post_sort_route_on_card(n):
     """Every layout of the network: one warp a row (n <= 256), teams of 2,
     4 and 8 warps with 1, 3 and 6 stages through shared memory, 8 to 32
     words a thread (n = 300 .. 8192); n = 8192: 96 KB of dynamic shared
-    memory."""
+    memory; each side of the post-sort body's one warp -> two (992,
+    993)."""
     _card()
     f, r = _panel(n, 300, n)
     key, rr = torch.from_numpy(f).cuda(), torch.from_numpy(r).cuda()
@@ -294,6 +297,29 @@ def test_kernel_matches_plain_and_post_sort_route_on_card(n):
                                  rr[:299].contiguous())
     assert torch.equal(cnt2, cnt[:299])
     assert torch.equal(ic2.nan_to_num(-9.0), ic[:299].nan_to_num(-9.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [128, 992, 993, 1000, 4096, 7936, 7937,
+                               rs.MAX_WIDTH])
+def test_tie_free_rows_bitwise_equal_post_sort_route_on_card(n):
+    """The fused kernel and the post-sort kernel run one post-sort body with
+    the same team for a row's width, so on rows without ties (NaN cells
+    sorted last) ``torch.sort`` + K1 gives the fused kernel's bits."""
+    _card()
+    rng = np.random.default_rng(n)
+    f = rng.normal(size=(200, n)).astype(np.float32)
+    f[rng.uniform(size=f.shape) < 0.03] = np.nan
+    key = torch.from_numpy(f).cuda()
+    rr = torch.where(torch.isnan(key), 0.0, torch.from_numpy(
+        rng.normal(scale=0.02, size=f.shape).astype(np.float32)).cuda())
+    ic, cnt = rs.rank_ic_fused(key, rr)
+    s_key, idx = torch.sort(key, dim=-1)
+    ic1, cnt1 = rk.rank_ic_postsort(s_key, torch.gather(rr, -1, idx))
+    tie_free = ~(s_key[:, 1:] == s_key[:, :-1]).any(-1)
+    assert int(tie_free.sum()) >= 20   # ~55 of 200 rows at n = 8192
+    assert torch.equal(cnt, cnt1)
+    assert torch.equal(ic[tie_free], ic1[tie_free])
 
 
 @pytest.mark.cuda

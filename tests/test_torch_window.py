@@ -341,10 +341,13 @@ def test_window_kernel_on_ragged_universe_matches_cpu_op():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n", [200, 3000, 16384, 16385, 40000])
+@pytest.mark.parametrize("n", [1, 200, 256, 257, 1024, 1025, 3000, 8192,
+                               8193, 16384, 16385, 40000])
 def test_fused_kernel_matches_plain_on_card(n, dtype):
-    """Rows in shared memory (N <= 16384) and rows kept in the output row
-    (wider): the public op launches the kernel once at every width."""
+    """Rows in registers (N <= 8192; each side of 8 -> 16 cells and of one
+    warp -> two), rows in shared memory (N <= 16384) and rows kept in the
+    output row (wider): the public op launches the kernel once at every
+    width."""
     _card()
     x, gid, g = _group_case(12, f=2, d=16 if n > 3000 else 64, n=max(n, 256))
     xt = torch.from_numpy(np.ascontiguousarray(x[..., :n])).to("cuda", dtype)
@@ -357,3 +360,243 @@ def test_fused_kernel_matches_plain_on_card(n, dtype):
                                atol=tol, rtol=0, equal_nan=True)
     again = cf.zscore_group_neutralize_fused(xt, gt, g)
     assert torch.equal(got.nan_to_num(), again.nan_to_num())  # deterministic
+
+
+def _kernel_defines(name, *keys):
+    """The ``#define``s ``keys`` of the kernel source ``name``, as text."""
+    import re
+    from factormodeling_tpu_torch import _build
+
+    src = _build.source_path(name).read_text()
+    return [re.search(rf"^#define {k} (.+?)(\s*//.*)?$", src, re.M).group(1)
+            for k in keys]
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("g", [1, 11, 29, 30, 31, 32])
+def test_fused_layout_covers_every_width(g, itemsize):
+    """The wrapper's mirror of the source's layout (``reg_layout`` and the
+    launcher's form by N, G and the type) at every width from 1 to 20,000:
+    the register form up to ``REG_WIDTH`` with the smallest team, then the
+    fewest cells, that cover the row and a block of whole teams, wherever
+    its shared memory fits a block's opt-in; else the shared-memory form up
+    to ``SMEM_WIDTH``; the wide form past it. In float32, and in float64 up
+    to 29 groups, every row up to ``REG_WIDTH`` takes the register form; in
+    float64 at 31 or more groups, the rows at the top of each team's range
+    do not. The constants are the source's."""
+    reg, smem, cells, threads, optin = _kernel_defines(
+        "zscore_group", "REG_WIDTH", "SMEM_WIDTH", "ZG_CELLS", "ZG_THREADS",
+        "ZG_SMEM_OPTIN")
+    assert (int(reg), int(smem)) == (cf.REG_WIDTH, cf.SMEM_WIDTH)
+    assert tuple(int(c) for c in cells.strip("{}").split(",")) == cf.CELLS
+    assert int(threads) == 32 * cf.TEAM_MAX_WARPS
+    assert int(optin) == cf.SMEM_OPTIN
+    order = [(w, c) for w in (1, 2, 4, 8) for c in cf.CELLS]
+    shared = []
+    for n in range(1, 20001):
+        lay = cf.kernel_layout(n, g, itemsize)
+        if lay["form"] == "registers":
+            assert n <= cf.REG_WIDTH
+            k = order.index((lay["team_warps"], lay["cells"]))
+            assert 32 * lay["team_warps"] * lay["cells"] >= n
+            assert all(32 * w * c < n for w, c in order[:k])
+            assert lay["teams"] * lay["team_warps"] == cf.TEAM_MAX_WARPS
+            stage = -(-n // 4) * 4 * (itemsize + 4)
+            assert lay["smem_bytes"] == (lay["teams"] * stage
+                                         + 8 * (g + 1) * 64 * itemsize)
+            assert lay["smem_bytes"] + 128 + 1056 * itemsize <= cf.SMEM_OPTIN
+        elif n <= cf.REG_WIDTH:
+            shared.append(n)
+            assert lay["form"] == "shared"
+        else:
+            assert lay["form"] == ("shared" if n <= cf.SMEM_WIDTH else "wide")
+    if itemsize == 4 or g <= 29:
+        assert shared == []
+    if itemsize == 8 and g >= 31:
+        assert {1000, 1024, 2048, 4096, 8192} <= set(shared)
+        assert 800 not in shared
+    assert cf.kernel_layout(1000, 11, 4)["team_warps"] == 1
+    assert (cf.kernel_layout(3000, 11, 4)["team_warps"],
+            cf.kernel_layout(3000, 11, 4)["cells"]) == (4, 24)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1000, 1024, 2048, 4096, 8192])
+def test_fused_kernel_takes_the_most_groups_on_card(n, dtype):
+    """At 32 groups, at the top of each team's range, the kernel launches
+    and agrees with the plain version: in float64 these rows' register-form
+    tables would pass a block's shared memory, so they take the
+    shared-memory form."""
+    _card()
+    g = cf.MAX_FUSED_GROUPS
+    rng = np.random.default_rng(40 + n)
+    x = rng.normal(size=(2, 8, n))
+    x[rng.uniform(size=x.shape) < 0.03] = np.nan
+    gid = rng.integers(-1, g, size=(8, n)).astype(np.int32)
+    gid[0, :3] = g          # an id past the groups
+    x[1, 2] = 4.0           # a constant date
+    xt = torch.from_numpy(x).to("cuda", dtype)
+    gt = torch.from_numpy(gid).cuda()
+    lay = cf.kernel_layout(n, g, xt.element_size())
+    assert lay["form"] == ("shared" if dtype == torch.float64 else
+                           "registers")
+    before = cf.launches
+    got = cf.zscore_group_neutralize_fused(xt, gt, g)
+    assert cf.launches == before + 1
+    tol = 2e-5 if dtype == torch.float32 else 1e-12
+    torch.testing.assert_close(got, cf.zscore_group_neutralize_plain(xt, gt, g),
+                               atol=tol, rtol=0, equal_nan=True)
+    again = cf.zscore_group_neutralize_fused(xt, gt, g)
+    assert torch.equal(got.nan_to_num(), again.nan_to_num())
+
+
+@pytest.mark.cuda
+def test_fused_layout_mirror_equals_the_source_on_card():
+    """The built library's own layout (``fm_zscore_group_layout``) equals
+    the wrapper's mirror at every width from 1 to 20,000."""
+    import ctypes
+
+    from factormodeling_tpu_torch import _build
+
+    _card()
+    fn = _build.load("zscore_group").fm_zscore_group_layout
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = None
+    out = (ctypes.c_int * 4)()
+    forms = ("registers", "shared", "wide")
+    for g in (1, 11, 30, 31, 32):
+        for itemsize in (4, 8):
+            for n in range(1, 20001):
+                fn(n, g, itemsize, out)
+                lay = cf.kernel_layout(n, g, itemsize)
+                assert forms[out[0]] == lay["form"], (n, g, itemsize)
+                if lay["form"] == "registers":
+                    assert (out[1], out[2], out[3]) == (
+                        lay["team_warps"], lay["cells"], lay["smem_bytes"]), n
+
+
+def _team_sum(p):
+    """A team's total of per-thread partials ``p [..., TW, 32]`` as the
+    kernels add them: each warp by an xor butterfly (lane l adds lane
+    l ^ o's value to its own, o = 16 .. 1), then the warps in order."""
+    for o in (16, 8, 4, 2, 1):
+        p = p + p[..., np.arange(32) ^ o]
+    tot = p[..., 0, 0]
+    for q in range(1, p.shape[-2]):
+        tot = tot + p[..., q, 0]
+    return tot
+
+
+def _table_sum(p, grp):
+    """Group ``grp``'s total of per-lane table entries ``p [..., TW, 32]``
+    as K5 adds them: lane ``grp`` of each warp adds the warp's 32 entries
+    from lane ``grp`` on (grp, grp + 1, .., 31, 0, .., grp - 1), then the
+    team adds its warps in order."""
+    part = np.zeros(p.shape[:-1], p.dtype)
+    for q in range(32):
+        part = part + p[..., (q + grp) & 31]
+    tot = part[..., 0]
+    for w in range(1, part.shape[-1]):
+        tot = tot + part[..., w]
+    return tot
+
+
+def _register_form_emulated(x, gid, g):
+    """K5's register form (``zscore_group_regs`` in ``csrc/zscore_group.cu``)
+    on rows ``x [R, N]`` with their ids ``gid [R, N]``, emulated step for
+    step in ``x``'s type: thread t of a team of TW warps holds cells
+    c * 32 TW + t; the moments run over a thread's cells in order, then
+    :func:`_team_sum`; z multiplies by the reciprocal of sigma; each group's
+    sum and count run over a lane's cells in order into its table column,
+    then :func:`_table_sum`; counts are exact; multiply and add round
+    apart."""
+    r, n = x.shape
+    lay = cf.kernel_layout(n, g, x.itemsize)
+    assert lay["form"] == "registers"
+    tw, c = lay["team_warps"], lay["cells"]
+    tt = 32 * tw
+    idx = np.arange(c)[:, None] * tt + np.arange(tt)[None, :]   # [C, TT]
+    live = idx < n
+    dt = x.dtype.type
+    v = np.where(live, x[:, np.minimum(idx, n - 1)], dt(np.nan))  # [R, C, TT]
+    gi = np.where(live, gid[:, np.minimum(idx, n - 1)], -1)
+
+    def team(p):
+        return _team_sum(p.reshape(r, tw, 32))
+
+    with np.errstate(invalid="ignore", divide="ignore"):
+        s = np.zeros((r, tt), dt)
+        cnt = np.zeros(r, np.int64)
+        for k in range(c):
+            ok = ~np.isnan(v[:, k])
+            s = np.where(ok, s + v[:, k], s)
+            cnt += ok.sum(-1)
+        mean = (team(s) / cnt.astype(dt))[:, None]
+        ss = np.zeros((r, tt), dt)
+        for k in range(c):
+            dv = v[:, k] - mean
+            ss = np.where(np.isnan(v[:, k]), ss, ss + dv * dv)
+        rsig = dt(1) / np.sqrt(team(ss) / cnt.astype(dt))
+        z = (v - mean[:, :, None]) * rsig[:, None, None]
+        gi = np.where(np.isnan(z), -1, gi)
+        gmean = np.full((r, 32), np.nan, dt)
+        for grp in range(g):
+            # each lane's column of the warp's table, its cells in order
+            sg = np.zeros((r, tt), dt)
+            cg = np.zeros((r, tt), dt)
+            for k in range(c):
+                hit = gi[:, k] == grp
+                sg = np.where(hit, sg + z[:, k], sg)
+                cg = np.where(hit, cg + dt(1), cg)
+            gmean[:, grp] = (_table_sum(sg.reshape(r, tw, 32), grp)
+                             / _table_sum(cg.reshape(r, tw, 32), grp))
+        gm = np.take_along_axis(gmean, (gi & 31).reshape(r, -1), 1)
+        res = np.where((gi >= 0) & (gi < g), z - gm.reshape(gi.shape),
+                       dt(np.nan))
+    out = np.empty_like(x)
+    out[:, idx[live]] = res[:, live]
+    return out
+
+
+@pytest.mark.parametrize("n", [1, 37, 200, 1000, 1025, 3000, 5000])
+def test_register_form_summation_order_matches_plain(n):
+    """The register form's summation order (a thread's cells, the warp's
+    xor butterfly or its table read from the group's lane on, the team's
+    warps in order), emulated in float32 on one
+    warp of 8 or 32 cells and teams of 2 and 4 warps of 24, agrees with the
+    plain version within the chip gate's ``K5_TOL`` (2e-5) and leaves NaN
+    at the same cells: a constant and an all-NaN date, ids -1 and past G,
+    an empty and a one-member group."""
+    x, gid, g = _group_case(20 + n, f=2, d=10, n=max(n, 256))
+    x, gid = np.ascontiguousarray(x[..., :n]), np.ascontiguousarray(
+        gid[:, :n])
+    rows = x.reshape(-1, n)
+    want = cf.zscore_group_neutralize_plain(torch.from_numpy(x),
+                                            torch.from_numpy(gid), g).numpy()
+    got = _register_form_emulated(rows, np.tile(gid, (2, 1)), g)
+    got = got.reshape(x.shape)
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=0, equal_nan=True)
+    if n >= 10:
+        assert np.isnan(got[0, 3]).all() and np.isnan(got[1, 4]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [256, 257, 1000, 1024, 1025, 3000, 8192])
+def test_register_form_bitwise_equals_emulation_on_card(n, dtype):
+    """On the card the register form gives the emulated order's bits, at
+    the boundaries of its layouts (8 -> 16 cells, one warp -> two, the
+    widest register row)."""
+    _card()
+    x, gid, g = _group_case(30, f=2, d=12, n=max(n, 256))
+    x = np.ascontiguousarray(x[..., :n]).astype(dtype == torch.float64
+                                                and np.float64 or np.float32)
+    gid = np.ascontiguousarray(gid[:, :n])
+    got = cf.zscore_group_neutralize_fused(
+        torch.from_numpy(x).cuda(), torch.from_numpy(gid).cuda(), g).cpu()
+    want = _register_form_emulated(x.reshape(-1, n), np.tile(gid, (2, 1)),
+                                   g).reshape(x.shape)
+    assert np.array_equal(np.isnan(got.numpy()), np.isnan(want))
+    assert np.array_equal(np.nan_to_num(got.numpy()), np.nan_to_num(want))
