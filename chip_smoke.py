@@ -45,7 +45,15 @@ Phases, in order (any failure exits non-zero before the last line):
    days) and the Anderson accelerator. Each: the kernels' launch counts
    against the path's schedule, leg-sum and weight-cap invariants, a finite
    summary; then the same step with ``solver_kernel="reference"``, held
-   against the fused run;
+   against the fused run. Then path 1 with ``turnover_mode="parallel"``:
+   (6) at its penalty 0.1, held against path 1's own fused output (suffix
+   days within ``DW_TOL`` on all but ``DW_SHARE``, certified days both
+   polished or neither attempted within ``CERT_TOL``), and (7) at penalty
+   0, fused and reference, every day certified, held against the scan of
+   its first ``P7_SCAN_DATES`` dates; each with ``sweep_stats``' coverage
+   and QP count, and the segment kernel's single-lane and lane-batch
+   launches, as its wrapper counts them, each against its term of the
+   scheme's schedule;
 5. path 4, the notebook's decay-window sensitivity sweep at F=50, D=1332,
    N=1000: ``fmt.ops.cs_zscore_group_neutralize(..., use_kernel=True)`` on
    the factor stack with an 11-industry map, the equal-weight static zscore
@@ -424,6 +432,22 @@ def admm_phase(torch, seed: int) -> tuple:
         f"launches; device {ms:.4f} ms/launch, wrapper {wrap_ms:.4f} ms/call, "
         f"plain (one {LANES}-lane call) {plain_ms:.4f} ms, bound "
         f"{lanes['bound_ms']:.6f} ms ({lanes['bound_by']})")
+
+    # path 6's sweep chunks: 32 turnover lanes, the L1 term on
+    ops = sample_day_operands(torch.float64, seed + 4, LANES, 0.1)
+    err = lanes_vs_single(torch, ak, ops, kw, ADMM_TOL["float64"],
+                          "turnover lanes")
+    ms, _ = segment_device_ms(torch, ak, ops, 100, **kw)
+    plain_ms = cuda_ms(torch, lambda: ak.admm_segment_plain(*ops, **kw), 3)
+    b_ms, b_by = segment_bound(ops, SEG_LEN, 0, "float64")
+    lanes.update(path_max_abs_err=err, path_ms=ms, path_plain_ms=plain_ms,
+                 path_bound_ms=b_ms, path_library_ms=None)
+    log(f"kernel admm_segment lanes B={LANES} turnover (L1 on) float64, path "
+        f"6's sweep chunks: max_abs_err {err:.3e} vs {LANES} single-lane "
+        f"plain calls (tol {ADMM_TOL['float64']}), bitwise equal to the "
+        f"kernel's single-lane launches; device {ms:.4f} ms/launch, plain "
+        f"(one {LANES}-lane call) {plain_ms:.4f} ms, bound {b_ms:.6f} ms "
+        f"({b_by})")
     return entry, lanes
 
 
@@ -1420,7 +1444,7 @@ def scoring_path(torch, fmt, seed: int) -> dict:
     return launches
 
 
-#: the three paths' backtest settings (beside max_weight and the kernel)
+#: the paths' backtest settings (beside max_weight and the kernel)
 PATHS = {
     "turnover": dict(method="mvo_turnover", lookback_period=T_LOOKBACK,
                      turnover_penalty=0.1),
@@ -1432,10 +1456,23 @@ PATHS = {
                                    risk_lookback=252, risk_refit_every=21,
                                    qp_anderson=AA_DEPTH),
 }
+#: paths 6-7: path 1 in the fixed-point scheme, at the reference's penalty
+#: and at penalty 0 (the contractive limit)
+PARALLEL_PATHS = {
+    "turnover_parallel": dict(PATHS["turnover"], turnover_mode="parallel"),
+    "turnover_parallel_decoupled": dict(PATHS["turnover"],
+                                        turnover_mode="parallel",
+                                        turnover_penalty=0.0),
+}
+# certified days against the scan: the QP is float64 (the JAX package's
+# bench.py holds 1e-4 at float32)
+CERT_TOL = 1e-5
+# path 7 against the scan on every day, and the scan's cut
+P7_ALL_TOL, P7_SCAN_DATES = 1e-4, 333
 
 
-def run_step(torch, fmt, arrays, path: str, kernel: str):
-    sim_kwargs = dict(PATHS[path], max_weight=MAX_WEIGHT, solver_kernel=kernel)
+def run_step(torch, fmt, arrays, sim: dict, kernel: str):
+    sim_kwargs = dict(sim, max_weight=MAX_WEIGHT, solver_kernel=kernel)
     inputs, cfg = fmt.convert(*arrays, names=factor_names(arrays[0].shape[0]),
                               window=WINDOW, select_method="icir_top",
                               blend_method="zscore", sim_kwargs=sim_kwargs,
@@ -1445,46 +1482,42 @@ def run_step(torch, fmt, arrays, path: str, kernel: str):
     t0 = time.perf_counter()
     out = step(*inputs)
     torch.cuda.synchronize()
-    return out, time.perf_counter() - t0
+    return out, time.perf_counter() - t0, inputs
 
 
-def segment_launches(fmt, path: str) -> int:
-    """The segment kernel's launches the path's schedule implies: one per
-    segment of every solve, a solve being one date (turnover) or one chunk
-    of ``mvo_batch`` dates (plain mvo)."""
+def segment_launches(fmt, sim: dict, stats: dict | None = None):
+    """The segment kernel's launches the path's schedule implies, one per
+    segment of every solve: ``(single-lane, lane-batch)`` launches, as the
+    wrapper counts them (``launches - lane_launches``, ``lane_launches``).
+    A solve is one date (the turnover scan, the parallel scheme's
+    sequential suffix) or one chunk of ``mvo_batch`` dates, the ragged tail
+    a chunk too (plain mvo; the parallel scheme's seed and each executed
+    sweep, by its ``stats``); a chunk of one date is a single-lane
+    launch."""
     from factormodeling_tpu_torch.solvers.admm_qp import _ADAPT_EVERY
 
     s = fmt.SimulationSettings(returns=None, cap_flag=None,
-                               investability_flag=None, **PATHS[path])
-    turnover = s.method == "mvo_turnover"
-    solves = D if turnover else -(-D // s.mvo_batch)
-    return solves * -(-s.resolved_qp_iters(turnover) // _ADAPT_EVERY)
+                               investability_flag=None, **sim)
+
+    def segs(iters):
+        return -(-iters // _ADAPT_EVERY)
+
+    lone = int(D % s.mvo_batch == 1)           # a tail chunk of one date
+    chunks = D // s.mvo_batch + int(D % s.mvo_batch > 1)
+    if s.method == "mvo":
+        per = segs(s.resolved_qp_iters(False))
+        return lone * per, chunks * per
+    qp = segs(s.resolved_qp_iters(True))
+    if s.turnover_mode == "scan":
+        return D * qp, 0
+    per = (segs(s.resolved_seed_iters())
+           + stats["sweeps"] * segs(s.resolved_sweep_iters()))
+    return stats["suffix_len"] * qp + lone * per, chunks * per
 
 
-def path_phase(torch, seed: int, path: str, kernels: dict,
-               warm_up: bool) -> dict:
-    """One path at full size with the fused kernel, its checks, and the
-    same step with the reference kernel held against it. Returns the
-    kernels' launches in the fused run."""
-    import factormodeling_tpu_torch as fmt
-    from factormodeling_tpu_torch.metrics import _cuda_rank_ic as rk
-    from factormodeling_tpu_torch.ops import _cuda_admm as ak
-
-    arrays = make_inputs(F, D, N, seed)
-    if warm_up:   # library handles, allocator, kernel loads: a cut date range
-        run_step(torch, fmt, tuple(a[:, :130] if a.ndim == 3 else a[:130]
-                                   for a in arrays), path, "fused")
-
-    rk.launches = ak.launches = 0
-    out, secs = run_step(torch, fmt, arrays, path, "fused")
-    launches = {"rank_ic_postsort": rk.launches, "admm_segment": ak.launches}
-    log(f"path {path} fused: F={F} D={D} N={N} step {secs:.3f} s wall; "
-        f"launches {json.dumps(launches)}")
-
-    summ = {k: float(v) for k, v in out.summary._asdict().items()}
-    log(f"path {path} fused summary " + json.dumps(summ))
-    if not all(np.isfinite(v) for v in summ.values()):
-        raise AssertionError(f"{path}: non-finite summary {summ}")
+def check_invariants(torch, path: str, out) -> None:
+    """Leg sums and the weight cap on the traded days; prints them with the
+    polish and Anderson tallies."""
     diag = out.sim.diagnostics
     traded = (diag.active & diag.solver_ok).cpu().numpy()
     leg_dev = float(torch.maximum((diag.long_sum - 1.0).abs(),
@@ -1505,20 +1538,29 @@ def path_phase(torch, seed: int, path: str, kernels: dict,
         raise AssertionError(f"{path}: leg sums off by {leg_dev}")
     if not cap_excess <= CAP_TOL:
         raise AssertionError(f"{path}: |w| exceeds max_weight by {cap_excess}")
-    if int(diag.qp_solves) != D:
-        raise AssertionError(f"{path}: {int(diag.qp_solves)} QP solves, not {D}")
-    if PATHS[path].get("qp_anderson") and not aa_acc.sum() > 0:
-        raise AssertionError(f"{path}: the Anderson accelerator never engaged")
-    want = segment_launches(fmt, path)
+
+
+def segment_counts(rk, ak) -> dict:
+    """The path run's launches as the wrappers counted them: K1's, and K2's
+    single-lane and lane-batch launches apart."""
+    return {"rank_ic_postsort": rk.launches,
+            "admm_segment": ak.launches - ak.lane_launches,
+            "admm_segment_lanes": ak.lane_launches}
+
+
+def check_launches(path: str, launches: dict, want) -> None:
+    """K1 launched; K2's single-lane and lane-batch launches each equal
+    their term of the schedule ``want``."""
     if launches["rank_ic_postsort"] < 1:
         raise AssertionError(f"{path}: rank_ic_postsort never launched")
-    if launches["admm_segment"] != want:
-        raise AssertionError(f"{path}: admm_segment launched "
-                             f"{launches['admm_segment']} times, the schedule "
-                             f"implies {want}")
+    got = (launches["admm_segment"], launches["admm_segment_lanes"])
+    if got != tuple(want):
+        raise AssertionError(f"{path}: admm_segment launched {got[0]} times "
+                             f"on one lane and {got[1]} on lane batches, the "
+                             f"schedule implies {tuple(want)}")
 
-    ref, ref_secs = run_step(torch, fmt, arrays, path, "reference")
-    log(f"path {path} reference: step {ref_secs:.3f} s wall")
+
+def check_fused_vs_reference(torch, path: str, out, ref) -> None:
     dw = (out.sim.weights.nan_to_num() - ref.sim.weights.nan_to_num()).abs()
     day_dw = dw.max(-1).values
     share = float((day_dw > DW_TOL).double().mean())
@@ -1527,6 +1569,191 @@ def path_phase(torch, seed: int, path: str, kernels: dict,
     if not share <= DW_SHARE:
         raise AssertionError(f"{path}: fused and reference weights differ on "
                              f"{share:.2%} of days")
+
+
+def path_phase(torch, seed: int, path: str, warm_up: bool):
+    """One path at full size with the fused kernel, its checks, and the
+    same step with the reference kernel held against it. Returns the
+    kernels' launches in the fused run, its output and its seconds."""
+    import factormodeling_tpu_torch as fmt
+    from factormodeling_tpu_torch.metrics import _cuda_rank_ic as rk
+    from factormodeling_tpu_torch.ops import _cuda_admm as ak
+
+    arrays = make_inputs(F, D, N, seed)
+    if warm_up:   # library handles, allocator, kernel loads: a cut date range
+        run_step(torch, fmt, tuple(a[:, :130] if a.ndim == 3 else a[:130]
+                                   for a in arrays), PATHS[path], "fused")
+
+    rk.launches = ak.launches = ak.lane_launches = 0
+    out, secs, _ = run_step(torch, fmt, arrays, PATHS[path], "fused")
+    launches = segment_counts(rk, ak)
+    log(f"path {path} fused: F={F} D={D} N={N} step {secs:.3f} s wall; "
+        f"launches {json.dumps(launches)}")
+
+    summ = {k: float(v) for k, v in out.summary._asdict().items()}
+    log(f"path {path} fused summary " + json.dumps(summ))
+    if not all(np.isfinite(v) for v in summ.values()):
+        raise AssertionError(f"{path}: non-finite summary {summ}")
+    check_invariants(torch, path, out)
+    diag = out.sim.diagnostics
+    if int(diag.qp_solves) != D:
+        raise AssertionError(f"{path}: {int(diag.qp_solves)} QP solves, not {D}")
+    if PATHS[path].get("qp_anderson") and not diag.anderson_accepted.sum() > 0:
+        raise AssertionError(f"{path}: the Anderson accelerator never engaged")
+    check_launches(path, launches, segment_launches(fmt, PATHS[path]))
+
+    ref, ref_secs, _ = run_step(torch, fmt, arrays, PATHS[path], "reference")
+    log(f"path {path} reference: step {ref_secs:.3f} s wall")
+    check_fused_vs_reference(torch, path, out, ref)
+    return launches, out, secs
+
+
+def day_dw(torch, a, b):
+    """Per-day max |dw| of two runs' trade weights: entry t is day t's
+    weights (row t + 1 of the panels shifted one day; the universe is whole,
+    so the shift is plain); the last day has no row."""
+    return (a.sim.weights.nan_to_num()
+            - b.sim.weights.nan_to_num()).abs().max(-1).values[1:]
+
+
+def polish_both(torch, da, db, days: int):
+    """The days (of the first ``days``) whose polish both runs' diagnostics
+    ``da``, ``db`` accepted or neither attempted."""
+    both = da.polished[:days] & db.polished[:days]
+    neither = (torch.isnan(da.polish_pre_residual[:days])
+               & torch.isnan(db.polish_pre_residual[:days]))
+    return both | neither
+
+
+def parallel_run(torch, fmt, arrays, path: str, kernel: str):
+    """One fused or reference run of a parallel path, with the schedule's
+    gates: returns ``(out, secs, stats, launches, inputs)``."""
+    from factormodeling_tpu_torch.metrics import _cuda_rank_ic as rk
+    from factormodeling_tpu_torch.ops import _cuda_admm as ak
+
+    sim = PARALLEL_PATHS[path]
+    rk.launches = ak.launches = ak.lane_launches = 0
+    out, secs, inputs = run_step(torch, fmt, arrays, sim, kernel)
+    launches = segment_counts(rk, ak)
+    diag = out.sim.diagnostics
+    stats = fmt.backtest.sweep_stats(diag)
+    log(f"path {path} {kernel}: F={F} D={D} N={N} step {secs:.3f} s wall; "
+        f"launches {json.dumps(launches)}; sweep_stats {json.dumps(stats)}; "
+        f"polish_stats {json.dumps(fmt.backtest.polish_stats(diag))}")
+    summ = {k: float(v) for k, v in out.summary._asdict().items()}
+    if not all(np.isfinite(v) for v in summ.values()):
+        raise AssertionError(f"{path}: non-finite summary {summ}")
+    s = fmt.SimulationSettings(returns=None, cap_flag=None,
+                               investability_flag=None, **sim)
+    if stats["converged_days"] + stats["suffix_len"] != D:
+        raise AssertionError(f"{path}: converged days and suffix do not "
+                             f"cover the run: {stats}")
+    if not 1 <= stats["sweeps"] <= s.turnover_sweeps:
+        raise AssertionError(f"{path}: {stats['sweeps']} sweeps")
+    if stats["qp_solves"] != D + stats["sweeps"] * D + stats["suffix_len"]:
+        raise AssertionError(f"{path}: {stats['qp_solves']} QP solves, not "
+                             "the seed, the sweeps and the suffix")
+    if kernel == "fused":
+        check_launches(path, launches, segment_launches(fmt, sim, stats))
+    return out, secs, stats, launches, inputs
+
+
+def turnover_parallel_path(torch, seed: int, scan_out, scan_secs: float):
+    """Path 6: path 1 in the fixed-point scheme, fused, held against path
+    1's own fused output (the scan, same inputs): equal weights on the
+    suffix days, within ``CERT_TOL`` on certified days that both polished
+    or neither attempted. Returns its launches."""
+    import factormodeling_tpu_torch as fmt
+
+    path = "turnover_parallel"
+    arrays = make_inputs(F, D, N, seed)
+    out, secs, stats, launches, _ = parallel_run(torch, fmt, arrays, path,
+                                                 "fused")
+    check_invariants(torch, path, out)
+    start = stats["converged_days"]
+    dw = day_dw(torch, out, scan_out)
+    suffix = dw[start:]
+    share = float((suffix > DW_TOL).double().mean()) if len(suffix) else 0.0
+    bitwise = bool(torch.equal(out.sim.weights[start + 1:].nan_to_num(),
+                               scan_out.sim.weights[start + 1:].nan_to_num()))
+    cert = polish_both(torch, out.sim.diagnostics, scan_out.sim.diagnostics,
+                       D - 1)[:start]
+    cert_dw = float(dw[:start][cert].max()) if bool(cert.any()) else 0.0
+    # entry t + 1 of the weights is day t's: the certified days that hold
+    # a position (the days before the selection window are flat), and the
+    # hand-over, the first suffix day, entered from the last certified
+    # day's weights and exit state
+    held = torch.nonzero((out.sim.weights[1:start + 1].nan_to_num() != 0)
+                         .any(-1)).flatten().tolist()
+    hand_dw = float(dw[start]) if 0 < start < D - 1 else 0.0
+    log(f"path {path} vs path 1 (the scan): suffix days {start}-{D - 1}: max "
+        f"|dw| {float(suffix.max()) if len(suffix) else 0.0:.3e}, share of "
+        f"days > {DW_TOL}: {share:.4f} (limit {DW_SHARE}), bitwise {bitwise}; "
+        f"certified days {start}, those holding a position {held}, "
+        f"{int(cert.sum())} both polished or neither attempted: max |dw| "
+        f"{cert_dw:.3e} (tol {CERT_TOL}); hand-over day {start} from day "
+        f"{start - 1} ({'holding a position' if start - 1 in held else 'flat'}"
+        f"): |dw| {hand_dw:.3e} (tol {DW_TOL})")
+    log(f"path {path}: {secs:.3f} s wall, {secs / scan_secs:.3f}x path 1's "
+        f"fused {scan_secs:.3f} s in this call")
+    if not share <= DW_SHARE:
+        raise AssertionError(f"{path}: suffix weights differ from the scan's "
+                             f"on {share:.2%} of days")
+    if not cert_dw <= CERT_TOL:
+        raise AssertionError(f"{path}: certified days {cert_dw} from the scan")
+    if not hand_dw <= DW_TOL:
+        raise AssertionError(f"{path}: the hand-over day {hand_dw} from the "
+                             "scan")
+    return launches
+
+
+def turnover_decoupled_path(torch, seed: int):
+    """Path 7: penalty 0, fused and reference, both parallel: every day
+    certified, the kernels within ``DW_TOL``/``DW_SHARE``, and the scan over
+    the first ``P7_SCAN_DATES`` dates of the same composite (the backtest is
+    causal, so its first days are the full scan's) within ``CERT_TOL`` on
+    days both polished and ``P7_ALL_TOL`` on every day. Returns the fused
+    run's launches."""
+    import factormodeling_tpu_torch as fmt
+
+    path = "turnover_parallel_decoupled"
+    arrays = make_inputs(F, D, N, seed)
+    out, secs, stats, launches, inputs = parallel_run(torch, fmt, arrays,
+                                                      path, "fused")
+    check_invariants(torch, path, out)
+    if stats["suffix_len"] != 0 or not 1 <= stats["sweeps"] <= 4:
+        raise AssertionError(f"{path}: not certified within 4 sweeps: {stats}")
+    ref, ref_secs, ref_stats, _, _ = parallel_run(torch, fmt, arrays, path,
+                                                     "reference")
+    if ref_stats["suffix_len"] != 0:
+        raise AssertionError(f"{path} reference: suffix {ref_stats}")
+    check_fused_vs_reference(torch, path, out, ref)
+
+    cut = P7_SCAN_DATES
+    sim = dict(PARALLEL_PATHS[path], turnover_mode="scan",
+               max_weight=MAX_WEIGHT, solver_kernel="fused")
+    _, returns, _, cap, invest, universe = inputs
+    s = fmt.SimulationSettings(returns=returns[:cut], cap_flag=cap[:cut],
+                               investability_flag=invest[:cut],
+                               universe=universe[:cut], **sim)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scan = fmt.run_simulation(out.signal[:cut], s)
+    torch.cuda.synchronize()
+    scan_secs = time.perf_counter() - t0
+    dw = (out.sim.weights[1:cut].nan_to_num()
+          - scan.weights[1:].nan_to_num()).abs().max(-1).values
+    pol = polish_both(torch, out.sim.diagnostics, scan.diagnostics, cut - 1)
+    pol_dw = float(dw[pol].max()) if bool(pol.any()) else 0.0
+    log(f"path {path}: fused {secs:.3f} s, reference {ref_secs:.3f} s wall; "
+        f"vs the scan of its first {cut} dates ({scan_secs:.3f} s): max |dw| "
+        f"{float(dw.max()):.3e} (tol {P7_ALL_TOL}), on the {int(pol.sum())} "
+        f"days both polished or neither attempted {pol_dw:.3e} (tol "
+        f"{CERT_TOL})")
+    if not float(dw.max()) <= P7_ALL_TOL:
+        raise AssertionError(f"{path}: {float(dw.max())} from the scan")
+    if not pol_dw <= CERT_TOL:
+        raise AssertionError(f"{path}: polished days {pol_dw} from the scan")
     return launches
 
 
@@ -1588,9 +1815,23 @@ def main() -> int:
     kernels["fp32_probe"] = fp32_probe_phase(torch)
     log(f"rank-sort and probe kernel phases: {time.perf_counter() - t0:.1f} s "
         f"wall")
-    launches = {path: path_phase(torch, args.seed, path, kernels,
-                                 warm_up=path == "turnover")
-                for path in PATHS}
+    launches = {}
+    for path in PATHS:
+        launches[path], out, secs = path_phase(torch, args.seed, path,
+                                               warm_up=path == "turnover")
+        if path == "turnover":   # path 6 is held against it
+            scan_out, scan_secs = out, secs
+        del out
+    t0 = time.perf_counter()
+    launches["turnover_parallel"] = turnover_parallel_path(
+        torch, args.seed, scan_out, scan_secs)
+    log(f"path 6 phase (run, checks): {time.perf_counter() - t0:.1f} s wall")
+    del scan_out
+    t0 = time.perf_counter()
+    launches["turnover_parallel_decoupled"] = turnover_decoupled_path(
+        torch, args.seed)
+    log(f"path 7 phase (fused, reference, scan, checks): "
+        f"{time.perf_counter() - t0:.1f} s wall")
     t0 = time.perf_counter()
     decay_launches = decay_path(torch, fmt, args.seed)
     log(f"decay path phase (warm-up, run, checks): "
@@ -1602,8 +1843,17 @@ def main() -> int:
     # each kernel's launches on the path that runs its form
     kernels["rank_ic_postsort"]["launches"] = (
         launches["turnover"]["rank_ic_postsort"])
-    kernels["admm_segment"]["launches"] = launches["turnover"]["admm_segment"]
-    kernels["admm_segment_lanes"]["launches"] = launches["mvo"]["admm_segment"]
+    # the segment's single-lane launches: path 1, and the sequential
+    # suffixes of paths 6-7; its lane launches: path 2's chunks, and the
+    # seed and sweep chunks of paths 6-7 (each as the wrapper counted it)
+    single = {p: launches[p]["admm_segment"] for p in
+              ("turnover", "turnover_parallel", "turnover_parallel_decoupled")}
+    lanes = {p: launches[p]["admm_segment_lanes"] for p in
+             ("mvo", "turnover_parallel", "turnover_parallel_decoupled")}
+    kernels["admm_segment"]["launches"] = sum(single.values())
+    kernels["admm_segment"]["launches_by_path"] = single
+    kernels["admm_segment_lanes"]["launches"] = sum(lanes.values())
+    kernels["admm_segment_lanes"]["launches_by_path"] = lanes
     kernels["admm_segment_anderson"]["launches"] = (
         launches["turnover_risk_anderson"]["admm_segment"])
     kernels["admm_segment_anderson_mvo_day"]["launches"] = 0   # no path
@@ -1620,7 +1870,8 @@ def main() -> int:
     log(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s wall")
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-             "wrapper_ms", "cluster", "smem_bytes", "path_max_abs_err",
+             "wrapper_ms", "cluster", "smem_bytes", "launches_by_path",
+             "path_max_abs_err",
              "path_ms", "path_plain_ms", "path_bound_ms", "path_library_ms")
     log(json.dumps({"kernels": [{k: kern[k] for k in order if k in kern}
                                 for kern in kernels.values()]}))

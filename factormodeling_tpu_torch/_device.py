@@ -1,10 +1,18 @@
-"""Device resolution for the port's entry points."""
+"""Device resolution for the port's entry points, and host copies for its
+host-side reports."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["host_array", "resolve_device"]
+
+
+def host_array(x) -> np.ndarray:
+    """``x`` as a host numpy array: a tensor on any device, or anything
+    ``np.asarray`` takes."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 def resolve_device(device=None) -> torch.device:

@@ -17,12 +17,13 @@ from typing import NamedTuple, Sequence
 
 import torch
 
+from factormodeling_tpu_torch._device import host_array
 from factormodeling_tpu_torch.backtest.engine import run_simulation
 from factormodeling_tpu_torch.backtest.settings import SimulationSettings
 from factormodeling_tpu_torch.ops.timeseries import ts_decay
 
 __all__ = ["DEFAULT_DECAY_PERIODS", "DecaySensitivity", "batched_ts_decay",
-           "decay_sensitivity"]
+           "decay_sensitivity", "plot_decay_sensitivity"]
 
 # the reference helper's default sweep grid (pipeline.ipynb cell 6)
 DEFAULT_DECAY_PERIODS = (1, 3, 5, 10) + tuple(range(25, 351, 25))
@@ -88,3 +89,53 @@ def decay_sensitivity(
     ann, sharpe = _annualize(r)
     return DecaySensitivity(decay_periods=periods, annualized_return=ann,
                             sharpe=sharpe, log_return=r, decayed=decayed)
+
+
+def plot_decay_sensitivity(
+    signal: torch.Tensor,
+    settings: SimulationSettings,
+    decay_periods: Sequence[int] = DEFAULT_DECAY_PERIODS,
+    universe: torch.Tensor | None = None,
+    figsize: tuple[int, int] = (12, 6),
+    show: bool = True,
+    sensitivity: DecaySensitivity | None = None,
+):
+    """Twin-axis annualized-return / Sharpe plot over the decay grid (the
+    reference notebook's cell 6). Returns ``(fig, sensitivity)``; pass a
+    precomputed ``sensitivity`` to plot without re-running the sweep.
+    matplotlib is imported here, on the first call."""
+    import matplotlib.pyplot as plt
+    from matplotlib.ticker import MaxNLocator, PercentFormatter
+
+    sens = sensitivity if sensitivity is not None else decay_sensitivity(
+        signal, settings, decay_periods, universe)
+    periods = list(sens.decay_periods)
+    ann = host_array(sens.annualized_return)
+    sharpe = host_array(sens.sharpe)
+
+    fig, ax1 = plt.subplots(figsize=figsize)
+    ax1.plot(periods, ann, marker="*", linestyle="-",
+             label="Annualized Return")
+    ax1.set_xlabel("Decay Window Length")
+    ax1.set_ylabel("Annualized Return", color="tab:blue")
+    ax1.tick_params(axis="y", labelcolor="tab:blue")
+    ax1.set_xticks(periods)
+    ax1.set_xlim(min(periods), max(periods))
+    ax1.yaxis.set_major_locator(MaxNLocator(nbins=6, prune="both"))
+    ax1.yaxis.set_major_formatter(PercentFormatter(1.0))
+
+    ax2 = ax1.twinx()
+    ax2.plot(periods, sharpe, marker="o", linestyle="--", color="tab:orange",
+             label="Sharpe Ratio")
+    ax2.set_ylabel("Sharpe Ratio", color="tab:orange")
+    ax2.tick_params(axis="y", labelcolor="tab:orange")
+    ax2.yaxis.set_major_locator(MaxNLocator(nbins=6))
+
+    lines1, labels1 = ax1.get_legend_handles_labels()
+    lines2, labels2 = ax2.get_legend_handles_labels()
+    ax1.legend(lines1 + lines2, labels1 + labels2, loc="best")
+    ax1.set_title("Annualized Return & Sharpe vs. Decay Window")
+    fig.tight_layout()
+    if show:
+        plt.show()
+    return fig, sens

@@ -1,7 +1,7 @@
 """MVO weight schemes (port of ``factormodeling_tpu/backtest/mvo.py``):
 per-date minimum-variance ``mvo`` and the turnover-penalized
-``mvo_turnover`` in ``scan`` mode, each with the trailing sample covariance
-or the rolling statistical risk model.
+``mvo_turnover`` in ``scan`` and ``parallel`` mode, each with the trailing
+sample covariance or the rolling statistical risk model.
 
 The sample covariance keeps the factored form
 
@@ -44,10 +44,25 @@ float64 differed by > 1e-4 on 66-68% of days, the two kernels in float32 on
 99.7%; in float64 the two kernels agree exactly. The day loop is
 launch-bound, so float64 costs no time that matters.
 
-Not ported yet: ``turnover_mode="parallel"``.
+``turnover_mode="parallel"`` is the fixed-point (Picard) scheme: a seed
+trajectory from plain MVO in chunks of ``mvo_batch`` cold lanes, then up to
+``turnover_sweeps`` passes that re-solve every day at once against the
+previous pass's weights for day ``t-1``, each day warm-started from its own
+last exit state; the passes stop once no day moves by more than
+``turnover_tol`` or the largest move stops halving. The days before the
+first one that still moved pass through; from there the scan's own day loop
+takes over. Its lanes honour ``s.solver_kernel``: with ``"fused"`` every
+seed and sweep chunk is one segment-kernel launch per segment for all its
+lanes. (The JAX package pins these lanes to its reference kernel to dodge a
+jax 0.4.x fault, a vmapped ``pallas_call`` in ``lax.map``'s zero-size
+remainder chunk; the port has no such fault. The kernel's lanes are bitwise
+equal to its single-lane launches, and on a CPU tensor the fused path is the
+kernel's plain twin, so the function computed is the JAX package's.)
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -154,7 +169,8 @@ def _solve_day(signal_rows: torch.Tensor, returns0: torch.Tensor,
                s: SimulationSettings, b: torch.Tensor, turnover: bool,
                risk_model=None, warm: ADMMWarmState | None = None,
                force_fallback: torch.Tensor | None = None,
-               may_lack_history: bool = True):
+               may_lack_history: bool = True, iters: int | None = None,
+               polish: bool | None = None, polish_passes: int | None = None):
     """One lane-batched solve of the dates ``todays`` with the full fallback
     ladder. ``signal_rows``/``w_prev`` are ``[B, N]`` in the QP dtype;
     ``risk_model`` is ``None`` (the sample covariance) or the dates'
@@ -163,7 +179,11 @@ def _solve_day(signal_rows: torch.Tensor, returns0: torch.Tensor,
     ``telemetry = (polished, pre_residual, post_residual, aa_accepted,
     aa_rejected, iters_to_converge)``. ``may_lack_history=False`` tells
     that no date has an empty window (the history is a function of the
-    date alone), which skips building the equal-scheme fallback."""
+    date alone), which skips building the equal-scheme fallback.
+
+    ``iters`` / ``polish`` / ``polish_passes`` override the settings'
+    budget and polish (the parallel scheme's seed and sweeps run reduced
+    budgets)."""
     dtype = returns0.dtype
     lanes, n = signal_rows.shape
     pos = signal_rows > 0
@@ -188,10 +208,12 @@ def _solve_day(signal_rows: torch.Tensor, returns0: torch.Tensor,
     # the reference objective is w' Sigma w (not halved) plus the L1 term;
     # the solver minimizes 1/2 x'Px + ..., so P = 2 Sigma
     prob = BoxQPProblem(q=q, lo=lo, hi=hi, E=E, b=b, l1=l1, center=center)
-    res = admm_solve_lowrank(2.0 * alpha, c, 2.0 * s_vec, prob, rho=s.qp_rho,
-                             iters=s.resolved_qp_iters(turnover),
-                             warm_start=warm, polish=s.qp_polish,
-                             anderson=s.qp_anderson, kernel=s.solver_kernel)
+    res = admm_solve_lowrank(
+        2.0 * alpha, c, 2.0 * s_vec, prob, rho=s.qp_rho,
+        iters=s.resolved_qp_iters(turnover) if iters is None else iters,
+        warm_start=warm, polish=s.qp_polish if polish is None else polish,
+        polish_passes=polish_passes, anderson=s.qp_anderson,
+        kernel=s.solver_kernel)
     w = res.x
 
     solver_ok = (torch.isfinite(w).all(-1)
@@ -261,7 +283,9 @@ class _Panels:
         self.days = torch.arange(signal.shape[0], device=dev)
 
     def solve(self, first: int, count: int, w_prev, s: SimulationSettings,
-              turnover: bool, warm, force_fallback=None):
+              turnover: bool, warm, force_fallback=None, **overrides):
+        """:func:`_solve_day` of the dates ``first .. first + count - 1``;
+        ``overrides`` are its ``iters``/``polish``/``polish_passes``."""
         todays = self.days[first:first + count]
         rm = (None if self.stacks is None
               else _risk_model_for_day(self.stacks, todays, s))
@@ -271,15 +295,24 @@ class _Panels:
                           todays, w_prev, s, self.b, turnover, risk_model=rm,
                           warm=warm if s.qp_warm_start else None,
                           force_fallback=force_fallback,
-                          may_lack_history=first < no_hist)
+                          may_lack_history=first < no_hist, **overrides)
+
+
+def _cat(rows):
+    """Per-solve outputs (tuples of tensors, nested tuples such as the warm
+    state and the telemetry) concatenated along the date axis, field by
+    field."""
+    if isinstance(rows[0], torch.Tensor):
+        return torch.cat(rows)
+    fields = [_cat(col) for col in zip(*rows)]
+    return (type(rows[0])(*fields) if hasattr(rows[0], "_fields")
+            else tuple(fields))
 
 
 def _stack_rows(rows, out_dtype):
     """Concatenate per-solve outputs ``(w, resid, ok, telemetry)`` along
     the date axis; float outputs go back to the panels' dtype."""
-    w, resid, ok = (torch.cat(col) for col in list(zip(*rows))[:3])
-    tele = tuple(torch.cat(col) for col in zip(*(r[3] for r in rows)))
-    polished, pre, post, acc, rej, itc = tele
+    w, resid, ok, (polished, pre, post, acc, rej, itc) = _cat(rows)
     return (w.to(out_dtype), resid.to(out_dtype), ok,
             (polished, pre.to(out_dtype), post.to(out_dtype), acc, rej, itc))
 
@@ -313,37 +346,146 @@ def mvo_weights(signal: torch.Tensor, s: SimulationSettings):
     return _finalize(w, signal, s, pos, neg, flat, resid, ok, tele, stats)
 
 
+def _turnover_day_solve(panels: _Panels, s: SimulationSettings, zero_day,
+                        nan_sig_day, first: int, count: int, w_prev, warm,
+                        **overrides):
+    """THE turnover day step, for the dates ``first .. first + count - 1``:
+    the solve with the NaN-signal rejection, then zero days zeroed. The
+    scan, the parallel sweeps and the parallel suffix all run it, so they
+    cannot drift apart; ``overrides`` as in :meth:`_Panels.solve`."""
+    w, resid, ok, state, tele = panels.solve(
+        first, count, w_prev, s, True, warm,
+        nan_sig_day[first:first + count], **overrides)
+    # the reference reads the last stored row as yesterday's weights, which
+    # is the zero row on flat days
+    w = torch.where(zero_day[first:first + count, None], 0.0, w)
+    return w, resid, ok, state, tele
+
+
+def _sequential_days(panels: _Panels, s: SimulationSettings, zero_day,
+                     nan_sig_day, start: int, w_prev, warm) -> list:
+    """The days ``start .. D-1`` one after another at the settings'
+    budgets, each on the day before's weights and solver exit state;
+    ``(w, resid, ok, telemetry)`` rows, one a day."""
+    rows = []
+    for today in range(start, panels.days.shape[0]):
+        w, resid, ok, warm, tele = _turnover_day_solve(
+            panels, s, zero_day, nan_sig_day, today, 1, w_prev, warm)
+        rows.append((w, resid, ok, tele))
+        w_prev = w
+    return rows
+
+
 def mvo_turnover_weights(signal: torch.Tensor, s: SimulationSettings):
     """Turnover-penalized weights: yesterday's (pre-shift) weights feed
     today's L1 turnover term, and each day warm-starts from yesterday's
-    solver exit state (disable with ``qp_warm_start=False``). Returns
-    ``(weights [D, N], long_count [D], short_count [D], resid, ok,
-    telemetry, stats)``."""
-    if s.turnover_mode != "scan":
-        raise NotImplementedError(
-            "turnover_mode='parallel' is not ported yet (see ROADMAP.md)")
+    solver exit state (disable with ``qp_warm_start=False``).
+    ``s.turnover_mode`` picks the scheme: ``"scan"``, the days in order, or
+    ``"parallel"``, the fixed-point sweeps with the scan for the days they
+    do not certify (module docstring). Returns ``(weights [D, N],
+    long_count [D], short_count [D], resid, ok, telemetry, stats)``."""
     d, n = signal.shape
     pos, neg, flat = leg_masks(signal)
     zero_day = flat | (_universe_count(signal, s) < 2)
     nan_sig_day = _nan_signal_days(signal, s)
     panels = _Panels(signal, s)
-
-    w_prev = torch.zeros((1, n), dtype=QP_DTYPE, device=signal.device)
-    warm = _cold_state(n, 1, QP_DTYPE, signal.device)
-    rows = []
-    for today in range(d):
-        w, resid, ok, state, tele = panels.solve(
-            today, 1, w_prev, s, True, warm, nan_sig_day[today:today + 1])
-        # the reference reads the last stored row as yesterday's weights,
-        # which is the zero row on flat days
-        w = torch.where(zero_day[today], 0.0, w)
-        rows.append((w, resid, ok, tele))
-        w_prev, warm = w, state
+    days = (_turnover_parallel if s.turnover_mode == "parallel"
+            else _turnover_scan)
+    rows, stats = days(panels, s, zero_day, nan_sig_day)
     w, resid, ok, tele = _stack_rows(rows, s.returns.dtype)
     stats = SchemeStats(*(torch.tensor(v, dtype=torch.int32,
-                                       device=signal.device)
-                          for v in (d, 0, 0, d)))
+                                       device=signal.device) for v in stats))
     return _finalize(w, signal, s, pos, neg, flat, resid, ok, tele, stats)
+
+
+def _turnover_scan(panels: _Panels, s: SimulationSettings, zero_day,
+                   nan_sig_day):
+    """Every day in order: ``(rows, (qp_solves, sweeps, converged_days,
+    suffix_len))``."""
+    d, n = panels.signal.shape
+    dev = panels.signal.device
+    rows = _sequential_days(panels, s, zero_day, nan_sig_day, 0,
+                            torch.zeros((1, n), dtype=QP_DTYPE, device=dev),
+                            _cold_state(n, 1, QP_DTYPE, dev))
+    return rows, (d, 0, 0, d)
+
+
+# the sweeps stop once the largest per-day move shrank by less than this
+# factor in a pass: the error front then advances about a day a pass, and
+# the sequential suffix is cheaper than more sweeps (the JAX package's
+# docs/architecture.md section 14)
+_STALL_RATIO = 0.5
+
+
+def _turnover_parallel(panels: _Panels, s: SimulationSettings, zero_day,
+                       nan_sig_day):
+    """The fixed-point scheme (module docstring): ``(rows, (qp_solves,
+    sweeps, converged_days, suffix_len))``.
+
+    1. seed: plain MVO of every day in chunks of ``mvo_batch`` cold lanes
+       at ``resolved_seed_iters()``, polish off; zero days zeroed;
+    2. sweeps: each day re-solved against the last pass's row ``t-1``,
+       warm-started from its own last exit state, at
+       ``resolved_sweep_iters()`` with ``turnover_polish_passes``; after
+       each pass its largest per-day move ``max |dw|`` is read on the host
+       and the passes stop at ``<= turnover_tol`` or when it exceeds
+       ``_STALL_RATIO`` times the pass before's (never after the first);
+    3. the days before the first one whose last move exceeds
+       ``turnover_tol`` keep the last pass's results; from that day on the
+       scan's day loop runs at the settings' budgets, entering with the day
+       before's weights and exit state (zeros and a cold state at day 0).
+
+    The sequential days are the scan's own loop, so a run with no
+    certified day is the scan bit for bit."""
+    d, n = panels.signal.shape
+    dev = panels.signal.device
+    batch = min(s.mvo_batch, d)
+    chunks = [(first, min(batch, d - first)) for first in range(0, d, batch)]
+    zeros = torch.zeros((batch, n), dtype=QP_DTYPE, device=dev)
+    seed = []
+    for first, count in chunks:
+        w, resid, ok, state, tele = panels.solve(
+            first, count, zeros[:count], s, False, None,
+            iters=s.resolved_seed_iters(), polish=False)
+        w = torch.where(zero_day[first:first + count, None], 0.0, w)
+        seed.append((w, resid, ok, state, tele))
+    traj, _, _, state, _ = _cat(seed)
+
+    last = None
+    delta = torch.full((d,), math.inf, dtype=QP_DTYPE, device=dev)
+    sweeps, dmax_prev = 0, math.inf
+    for _ in range(s.turnover_sweeps):
+        w_prev = torch.cat([zeros[:1], traj[:-1]])
+        last = _cat([_turnover_day_solve(
+            panels, s, zero_day, nan_sig_day, first, count,
+            w_prev[first:first + count],
+            ADMMWarmState(*(a[first:first + count] for a in state)),
+            iters=s.resolved_sweep_iters(),
+            polish_passes=s.turnover_polish_passes)
+            for first, count in chunks])
+        delta = (last[0] - traj).abs().max(-1).values
+        traj, state = last[0], last[3]
+        sweeps += 1
+        dmax = float(delta.max())
+        if dmax <= s.turnover_tol or dmax > _STALL_RATIO * dmax_prev:
+            break
+        dmax_prev = dmax
+
+    # certified prefix: the days before the first one that still moved
+    moved = torch.nonzero(delta > s.turnover_tol)
+    start = int(moved[0, 0]) if moved.shape[0] else d
+    rows = []
+    if start:
+        w, resid, ok, state, tele = last
+        rows.append((w[:start], resid[:start], ok[:start],
+                     tuple(t[:start] for t in tele)))
+        w_prev = w[start - 1:start]
+        warm = ADMMWarmState(*(a[start - 1:start] for a in state))
+    else:
+        w_prev, warm = zeros[:1], _cold_state(n, 1, QP_DTYPE, dev)
+    rows += _sequential_days(panels, s, zero_day, nan_sig_day, start, w_prev,
+                             warm)
+    return rows, (d + sweeps * d + (d - start), sweeps, start, d - start)
 
 
 def _no_hist_days(d: int, s: SimulationSettings, device):

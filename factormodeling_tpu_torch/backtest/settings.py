@@ -4,8 +4,7 @@ Market data panels are dense ``[D, N]`` tensors plus an optional universe
 mask; every knob keeps the JAX package's name, default and validation (see
 that module for the rationale behind each default). The fields stay even
 where the port has not implemented the option yet: the engine raises
-``NotImplementedError`` for those (``turnover_mode="parallel"``, a
-``degrade`` policy).
+``NotImplementedError`` for those (a ``degrade`` policy).
 """
 
 from __future__ import annotations
@@ -76,6 +75,18 @@ class SimulationSettings:
                 return 40 if self.qp_warm_start else 80
             return 60 if self.qp_warm_start else 100
         return 200
+
+    def resolved_sweep_iters(self) -> int:
+        """Per-sweep ADMM budget of the turnover-parallel scheme."""
+        if self.turnover_sweep_iters is not None:
+            return self.turnover_sweep_iters
+        return self.resolved_qp_iters(turnover=True)
+
+    def resolved_seed_iters(self) -> int:
+        """Plain-MVO seed budget of the turnover-parallel scheme."""
+        if self.turnover_seed_iters is not None:
+            return self.turnover_seed_iters
+        return self.resolved_qp_iters(turnover=True)
 
     def __post_init__(self):
         if self.method not in ("equal", "linear", "mvo", "mvo_turnover"):

@@ -17,7 +17,7 @@ import torch
 
 from factormodeling_tpu_torch._device import resolve_device
 
-__all__ = ["PanelVocab", "level_values", "roundtrip"]
+__all__ = ["PanelVocab", "densify_stack", "level_values", "roundtrip"]
 
 
 def level_values(index, name: str, position: int) -> pd.Index:
@@ -88,6 +88,19 @@ class PanelVocab:
         keep = (di >= 0) & (si >= 0)
         out[keep] = arr[di[keep], si[keep]]
         return pd.Series(out, index=index, name=name)
+
+
+def densify_stack(factors_df: pd.DataFrame, vocab: PanelVocab):
+    """Every column of a long-format frame on the vocabulary's grid:
+    ``(stack [F, D, N] float64, universe [D, N])``, the universe the union
+    of the columns' own."""
+    stack = np.empty((factors_df.shape[1],) + vocab.shape)
+    universe = np.zeros(vocab.shape, dtype=bool)
+    for i, col in enumerate(factors_df.columns):
+        vals, uni = vocab.densify(factors_df[col])
+        stack[i] = vals
+        universe |= uni
+    return stack, universe
 
 
 def roundtrip(series: pd.Series, fn, name=None, *, device=None) -> pd.Series:

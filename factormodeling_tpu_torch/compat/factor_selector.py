@@ -26,7 +26,9 @@ import torch
 
 from factormodeling_tpu_torch._device import resolve_device
 from factormodeling_tpu_torch.compat import factor_selection_methods as fsm
-from factormodeling_tpu_torch.compat._convert import PanelVocab, level_values
+from factormodeling_tpu_torch.compat._convert import (PanelVocab,
+                                                     densify_stack,
+                                                     level_values)
 from factormodeling_tpu_torch.metrics.factor_metrics import (METRIC_COLUMNS,
                                                              aggregate_metrics,
                                                              daily_factor_stats)
@@ -51,23 +53,13 @@ _DENSE_METHODS = frozenset(["icir_top", "momentum", "mvo", "pca",
                             "regression"])
 
 
-def _densify_stack(factors_df: pd.DataFrame, vocab: PanelVocab):
-    stack = np.empty((factors_df.shape[1],) + vocab.shape)
-    universe = np.zeros(vocab.shape, dtype=bool)
-    for i, col in enumerate(factors_df.columns):
-        vals, uni = vocab.densify(factors_df[col])
-        stack[i] = vals
-        universe |= uni
-    return stack, universe
-
-
 def single_factor_metrics(factors_df: pd.DataFrame, returns: pd.Series, *,
                           device=None) -> pd.DataFrame:
     """Per-factor IC / rank-IC / factor-return metric table, sorted by
     rank_IC_IR descending."""
     dev = resolve_device(device)
     vocab = PanelVocab.from_indexes(factors_df.index, returns.index)
-    stack, universe = _densify_stack(factors_df, vocab)
+    stack, universe = densify_stack(factors_df, vocab)
     rets, _ = vocab.densify(returns)
     daily = daily_factor_stats(torch.from_numpy(stack).to(dev),
                                torch.from_numpy(rets).to(dev),
@@ -127,7 +119,7 @@ class FactorSelector:
             level_values(self.factors.index, "date", 0).isin(dates)]
         vocab = PanelVocab(dates, pd.Index(
             level_values(factors.index, "symbol", 1).unique()).sort_values())
-        stack, universe = _densify_stack(factors, vocab)
+        stack, universe = densify_stack(factors, vocab)
         rets, _ = vocab.densify(self.returns)
         fr = np.array(self.factor_ret_df.reindex(index=dates,
                                                  columns=self.factor_cols),

@@ -1,6 +1,10 @@
 """Composite-factor construction."""
 
-from factormodeling_tpu_torch.composite.blend import (composite_weighted,
-                                                      prefix_group_ids)
+from factormodeling_tpu_torch.composite.blend import (SUFFIXES,
+                                                      composite_static,
+                                                      composite_weighted,
+                                                      prefix_group_ids,
+                                                      suffix_code)
 
-__all__ = ["composite_weighted", "prefix_group_ids"]
+__all__ = ["SUFFIXES", "composite_static", "composite_weighted",
+           "prefix_group_ids", "suffix_code"]

@@ -1,13 +1,15 @@
-"""Per-date weighted composite blend (port of
-``factormodeling_tpu/composite/blend.py::composite_weighted``).
+"""Composite blends (port of ``factormodeling_tpu/composite/blend.py``):
+the static equal blend and the per-date weighted blend.
 
 Factor names follow ``<prefix>_<suffix>``: the suffix (``_eq``, ``_flx``,
-``_long``, ``_short``) picks a per-date preprocessing rule whose percentiles
-POOL all same-suffix columns active that day; the prefix defines the proxy
-group. Group proxies are NaN-skipping means of the day's active members,
-blended by the day's renormalized group weights after a per-row z-score
-(``"zscore"``) or scipy-style propagate-NaN ranks (``"rank"``); NaN in an
-active proxy propagates and the final panel is zero-filled.
+``_long``, ``_short``) picks a per-date preprocessing rule, whose
+percentiles the static blend takes PER COLUMN and the weighted blend POOLS
+over all same-suffix columns active that day; the prefix defines the proxy
+group. Group proxies are NaN-skipping means of their (active) members. The
+static blend averages the proxies' per-row z-scores (``"zscore"``) or sums
+their scipy-style propagate-NaN ranks (``"rank"``), NaN preserved; the
+weighted blend weighs them by the day's renormalized group weights, NaN in
+an active proxy propagates and the final panel is zero-filled.
 """
 
 from __future__ import annotations
@@ -17,11 +19,20 @@ import torch
 
 from factormodeling_tpu_torch.ops._rank import avg_rank, masked_quantile
 
-__all__ = ["SUFFIXES", "composite_weighted", "prefix_group_ids"]
+__all__ = ["SUFFIXES", "composite_static", "composite_weighted",
+           "prefix_group_ids", "suffix_code"]
 
 SUFFIXES = ("_eq", "_flx", "_long", "_short")
 _SUFFIX_QS = {"_eq": (0.10, 0.90), "_flx": (0.02, 0.98),
               "_long": (0.02, 0.98), "_short": (0.02, 0.98)}
+
+
+def suffix_code(name: str) -> str | None:
+    """The preprocessing suffix a factor name ends with (None: no rule)."""
+    for s in SUFFIXES:
+        if name.endswith(s):
+            return s
+    return None
 
 
 def prefix_group_ids(names) -> tuple[np.ndarray, list[str]]:
@@ -53,36 +64,50 @@ def _apply_suffix(vals, sfx: str, lo, hi, degenerate):
     return torch.where(degenerate, 0.0, out)
 
 
-def _preprocess_pooled(vals: torch.Tensor, names, active: torch.Tensor) -> torch.Tensor:
-    """Suffix preprocessing over a ``[F, D, N]`` stack with per-suffix
-    percentiles pooled over the day's active columns (``active [D, F]``)."""
+def _preprocess(vals: torch.Tensor, names, *, pooled: bool,
+                active: torch.Tensor | None = None) -> torch.Tensor:
+    """Suffix preprocessing over a ``[F, D, N]`` stack: per-column
+    percentiles (``pooled=False``, the static blend) or per-suffix
+    percentiles pooled over the day's active columns (``pooled=True``, the
+    weighted blend; ``active [D, F]``)."""
     f, d, n = vals.shape
+    codes = [suffix_code(nm) for nm in names]
     out = vals.clone()
     for sfx in SUFFIXES:
-        idx = [i for i, nm in enumerate(names) if nm.endswith(sfx)]
+        idx = [i for i, c in enumerate(codes) if c == sfx]
         if not idx:
             continue
         qlo, qhi = _SUFFIX_QS[sfx]
         sub = vals[idx]                                      # [K, D, N]
-        pool = sub.transpose(0, 1).reshape(d, len(idx) * n)  # [D, K*N]
-        mask = active[:, idx].repeat_interleave(n, dim=1)
-        pool = torch.where(mask, pool, float("nan"))
-        qs = masked_quantile(pool, [qlo, qhi])               # [D, 2]
-        lo = qs[:, 0][None, :, None]
-        hi = qs[:, 1][None, :, None]
+        if pooled:
+            pool = sub.transpose(0, 1).reshape(d, len(idx) * n)  # [D, K*N]
+            if active is not None:
+                mask = active[:, idx].repeat_interleave(n, dim=1)
+                pool = torch.where(mask, pool, float("nan"))
+            qs = masked_quantile(pool, [qlo, qhi])           # [D, 2]
+            lo = qs[:, 0][None, :, None]
+            hi = qs[:, 1][None, :, None]
+        else:
+            qs = masked_quantile(sub, [qlo, qhi])            # [K, D, 2]
+            lo = qs[..., 0:1]
+            hi = qs[..., 1:2]
         degenerate = torch.isnan(lo) | torch.isnan(hi) | (hi == lo)
         out[idx] = _apply_suffix(sub, sfx, lo, hi, degenerate)
     return out
 
 
 def _group_proxies(adj: torch.Tensor, onehot: torch.Tensor,
-                   member_weight: torch.Tensor) -> torch.Tensor:
-    """NaN-skipping mean over each prefix group's active member factors:
-    ``[F, D, N] -> [G, D, N]``; ``member_weight [D, F]`` is 0/1."""
+                   member_weight: torch.Tensor | None = None) -> torch.Tensor:
+    """NaN-skipping mean over each prefix group's member factors:
+    ``[F, D, N] -> [G, D, N]``; ``member_weight [D, F]`` (0/1) restricts it
+    to the day's active factors."""
     valid = ~torch.isnan(adj)
-    mw = member_weight.T[:, :, None]  # [F, D, 1]
-    filled = torch.where(valid, adj, 0.0) * mw
-    v = valid.to(adj.dtype) * mw
+    filled = torch.where(valid, adj, 0.0)
+    v = valid.to(adj.dtype)
+    if member_weight is not None:
+        mw = member_weight.T[:, :, None]  # [F, D, 1]
+        filled = filled * mw
+        v = v * mw
     sums = torch.einsum("gf,fdn->gdn", onehot, filled)
     cnts = torch.einsum("gf,fdn->gdn", onehot, v)
     return sums / torch.where(cnts > 0, cnts, float("nan"))
@@ -128,6 +153,40 @@ def _demean_rows(x: torch.Tensor, universe) -> torch.Tensor:
     return x - mu
 
 
+def _onehot(gids: np.ndarray, n_groups: int, dtype, dev) -> torch.Tensor:
+    """``[G, F]`` group membership of the factors."""
+    return torch.as_tensor(np.arange(n_groups)[:, None] == gids,
+                           dtype=dtype).to(dev)
+
+
+def composite_static(factors: torch.Tensor, names, method: str = "zscore",
+                     universe: torch.Tensor | None = None) -> torch.Tensor:
+    """Static equal blend of ``factors [F, D, N]``: the demeaned composite
+    ``float[D, N]``, NaN preserved (outside the universe too)."""
+    if method not in ("zscore", "rank"):
+        raise ValueError("method must be 'zscore' or 'rank'")
+    gids, prefixes = prefix_group_ids(names)
+    if universe is not None:
+        factors = torch.where(universe, factors, float("nan"))
+    adj = _preprocess(factors, names, pooled=False)
+    proxies = _group_proxies(adj, _onehot(gids, len(prefixes), factors.dtype,
+                                          factors.device))  # [G, D, N]
+    if method == "zscore":
+        normed = _safe_zscore_rows(proxies, universe)
+        valid = ~torch.isnan(normed)
+        cnt = valid.sum(0).to(factors.dtype)
+        comp = (torch.where(valid, normed, 0.0).sum(0)
+                / torch.where(cnt > 0, cnt, float("nan")))
+    else:
+        ranks = _rank_propagate(proxies, universe)
+        # pandas' skipna sum: NaN rank rows contribute nothing
+        comp = torch.where(torch.isnan(ranks), 0.0, ranks).sum(0)
+    comp = _demean_rows(comp, universe)
+    if universe is not None:
+        comp = torch.where(universe, comp, float("nan"))
+    return comp
+
+
 def composite_weighted(factors: torch.Tensor, names, selection: torch.Tensor,
                        method: str = "zscore",
                        universe: torch.Tensor | None = None) -> torch.Tensor:
@@ -144,9 +203,9 @@ def composite_weighted(factors: torch.Tensor, names, selection: torch.Tensor,
         factors = torch.where(universe, factors, float("nan"))
 
     active = selection > 0.0  # [D, F]
-    adj = _preprocess_pooled(factors, names, active)
+    adj = _preprocess(factors, names, pooled=True, active=active)
     member = active.to(dtype)
-    onehot = torch.as_tensor(np.arange(g)[:, None] == gids, dtype=dtype).to(dev)
+    onehot = _onehot(gids, g, dtype, dev)
     proxies = _group_proxies(adj, onehot, member)  # [G, D, N]
 
     gw = torch.einsum("gf,df->dg", onehot, torch.where(active, selection, 0.0))

@@ -89,6 +89,10 @@ _CONV_TOL = 1e-3
 
 #: kernel launches since the count was last set to 0 (one per lane batch)
 launches = 0
+#: of those, the launches of more than one lane (a lane-batched solve's
+#: chunk; a solve of one lane, or a chunk of one date, counts in
+#: ``launches`` alone)
+lane_launches = 0
 
 
 class AndersonState(NamedTuple):
@@ -362,7 +366,7 @@ def segment_launcher(d, V, kinv, minv_et_t, ge, xb, q, lo, hi, center,
     fn = _lib(dtype)
 
     def launch():
-        global launches
+        global launches, lane_launches
         with torch.cuda.device(dev):
             rc = fn(*ptrs, *tail, torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
@@ -371,6 +375,7 @@ def segment_launcher(d, V, kinv, minv_et_t, ge, xb, q, lo, hi, center,
                                f"{plan.smem_bytes} B of shared memory a "
                                "block)")
         launches += 1
+        lane_launches += b > 1
         return x_out, z_out, u_out, stats
 
     return launch, plan

@@ -1,14 +1,18 @@
 """Profile the research step on the card: where the wall time of the
-mvo_turnover day loop goes.
+mvo_turnover backtest goes.
 
     python -m factormodeling_tpu_torch.profile_step [--dates 200] [--seed 0]
+        [--turnover-mode scan|parallel] [--penalty 0.1] [--timed 0]
+        [--no-profile]
 
-Runs the step once to warm up, then once under ``torch.profiler`` (CPU and
-CUDA activities) at F=50 factors, N=1000 assets and ``--dates`` dates, with
-``solver_kernel="fused"``, and prints: the wall time per date, the device's
-busy share (the union of kernel intervals over the wall time), the host
-syncs the run made, the operators with the most host time, and the kernels
-with the most device time. Needs one card.
+Runs the step once to warm up, then ``--timed`` times unprofiled (printing
+each run's wall time), then, unless ``--no-profile``, once under
+``torch.profiler`` (CPU and CUDA activities) at F=50 factors, N=1000 assets and ``--dates`` dates, with
+``solver_kernel="fused"`` and the given turnover scheme and penalty, and
+prints: the wall time per date, the device's busy share (the union of
+kernel intervals over the wall time), the host syncs the run made, the
+operators with the most host time, and the kernels with the most device
+time. Needs one card.
 """
 
 from __future__ import annotations
@@ -60,6 +64,12 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--dates", type=int, default=200)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--turnover-mode", choices=("scan", "parallel"),
+                    default="scan")
+    ap.add_argument("--penalty", type=float, default=0.1)
+    ap.add_argument("--timed", type=int, default=0)
+    ap.add_argument("--profile", action=argparse.BooleanOptionalAction,
+                    default=True)
     args = ap.parse_args()
     f, n = 50, 1000
     names = tuple(f"{_PREFIXES[i % 8]}{i // 8}{_SUFFIXES[i % 4]}"
@@ -67,11 +77,27 @@ def main() -> None:
     inputs, cfg = fmt.convert(
         *_inputs(f, args.dates, n, args.seed), names=names, window=60,
         sim_kwargs=dict(method="mvo_turnover", lookback_period=60,
-                        max_weight=0.03, turnover_penalty=0.1,
+                        max_weight=0.03, turnover_penalty=args.penalty,
+                        turnover_mode=args.turnover_mode,
                         solver_kernel="fused"))
     step = fmt.build_research_step(**cfg.as_kwargs())
     step(*inputs)
     torch.cuda.synchronize()
+    print(f"card: {torch.cuda.get_device_name(0)}; dates {args.dates}, "
+          f"F={f}, N={n}, turnover_mode {args.turnover_mode}, penalty "
+          f"{args.penalty}")
+    walls = []
+    for _ in range(args.timed):
+        t0 = time.perf_counter()
+        out = step(*inputs)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    if walls:
+        print(f"wall unprofiled, {len(walls)} runs: "
+              + ", ".join(f"{w:.4f}" for w in walls) + f" s; sweep_stats "
+              f"{fmt.backtest.sweep_stats(out.sim.diagnostics)}")
+    if not args.profile:
+        return
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -83,8 +109,6 @@ def main() -> None:
     syncs = sum(1 for e in events if e.name in _SYNC_CALLS)
     d2h = sum(1 for e in events if e.name == "cudaMemcpyAsync")
     busy = _busy_ms(events)
-    print(f"card: {torch.cuda.get_device_name(0)}; dates {args.dates}, "
-          f"F={f}, N={n}")
     print(f"wall {wall:.3f} s under the profiler, {wall / args.dates * 1e3:.2f}"
           f" ms/date; device busy {busy:.1f} ms = "
           f"{busy / (wall * 1e3):.3%} of wall")

@@ -27,7 +27,8 @@ from factormodeling_tpu_torch.selection.selectors import (
 )
 
 __all__ = ["rolling_selection", "build_selection_context",
-           "finalize_selection", "selection_metric_needs"]
+           "finalize_selection", "finish_selection_context",
+           "selection_metric_needs"]
 
 _ALL_STATS = ("ic", "rank_ic", "factor_return")
 #: daily stats each built-in selector reads, keyed by function identity (a
@@ -60,6 +61,15 @@ def build_selection_context(factors: torch.Tensor, returns: torch.Tensor,
                                    universe=universe, stats=stats)
         rm = rolling_metrics(daily, max(window - 1, 1))
         metrics_win = {k: shift(v, 1, axis=-1) for k, v in rm.items()}
+    return finish_selection_context(metrics_win, factor_ret, window)
+
+
+def finish_selection_context(metrics_win: dict, factor_ret: torch.Tensor,
+                             window: int) -> SelectionContext:
+    """A :class:`SelectionContext` from already-windowed metric tensors
+    (``rolling_metrics`` output, shifted to exclude today) and the raw
+    factor returns ``[D, F]``: the seam for callers that re-window hoisted
+    per-date stats, and the last step of :func:`build_selection_context`."""
     ok = ~torch.isnan(factor_ret)
     sums = rolling_sum(torch.where(ok, factor_ret, 0.0), window, axis=0)
     return SelectionContext(metrics_win=metrics_win, factor_ret=factor_ret,

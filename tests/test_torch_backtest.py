@@ -200,6 +200,6 @@ def test_unported_options_raise():
     s = SimulationSettings(returns=torch.from_numpy(returns),
                            cap_flag=torch.from_numpy(cap),
                            investability_flag=torch.from_numpy(invest),
-                           method="mvo_turnover", turnover_mode="parallel")
+                           method="mvo_turnover", degrade=object())
     with pytest.raises(NotImplementedError, match="not ported"):
         run_simulation(torch.from_numpy(signal), s)
