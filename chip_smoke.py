@@ -45,7 +45,10 @@ Phases, in order (any failure exits non-zero before the last line):
    days) and the Anderson accelerator. Each: the kernels' launch counts
    against the path's schedule, leg-sum and weight-cap invariants, a finite
    summary; then the same step with ``solver_kernel="reference"``, held
-   against the fused run. Then path 1 with ``turnover_mode="parallel"``:
+   against the fused run (paths 1 and 3: the reference kernel's backtest of
+   the fused run's signal over its first ``REF_DATES`` dates, against the
+   full run's first days on path 1 and the fused kernel's backtest of the
+   same dates on path 3). Then path 1 with ``turnover_mode="parallel"``:
    (6) at its penalty 0.1, held against path 1's own fused output (suffix
    days within ``DW_TOL`` on all but ``DW_SHARE``, certified days both
    polished or neither attempted within ``CERT_TOL``), and (7) at penalty
@@ -69,7 +72,20 @@ Phases, in order (any failure exits non-zero before the last line):
    and ``regression`` selection at window 60, each blended and backtested
    with equal weights; two K3 launches in all; then the same path on the
    CPU from the same inputs, held against the card;
-7. one ``kernels`` JSON line; then the last line
+7. path 8, the multi-manager layer: (8a) the notebook's multi-manager
+   backtest at F=50, D=1332, N=1000 — icir_top daily factor weights (one K1
+   launch), the 50 equal-weight manager books (``pct=0.1``) combined by
+   them and backtested with costs through
+   ``fmt.multimanager.run_multimanager_backtest`` — held against the
+   factor-weighted sum of the books recomputed apart and against the same
+   path on the CPU (the books bitwise, the factor weights at path 5's
+   icir_top gate, the daily returns where the weights agree); (8b) the
+   JAX package's ``bench.py`` config-4 sweep, 1000 combos of 5 of 50
+   managers at D=2520, N=1000 in float32, through
+   ``fmt.parallel.manager_sweep`` in chunks of 16, with its walls, memory
+   peak and share of ``bench.py``'s traffic bound, 8 combos held against
+   their own multi-manager backtest and the first 32 against the CPU;
+8. one ``kernels`` JSON line; then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs one card and exits non-zero, printing no result, without one or
@@ -1444,6 +1460,225 @@ def scoring_path(torch, fmt, seed: int) -> dict:
     return launches
 
 
+# path 8a: the notebook's multi-manager backtest (cells 53-56) on dense
+# arrays at the research step's width, equal books of the top decile
+P8_PCT = 0.1
+# the combined book against the factor-weighted sum of the manager books,
+# recomputed apart: float32 sums over 50 managers of weights <= 1 times
+# book cells of ~0.02 in two orders, ~50 * 6e-8 * 0.02 apart; one manager
+# off by a name moves a cell by ~1e-3
+P8_BOOK_TOL = 1e-6
+# the card's daily returns against the CPU's on days whose factor weights
+# (and the day before's, which set the day's turnover cost) agree within
+# P8_FW_AGREE: the books are bitwise equal, so the combined cells differ by
+# the float32 contraction order and ~1e-6 * 0.02 of weight, and a day's
+# return sums ~200 of them times returns of ~0.02
+P8_FW_AGREE = 1e-6
+P8_RET_TOL = 1e-6
+# path 8b: bench.py's config-4 manager sweep (bench_sweep): C combos of K
+# factors from default_rng(4), F managers, D dates, N assets, float32
+SWEEP_C, SWEEP_K, SWEEP_F, SWEEP_D, SWEEP_N = 1000, 5, 50, 2520, 1000
+SWEEP_BATCH = 16
+SWEEP_CHECKED = 8        # combos held against their own backtest
+SWEEP_CPU_COMBOS = 32    # combos run again on the CPU
+# a combo's log returns against its own multi-manager backtest (constant
+# daily factor weights) and against the CPU's: the same float32 books
+# contracted in another order (a [B, F] x [F, D*N] product against a
+# per-date weighted sum over the managers; cuBLAS against the CPU's), so
+# cells differ by ~F * eps * 0.02 ~ 6e-8 and a day's return, a sum of ~200
+# cells times returns of ~0.02, by far less than 1e-6; a swapped name moves
+# it by ~4e-4
+SWEEP_RET_TOL = 1e-6
+
+
+def _multimanager_run(torch, fmt, arrays, dev: str):
+    """Path 8a once on ``dev``: icir_top daily factor weights, then the
+    equal-weight manager books combined by them and backtested. Returns
+    (factor weights, MultiManagerOutput, settings)."""
+    factors, returns, factor_ret, cap, invest, universe = (
+        torch.from_numpy(a).to(dev) for a in arrays)
+    settings = fmt.SimulationSettings(
+        returns=returns, cap_flag=cap, investability_flag=invest,
+        universe=universe, method="equal", pct=P8_PCT)
+    fw = fmt.selection.rolling_selection(factors, returns, factor_ret, WINDOW,
+                                         method="icir_top", universe=universe)
+    out = fmt.multimanager.run_multimanager_backtest(factors, fw, settings,
+                                                     device=dev)
+    return fw, out, settings
+
+
+def multimanager_path(torch, fmt, seed: int) -> dict:
+    """Path 8a: the notebook's multi-manager backtest at F=50, D=1332,
+    N=1000: daily factor weights from the icir_top rolling selection (K1's
+    one launch), the 50 equal-weight manager books combined by them, the
+    P&L with costs. Held against the factor-weighted sum of the books
+    recomputed apart, and against the same path on the CPU. Returns the
+    kernels' launches in the timed run."""
+    from factormodeling_tpu_torch.metrics import _cuda_rank_ic as rk
+    from factormodeling_tpu_torch.metrics import _cuda_rank_sort as rs
+
+    arrays = make_inputs(F, D, N, seed)
+    _multimanager_run(torch, fmt, tuple(a[:, :130] if a.ndim == 3
+                                        else a[:130] for a in arrays), "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rk.launches = rs.launches = 0
+    t0 = time.perf_counter()
+    fw, out, settings = _multimanager_run(torch, fmt, arrays, "cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"rank_ic_postsort": rk.launches, "rank_ic_fused": rs.launches}
+    summ = {k: float(v) for k, v in
+            fmt.result_summary(out.result)._asdict().items()}
+    log(f"path multimanager: F={F} D={D} N={N} window {WINDOW}, equal books "
+        f"pct {P8_PCT}: {secs:.3f} s wall on the card, device memory peak "
+        f"{peak / 2**20:.1f} MiB; launches {json.dumps(launches)}; summary "
+        + json.dumps(summ))
+    if launches != {"rank_ic_postsort": 1, "rank_ic_fused": 0}:
+        raise AssertionError(f"multimanager path: launches {launches}, "
+                             "expected one rank_ic_postsort")
+    if not all(np.isfinite(v) for v in summ.values()):
+        raise AssertionError(f"multimanager path: non-finite summary {summ}")
+
+    # the combined book against the weighted sum of the books, apart
+    books, _, _ = fmt.multimanager.compute_manager_weights(
+        torch.from_numpy(arrays[0]).cuda(), settings, device="cuda")
+    parts = torch.zeros_like(out.weights)
+    for m in range(F):
+        parts += fw[:, m:m + 1].nan_to_num() * books[m].nan_to_num()
+    err_book = float((out.weights - parts).abs().max())
+    active = int((fw.sum(1) > 0).sum())
+    log(f"path multimanager combined book vs the weighted sum of the {F} "
+        f"books: max |d| {err_book:.3e} (tol {P8_BOOK_TOL}); {active} dates "
+        f"weighted")
+    if not (err_book <= P8_BOOK_TOL and active > 0):
+        raise AssertionError("multimanager path: the combined book is not "
+                             "the factor-weighted sum of the manager books")
+
+    # the same path on the CPU from the same inputs
+    t0 = time.perf_counter()
+    fw_h, out_h, settings_h = _multimanager_run(torch, fmt, arrays, "cpu")
+    books_h, _, _ = fmt.multimanager.compute_manager_weights(
+        torch.from_numpy(arrays[0]), settings_h, device="cpu")
+    secs_h = time.perf_counter() - t0
+    same_books = bool(torch.equal(books.cpu().nan_to_num(nan=7.0),
+                                  books_h.nan_to_num(nan=7.0)))
+    dw = (fw.cpu() - fw_h).abs().max(-1).values
+    share = float((dw > P5_DW_TOL).double().mean())
+    agree = dw <= P8_FW_AGREE
+    agree = agree & torch.cat([agree.new_ones(1), agree[:-1]])
+    d_ret = (out.result.log_return.cpu() - out_h.result.log_return).abs()
+    d_agree = float(d_ret[agree].max())
+    log(f"path multimanager on the CPU: {secs_h:.1f} s (the path and the "
+        f"books again); books bitwise equal {same_books}; factor weights "
+        f"max |dw| {float(dw.max()):.3e}, share of dates with |dw| > "
+        f"{P5_DW_TOL}: {share:.4f} (limit {P5_DW_SHARE}); daily returns on "
+        f"the {int(agree.sum())} days whose weights agree within "
+        f"{P8_FW_AGREE}: max |d| {d_agree:.3e} (tol {P8_RET_TOL}), on all "
+        f"days {float(d_ret.max()):.3e}")
+    if not same_books:
+        raise AssertionError("multimanager path: the card's equal books "
+                             "differ from the CPU's")
+    if not (share <= P5_DW_SHARE and d_agree <= P8_RET_TOL):
+        raise AssertionError("multimanager path: the card's factor weights "
+                             "or daily returns differ from the CPU's")
+    return launches
+
+
+def sweep_inputs(torch, fmt, dev: str):
+    """bench.py's config-4 inputs (its generator and draw order) on
+    ``dev``: (factors [F, D, N], combo weights [C, F], settings)."""
+    rng = np.random.default_rng(4)
+    factors = rng.normal(size=(SWEEP_F, SWEEP_D, SWEEP_N)).astype(np.float32)
+    rets = rng.normal(scale=0.02, size=(SWEEP_D, SWEEP_N)).astype(np.float32)
+    cap = rng.integers(1, 4, size=(SWEEP_D, SWEEP_N)).astype(np.float32)
+    combos = rng.integers(0, SWEEP_F, size=(SWEEP_C, SWEEP_K))
+    cw = fmt.parallel.combo_weight_matrix(combos, SWEEP_F, device=dev)
+    settings = fmt.SimulationSettings(
+        returns=torch.from_numpy(rets).to(dev),
+        cap_flag=torch.from_numpy(cap).to(dev),
+        investability_flag=torch.ones((SWEEP_D, SWEEP_N), device=dev),
+        pct=P8_PCT)
+    return torch.from_numpy(factors).to(dev), cw, settings
+
+
+def sweep_path(torch, fmt) -> dict:
+    """Path 8b: the 1000-combo manager sweep at bench.py's config-4 shape:
+    one book pass over the 50 managers, then every combo's contraction and
+    P&L in chunks of 16. Held against each of 8 combos' own multi-manager
+    backtest and against the first 32 combos on the CPU. Returns the wall
+    times, the bound and the memory peak."""
+    factors, cw, settings = sweep_inputs(torch, fmt, "cuda")
+
+    def sweep(weights):
+        out = fmt.parallel.manager_sweep(factors, weights, settings,
+                                         combo_batch=SWEEP_BATCH,
+                                         device="cuda")
+        torch.cuda.synchronize()
+        return out
+
+    sweep(cw[:SWEEP_BATCH])     # warm-up: allocator, library handles
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out = sweep(cw)
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    c, f, d, n = SWEEP_C, SWEEP_F, SWEEP_D, SWEEP_N
+    # bench.py's traffic model: the books stream once per combo batch
+    # through the contraction, and each combo's [D, N] book and ~3 P&L
+    # passes write or read once; the contraction's 2 C F D N operations
+    batches = -(-c // SWEEP_BATCH)
+    nbytes = 4.0 * (batches * f * d * n + 4 * c * d * n)
+    b_ms, b_by = bound(nbytes, 2.0 * c * f * d * n)
+    wall_ms = min(walls) * 1e3
+    sharpe = out.sharpe.cpu()
+    total = out.total_log_return.cpu()
+    log(f"path manager_sweep: C={c} combos of {SWEEP_K}, F={f} D={d} N={n} "
+        f"float32, combo_batch {SWEEP_BATCH}: walls "
+        + ", ".join(f"{w:.4f}" for w in walls)
+        + f" s after a warm-up; device memory peak {peak / 2**20:.1f} MiB "
+        f"(books {4 * f * d * n / 2**20:.1f} MiB, a chunk "
+        f"{4 * SWEEP_BATCH * d * n / 2**20:.1f} MiB); bench.py's model "
+        f"{nbytes / 1e9:.2f} GB and {2.0 * c * f * d * n:.3e} FLOP: bound "
+        f"{b_ms:.3f} ms ({b_by}), {100.0 * b_ms / wall_ms:.2f}% of it; "
+        f"sharpe range [{float(sharpe.min()):.4f}, "
+        f"{float(sharpe.max()):.4f}]")
+    if not (torch.isfinite(sharpe).all() and torch.isfinite(total).all()):
+        raise AssertionError("manager sweep: non-finite sharpe or total "
+                             "log return")
+
+    # combos spread over the chunks, the last among them, against their own
+    # multi-manager backtest with the combo's row as daily factor weights
+    picks = np.linspace(0, c - 1, SWEEP_CHECKED).round().astype(int)
+    err_own = 0.0
+    for k in picks:
+        one = fmt.multimanager.run_multimanager_backtest(
+            factors, cw[k].expand(d, f), settings, device="cuda")
+        err_own = max(err_own, float((out.log_return[k]
+                                      - one.result.log_return).abs().max()))
+    # the first combos again on the CPU, books and all
+    t0 = time.perf_counter()
+    factors_h, cw_h, settings_h = sweep_inputs(torch, fmt, "cpu")
+    host = fmt.parallel.manager_sweep(factors_h, cw_h[:SWEEP_CPU_COMBOS],
+                                      settings_h, combo_batch=SWEEP_BATCH,
+                                      device="cpu")
+    secs_h = time.perf_counter() - t0
+    err_cpu = float((out.log_return[:SWEEP_CPU_COMBOS].cpu()
+                     - host.log_return).abs().max())
+    log(f"path manager_sweep held: combos {picks.tolist()} against their own "
+        f"multi-manager backtest max |d log return| {err_own:.3e}; the first "
+        f"{SWEEP_CPU_COMBOS} combos on the CPU ({secs_h:.1f} s) max |d log "
+        f"return| {err_cpu:.3e} (tol {SWEEP_RET_TOL} each)")
+    if not (err_own <= SWEEP_RET_TOL and err_cpu <= SWEEP_RET_TOL):
+        raise AssertionError("manager sweep: a combo differs from its own "
+                             "backtest or from the CPU's")
+    return dict(walls_s=walls, bound_ms=b_ms, bound_by=b_by,
+                share_of_bound=b_ms / wall_ms, peak_bytes=peak)
+
+
 #: the paths' backtest settings (beside max_weight and the kernel)
 PATHS = {
     "turnover": dict(method="mvo_turnover", lookback_period=T_LOOKBACK,
@@ -1464,6 +1699,14 @@ PARALLEL_PATHS = {
                                         turnover_mode="parallel",
                                         turnover_penalty=0.0),
 }
+# paths 1 and 3 hold the reference kernel's backtest of the fused run's own
+# signal over its first REF_DATES dates only (cut to keep the script's time
+# as path 8 grew it). Path 1's backtest is causal to the bit, so its fused
+# side is the full run's first days; path 3's is not (its risk-model fits
+# round differently with fewer dates, and the Anderson chain carries that
+# far), so its fused side runs over the same dates again
+REF_DATES = 666
+REF_CUT = {"turnover": "full run", "turnover_risk_anderson": "rerun"}
 # certified days against the scan: the QP is float64 (the JAX package's
 # bench.py holds 1e-4 at float32)
 CERT_TOL = 1e-5
@@ -1560,8 +1803,8 @@ def check_launches(path: str, launches: dict, want) -> None:
                              f"schedule implies {tuple(want)}")
 
 
-def check_fused_vs_reference(torch, path: str, out, ref) -> None:
-    dw = (out.sim.weights.nan_to_num() - ref.sim.weights.nan_to_num()).abs()
+def check_fused_vs_reference(torch, path: str, w_fused, w_ref) -> None:
+    dw = (w_fused.nan_to_num() - w_ref.nan_to_num()).abs()
     day_dw = dw.max(-1).values
     share = float((day_dw > DW_TOL).double().mean())
     log(f"path {path} fused vs reference: max |dw| {float(dw.max()):.3e}, "
@@ -1585,7 +1828,7 @@ def path_phase(torch, seed: int, path: str, warm_up: bool):
                                    for a in arrays), PATHS[path], "fused")
 
     rk.launches = ak.launches = ak.lane_launches = 0
-    out, secs, _ = run_step(torch, fmt, arrays, PATHS[path], "fused")
+    out, secs, inputs = run_step(torch, fmt, arrays, PATHS[path], "fused")
     launches = segment_counts(rk, ak)
     log(f"path {path} fused: F={F} D={D} N={N} step {secs:.3f} s wall; "
         f"launches {json.dumps(launches)}")
@@ -1602,9 +1845,32 @@ def path_phase(torch, seed: int, path: str, warm_up: bool):
         raise AssertionError(f"{path}: the Anderson accelerator never engaged")
     check_launches(path, launches, segment_launches(fmt, PATHS[path]))
 
-    ref, ref_secs, _ = run_step(torch, fmt, arrays, PATHS[path], "reference")
-    log(f"path {path} reference: step {ref_secs:.3f} s wall")
-    check_fused_vs_reference(torch, path, out, ref)
+    if path not in REF_CUT:
+        ref, ref_secs, _ = run_step(torch, fmt, arrays, PATHS[path],
+                                    "reference")
+        log(f"path {path} reference: step {ref_secs:.3f} s wall")
+        check_fused_vs_reference(torch, path, out.sim.weights,
+                                 ref.sim.weights)
+        return launches, out, secs
+    cut = REF_DATES
+    _, returns, _, cap, invest, universe = (a[:cut] for a in inputs)
+
+    def backtest(kernel):
+        settings = fmt.SimulationSettings(
+            returns=returns, cap_flag=cap, investability_flag=invest,
+            universe=universe, **dict(PATHS[path], max_weight=MAX_WEIGHT,
+                                      solver_kernel=kernel))
+        t0 = time.perf_counter()
+        sim = fmt.run_simulation(out.signal[:cut], settings)
+        torch.cuda.synchronize()
+        log(f"path {path} {kernel}: the backtest of the fused run's signal "
+            f"over its first {cut} dates {time.perf_counter() - t0:.3f} s "
+            "wall")
+        return sim.weights
+
+    fused = (out.sim.weights[:cut] if REF_CUT[path] == "full run"
+             else backtest("fused"))
+    check_fused_vs_reference(torch, path, fused, backtest("reference"))
     return launches, out, secs
 
 
@@ -1727,7 +1993,7 @@ def turnover_decoupled_path(torch, seed: int):
                                                      "reference")
     if ref_stats["suffix_len"] != 0:
         raise AssertionError(f"{path} reference: suffix {ref_stats}")
-    check_fused_vs_reference(torch, path, out, ref)
+    check_fused_vs_reference(torch, path, out.sim.weights, ref.sim.weights)
 
     cut = P7_SCAN_DATES
     sim = dict(PARALLEL_PATHS[path], turnover_mode="scan",
@@ -1840,9 +2106,20 @@ def main() -> int:
     scoring_launches = scoring_path(torch, fmt, args.seed)
     log(f"scoring path phase (warm-up, run, CPU run, checks): "
         f"{time.perf_counter() - t0:.1f} s wall")
-    # each kernel's launches on the path that runs its form
-    kernels["rank_ic_postsort"]["launches"] = (
-        launches["turnover"]["rank_ic_postsort"])
+    t0 = time.perf_counter()
+    launches["multimanager"] = multimanager_path(torch, fmt, args.seed)
+    log(f"path 8a phase (warm-up, run, checks, CPU run): "
+        f"{time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    sweep_path(torch, fmt)
+    log(f"path 8b phase (warm-up, two runs, checks, CPU run): "
+        f"{time.perf_counter() - t0:.1f} s wall")
+    # each kernel's launches on the paths that run its form: K1 once in each
+    # of paths 1-3 and in path 8a's icir_top selection
+    k1 = {p: launches[p]["rank_ic_postsort"] for p in
+          (*PATHS, "multimanager")}
+    kernels["rank_ic_postsort"]["launches"] = sum(k1.values())
+    kernels["rank_ic_postsort"]["launches_by_path"] = k1
     # the segment's single-lane launches: path 1, and the sequential
     # suffixes of paths 6-7; its lane launches: path 2's chunks, and the
     # seed and sweep chunks of paths 6-7 (each as the wrapper counted it)
@@ -1868,6 +2145,7 @@ def main() -> int:
     # fp32_probe's launches are those of its own entry point's run
 
     log(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s wall")
+    log(f"card (again, for a reader of the output's end): {smi}")
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "wrapper_ms", "cluster", "smem_bytes", "launches_by_path",

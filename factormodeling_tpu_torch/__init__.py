@@ -4,8 +4,12 @@ backtest engine and its reports (``fmt.backtest``), the blends
 (``fmt.composite``), the ops library (``fmt.ops``), the analytics
 (``fmt.analytics``: the decay-window sweep, ``PortfolioAnalyzer``, the
 quantile backtests, the dashboards), factor scoring (``fmt.metrics``),
-rolling factor selection (``fmt.selection``) and the reference's pandas
-surface (``fmt.compat``, imported on first use: it needs pandas).
+rolling factor selection (``fmt.selection``), the multi-manager layer
+(``fmt.multimanager``) and the candidate-combo sweep
+(``fmt.parallel.manager_sweep``), the run report (``fmt.obs``), the dense
+panel model (``fmt.panel``), and the modules that need pandas, each
+imported on first use: the reference's pandas surface (``fmt.compat``) and
+the loaders and artifact store (``fmt.io``, with pyarrow for parquet).
 
 The JAX package stays the reference; this package mirrors its layout and
 public array layouts (``[F, D, N]`` stacks, ``[D, N]`` panels, ``[D, F]``
@@ -16,7 +20,8 @@ caller asks for ``device="cpu"``.
 import importlib
 
 from factormodeling_tpu_torch import (analytics, backtest, composite, metrics,
-                                      ops, selection)
+                                      multimanager, obs, ops, panel, parallel,
+                                      selection)
 from factormodeling_tpu_torch.backtest import SimulationSettings, run_simulation
 from factormodeling_tpu_torch.convert import (ResearchConfig, convert,
                                               convert_warm_state)
@@ -24,11 +29,12 @@ from factormodeling_tpu_torch.parallel import build_research_step, result_summar
 
 __all__ = ["ResearchConfig", "SimulationSettings", "analytics", "backtest",
            "build_research_step", "compat", "composite", "convert",
-           "convert_warm_state", "metrics", "ops", "result_summary",
-           "run_simulation", "selection"]
+           "convert_warm_state", "io", "metrics", "multimanager", "obs", "ops",
+           "panel", "parallel", "result_summary", "run_simulation",
+           "selection"]
 
 
 def __getattr__(name):
-    if name == "compat":
-        return importlib.import_module("factormodeling_tpu_torch.compat")
+    if name in ("compat", "io"):
+        return importlib.import_module(f"{__name__}.{name}")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -6,7 +6,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["host_array", "resolve_device"]
+__all__ = ["check_device", "host_array", "resolve_device"]
 
 
 def host_array(x) -> np.ndarray:
@@ -28,4 +28,15 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device!r} requested but CUDA is not "
                            "available")
+    return dev
+
+
+def check_device(device, *tensors) -> torch.device:
+    """:func:`resolve_device`, then require every tensor given (``None``s
+    skipped) to lie on that device's type."""
+    dev = resolve_device(device)
+    for t in tensors:
+        if t is not None and t.device.type != dev.type:
+            raise ValueError(f"entry point asked to run on {dev}, got an "
+                             f"input on {t.device}")
     return dev

@@ -3,7 +3,9 @@ and turnover summary (port of ``factormodeling_tpu/backtest/pnl.py``).
 
 NaN weights/returns are zero-filled, the first date's turnover diff counts
 0, the net column is the weighted sum of log-returns (named
-``log_return``), and per-name P&L always subtracts costs.
+``log_return``), and per-name P&L always subtracts costs. The date axis is
+-2, so a stack of books ``[..., D, N]`` (the sweep's chunk of combos) gives
+each book the result of its own ``[D, N]`` call.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from factormodeling_tpu_torch.ops._window import shift
 __all__ = ["DailyResult", "daily_portfolio_returns", "signal_metrics"]
 
 _N_AXIS = -1
+_DATE_AXIS = -2
 
 
 class DailyResult(NamedTuple):
@@ -33,7 +36,8 @@ class DailyResult(NamedTuple):
 
 def daily_portfolio_returns(weights: torch.Tensor,
                             s: SimulationSettings) -> DailyResult:
-    """P&L of (already shifted) daily weights against the settings panels."""
+    """P&L of (already shifted) daily weights ``[..., D, N]`` against the
+    settings panels ``[D, N]``."""
     w = torch.nan_to_num(weights)
     r = torch.nan_to_num(s.returns)
     longs = torch.clamp(w, min=0.0)
@@ -42,8 +46,10 @@ def daily_portfolio_returns(weights: torch.Tensor,
     long_ret_raw = (longs * r).sum(_N_AXIS)
     short_ret_raw = -(shorts * r).sum(_N_AXIS)
 
-    dlong = torch.nan_to_num(torch.abs(longs - shift(longs, 1, axis=0)))
-    dshort = torch.nan_to_num(torch.abs(shorts - shift(shorts, 1, axis=0)))
+    dlong = torch.nan_to_num(torch.abs(longs - shift(longs, 1,
+                                                     axis=_DATE_AXIS)))
+    dshort = torch.nan_to_num(torch.abs(shorts - shift(shorts, 1,
+                                                       axis=_DATE_AXIS)))
     lt = dlong.sum(_N_AXIS)
     st = dshort.sum(_N_AXIS)
 
@@ -63,8 +69,10 @@ def daily_portfolio_returns(weights: torch.Tensor,
         long_turnover=lt,
         short_turnover=st,
         turnover=lt + st,
-        long_pnl_by_name=(longs * r).sum(0) - (dlong * rates).sum(0),
-        short_pnl_by_name=-(shorts * r).sum(0) - (dshort * rates).sum(0),
+        long_pnl_by_name=((longs * r).sum(_DATE_AXIS)
+                          - (dlong * rates).sum(_DATE_AXIS)),
+        short_pnl_by_name=(-(shorts * r).sum(_DATE_AXIS)
+                           - (dshort * rates).sum(_DATE_AXIS)),
     )
 
 

@@ -15,7 +15,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from factormodeling_tpu_torch._device import resolve_device
+from factormodeling_tpu_torch._device import check_device, resolve_device
 from factormodeling_tpu_torch.backtest.engine import (SimulationOutput,
                                                       run_simulation)
 from factormodeling_tpu_torch.backtest.pnl import DailyResult
@@ -49,15 +49,16 @@ class ResearchOutput(NamedTuple):
 
 def result_summary(result: DailyResult) -> ResearchSummary:
     """Summary scalars of a [D]-shaped daily result (simple-return Sharpe via
-    exp(log_return) - 1)."""
+    exp(log_return) - 1); a ``[..., D]`` result (the sweep's combos) gives
+    one summary per leading index."""
     simple = torch.expm1(result.log_return)
-    mean, std, n = nan_mean_std(simple.reshape(-1), 0)
+    mean, std, n = nan_mean_std(simple, -1)
     ok = ~torch.isnan(simple)
-    t_mean, _, _ = nan_mean_std(result.turnover.reshape(-1), 0)
-    hits = (torch.where(ok, simple, 0.0) > 0).sum().to(simple.dtype)
+    t_mean, _, _ = nan_mean_std(result.turnover, -1)
+    hits = (torch.where(ok, simple, 0.0) > 0).sum(-1).to(simple.dtype)
     root = math.sqrt(_ANNUALIZE)
     return ResearchSummary(
-        total_log_return=torch.where(ok, result.log_return, 0.0).sum(),
+        total_log_return=torch.where(ok, result.log_return, 0.0).sum(-1),
         sharpe=mean / std * root,
         ann_volatility=std * root,
         mean_turnover=t_mean,
@@ -91,11 +92,8 @@ def build_research_step(*, names, window: int,
 
     def step(factors, returns, factor_ret, cap_flag, investability,
              universe) -> ResearchOutput:
-        args = (factors, returns, factor_ret, cap_flag, investability, universe)
-        for a in args:
-            if a.device.type != dev.type:
-                raise ValueError(f"research step built for {dev}, got an "
-                                 f"input on {a.device}")
+        check_device(dev, factors, returns, factor_ret, cap_flag,
+                     investability, universe)
         selection = rolling_selection(
             factors, returns, factor_ret, window, method=select_method,
             method_kwargs=select_kwargs, universe=universe)
