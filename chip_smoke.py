@@ -85,7 +85,27 @@ Phases, in order (any failure exits non-zero before the last line):
    ``fmt.parallel.manager_sweep`` in chunks of 16, with its walls, memory
    peak and share of ``bench.py``'s traffic bound, 8 combos held against
    their own multi-manager backtest and the first 32 against the CPU;
-8. one ``kernels`` JSON line; then the last line
+   (8c) ``fmt.parallel.checkpointed_manager_sweep`` at 8b's shape in
+   chunks of 64, interrupted inside its second chunk and resumed from the
+   snapshot, every output bitwise 8b's;
+8. path 9, the resilience layer and the online advance on the first 333
+   dates of path 1's inputs (F=50, N=1000, mvo_turnover, fused): (9a) the
+   step clean, with ``FaultSpec.off()`` and ``DegradePolicy.make()`` (held
+   bitwise to the clean run), and one chaos cell (NaN and Inf cells,
+   dropped dates and collapsed universe dates at every stage, under a
+   policy with every guard on: finite P&L, leg sums and the weight cap on
+   active unheld days, its ``DegradeStats`` equal to a host recount from
+   the drawn masks, the same cell on the host CPU at path 1's weight
+   gate), K1 once and K2 two segments a date in each run; (9b) an
+   ``OnlineEngine`` for path 1's tenant fed the 333 dates one at a time,
+   held against 9a's clean step (selection rows bitwise, signal rows
+   within ``P9_SIG_TOL``, weights at path 1's gate, leg counts and solver
+   acceptance exact where the weights agree, daily P&L where the books
+   agree), K1 once a date and K2 as on path 1, a fresh engine resumed from
+   its snapshot at date 300 and a restatement of date 320 replayed, both
+   byte-equal; with the per-date advance wall p50/p99 and the
+   synchronizing reads of a date by calling line;
+9. one ``kernels`` JSON line; then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs one card and exits non-zero, printing no result, without one or
@@ -1676,7 +1696,8 @@ def sweep_path(torch, fmt) -> dict:
         raise AssertionError("manager sweep: a combo differs from its own "
                              "backtest or from the CPU's")
     return dict(walls_s=walls, bound_ms=b_ms, bound_by=b_by,
-                share_of_bound=b_ms / wall_ms, peak_bytes=peak)
+                share_of_bound=b_ms / wall_ms, peak_bytes=peak, out=out,
+                inputs=(factors, cw, settings))
 
 
 #: the paths' backtest settings (beside max_weight and the kernel)
@@ -2022,6 +2043,432 @@ def turnover_decoupled_path(torch, seed: int):
         raise AssertionError(f"{path}: polished days {pol_dw} from the scan")
     return launches
 
+# paths 9a and 9b: the first R_DATES dates of path 1's inputs
+R_DATES = 333
+# path 9a's chaos cell: every stage gated on (the factors, the selection and
+# the signal), NaN and Inf cells, dropped dates, collapsed universe dates
+# of R_KEEP names, under a policy with every guard on
+R_FAULTS = dict(seed=10, nan_rate=1e-4, inf_rate=1e-4, drop_rate=0.02,
+                collapse_rate=0.02, collapse_keep=5)
+R_POLICY = dict(min_universe=50, quarantine_nan_frac=0.5, clamp_absmax=5.0,
+                carry_fallback=True)
+# path 9b against path 9a's clean step: a signal row whose largest cell
+# difference exceeds this (float32 z-scores of order 1) counts as parted
+P9_SIG_TOL = 1e-5
+# the online engine's snapshot and restatement dates
+P9_RESUME_DATE, P9_RESTATE_DATE = 300, 320
+
+
+def _bytes_equal(a, b) -> bool:
+    return a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()
+
+
+def _run_resil_step(torch, fmt, inputs, cfg, **kw):
+    """One call of the research step built from ``cfg`` with counters on;
+    returns (output, seconds)."""
+    step = fmt.build_research_step(**dict(cfg.as_kwargs(),
+                                          collect_counters=True))
+    if inputs[0].is_cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = step(*inputs, **kw)
+    if inputs[0].is_cuda:
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _resil_recount(fmt, arrays, spec, pol, out) -> dict:
+    """DegradeStats recounted on the host from the drawn masks (numpy, the
+    lanes' own draws) and the run's diagnostics: quarantined dates from
+    the faulted factors' in-universe NaN share, held dates from the
+    collapsed universe's counts, carried dates from the run's solver
+    acceptance, clamped cells from the clamped signal."""
+    from factormodeling_tpu_torch.rng import lane_rng
+
+    factors, _, _, _, _, universe = arrays
+    f, d, n = factors.shape
+    thr = np.float32(spec.nan_rate)
+
+    def draw(kind, size):
+        return lane_rng(f"fault/{kind}", spec.seed, 0).uniform(size=size)
+
+    nan = np.isnan(factors) | (draw("nan_burst", factors.shape) < thr)
+    nan &= ~(draw("inf_spike", factors.shape) < np.float32(spec.inf_rate))
+    dropped = draw("drop_day", d) < np.float64(np.float32(spec.drop_rate))
+    nan[:, dropped] = True
+    collapsed = (lane_rng("fault/universe_collapse", spec.seed, 0)
+                 .uniform(size=d) < np.float64(np.float32(spec.collapse_rate)))
+    uni = universe.copy()
+    rank = np.cumsum(uni, axis=1)
+    uni[collapsed] &= rank[collapsed] <= spec.collapse_keep
+    # the step's float32 division of the two counts
+    frac = ((nan & uni[None]).sum((0, 2)).astype(np.float32)
+            / np.maximum(uni.sum(1) * f, 1).astype(np.float32))
+    quarantined = int((frac > np.float32(pol.quarantine_nan_frac)).sum())
+    held_mu = uni.sum(1) < pol.min_universe
+    ok = out.sim.diagnostics.solver_ok.cpu().numpy()
+    carried = ~ok & ~held_mu
+    clamped = np.abs(out.signal.cpu().numpy()) == np.float32(pol.clamp_absmax)
+    days = int(clamped.any(1).sum())
+    return dict(quarantined_days=quarantined, held_days=int(held_mu.sum()),
+                carry_fallback_days=int(carried.sum()),
+                clamped_cells=int(clamped.sum()),
+                degrade_events=quarantined + int(held_mu.sum())
+                + int(carried.sum()) + days,
+                held_mask=held_mu | carried, dropped=int(dropped.sum()),
+                collapsed=int(collapsed.sum()))
+
+
+def resil_path(torch, fmt, seed: int) -> dict:
+    """Path 9a: the research step on the first R_DATES dates of path 1's
+    inputs at full width (F=50, N=1000, mvo_turnover, fused): the clean
+    step; the same with ``FaultSpec.off()`` and ``DegradePolicy.make()``,
+    held bitwise to it; then one chaos cell (R_FAULTS under R_POLICY), with
+    finite P&L, the leg sums and the weight cap on active unheld days, its
+    DegradeStats against a host recount from the drawn masks, and the same
+    cell on the host CPU (the same masks, by the host draw) at path 1's
+    weight gate. Returns the clean output, its seconds, and the kernels'
+    launches in each card run."""
+    from factormodeling_tpu_torch.metrics import _cuda_rank_ic as rk
+    from factormodeling_tpu_torch.ops import _cuda_admm as ak
+
+    arrays = tuple(a[:, :R_DATES] if a.ndim == 3 else a[:R_DATES]
+                   for a in make_inputs(F, D, N, seed))
+    sim = dict(PATHS["turnover"], max_weight=MAX_WEIGHT,
+               solver_kernel="fused")
+    inputs, cfg = fmt.convert(*arrays, names=factor_names(F), window=WINDOW,
+                              select_method="icir_top", blend_method="zscore",
+                              sim_kwargs=sim, device="cuda")
+    spec = fmt.resil.FaultSpec.make(**R_FAULTS)
+    pol = fmt.resil.DegradePolicy.make(**R_POLICY)
+    segs = segment_launches(fmt, PATHS["turnover"])[0] // D
+    want = {"rank_ic_postsort": 1, "admm_segment": R_DATES * segs,
+            "admm_segment_lanes": 0}
+    runs = {}
+    for name, kw in (("clean", {}),
+                     ("inert", dict(fault_spec=fmt.resil.FaultSpec.off(),
+                                    policy=fmt.resil.DegradePolicy.make())),
+                     ("chaos", dict(fault_spec=spec, policy=pol))):
+        rk.launches = ak.launches = ak.lane_launches = 0
+        out, secs = _run_resil_step(torch, fmt, inputs, cfg, **kw)
+        launches = segment_counts(rk, ak)
+        runs[name] = (out, secs, launches)
+        log(f"path resil {name}: F={F} D={R_DATES} N={N} step {secs:.3f} s "
+            f"wall; launches {json.dumps(launches)}")
+        if launches != want:
+            raise AssertionError(f"resil {name}: launches {launches}, the "
+                                 f"schedule implies {want}")
+    clean, inert = runs["clean"][0], runs["inert"][0]
+    leaves = (("selection", lambda o: o.selection),
+              ("signal", lambda o: o.signal),
+              ("weights", lambda o: o.sim.weights),
+              ("long_count", lambda o: o.sim.long_count),
+              ("short_count", lambda o: o.sim.short_count),
+              *((f"result.{k}", lambda o, k=k: getattr(o.sim.result, k))
+                for k in clean.sim.result._fields),
+              ("solver_ok", lambda o: o.sim.diagnostics.solver_ok),
+              ("primal_residual",
+               lambda o: o.sim.diagnostics.primal_residual))
+    parted = [k for k, get in leaves if not _bytes_equal(get(clean),
+                                                         get(inert))]
+    log(f"path resil inert (FaultSpec.off, DegradePolicy.make) vs clean: "
+        f"{len(leaves) - len(parted)} of {len(leaves)} outputs bitwise "
+        f"equal; parted {parted}")
+    if parted:
+        raise AssertionError(f"resil: the inert run parts from the clean "
+                             f"step in {parted}")
+
+    chaos = runs["chaos"][0]
+    diag = chaos.sim.diagnostics
+    pnl = chaos.sim.result.log_return
+    recount = _resil_recount(fmt, arrays, spec, pol, chaos)
+    held = torch.from_numpy(recount.pop("held_mask")).cuda()
+    unheld_active = (diag.active & ~held).cpu().numpy()
+    leg_dev = float(torch.maximum((diag.long_sum - 1.0).abs(),
+                                  (diag.short_sum + 1.0).abs())
+                    .cpu().numpy()[unheld_active].max(initial=0.0))
+    cap_excess = float((chaos.sim.weights.nan_to_num().abs()
+                        - MAX_WEIGHT).max())
+    stats = fmt.obs.summarize_counters(chaos.counters)
+    got = {k: stats[k] for k in ("quarantined_days", "held_days",
+                                 "carry_fallback_days", "clamped_cells",
+                                 "degrade_events")}
+    want_stats = {k: recount[k] for k in got}
+    log(f"path resil chaos {json.dumps(R_FAULTS)} under "
+        f"{json.dumps(R_POLICY)}: {recount['dropped']} dropped dates, "
+        f"{recount['collapsed']} collapsed; DegradeStats {json.dumps(got)}, "
+        f"host recount {json.dumps(want_stats)}; finite P&L "
+        f"{bool(torch.isfinite(pnl).all())}; {int(unheld_active.sum())} "
+        f"active unheld days, max leg-sum deviation {leg_dev:.3e} (tol "
+        f"{LEG_TOL}); max |w| - max_weight {cap_excess:.3e} (tol {CAP_TOL})")
+    if not bool(torch.isfinite(pnl).all()):
+        raise AssertionError("resil chaos: non-finite P&L")
+    if not (leg_dev <= LEG_TOL and cap_excess <= CAP_TOL
+            and unheld_active.any()):
+        raise AssertionError("resil chaos: leg sums or the weight cap off, "
+                             "or no active unheld day")
+    if got != want_stats:
+        raise AssertionError(f"resil chaos: DegradeStats {got} against the "
+                             f"host recount {want_stats}")
+    if not (got["quarantined_days"] and got["held_days"]
+            and got["carry_fallback_days"] and got["clamped_cells"]):
+        raise AssertionError(f"resil chaos: a guard never engaged: {got}")
+
+    # the same chaos cell on the host CPU: the same masks by the host draw
+    inputs_h, cfg_h = fmt.convert(*arrays, names=factor_names(F),
+                                  window=WINDOW, select_method="icir_top",
+                                  blend_method="zscore", sim_kwargs=sim,
+                                  device="cpu")
+    host, secs_h = _run_resil_step(torch, fmt, inputs_h, cfg_h,
+                                   fault_spec=spec, policy=pol)
+    dw = (chaos.sim.weights.cpu().nan_to_num()
+          - host.sim.weights.nan_to_num()).abs().max(-1).values
+    share = float((dw > DW_TOL).double().mean())
+    sel_rows = int(((chaos.selection.cpu() - host.selection).abs()
+                    .max(-1).values > 0).sum())
+    host_stats = fmt.obs.summarize_counters(host.counters)
+    log(f"path resil chaos on the CPU: {secs_h:.1f} s; selection rows "
+        f"differing {sel_rows}; weights max |dw| {float(dw.max()):.3e}, share "
+        f"of days > {DW_TOL}: {share:.4f} (limit {DW_SHARE}); DegradeStats "
+        f"on the CPU {json.dumps({k: host_stats[k] for k in got})}")
+    if not share <= DW_SHARE:
+        raise AssertionError(f"resil chaos: card and CPU weights differ on "
+                             f"{share:.2%} of days")
+    return dict(clean=runs["clean"][0],
+                launches={k: v[2] for k, v in runs.items()})
+
+
+def _sync_reads(torch, fn):
+    """``fn()`` under torch's CUDA sync debug mode: the synchronizing
+    operations it warns of, counted by the line of the port that called
+    them (``{"file:line": count}``)."""
+    import collections
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            result = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = collections.Counter(
+        f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+    return result, dict(sites.most_common())
+
+
+def online_path(torch, fmt, seed: int, clean) -> dict:
+    """Path 9b: an ``OnlineEngine`` for path 1's tenant (icir_top top 5,
+    zscore, mvo_turnover, penalty 0.1, max_weight 0.03, lookback and
+    window 60, fused) ingests dates 0..R_DATES-1 of path 1's inputs one at
+    a time on the card, held against path 9a's clean step: the selection
+    and signal rows (bitwise, or the rows the card's reductions part
+    counted), the traded weights at DW_TOL/DW_SHARE, the leg counts and
+    solver acceptance where the weights agree, the daily P&L where the
+    books agree; K1 once a date and K2 as on path 1; a fresh engine
+    resumed from the snapshot at P9_RESUME_DATE byte-equal to straight
+    through; a restatement of P9_RESTATE_DATE with the same content
+    REPLAYED byte-equal. Prints the per-date advance wall p50/p99 and the
+    synchronizing reads a date. Returns the straight run's launches."""
+    from factormodeling_tpu_torch.metrics import _cuda_rank_ic as rk
+    from factormodeling_tpu_torch.ops import _cuda_admm as ak
+    from factormodeling_tpu_torch.online import DateSlice, OnlineEngine
+    from factormodeling_tpu_torch.serve import TenantConfig
+
+    arrays = tuple(a[:, :R_DATES] if a.ndim == 3 else a[:R_DATES]
+                   for a in make_inputs(F, D, N, seed))
+    factors, returns, factor_ret, cap, invest, universe = arrays
+    tmpl = TenantConfig(method="mvo_turnover", window=WINDOW,
+                        lookback_period=T_LOOKBACK, top_k=5,
+                        icir_threshold=0.03, max_weight=MAX_WEIGHT, pct=0.1,
+                        turnover_penalty=0.1,
+                        sim_static={"solver_kernel": "fused"})
+    ck_dir = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(ck_dir, exist_ok=True)
+    ck = os.path.join(ck_dir, "online.ckpt")
+    if os.path.exists(ck):
+        os.unlink(ck)
+
+    def engine(**kw):
+        return OnlineEngine(names=factor_names(F), n_assets=N, template=tmpl,
+                            has_universe=True, horizon=16,
+                            dtype=torch.float32, device="cuda", **kw)
+
+    def date_slice(t):
+        return DateSlice(factors=factors[:, t], returns=returns[t],
+                         factor_ret=factor_ret[t], cap_flag=cap[t],
+                         investability=invest[t], universe=universe[t])
+
+    # warm-up on a few dates: library handles, allocator
+    warm = engine()
+    for t in range(4):
+        warm.ingest(t, date_slice(t))
+    del warm
+
+    straight = engine(checkpoint=ck, checkpoint_every=P9_RESUME_DATE + 1)
+    rk.launches = ak.launches = ak.lane_launches = 0
+    rows, walls = {}, []
+    for t in range(R_DATES):
+        t0 = time.perf_counter()
+        if t == R_DATES - 1:    # the last date counts its synchronizing reads
+            v, syncs = _sync_reads(torch, lambda: straight.ingest(
+                t, date_slice(t)))
+        else:
+            v = straight.ingest(t, date_slice(t))
+            walls.append(time.perf_counter() - t0)
+        if v.status != "applied":
+            raise AssertionError(f"online: date {t} {v.status} {v.reason}")
+        rows.update({int(o["day"]): o for o in v.outputs})
+    launches = segment_counts(rk, ak)
+    segs = segment_launches(fmt, PATHS["turnover"])[0] // D
+    want = {"rank_ic_postsort": R_DATES,
+            "admm_segment": (R_DATES - 1) * segs, "admm_segment_lanes": 0}
+    ms = np.asarray(walls[1:]) * 1e3
+    log(f"path online: {R_DATES} dates ingested one at a time, F={F} N={N}, "
+        f"float32 panels: advance wall per date p50 "
+        f"{np.percentile(ms, 50):.3f} ms, p99 {np.percentile(ms, 99):.3f} "
+        f"ms, max {ms.max():.3f} ms, total {sum(walls):.3f} s; launches "
+        f"{json.dumps(launches)} (schedule {json.dumps(want)}); "
+        f"synchronizing reads in the last date's advance: "
+        f"{sum(syncs.values())}, by calling line {json.dumps(syncs)}")
+    if launches != want:
+        raise AssertionError(f"online: launches {launches}, the schedule "
+                             f"implies {want}")
+    days = sorted(rows)
+    if days != list(range(R_DATES - 1)):
+        raise AssertionError(f"online: finalized days {days[:3]}..")
+
+    def stack(key):
+        return torch.from_numpy(np.stack([rows[d][key] for d in days]))
+
+    cut = R_DATES - 1
+    d_sel = (stack("selection") - clean.selection[:cut].cpu()).abs()
+    d_sig = (stack("signal").nan_to_num()
+             - clean.signal[:cut].cpu().nan_to_num()).abs().max(-1).values
+    sel_rows = int((d_sel.max(-1).values > 0).sum())
+    sig_rows = int((d_sig > 0).sum())
+    sig_parted = int((d_sig > P9_SIG_TOL).sum())
+    w_on = stack("weights").nan_to_num()
+    w_full = clean.sim.weights[:cut].cpu().nan_to_num()
+    dw = (w_on - w_full).abs().max(-1).values
+    share = float((dw > DW_TOL).double().mean())
+    agree = dw <= DW_TOL
+    lc_bad = int(((stack("long_count") != clean.sim.long_count[:cut].cpu())
+                  & agree).sum())
+    ok_bad = int(((stack("solver_ok")
+                   != clean.sim.diagnostics.solver_ok[:cut].cpu())
+                  & agree).sum())
+    same = (w_on == w_full).all(-1)
+    books = same & torch.cat([same.new_ones(1), same[:-1]])
+    d_pnl = (stack("log_return")
+             - clean.sim.result.log_return[:cut].cpu()).abs()
+    pnl_agree = float(d_pnl[books].max()) if bool(books.any()) else 0.0
+    log(f"path online vs path 9a's clean step (days 0-{cut - 1}): selection "
+        f"rows differing {sel_rows} (max |d| {float(d_sel.max()):.3e}); "
+        f"signal rows differing {sig_rows}, beyond {P9_SIG_TOL}: {sig_parted} "
+        f"(max |d| {float(d_sig.max()):.3e}); weights max |dw| "
+        f"{float(dw.max()):.3e}, share of days > {DW_TOL}: {share:.4f} "
+        f"(limit {DW_SHARE}), days bitwise {int(same.sum())}; leg counts and "
+        f"solver_ok where the weights agree: {lc_bad} and {ok_bad} differ; "
+        f"daily P&L on the {int(books.sum())} days whose books (and the day "
+        f"before's) are equal: max |d| {pnl_agree:.3e} (tol {P8_RET_TOL}), "
+        f"on all days {float(d_pnl.max()):.3e}")
+    if not (share <= DW_SHARE and sig_parted <= DW_SHARE * cut):
+        raise AssertionError("online: weights or signal rows part from the "
+                             "research step")
+    if lc_bad or ok_bad or not pnl_agree <= P8_RET_TOL:
+        raise AssertionError("online: leg counts, solver acceptance or P&L "
+                             "differ where the books agree")
+
+    # a fresh engine resumed from the snapshot at P9_RESUME_DATE
+    resumed = engine(checkpoint=ck, checkpoint_every=P9_RESUME_DATE + 1)
+    if resumed.last_date != P9_RESUME_DATE:
+        raise AssertionError(f"online: resumed at {resumed.last_date}")
+    dup = resumed.ingest(P9_RESUME_DATE, date_slice(P9_RESUME_DATE))
+    res_rows = {}
+    for t in range(P9_RESUME_DATE + 1, R_DATES):
+        res_rows.update({int(o["day"]): o for o in
+                         resumed.ingest(t, date_slice(t)).outputs})
+    res_equal = all(
+        all(np.asarray(res_rows[d][k]).tobytes()
+            == np.asarray(rows[d][k]).tobytes() for k in rows[d])
+        for d in res_rows) and sorted(res_rows) == days[P9_RESUME_DATE:]
+    # a restatement with the same content replays the first application
+    v = straight.ingest(P9_RESTATE_DATE, date_slice(P9_RESTATE_DATE),
+                        restate=True)
+    rep_equal = v.status == "replayed" and all(
+        all(np.asarray(o[k]).tobytes()
+            == np.asarray(rows[int(o["day"])][k]).tobytes() for k in o)
+        for o in v.outputs)
+    log(f"path online resume from the snapshot at date {P9_RESUME_DATE}: "
+        f"re-sent date {dup.status} ({dup.reason}); {len(res_rows)} rows "
+        f"byte-equal to straight through: {res_equal}; restatement of date "
+        f"{P9_RESTATE_DATE}: {v.status} ({v.reason}), {len(v.outputs)} rows "
+        f"re-finalized, byte-equal: {rep_equal}; verdicts complete "
+        f"{straight.verdict_complete() and resumed.verdict_complete()} "
+        f"{json.dumps(straight.counters)}")
+    if not (dup.reason == "duplicate" and res_equal and rep_equal
+            and straight.verdict_complete() and resumed.verdict_complete()):
+        raise AssertionError("online: resume or replay not byte-equal")
+    return launches
+
+
+def checkpointed_sweep_path(torch, fmt, out, inputs) -> None:
+    """Path 8c: ``checkpointed_manager_sweep`` at path 8b's shape, killed
+    inside its second chunk and resumed from the snapshot: every output
+    bitwise equal to 8b's ``manager_sweep``."""
+    from factormodeling_tpu_torch.parallel import sweep as sweep_mod
+
+    factors, cw, settings = inputs
+    ck_dir = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(ck_dir, exist_ok=True)
+    ck = os.path.join(ck_dir, "sweep.ckpt")
+    if os.path.exists(ck):
+        os.unlink(ck)
+    real = sweep_mod._combine_and_pnl
+    calls = {"n": 0}
+
+    class Interrupted(Exception):
+        pass
+
+    def dying(*a, **kw):
+        calls["n"] += 1
+        if calls["n"] == 2:
+            raise Interrupted("path 8c: interrupted in chunk 2")
+        return real(*a, **kw)
+
+    sweep_mod._combine_and_pnl = dying
+    t0 = time.perf_counter()
+    try:
+        fmt.parallel.checkpointed_manager_sweep(
+            factors, cw, settings, combo_batch=SWEEP_BATCH,
+            checkpoint=fmt.resil.Checkpointer(ck), device="cuda")
+        raise AssertionError("path 8c: the interrupt did not fire")
+    except Interrupted:
+        pass
+    finally:
+        sweep_mod._combine_and_pnl = real
+    first = time.perf_counter() - t0
+    state, _ = fmt.resil.load_snapshot(ck)
+    t0 = time.perf_counter()
+    resumed = fmt.parallel.checkpointed_manager_sweep(
+        factors, cw, settings, combo_batch=SWEEP_BATCH,
+        checkpoint=fmt.resil.Checkpointer(ck), device="cuda")
+    torch.cuda.synchronize()
+    second = time.perf_counter() - t0
+    parted = [f for f in resumed._fields
+              if not _bytes_equal(getattr(resumed, f), getattr(out, f))]
+    log(f"path checkpointed_sweep: C={SWEEP_C} combos in chunks of "
+        f"{4 * SWEEP_BATCH}, interrupted in chunk 2 after {first:.3f} s "
+        f"(snapshot: {state['next_chunk']} chunk); resumed {second:.3f} s; "
+        f"outputs bitwise equal to path 8b's manager_sweep: "
+        f"{len(resumed) - len(parted)} of {len(resumed)}, parted {parted}")
+    if state["next_chunk"] != 1 or parted:
+        raise AssertionError(f"path 8c: resumed sweep parts from "
+                             f"manager_sweep in {parted}")
+
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2111,20 +2558,37 @@ def main() -> int:
     log(f"path 8a phase (warm-up, run, checks, CPU run): "
         f"{time.perf_counter() - t0:.1f} s wall")
     t0 = time.perf_counter()
-    sweep_path(torch, fmt)
+    swept = sweep_path(torch, fmt)
     log(f"path 8b phase (warm-up, two runs, checks, CPU run): "
         f"{time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    checkpointed_sweep_path(torch, fmt, swept["out"], swept["inputs"])
+    del swept
+    log(f"path 8c phase (interrupted run, resume, checks): "
+        f"{time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    resil = resil_path(torch, fmt, args.seed)
+    launches["resil"] = resil["launches"]["chaos"]
+    log(f"path 9a phase (clean, inert and chaos runs, checks, CPU run): "
+        f"{time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    launches["online"] = online_path(torch, fmt, args.seed, resil["clean"])
+    del resil
+    log(f"path 9b phase (warm-up, {R_DATES} dates, checks, resume, "
+        f"replay): {time.perf_counter() - t0:.1f} s wall")
     # each kernel's launches on the paths that run its form: K1 once in each
-    # of paths 1-3 and in path 8a's icir_top selection
+    # of paths 1-3, in path 8a's icir_top selection and in path 9a's chaos
+    # step, and once a date in path 9b's online advance
     k1 = {p: launches[p]["rank_ic_postsort"] for p in
-          (*PATHS, "multimanager")}
+          (*PATHS, "multimanager", "resil", "online")}
     kernels["rank_ic_postsort"]["launches"] = sum(k1.values())
     kernels["rank_ic_postsort"]["launches_by_path"] = k1
     # the segment's single-lane launches: path 1, and the sequential
     # suffixes of paths 6-7; its lane launches: path 2's chunks, and the
     # seed and sweep chunks of paths 6-7 (each as the wrapper counted it)
     single = {p: launches[p]["admm_segment"] for p in
-              ("turnover", "turnover_parallel", "turnover_parallel_decoupled")}
+              ("turnover", "turnover_parallel", "turnover_parallel_decoupled",
+               "resil", "online")}
     lanes = {p: launches[p]["admm_segment_lanes"] for p in
              ("mvo", "turnover_parallel", "turnover_parallel_decoupled")}
     kernels["admm_segment"]["launches"] = sum(single.values())

@@ -6,8 +6,13 @@ backtest engine and its reports (``fmt.backtest``), the blends
 quantile backtests, the dashboards), factor scoring (``fmt.metrics``),
 rolling factor selection (``fmt.selection``), the multi-manager layer
 (``fmt.multimanager``) and the candidate-combo sweep
-(``fmt.parallel.manager_sweep``), the run report (``fmt.obs``), the dense
-panel model (``fmt.panel``), and the modules that need pandas, each
+(``fmt.parallel.manager_sweep``, checkpointed or not), the run report and
+stage counters (``fmt.obs``), the resilience layer (``fmt.resil``: fault
+injection, the degrade policy, checkpoints), the online advance
+(``fmt.online``: the research step a date at a time) and its tenant
+configuration (``fmt.serve``), the risk model (``fmt.risk``), the seeded
+RNG lanes (``fmt.rng``), the dense panel model (``fmt.panel``), and the
+modules that need pandas, each
 imported on first use: the reference's pandas surface (``fmt.compat``) and
 the loaders and artifact store (``fmt.io``, with pyarrow for parquet).
 
@@ -20,8 +25,9 @@ caller asks for ``device="cpu"``.
 import importlib
 
 from factormodeling_tpu_torch import (analytics, backtest, composite, metrics,
-                                      multimanager, obs, ops, panel, parallel,
-                                      selection)
+                                      multimanager, obs, online, ops, panel,
+                                      parallel, resil, risk, rng, selection,
+                                      serve, solvers)
 from factormodeling_tpu_torch.backtest import SimulationSettings, run_simulation
 from factormodeling_tpu_torch.convert import (ResearchConfig, convert,
                                               convert_warm_state)
@@ -29,9 +35,9 @@ from factormodeling_tpu_torch.parallel import build_research_step, result_summar
 
 __all__ = ["ResearchConfig", "SimulationSettings", "analytics", "backtest",
            "build_research_step", "compat", "composite", "convert",
-           "convert_warm_state", "io", "metrics", "multimanager", "obs", "ops",
-           "panel", "parallel", "result_summary", "run_simulation",
-           "selection"]
+           "convert_warm_state", "io", "metrics", "multimanager", "obs",
+           "online", "ops", "panel", "parallel", "resil", "result_summary",
+           "risk", "rng", "run_simulation", "selection", "serve", "solvers"]
 
 
 def __getattr__(name):

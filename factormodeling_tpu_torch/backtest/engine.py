@@ -5,8 +5,10 @@ of ``factormodeling_tpu/backtest/engine.py``).
   2. per-date weights by scheme: ``equal`` / ``linear`` are batched
      cross-sections, ``mvo`` chunks of lane-batched solves,
      ``mvo_turnover`` a sequential day loop;
-  3. trade on yesterday's signal: weights shift 1 day per symbol;
-  4. P&L with tiered costs.
+  3. with a ``DegradePolicy`` in the settings, the pre-shift weights pass
+     through its hold pass (min-universe hold, solver-fallback carry);
+  4. trade on yesterday's signal: weights shift 1 day per symbol;
+  5. P&L with tiered costs.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from factormodeling_tpu_torch.backtest.settings import SimulationSettings
 from factormodeling_tpu_torch.backtest.weights import (equal_weights,
                                                        linear_weights)
 from factormodeling_tpu_torch.ops._window import masked_shift, shift
+from factormodeling_tpu_torch.resil.policy import HoldStats, hold_weights
 
 __all__ = ["SimulationOutput", "daily_trade_list", "run_simulation"]
 
@@ -35,14 +38,23 @@ class SimulationOutput(NamedTuple):
     short_count: torch.Tensor   # [D]
     result: DailyResult
     diagnostics: SolverDiagnostics
+    # the hold pass's tallies when the settings carry a DegradePolicy, else
+    # None (nothing of the policy ran)
+    degrade: HoldStats | None = None
 
 
 def daily_trade_list(signal: torch.Tensor, s: SimulationSettings):
     """Daily weights for the chosen scheme, shifted one day per symbol.
     Returns ``(weights, long_count, short_count, diagnostics)``."""
-    if s.degrade is not None:
-        raise NotImplementedError(
-            "degradation policies (the resil layer) are not ported yet")
+    shifted, lc, sc, diag, _ = _trade_list_and_degrade(signal, s)
+    return shifted, lc, sc, diag
+
+
+def _trade_list_and_degrade(signal: torch.Tensor, s: SimulationSettings):
+    """:func:`daily_trade_list` plus the hold pass: with a policy in the
+    settings the pre-shift weights go through ``resil.policy.hold_weights``
+    before the shift, and the fifth return is its ``HoldStats`` (None
+    without a policy)."""
     d = signal.shape[0]
     dev = signal.device
     if s.method in ("equal", "linear"):
@@ -62,6 +74,13 @@ def daily_trade_list(signal: torch.Tensor, s: SimulationSettings):
     else:
         w, lc, sc, resid, ok, tele, stats = mvo_turnover_weights(signal, s)
 
+    hold_stats = None
+    if s.degrade is not None:
+        uni_count = (s.universe.sum(-1) if s.universe is not None
+                     else torch.full((d,), signal.shape[-1], device=dev))
+        w, lc, sc, hold_stats = hold_weights(w, lc, sc, ok, uni_count,
+                                             s.degrade)
+
     diag = SolverDiagnostics(
         primal_residual=resid, solver_ok=ok,
         long_sum=torch.clamp(w, min=0.0).sum(-1),
@@ -78,13 +97,14 @@ def daily_trade_list(signal: torch.Tensor, s: SimulationSettings):
         shifted = masked_shift(w, s.universe, 1, axis=0)
     else:
         shifted = shift(w, 1, axis=0)
-    return shifted, lc, sc, diag
+    return shifted, lc, sc, diag, hold_stats
 
 
 def run_simulation(signal: torch.Tensor, s: SimulationSettings) -> SimulationOutput:
     """Full backtest of a signal panel under the settings."""
     masked = signal * s.investability_flag
-    weights, lc, sc, diag = daily_trade_list(masked, s)
+    weights, lc, sc, diag, hold_stats = _trade_list_and_degrade(masked, s)
     result = daily_portfolio_returns(weights, s)
     return SimulationOutput(weights=weights, long_count=lc, short_count=sc,
-                            result=result, diagnostics=diag)
+                            result=result, diagnostics=diag,
+                            degrade=hold_stats)

@@ -2,9 +2,9 @@
 
 Market data panels are dense ``[D, N]`` tensors plus an optional universe
 mask; every knob keeps the JAX package's name, default and validation (see
-that module for the rationale behind each default). The fields stay even
-where the port has not implemented the option yet: the engine raises
-``NotImplementedError`` for those (a ``degrade`` policy).
+that module for the rationale behind each default). ``degrade`` takes a
+:class:`~factormodeling_tpu_torch.resil.policy.DegradePolicy`: the engine
+then passes the pre-shift weights through the policy's hold pass.
 """
 
 from __future__ import annotations
@@ -13,6 +13,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from factormodeling_tpu_torch.resil.policy import DegradePolicy
 
 __all__ = ["SimulationSettings", "TCOST_RATES"]
 
@@ -27,7 +29,7 @@ class SimulationSettings:
     cap_flag: torch.Tensor             # float/int[D, N] cap tier 1/2/3
     investability_flag: torch.Tensor   # float[D, N] 0/1 (NaN allowed)
     universe: torch.Tensor | None = None  # bool[D, N] membership
-    degrade: object | None = None      # resilience policy (not ported)
+    degrade: DegradePolicy | None = None   # pre-shift hold pass
 
     # simulation parameters
     method: str = "equal"
@@ -97,6 +99,10 @@ class SimulationSettings:
             raise ValueError(f"Unknown turnover_mode {self.turnover_mode}")
         if self.solver_kernel not in ("reference", "fused"):
             raise ValueError(f"Unknown solver_kernel {self.solver_kernel}")
+        if self.degrade is not None and not isinstance(self.degrade,
+                                                       DegradePolicy):
+            raise TypeError(f"degrade must be a DegradePolicy or None, got "
+                            f"{type(self.degrade).__name__}")
         if self.qp_anderson < 0:
             raise ValueError(
                 f"qp_anderson must be >= 0 (0 disables), got {self.qp_anderson}")

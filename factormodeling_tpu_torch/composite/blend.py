@@ -189,11 +189,22 @@ def composite_static(factors: torch.Tensor, names, method: str = "zscore",
 
 def composite_weighted(factors: torch.Tensor, names, selection: torch.Tensor,
                        method: str = "zscore",
-                       universe: torch.Tensor | None = None) -> torch.Tensor:
+                       universe: torch.Tensor | None = None,
+                       group_tilt: torch.Tensor | None = None) -> torch.Tensor:
     """Per-date weighted blend of ``factors [F, D, N]`` driven by the daily
     selection weights ``selection [D, F]`` (aligned with ``names``); rows
     with no active factor produce 0. Returns the zero-filled ``float[D, N]``
-    composite (NaN outside the universe)."""
+    composite (NaN outside the universe).
+
+    ``group_tilt`` (``[G]``, nonnegative, in :func:`prefix_group_ids`
+    order) rescales the day's raw per-group blend weights before their
+    renormalization: a caller's preference over the prefix families (every
+    entry 1 is the untilted blend). A tilt that zeroes every active group
+    on a day zeroes that day's composite: under a tilt the equal-weight
+    fallback is suppressed, since restoring weight to a group the caller
+    excluded would invert the preference on exactly the days it binds.
+    Without a tilt the fallback is unreachable (any active factor makes the
+    weight total positive), so untilted outputs are unchanged."""
     if method not in ("zscore", "rank"):
         raise ValueError("method must be 'zscore' or 'rank'")
     gids, prefixes = prefix_group_ids(names)
@@ -209,12 +220,18 @@ def composite_weighted(factors: torch.Tensor, names, selection: torch.Tensor,
     proxies = _group_proxies(adj, onehot, member)  # [G, D, N]
 
     gw = torch.einsum("gf,df->dg", onehot, torch.where(active, selection, 0.0))
+    if group_tilt is not None:
+        gw = gw * torch.as_tensor(group_tilt, dtype=dtype, device=dev)[None, :]
     g_active = torch.einsum("gf,df->dg", onehot, member) > 0  # [D, G]
     total = gw.sum(-1, keepdim=True)
     n_active = g_active.sum(-1, keepdim=True).to(dtype)
     equal = torch.where(g_active, 1.0 / torch.where(n_active > 0, n_active,
                                                     float("nan")), 0.0)
-    gw = torch.where(total > 0, gw / torch.where(total > 0, total, 1.0), equal)
+    # tilted callers get no equal-weight fallback: a tilt-zeroed day stays
+    # zeroed
+    fallback = equal if group_tilt is None else torch.zeros_like(equal)
+    gw = torch.where(total > 0, gw / torch.where(total > 0, total, 1.0),
+                     fallback)
 
     if method == "zscore":
         normed = _safe_zscore_rows(proxies, universe)

@@ -1,11 +1,20 @@
 """Runtime observability (port of ``factormodeling_tpu/obs``, the part the
 library layers call): the run report (:mod:`.report`: ``RunReport``,
 ``span``, ``record_stage``, ``active_report``, ``cost_estimate``) and the
-latency sketches (:mod:`.latency`). The JAX package's trace markers,
-stage counters, probes, compile telemetry, placement ledger and device-time
-attribution are not ported yet.
+latency sketches (:mod:`.latency`) and the research step's device-side
+stage counters (:mod:`.counters`). The JAX package's trace markers,
+probes, compile telemetry, placement ledger and device-time attribution
+are not ported yet.
 """
 
+from factormodeling_tpu_torch.obs.counters import (  # noqa: F401
+    StageCounters,
+    collecting,
+    counters_enabled,
+    enable_counters,
+    stage_counters,
+    summarize_counters,
+)
 from factormodeling_tpu_torch.obs.latency import (  # noqa: F401
     LatencyRecorder,
     QuantileSketch,
@@ -24,5 +33,7 @@ from factormodeling_tpu_torch.obs.report import (  # noqa: F401
 )
 
 __all__ = ["LatencyRecorder", "QuantileSketch", "RunReport", "SCHEMA_VERSION",
-           "SLOSpec", "SpanHandle", "active_report", "code_fingerprint",
-           "cost_estimate", "live_watermark", "record_stage", "span"]
+           "SLOSpec", "SpanHandle", "StageCounters", "active_report",
+           "code_fingerprint", "collecting", "cost_estimate",
+           "counters_enabled", "enable_counters", "live_watermark",
+           "record_stage", "span", "stage_counters", "summarize_counters"]

@@ -28,6 +28,8 @@ from pathlib import Path
 
 import torch
 
+from factormodeling_tpu_torch.obs.counters import (StageCounters,
+                                                   summarize_counters)
 from factormodeling_tpu_torch.obs.latency import LatencyRecorder
 
 __all__ = ["RunReport", "SCHEMA_VERSION", "SpanHandle", "active_report",
@@ -224,15 +226,20 @@ class RunReport:
                                 **{**fields, **handle.fields, **mem, **err})
 
     def add_counters(self, name: str, counters) -> None:
-        """A dict of scalars as a counters row. None is ignored, so callers
-        can pass an optional record unconditionally. (The JAX package's
-        ``StageCounters`` pytree has no port yet.)"""
+        """A counters row from a :class:`~.counters.StageCounters` (summarized
+        by :func:`~.counters.summarize_counters`) or a dict of scalars. None
+        is ignored, so callers can pass ``output.counters``
+        unconditionally."""
         if counters is None:
             return
-        if not isinstance(counters, dict):
-            raise TypeError(f"counters must be a dict, got "
-                            f"{type(counters).__name__}")
-        self.record(name, kind="counters", counters=counters)
+        if isinstance(counters, dict):
+            self.record(name, kind="counters", counters=counters)
+            return
+        if not isinstance(counters, StageCounters):
+            raise TypeError(f"counters must be a StageCounters or a dict, "
+                            f"got {type(counters).__name__}")
+        self.record(name, kind="counters",
+                    counters=summarize_counters(counters))
 
     def add_cost_analysis(self, name: str, fn=None, *args, **kwargs) -> dict:
         """A ``kind="cost"`` row in the JAX package's failure form: PyTorch

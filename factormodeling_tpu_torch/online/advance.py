@@ -1,0 +1,474 @@
+"""The incremental research step: O(window) work per arriving date (port of
+``factormodeling_tpu/online/advance.py``).
+
+``online_step_parts`` builds the two halves of a per-date advance:
+
+- ``advance_market(mstate, date_slice)``: push the date into the raw tail
+  rings, compute THAT date's daily factor stats on the tail (one
+  ``[F, T, N]`` pass, ``T = stats_tail``: the rank-IC post-sort kernel runs
+  on ``F * T`` rows), push the stat columns and the factor-return row into
+  the window rings, rebuild the ring-shaped selection context, and under
+  ``covariance="risk_model"`` refit the risk model on its refit grid;
+- ``advance_tenant(tenant, tstate, octx)``: selector -> manager mix ->
+  finalize -> single-date blend -> the day's weight solve (the full step's
+  own ``backtest.mvo._solve_day`` on one lane, so the segment kernel runs
+  once a date for the QP schemes) -> per-symbol masked weight shift ->
+  single-date P&L.
+
+The contract: feeding dates 0..D-1 one at a time gives the full research
+step's rows 0..D-2. The mechanism is structural: every windowed aggregate
+is computed by the port's own primitives (``rolling_sum``,
+``rolling_metrics``, ``masked_shift``, the selectors, the blend, the day
+solve) over a ring slice LONGER than its window, and ramp-up padding is
+NaN/False, whose contribution to every NaN-aware reducer is exactly the
+full step's edge padding. The rings keep their margin for the JAX
+package's reason: there, a windowed reduction's output depends only on the
+window's contents when the slice exceeds the window, and an exact-length
+slice is not safe. On the CPU the port's rolling sum (``unfold(...).sum``)
+sums each window in an order set by the window alone. On the card a
+reduction's split can depend on how many outputs there are, so the tail
+ring and the full panel may part in the last bit there; ``chip_smoke.py``
+measures it.
+
+The limits, each the ring horizon the O(window) claim buys (the JAX
+module's list): a per-symbol universe gap longer than ``stats_tail -
+shift_periods - 1`` reaches past the tail ring; NaN-thinned suffix pools in
+the blend flip quantile-boundary cells between compiled shapes of the
+blend itself (``[F, 1, N]`` against ``[F, D, N]``), so bitwise cases pin at
+seeds without such pools; the history must reach ``lookback_period``
+(``risk_lookback`` under the risk model) and ``mvo_batch``; and
+``mvo_turnover`` advances with the sequential scan's semantics.
+
+The window solve: the full step's ``_solve_day`` is lane-batched over
+``returns0`` and the dates' indices. Here it gets one lane, the NaN-zeroed
+lookback ring as ``returns0`` and ``today = min(p, lookback)``: its window
+of at most ``lookback`` rows strictly before ``today`` is then the ring's
+first ``min(p, lookback)`` rows, the rows the full panel's window holds at
+date ``p``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from factormodeling_tpu_torch import risk as _risk
+from factormodeling_tpu_torch._device import resolve_device
+from factormodeling_tpu_torch.backtest.mvo import QP_DTYPE, _solve_day
+from factormodeling_tpu_torch.backtest.settings import SimulationSettings
+from factormodeling_tpu_torch.backtest.weights import (equal_weights,
+                                                       leg_masks,
+                                                       linear_weights)
+from factormodeling_tpu_torch.composite.blend import composite_weighted
+from factormodeling_tpu_torch.metrics.factor_metrics import (
+    daily_factor_stats, rolling_metrics)
+from factormodeling_tpu_torch.online.state import (AdvanceOutputs, DateSlice,
+                                                   MarketState, TenantState,
+                                                   init_market_state,
+                                                   init_tenant_state)
+from factormodeling_tpu_torch.ops._window import shift
+from factormodeling_tpu_torch.selection.driver import (
+    finish_selection_context, selection_metric_needs)
+from factormodeling_tpu_torch.selection.selectors import (
+    FACTOR_SELECTION_METHODS, SelectionContext)
+from factormodeling_tpu_torch.serve.tenant import TenantConfig
+from factormodeling_tpu_torch.solvers.admm_qp import ADMMWarmState
+
+__all__ = ["OnlineCtx", "make_online_step", "online_step_parts"]
+
+#: exposure lag of the selection path (the reference shifts twice)
+_SHIFT = 2
+
+
+class OnlineCtx(NamedTuple):
+    """The market half's product, consumed by every tenant."""
+
+    ctx: SelectionContext   # ring-shaped selection context
+    p: int                  # the date being finalized (day - 1)
+    ready: bool             # p >= 0
+    factors_p: torch.Tensor  # [F, N] exposures at p
+    returns_p: torch.Tensor  # [N]
+    cap_p: torch.Tensor     # [N]
+    invest_p: torch.Tensor  # [N]
+    universe_p: Any         # bool[N] or None
+    lb_ring: Any            # QP_DTYPE[LB, N] returns <= p-1, or None
+    risk_model: Any         # day p's (loadings, fvar, idio, hist) or None
+
+
+def _push(tail: torch.Tensor, row: torch.Tensor, axis: int) -> torch.Tensor:
+    """Drop the oldest slot along ``axis`` and append ``row`` at the end."""
+    axis = axis % tail.ndim
+    return torch.cat([tail.narrow(axis, 1, tail.shape[axis] - 1),
+                      row.unsqueeze(axis)], dim=axis)
+
+
+def _push_left(ring: torch.Tensor, row: torch.Tensor,
+               n_filled: int) -> torch.Tensor:
+    """Left-aligned append: while ramping, write at ``n_filled``; once
+    full, shift down and write at the top. Positions ``0..min(n, cap)-1``
+    hold the most recent rows in date order, the layout the full step's
+    window reads from a full panel. A new tensor: the engine's snapshots
+    share the old one."""
+    cap = ring.shape[0]
+    if n_filled >= cap:
+        return torch.cat([ring[1:], row[None]])
+    out = ring.clone()
+    out[n_filled] = row
+    return out
+
+
+def _num(v):
+    """A value leaf as a Python number (a 0-d tensor on the card is read
+    once here)."""
+    if isinstance(v, torch.Tensor):
+        return v.item()
+    return np.asarray(v).item()
+
+
+def _probe_settings(template: TenantConfig) -> SimulationSettings:
+    """Settings resolving the template's static simulation residue
+    (mvo_batch, covariance and risk knobs, qp flags) as the full step
+    would."""
+    return SimulationSettings(returns=None, cap_flag=None,
+                              investability_flag=None,
+                              method=template.method,
+                              lookback_period=template.lookback_period,
+                              **dict(template.sim_static))
+
+
+def online_step_parts(*, names, template: TenantConfig, n_assets: int,
+                      dtype=torch.float64, has_universe: bool = False,
+                      stats_tail: int = 8, device=None):
+    """``(init_market, init_tenant, advance_market, advance_tenant)`` for
+    the ``template``'s configuration on ``device`` (None is the card; the
+    CPU only when asked for). ``stats_tail`` bounds the ragged-universe
+    shift horizon of the daily-stats tail ring."""
+    dev = resolve_device(device)
+    names = tuple(names)
+    f = len(names)
+    n = int(n_assets)
+    window = int(template.window)
+    select_method = template.select_method
+    select_static = dict(template.select_static)
+    if select_method == "icir_top":
+        select_static["use_rank_icir"] = template.use_rank_icir
+    selector = FACTOR_SELECTION_METHODS.get(select_method)
+    if selector is None:
+        raise ValueError(f"Unknown factor selection method: {select_method}")
+    needs = tuple(selection_metric_needs(select_method, select_static))
+    probe = _probe_settings(template)
+    risk = probe.covariance == "risk_model"
+    lb = int(probe.risk_lookback if risk else probe.lookback_period)
+    tail = max(int(stats_tail), _SHIFT + 3)
+    ring = window + 3
+    q_p = ring - 2          # ring index of the finalized date p
+    method = template.method
+    warm_start = bool(probe.qp_warm_start)
+    mvo_batch = int(probe.mvo_batch)
+    needs_solver = method in ("mvo", "mvo_turnover")
+    # the dates the full step's ladder treats as having no history
+    no_hist_days = probe.risk_refit_every if risk else 1
+    b_eq = torch.tensor([1.0, -1.0], dtype=QP_DTYPE, device=dev)
+
+    def init_market() -> MarketState:
+        return init_market_state(
+            n_factors=f, n_assets=n, dtype=dtype, stats_needs=needs,
+            tail=tail, ring=ring, lb=(lb if needs_solver else None),
+            has_universe=has_universe,
+            risk_factors=(probe.risk_factors if risk and needs_solver
+                          else None), device=dev)
+
+    def init_tenant() -> TenantState:
+        return init_tenant_state(
+            n_assets=n, dtype=dtype, method=method,
+            mvo_batch=(mvo_batch if method == "mvo" else None),
+            warm_start=warm_start, device=dev)
+
+    # --------------------------------------------------- market half
+
+    def _refit_risk(lb_ring, p: int):
+        """The risk model at refit day ``p``, fit on the (at most
+        ``risk_lookback``) rows strictly before it, NaN-padded: the input
+        ``backtest.mvo._risk_model_stack`` builds from the full panel."""
+        n_used = min(p, lb)
+        used = (torch.arange(lb, device=dev) < n_used)[:, None]
+        m = _risk.statistical_risk_model(
+            torch.where(used, lb_ring, float("nan")), probe.risk_factors)
+        scale = (lb - 1.0) / max(n_used - 1.0, 1.0)
+        return m.loadings, m.factor_var * scale, m.idio_var
+
+    def _put(x, dt):
+        return torch.as_tensor(x, device=dev).to(dt)
+
+    def advance_market(mstate: MarketState, d: DateSlice):
+        t = mstate.day + 1
+        p = t - 1
+        ready = p >= 0
+        factors_tail = _push(mstate.factors_tail, _put(d.factors, dtype), -2)
+        returns_tail = _push(mstate.returns_tail, _put(d.returns, dtype), 0)
+        cap_tail = _push(mstate.cap_tail, _put(d.cap_flag, dtype), 0)
+        invest_tail = _push(mstate.invest_tail, _put(d.investability, dtype),
+                            0)
+        universe_tail = None
+        if has_universe:
+            universe_tail = _push(mstate.universe_tail,
+                                  _put(d.universe, torch.bool), 0)
+        stats_ring = mstate.stats_ring
+        if needs:
+            daily = daily_factor_stats(factors_tail, returns_tail,
+                                       shift_periods=_SHIFT,
+                                       universe=universe_tail, stats=needs)
+            stats_ring = {k: _push(stats_ring[k], daily[k][:, -1], -1)
+                          for k in needs}
+        fr_ring = _push(mstate.fr_ring, _put(d.factor_ret, dtype), 0)
+
+        # the covariance ring lags one finalization: solving date p reads
+        # returns <= p-1, so each advance pushes date t-2's row (at tail
+        # position -3 after this advance's push)
+        lb_ring = mstate.lb_ring
+        if lb_ring is not None and t >= 2:
+            lb_ring = _push_left(lb_ring, returns_tail[-3].to(QP_DTYPE),
+                                 t - 2)
+        risk_model = mstate.risk_model
+        if risk_model is not None and ready \
+                and p % probe.risk_refit_every == 0:
+            risk_model = _refit_risk(lb_ring, p)
+
+        metrics_win = {}
+        if needs:
+            rm = rolling_metrics(stats_ring, max(window - 1, 1))
+            metrics_win = {k: shift(v, 1, axis=-1) for k, v in rm.items()}
+        ctx = finish_selection_context(metrics_win, fr_ring, window)
+
+        day_model = None
+        if risk_model is not None:
+            j = max(p, 0) // probe.risk_refit_every
+            hist = min(j * probe.risk_refit_every, lb)
+            day_model = (*risk_model, hist)
+
+        mstate2 = MarketState(
+            day=t, version=mstate.version + 1, factors_tail=factors_tail,
+            returns_tail=returns_tail, cap_tail=cap_tail,
+            invest_tail=invest_tail, universe_tail=universe_tail,
+            stats_ring=stats_ring, fr_ring=fr_ring, lb_ring=lb_ring,
+            risk_model=risk_model)
+        octx = OnlineCtx(
+            ctx=ctx, p=p, ready=ready, factors_p=factors_tail[:, -2, :],
+            returns_p=returns_tail[-2], cap_p=cap_tail[-2],
+            invest_p=invest_tail[-2],
+            universe_p=universe_tail[-2] if has_universe else None,
+            lb_ring=lb_ring, risk_model=day_model)
+        return mstate2, octx
+
+    # --------------------------------------------------- tenant half
+
+    def _day_settings(t: TenantConfig, octx: OnlineCtx) -> SimulationSettings:
+        return dataclasses.replace(
+            probe,
+            returns=octx.returns_p[None], cap_flag=octx.cap_p[None],
+            investability_flag=octx.invest_p[None],
+            universe=(octx.universe_p[None] if has_universe else None),
+            max_weight=_num(t.max_weight), pct=_num(t.pct),
+            shrinkage_intensity=_num(t.shrinkage_intensity),
+            turnover_penalty=_num(t.turnover_penalty),
+            return_weight=_num(t.return_weight),
+            tcost_scale=_num(t.tcost_scale))
+
+    def _day_weights(tstate: TenantState, octx: OnlineCtx, masked, s):
+        """One date's pre-shift weight row through the scheme's per-day
+        semantics: equal/linear are the engine's per-date calls; the QP
+        schemes run ``_solve_day`` on one lane with the carried warm state,
+        then the per-day slice of ``mvo._finalize``. Returns ``(w, lc, sc,
+        resid, ok, w_prev, warm, warm_ring)``; ``w_prev`` in
+        ``QP_DTYPE``."""
+        p_idx = max(octx.p, 0)
+        pos, neg, flat = leg_masks(masked)
+        nan_d = torch.full((), float("nan"), dtype=dtype, device=dev)
+        true_d = torch.ones((), dtype=torch.bool, device=dev)
+        if method in ("equal", "linear"):
+            if method == "equal":
+                w, lc, sc = equal_weights(masked[None], s.pct)
+            else:
+                w, lc, sc = linear_weights(masked[None], s.max_weight)
+            return (w[0], lc[0], sc[0], nan_d, true_d, tstate.w_prev,
+                    tstate.warm, tstate.warm_ring)
+
+        ucount = (octx.universe_p.sum() if has_universe
+                  else torch.tensor(n, device=dev))
+        zero_day = flat | (ucount < 2)
+        todays = torch.tensor([min(p_idx, lb)], device=dev)
+        returns0 = torch.nan_to_num(octx.lb_ring)
+        rm = None
+        if octx.risk_model is not None:
+            loadings, fvar, idio, hist = octx.risk_model
+            rm = (loadings[None], fvar[None], idio[None],
+                  torch.tensor([hist], device=dev))
+        sig = masked[None].to(QP_DTYPE)
+        may_lack = p_idx < no_hist_days
+        warm, warm_ring = tstate.warm, tstate.warm_ring
+        if method == "mvo":
+            # the full step's chunks warm-start day t from day t - mvo_batch
+            # (lane i from lane i of the chunk before): the slot ring
+            slot = p_idx % mvo_batch
+            warm_in = (None if warm_ring is None else ADMMWarmState(
+                *(a[slot:slot + 1] for a in warm_ring)))
+            w, resid, okc, state, _ = _solve_day(
+                sig, returns0, todays, torch.zeros_like(sig), s, b_eq, False,
+                risk_model=rm, warm=warm_in, may_lack_history=may_lack)
+            if warm_ring is not None:
+                warm_ring = ADMMWarmState(*(
+                    torch.cat([a[:slot], v, a[slot + 1:]])
+                    for a, v in zip(warm_ring, state)))
+        else:   # mvo_turnover, the sequential scan's day step
+            nan_sig = ((torch.isnan(masked) & octx.universe_p).any()[None]
+                       if has_universe
+                       else torch.zeros((1,), dtype=torch.bool, device=dev))
+            w, resid, okc, state, _ = _solve_day(
+                sig, returns0, todays, tstate.w_prev[None], s, b_eq, True,
+                risk_model=rm, warm=warm if warm_start else None,
+                force_fallback=nan_sig, may_lack_history=may_lack)
+            w = torch.where(zero_day, 0.0, w)
+            if warm is not None:
+                warm = state
+        w_prev = w[0]
+        # the per-day slice of mvo._finalize: zero days, no-history k
+        # counts, acceptance masking
+        w = torch.where(zero_day, 0.0, w[0].to(dtype))
+        lc, sc = pos.sum(), neg.sum()
+        if p_idx < no_hist_days:
+            lc = torch.clamp(torch.floor(lc * s.pct), min=1.0).to(lc.dtype)
+            sc = torch.clamp(torch.floor(sc * s.pct), min=1.0).to(sc.dtype)
+            okc = torch.ones_like(okc)
+        okc = okc[0] | zero_day
+        lc = torch.where(zero_day, 0, lc)
+        sc = torch.where(zero_day, 0, sc)
+        return (w, lc, sc, resid[0].to(dtype), okc, w_prev, warm, warm_ring)
+
+    def _not_ready(tstate: TenantState, octx: OnlineCtx):
+        nan = torch.full((), float("nan"), dtype=dtype, device=dev)
+        zero_i = torch.zeros((), dtype=torch.int64, device=dev)
+        return tstate, AdvanceOutputs(
+            ready=False, day=octx.p,
+            selection=torch.zeros((f,), dtype=dtype, device=dev),
+            signal=torch.full((n,), float("nan"), dtype=dtype, device=dev),
+            weights=torch.full((n,), float("nan"), dtype=dtype, device=dev),
+            long_count=zero_i, short_count=zero_i, log_return=nan,
+            long_return=nan, short_return=nan, long_turnover=nan,
+            short_turnover=nan, turnover=nan, resid=nan,
+            solver_ok=torch.ones((), dtype=torch.bool, device=dev))
+
+    def advance_tenant(t: TenantConfig, tstate: TenantState,
+                       octx: OnlineCtx):
+        p = octx.p
+        if not octx.ready:
+            # the very first ingested date finalizes nothing: every carry
+            # holds, so the stream's day 0 stays the recompute's day 0
+            return _not_ready(tstate, octx)
+        # 1. selection: the selector over the ring context, then
+        # finalize_selection's row masking and normalization over the
+        # whole ring (the full step's layout, so the row sums reduce in its
+        # order), read at the finalized date's column; processed iff
+        # p >= window (p <= D-2 holds by construction: p's successor has
+        # arrived)
+        kwargs = dict(select_static)
+        if select_method == "icir_top":
+            kwargs.update(top_x=int(_num(t.top_k)),
+                          icir_threshold=_num(t.icir_threshold))
+        if p >= window:
+            raw = selector(octx.ctx, **kwargs)               # [R, F]
+            if t.manager_mix is not None:
+                raw = raw * torch.as_tensor(t.manager_mix, dtype=raw.dtype,
+                                            device=dev)
+            keep = torch.arange(ring, device=dev) == q_p
+            raw = torch.where(keep[:, None], raw, 0.0)
+            raw = torch.where(torch.isnan(raw), 0.0, raw)
+            rowsum = raw.sum(1, keepdim=True)
+            sel = torch.where(rowsum > 0, raw / torch.where(rowsum > 0,
+                                                            rowsum, 1.0),
+                              0.0)[q_p]
+        else:
+            sel = torch.zeros((f,), dtype=dtype, device=dev)
+        # 2. single-date blend (every op inside is per date)
+        signal = composite_weighted(
+            octx.factors_p[:, None, :], names, sel[None, :],
+            method=template.blend_method,
+            universe=(octx.universe_p[None] if has_universe else None),
+            group_tilt=t.blend_tilt)[0]
+        # 3. the day's weight solve
+        s = _day_settings(t, octx)
+        masked = signal * octx.invest_p
+        w, lc, sc, resid, okc, w_prev, warm, warm_ring = _day_weights(
+            tstate, octx, masked, s)
+        # 4. per-symbol masked weight shift (trade on yesterday's book):
+        # a symbol's k-th present date trades its (k-1)-th present book
+        if has_universe:
+            traded = torch.where(octx.universe_p, tstate.book_carry,
+                                 float("nan"))
+            book_carry = torch.where(octx.universe_p, w, tstate.book_carry)
+        else:
+            traded, book_carry = tstate.book_carry, w
+        # 5. single-date P&L (backtest.pnl's row semantics; the first
+        # date's turnover diff is 0)
+        wt = torch.nan_to_num(traded)
+        r = torch.nan_to_num(octx.returns_p)
+        longs = torch.clamp(wt, min=0.0)
+        shorts = torch.abs(torch.clamp(wt, max=0.0))
+        long_ret_raw = (longs * r).sum()
+        short_ret_raw = -(shorts * r).sum()
+        if p > 0:
+            prev = torch.nan_to_num(tstate.traded_prev)
+            dlong = torch.abs(longs - torch.clamp(prev, min=0.0))
+            dshort = torch.abs(shorts - torch.abs(torch.clamp(prev,
+                                                              max=0.0)))
+        else:
+            dlong = dshort = torch.zeros_like(longs)
+        rates = s.cost_rates()[0]
+        if probe.transaction_cost:
+            long_ret = long_ret_raw - (dlong * rates).sum()
+            short_ret = short_ret_raw - (dshort * rates).sum()
+        else:
+            long_ret, short_ret = long_ret_raw, short_ret_raw
+        new = TenantState(
+            w_prev=w_prev, book_carry=book_carry, traded_prev=traded,
+            warm=warm, warm_ring=warm_ring,
+            long_pnl_by_name=(tstate.long_pnl_by_name + longs * r
+                              - dlong * rates),
+            short_pnl_by_name=(tstate.short_pnl_by_name - shorts * r
+                               - dshort * rates))
+        lt, st = dlong.sum(), dshort.sum()
+        out = AdvanceOutputs(
+            ready=True, day=p, selection=sel, signal=signal, weights=traded,
+            long_count=lc, short_count=sc, log_return=long_ret + short_ret,
+            long_return=long_ret, short_return=short_ret, long_turnover=lt,
+            short_turnover=st, turnover=lt + st, resid=resid, solver_ok=okc)
+        return new, out
+
+    return init_market, init_tenant, advance_market, advance_tenant
+
+
+def make_online_step(*, names, template: TenantConfig | None = None,
+                     n_assets: int, dtype=torch.float64,
+                     has_universe: bool = False, stats_tail: int = 8,
+                     device=None):
+    """Single-config convenience over :func:`online_step_parts`: returns
+    ``(init_fn, advance_fn)`` where ``init_fn() -> (mstate, tstate)`` and
+    ``advance_fn(tenant, mstate, tstate, date_slice) -> ((mstate',
+    tstate'), AdvanceOutputs)`` is one per-date advance, the online
+    engine's unit of work."""
+    template = template or TenantConfig()
+    im, it, am, at = online_step_parts(
+        names=names, template=template, n_assets=n_assets, dtype=dtype,
+        has_universe=has_universe, stats_tail=stats_tail, device=device)
+
+    def init_fn():
+        return im(), it()
+
+    def advance_fn(tenant, mstate, tstate, date_slice):
+        mstate2, octx = am(mstate, date_slice)
+        tstate2, out = at(tenant, tstate, octx)
+        return (mstate2, tstate2), out
+
+    return init_fn, advance_fn

@@ -1,0 +1,171 @@
+"""Online-advance state: the O(window) carry of the research step (port of
+``factormodeling_tpu/online/state.py``).
+
+The full research step is O(history) per arriving date. The online advance
+carries this state instead, split in two:
+
+- :class:`MarketState`: everything derived from the market alone: raw-input
+  tail rings (the last ``stats_tail`` dates of exposures, returns, cap,
+  investability and universe, enough to recompute one date's daily factor
+  stats under the double exposure shift), the daily-stats ring and the
+  factor-return ring sized to the selection window plus a margin, the
+  left-aligned covariance-lookback returns ring the MVO schemes' trailing
+  window slices from, and the current statistical risk model under
+  ``covariance="risk_model"``;
+- :class:`TenantState`: the per-tenant sequential carries: the previous
+  pre-shift book (the turnover L1 center), the per-symbol shift carry, the
+  previous traded row (the P&L turnover diff), the turnover scan's warm
+  state, a ``mvo_batch``-slot ring of lane exit states for plain MVO (day
+  ``t`` warm-starts from day ``t - mvo_batch``, as the full step's chunks
+  of lanes do), and the running per-name P&L.
+
+Every tensor lives on the engine's device. The date counters ``day`` and
+``version`` are host integers: the host decides which date it advances, so
+every choice that depends on the date alone (is a date ready, processed,
+on the refit grid, in which warm slot) is a host branch and never a device
+read. Ring ramp-up is NaN/False padding, whose contribution to every
+NaN-aware reducer is the full step's edge padding. The books and warm
+states of the QP schemes are kept in ``QP_DTYPE`` (float64), the type the
+full step chains them in.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, NamedTuple
+
+import torch
+
+from factormodeling_tpu_torch.backtest.mvo import QP_DTYPE
+from factormodeling_tpu_torch.solvers.admm_qp import ADMMWarmState
+
+__all__ = ["AdvanceOutputs", "DateSlice", "MarketState", "TenantState",
+           "init_market_state", "init_tenant_state"]
+
+
+class DateSlice(NamedTuple):
+    """One arriving date's raw inputs, the unit the online engine ingests
+    (tensors or numpy arrays; ``universe`` None for a stream without
+    one)."""
+
+    factors: Any          # float[F, N] raw exposures for the date
+    returns: Any          # float[N] asset returns
+    factor_ret: Any       # float[F] precomputed factor returns
+    cap_flag: Any         # float[N] cap tier
+    investability: Any    # float[N]
+    universe: Any = None  # bool[N] membership, or None
+
+
+@dataclasses.dataclass(frozen=True)
+class MarketState:
+    """Market carry (module docs). ``day`` is the absolute index of the
+    LAST ingested date (-1 before the first); an advance finalizes date
+    ``day - 1``, since the last date of any full recompute is transient."""
+
+    day: int                      # last ingested absolute index
+    version: int                  # +1 per advance
+    factors_tail: torch.Tensor    # [F, T, N] last T dates (NaN ramp pad)
+    returns_tail: torch.Tensor    # [T, N]
+    cap_tail: torch.Tensor        # [T, N]
+    invest_tail: torch.Tensor     # [T, N]
+    universe_tail: Any            # bool[T, N] (False ramp pad) or None
+    stats_ring: dict              # stat -> [F, R] (NaN ramp pad)
+    fr_ring: torch.Tensor         # [R, F] factor returns (NaN pad)
+    lb_ring: Any                  # QP_DTYPE[LB, N] left-aligned, or None
+    risk_model: Any               # (loadings [N,k], fvar [k], idio [N]) or None
+
+
+@dataclasses.dataclass(frozen=True)
+class TenantState:
+    """Per-tenant sequential carry (module docs)."""
+
+    w_prev: torch.Tensor            # QP_DTYPE[N] previous pre-shift book
+    book_carry: torch.Tensor        # [N] last in-universe pre-shift weight
+    traded_prev: torch.Tensor       # [N] previous traded (shifted) row
+    warm: Any                       # ADMMWarmState of one lane, or None
+    warm_ring: Any                  # ADMMWarmState of B lanes, or None
+    long_pnl_by_name: torch.Tensor  # [N] running after-cost long P&L
+    short_pnl_by_name: torch.Tensor  # [N] running after-cost short P&L
+
+
+class AdvanceOutputs(NamedTuple):
+    """The newly FINALIZED date's research-step row. ``ready`` is False for
+    the very first ingested date (nothing to finalize; the other fields
+    are then placeholders)."""
+
+    ready: bool
+    day: int                      # finalized absolute date index
+    selection: torch.Tensor       # [F] daily factor weights
+    signal: torch.Tensor          # [N] composite signal
+    weights: torch.Tensor         # [N] traded (shifted) book
+    long_count: torch.Tensor      # int[]
+    short_count: torch.Tensor     # int[]
+    log_return: torch.Tensor      # [] net daily return
+    long_return: torch.Tensor     # []
+    short_return: torch.Tensor    # []
+    long_turnover: torch.Tensor   # []
+    short_turnover: torch.Tensor  # []
+    turnover: torch.Tensor        # []
+    resid: torch.Tensor           # [] final ADMM primal residual (NaN = n/a)
+    solver_ok: torch.Tensor       # bool[]
+
+
+def _cold_warm(lanes: int, n: int, device) -> ADMMWarmState:
+    """Cold ADMM state of ``lanes`` lanes (zeros; rho NaN, the solver's
+    cold sentinel), as ``backtest.mvo._cold_state``."""
+    z = torch.zeros((lanes, n), dtype=QP_DTYPE, device=device)
+    return ADMMWarmState(z=z, u=torch.zeros_like(z),
+                         rho=torch.full((lanes,), float("nan"),
+                                        dtype=QP_DTYPE, device=device))
+
+
+def init_market_state(*, n_factors: int, n_assets: int, dtype,
+                      stats_needs: tuple, tail: int, ring: int,
+                      lb: int | None, has_universe: bool,
+                      risk_factors: int | None = None,
+                      device=None) -> MarketState:
+    """Empty market state on ``device``: NaN/False ramp padding."""
+    f, n = int(n_factors), int(n_assets)
+
+    def full(shape, value, dt=dtype):
+        return torch.full(shape, value, dtype=dt, device=device)
+
+    rm = None
+    if risk_factors is not None:
+        rm = (full((n, risk_factors), float("nan"), QP_DTYPE),
+              full((risk_factors,), float("nan"), QP_DTYPE),
+              full((n,), float("nan"), QP_DTYPE))
+    return MarketState(
+        day=-1, version=0,
+        factors_tail=full((f, tail, n), float("nan")),
+        returns_tail=full((tail, n), float("nan")),
+        cap_tail=full((tail, n), 0.0),
+        invest_tail=full((tail, n), 0.0),
+        universe_tail=(full((tail, n), False, torch.bool) if has_universe
+                       else None),
+        stats_ring={k: full((f, ring), float("nan")) for k in stats_needs},
+        fr_ring=full((ring, f), float("nan")),
+        lb_ring=None if lb is None else full((lb, n), 0.0, QP_DTYPE),
+        risk_model=rm)
+
+
+def init_tenant_state(*, n_assets: int, dtype, method: str,
+                      mvo_batch: int | None, warm_start: bool,
+                      device=None) -> TenantState:
+    """Cold tenant state on ``device``. The warm carries exist only for the
+    scheme that consumes them: the turnover scan's one lane, plain MVO's
+    ring of ``mvo_batch`` lanes."""
+    n = int(n_assets)
+    warm = warm_ring = None
+    if method == "mvo_turnover" and warm_start:
+        warm = _cold_warm(1, n, device)
+    if method == "mvo" and warm_start and mvo_batch:
+        warm_ring = _cold_warm(int(mvo_batch), n, device)
+    return TenantState(
+        w_prev=torch.zeros((n,), dtype=QP_DTYPE, device=device),
+        book_carry=torch.full((n,), float("nan"), dtype=dtype, device=device),
+        traded_prev=torch.full((n,), float("nan"), dtype=dtype,
+                               device=device),
+        warm=warm, warm_ring=warm_ring,
+        long_pnl_by_name=torch.zeros((n,), dtype=dtype, device=device),
+        short_pnl_by_name=torch.zeros((n,), dtype=dtype, device=device))

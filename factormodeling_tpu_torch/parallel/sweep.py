@@ -9,11 +9,13 @@ manager axis plus the P&L. Combos run in chunks of ``combo_batch`` (the JAX
 package's ``lax.map(..., batch_size=combo_batch)``): a chunk's books
 ``[B, D, N]`` go through the P&L on an explicit date axis, so each combo
 gets the result of its own ``[D, N]`` call and the working set stays one
-chunk.
+chunk. :func:`checkpointed_manager_sweep` runs the same chunks as a host
+loop that snapshots after each, for runs that must survive interruption.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -26,7 +28,8 @@ from factormodeling_tpu_torch.multimanager import compute_manager_weights
 from factormodeling_tpu_torch.obs.report import record_stage
 from factormodeling_tpu_torch.parallel.pipeline import result_summary
 
-__all__ = ["SweepOutput", "combo_weight_matrix", "manager_sweep"]
+__all__ = ["SweepOutput", "checkpointed_manager_sweep", "combo_weight_matrix",
+           "manager_sweep"]
 
 
 class SweepOutput(NamedTuple):
@@ -94,3 +97,87 @@ def manager_sweep(factors: torch.Tensor, combo_weights: torch.Tensor,
                  factors=int(factors.shape[0]), combo_batch=combo_batch)
     books, _, _ = compute_manager_weights(factors, settings, device=device)
     return _combine_and_pnl(books, combo_weights, settings, combo_batch)
+
+
+def _settings_identity(settings: SimulationSettings):
+    """``(static, tensors)`` of the settings: the repr of every non-tensor
+    field (method, knobs, the policy, an absent universe) and the tensor
+    fields in order, for the checkpoint's configuration guard."""
+    static, tensors = {}, []
+    for f in dataclasses.fields(settings):
+        v = getattr(settings, f.name)
+        if isinstance(v, torch.Tensor):
+            tensors.append(v)
+        else:
+            static[f.name] = repr(v)
+    return repr(sorted(static.items())), tensors
+
+
+def checkpointed_manager_sweep(factors: torch.Tensor,
+                               combo_weights: torch.Tensor,
+                               settings: SimulationSettings, *,
+                               combo_batch: int = 8,
+                               chunk_combos: int | None = None,
+                               checkpoint=None, lineage=None,
+                               device=None) -> SweepOutput:
+    """:func:`manager_sweep` as a host loop over chunks of ``chunk_combos``
+    combos with an atomic snapshot after each (an optional
+    :class:`~factormodeling_tpu_torch.resil.checkpoint.Checkpointer`).
+
+    The book pass runs first, on every start (the books can be GBs, a
+    chunk's outputs are ``[C, D]`` rows). ``chunk_combos`` is rounded UP to
+    a multiple of ``combo_batch``, so the chunks of ``combo_batch`` combos
+    are the uninterrupted run's and the output is bitwise
+    :func:`manager_sweep`'s. A resume skips the chunks the snapshot holds;
+    a snapshot of another configuration (combo count, chunking, shapes,
+    settings, input content) is skipped with a warning. Each chunk's
+    outputs move to the host once, for the snapshots; the returned outputs
+    are on the inputs' device. ``lineage`` (the JAX package's provenance
+    ledger) is not ported and raises."""
+    if lineage:
+        raise NotImplementedError(
+            "lineage= (the provenance ledger) is not ported yet")
+    dev = check_device(device, factors, combo_weights)
+    c = int(combo_weights.shape[0])
+    if chunk_combos is None:
+        chunk_combos = combo_batch * 4
+    chunk_combos = max(combo_batch, -(-chunk_combos // combo_batch)
+                       * combo_batch)
+    books, _, _ = compute_manager_weights(factors, settings, device=device)
+
+    start, parts, host_parts = 0, [], []
+    ck_meta = None
+    if checkpoint is not None:
+        from factormodeling_tpu_torch.resil.checkpoint import fingerprint
+
+        static, tensors = _settings_identity(settings)
+        ck_meta = {"entry": "manager_sweep",
+                   "config": [c, int(chunk_combos), int(combo_batch),
+                              [int(v) for v in factors.shape], static],
+                   "inputs": fingerprint(combo_weights, factors, *tensors)}
+        got = checkpoint.resume(expect_meta=ck_meta)
+        if got is not None:
+            state, _ = got
+            start = int(state["next_chunk"])
+            host_parts = [SweepOutput(**p) for p in state["parts"]]
+            parts = [SweepOutput(*(torch.tensor(a, device=dev) for a in p))
+                     for p in host_parts]
+            record_stage("parallel/sweep_resume", resumed_chunks=start)
+
+    bounds = [(i, min(i + chunk_combos, c))
+              for i in range(0, c, chunk_combos)]
+    for idx in range(start, len(bounds)):
+        lo, hi = bounds[idx]
+        out = _combine_and_pnl(books, combo_weights[lo:hi], settings,
+                               combo_batch)
+        parts.append(out)
+        if checkpoint is not None:
+            host_parts.append(SweepOutput(*(t.cpu().numpy() for t in out)))
+            checkpoint.maybe_save(
+                idx, {"next_chunk": idx + 1,
+                      "parts": [p._asdict() for p in host_parts]},
+                meta=ck_meta)
+    record_stage("parallel/sweep", combos=c, factors=int(factors.shape[0]),
+                 combo_batch=combo_batch, chunked=chunk_combos,
+                 resumed_chunks=start)
+    return SweepOutput(*(torch.cat(field) for field in zip(*parts)))

@@ -1,8 +1,11 @@
 """Statistical risk model: PCA on the asset return panel, refined by one
-alternating-least-squares step (port of ``factormodeling_tpu/risk.py``:
-:class:`RiskModel`, :func:`pca` and :func:`statistical_risk_model`; the
-factor-return covariance estimators and the risk-model optimizer are not
-ported yet).
+alternating-least-squares step (port of ``factormodeling_tpu/risk.py``):
+the NaN-aware factor-return covariance (:func:`factor_covariance`: sample,
+EWMA-weighted through :func:`ewma_weights`, or Ledoit-Wolf), the PCA
+factor model (:func:`pca`, :func:`statistical_risk_model`), its factored
+products (:func:`risk_matvec`, :func:`portfolio_variance`,
+:func:`full_covariance`) and the dollar-neutral optimizer under it
+(:func:`optimal_weights`).
 
 The covariance stays factored, ``Sigma = B diag(f) B' + diag(idio)``, never
 ``N x N``. Exact PCA runs ``eigh`` on the smaller Gram dimension;
@@ -28,8 +31,12 @@ from typing import NamedTuple
 import torch
 
 from factormodeling_tpu_torch.ops._linalg import spd_solve
+from factormodeling_tpu_torch.selection.shrinkage import (
+    ledoit_wolf_shrinkage, masked_pairwise_cov)
 
-__all__ = ["PCAResult", "RiskModel", "pca", "statistical_risk_model"]
+__all__ = ["PCAResult", "RiskModel", "ewma_weights", "factor_covariance",
+           "full_covariance", "optimal_weights", "pca", "portfolio_variance",
+           "risk_matvec", "statistical_risk_model"]
 
 
 class PCAResult(NamedTuple):
@@ -53,12 +60,58 @@ class RiskModel(NamedTuple):
     mean: torch.Tensor
 
 
-def _masked_mean(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Per-column mean over valid cells of ``[D, N]`` (NaN where none)."""
-    w = valid.to(x.dtype)
+def ewma_weights(d: int, halflife: float, dtype=torch.float32,
+                 device=None) -> torch.Tensor:
+    """``[D]`` exponential weights, most recent observation last and
+    heaviest, normalized to sum 1: ``w_t ~ 2^{-(D-1-t)/halflife}``."""
+    ages = torch.arange(d - 1, -1, -1, dtype=dtype, device=device)
+    w = torch.exp2(-ages / torch.tensor(halflife, dtype=dtype, device=device))
+    return w / w.sum()
+
+
+def _masked_mean(x: torch.Tensor, valid: torch.Tensor,
+                 weights: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-column (optionally weighted) mean over valid cells of ``[D, N]``
+    (NaN where none)."""
+    w = valid.to(x.dtype) if weights is None else valid * weights[:, None]
     den = w.sum(0)
     x0 = torch.where(valid, x, 0.0)
     return (w * x0).sum(0) / torch.where(den > 0, den, float("nan"))
+
+
+def factor_covariance(factor_returns: torch.Tensor, *,
+                      weights: torch.Tensor | None = None, ddof: int = 1,
+                      shrinkage: float = 0.0,
+                      method: str = "sample") -> torch.Tensor:
+    """NaN-aware covariance ``[F, F]`` of a ``[D, F]`` factor-return panel.
+
+    ``method="sample"``: pairwise-complete (pandas ``DataFrame.cov``), with
+    optional observation ``weights [D]`` (:func:`ewma_weights`; the
+    denominator is then ``V1 - V2/V1``). ``method="ledoit_wolf"``:
+    constant-correlation shrinkage of the mean-filled panel (no weights).
+    ``shrinkage`` ``lam`` applies ``(1-lam) S + lam mean(diag S) I`` after
+    estimation. Entries with too few joint observations are NaN."""
+    x = factor_returns
+    valid = ~torch.isnan(x)
+    if method == "ledoit_wolf":
+        if weights is not None:
+            raise ValueError(
+                "method='ledoit_wolf' does not support observation weights "
+                "(the shrinkage moments are equal-weighted, ddof=1); use "
+                "method='sample' for EWMA estimation")
+        mu = _masked_mean(x, valid)
+        cov = ledoit_wolf_shrinkage(torch.where(valid, x, mu[None, :]))
+    elif method == "sample":
+        cov = masked_pairwise_cov(x, weights=weights, ddof=ddof)
+    else:
+        raise ValueError(f"unknown covariance method: {method!r}")
+    if shrinkage:
+        lam = float(shrinkage)
+        target = (torch.nanmean(torch.diagonal(cov))
+                  * torch.eye(cov.shape[0], dtype=cov.dtype,
+                              device=cov.device))
+        cov = (1.0 - lam) * cov + lam * target
+    return cov
 
 
 def _demean_fill(returns: torch.Tensor, valid: torch.Tensor | None):
@@ -180,3 +233,57 @@ def statistical_risk_model(returns: torch.Tensor, k: int, *,
     idio = torch.clamp(torch.where(torch.isnan(idio), min_idio_var, idio),
                        min=min_idio_var)
     return RiskModel(loadings=b, factor_var=factor_var, idio_var=idio, mean=mu)
+
+
+def risk_matvec(model: RiskModel, w: torch.Tensor) -> torch.Tensor:
+    """``Sigma @ w`` in O(N k) without forming ``Sigma``: ``B (f * (B' w))
+    + idio * w``; batched over leading axes of ``w``."""
+    fw = (w @ model.loadings) * model.factor_var             # [..., k]
+    return fw @ model.loadings.T + model.idio_var * w
+
+
+def portfolio_variance(model: RiskModel, w: torch.Tensor) -> torch.Tensor:
+    """``w' Sigma w`` in factored form; batched over leading axes of ``w``."""
+    fw = (w @ model.loadings) * torch.sqrt(model.factor_var)
+    return (fw * fw).sum(-1) + (w * w * model.idio_var).sum(-1)
+
+
+def full_covariance(model: RiskModel) -> torch.Tensor:
+    """``Sigma`` at ``[N, N]``: for tests and small universes only."""
+    b = model.loadings
+    return (b * model.factor_var[None, :]) @ b.T + torch.diag(model.idio_var)
+
+
+def optimal_weights(model: RiskModel, signal: torch.Tensor, *,
+                    max_weight: float = 0.03, return_weight: float = 0.0,
+                    turnover_penalty: float = 0.0,
+                    prev_weights: torch.Tensor | None = None,
+                    qp_iters: int = 500, rho: float = 2.0,
+                    polish: bool = True):
+    """Dollar-neutral long/short MVO under the factored model: the backtest
+    engine's constraint set (long leg +1, short leg -1, sign-consistent
+    boxes of ``max_weight``, zero-signal names pinned to 0) with the
+    variance ``w' Sigma w`` of ``Sigma = B diag(f) B' + diag(idio)``, solved
+    by the low-rank ADMM path (O(N k) an iteration). Returns ``(weights,
+    primal_residual, solver_ok)``; a failed or infeasible solve falls back
+    to equal-weight legs."""
+    from factormodeling_tpu_torch.solvers.admm_qp import (BoxQPProblem,
+                                                          admm_solve_lowrank)
+    from factormodeling_tpu_torch.solvers.portfolio import (
+        equal_leg_fallback, leg_constraints, legs_feasible)
+
+    dtype = model.loadings.dtype
+    sig = torch.nan_to_num(signal).to(dtype)
+    lo, hi, E, b = leg_constraints(sig, max_weight, dtype)
+    prev = (torch.zeros_like(sig) if prev_weights is None
+            else torch.nan_to_num(prev_weights).to(dtype))
+    prob = BoxQPProblem(q=(-return_weight) * sig, lo=lo, hi=hi, E=E, b=b,
+                        l1=turnover_penalty, center=prev)
+    # the reference objective is w' Sigma w (not halved): P = 2 Sigma
+    res = admm_solve_lowrank(2.0 * model.idio_var, model.loadings.T,
+                             2.0 * model.factor_var, prob, rho=rho,
+                             iters=qp_iters, polish=polish)
+    w = res.x
+    ok = torch.isfinite(w).all(-1) & legs_feasible(sig, max_weight)
+    return (torch.where(ok[..., None], w, equal_leg_fallback(sig)),
+            res.primal_residual, ok)

@@ -49,18 +49,28 @@ def ledoit_wolf_shrinkage(returns: torch.Tensor) -> torch.Tensor:
     return lam * target + (1.0 - lam) * sample
 
 
-def masked_pairwise_cov(x: torch.Tensor, ddof: int = 1) -> torch.Tensor:
+def masked_pairwise_cov(x: torch.Tensor, weights: torch.Tensor | None = None,
+                        ddof: int = 1) -> torch.Tensor:
     """pandas ``DataFrame.cov()`` over ``x [..., T, F]`` with NaN holes:
     entry (i, j) uses only the rows where both columns are valid, with
-    means over that joint sample. Pairs whose denominator is not positive
-    come back NaN."""
+    means over that joint sample. Optional per-row reliability ``weights
+    [T]`` switch the denominator to the ``V1 - V2/V1`` bias correction
+    (``ddof`` ignored). Pairs whose denominator is not positive come back
+    NaN."""
     valid = ~torch.isnan(x)
     vf = valid.to(x.dtype)
+    m = vf if weights is None else vf * weights[:, None]
     x0 = torch.where(valid, x, 0.0)
-    v1 = vf.mT @ vf                           # joint counts          [F, F]
-    sx = x0.mT @ vf                           # joint sums of x_i     [F, F]
-    sxy = x0.mT @ x0                          # joint cross products  [F, F]
+    xw = x0 if weights is None else x0 * weights[:, None]
     nan = float("nan")
+    v1 = m.mT @ vf                            # joint weight sums     [F, F]
+    sx = xw.mT @ vf                           # joint sums of x_i     [F, F]
+    sxy = xw.mT @ x0                          # joint cross products  [F, F]
+    if weights is None:
+        den = v1 - ddof
+    else:
+        m2 = (m * weights[:, None]).mT @ vf   # joint V2 sums
+        den = v1 - m2 / torch.where(v1 > 0, v1, nan)
     num = sxy - sx * sx.mT / torch.where(v1 > 0, v1, nan)
-    cov = num / torch.where(v1 - ddof > 0, v1 - ddof, nan)
+    cov = num / torch.where(den > 0, den, nan)
     return 0.5 * (cov + cov.mT)

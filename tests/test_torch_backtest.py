@@ -2,8 +2,8 @@
 with seeded numpy inputs: ``run_simulation`` for ``equal``, ``linear``,
 plain ``mvo`` and ``mvo_turnover`` (both solver kernels), with the sample
 covariance and the statistical risk model and with the Anderson
-accelerator; the settings' resolution and validation rules, and what the
-port leaves for later slices.
+accelerator; the settings' resolution and validation rules, and the
+default degrade policy's bitwise inertness.
 """
 
 import dataclasses
@@ -196,10 +196,22 @@ def test_ported_options_match_jax(seed, kw, kernel):
 
 
 def test_unported_options_raise():
+    """The degrade policy is ported: the default ``DegradePolicy.make()``
+    runs the hold pass and gives the no-policy outputs bit for bit, with
+    zero tallies; a ``degrade`` that is not a policy is refused."""
+    from factormodeling_tpu_torch.resil import DegradePolicy
+
     returns, signal, cap, invest, universe = _market(4, d=12, n=5)
-    s = SimulationSettings(returns=torch.from_numpy(returns),
-                           cap_flag=torch.from_numpy(cap),
-                           investability_flag=torch.from_numpy(invest),
-                           method="mvo_turnover", degrade=object())
-    with pytest.raises(NotImplementedError, match="not ported"):
-        run_simulation(torch.from_numpy(signal), s)
+    kw = dict(returns=torch.from_numpy(returns), cap_flag=torch.from_numpy(cap),
+              investability_flag=torch.from_numpy(invest),
+              method="mvo_turnover")
+    base = run_simulation(torch.from_numpy(signal), SimulationSettings(**kw))
+    inert = run_simulation(torch.from_numpy(signal), SimulationSettings(
+        degrade=DegradePolicy.make(), **kw))
+    assert base.degrade is None
+    assert int(inert.degrade.held_days) == int(inert.degrade.carry_days) == 0
+    for a, b in zip(jax.tree_util.tree_leaves(tuple(base[:5])),
+                    jax.tree_util.tree_leaves(tuple(inert[:5]))):
+        assert a.numpy().tobytes() == b.numpy().tobytes()
+    with pytest.raises(TypeError, match="DegradePolicy"):
+        SimulationSettings(degrade=object(), **kw)

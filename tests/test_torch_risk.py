@@ -94,3 +94,122 @@ def test_sketch_is_seeded_and_device_independent():
     assert torch.equal(a, risk._sketch(50, 7, 3, torch.float64, "cpu"))
     assert not torch.equal(a, risk._sketch(50, 7, 4, torch.float64, "cpu"))
     assert torch.equal(a.float(), b)
+
+
+# ------------------------------------------- the rest of the risk module
+
+
+def _factor_returns(seed, d=40, f=6, missing=0.15):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(scale=0.01, size=(d, f)) + rng.normal(
+        scale=0.005, size=(d, 1))
+    x[rng.uniform(size=x.shape) < missing] = np.nan
+    x[:3, 1] = np.nan
+    return x
+
+
+def test_ewma_weights_match_jax():
+    for d, hl in ((1, 5.0), (30, 10.0), (47, 3.5)):
+        got = risk.ewma_weights(d, hl, dtype=torch.float64)
+        want = jax_risk.ewma_weights(d, hl, dtype=jnp.float64)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-15,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(),
+    dict(ddof=0),
+    dict(shrinkage=0.3),
+    dict(method="ledoit_wolf"),
+    dict(method="ledoit_wolf", shrinkage=0.5),
+    dict(halflife=10.0),
+    dict(halflife=4.0, shrinkage=0.2),
+])
+def test_factor_covariance_matches_jax(kw):
+    x = _factor_returns(3)
+    kw = dict(kw)
+    hl = kw.pop("halflife", None)
+    tw = jw = None
+    if hl is not None:
+        tw = risk.ewma_weights(x.shape[0], hl, dtype=torch.float64)
+        jw = jax_risk.ewma_weights(x.shape[0], hl, dtype=jnp.float64)
+    got = risk.factor_covariance(torch.from_numpy(x), weights=tw, **kw)
+    want = jax_risk.factor_covariance(jnp.asarray(x), weights=jw, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-10,
+                               rtol=0, equal_nan=True)
+
+
+def test_factor_covariance_rejects_what_jax_rejects():
+    x = torch.from_numpy(_factor_returns(4))
+    with pytest.raises(ValueError, match="observation weights"):
+        risk.factor_covariance(x, method="ledoit_wolf",
+                               weights=risk.ewma_weights(40, 10.0,
+                                                         torch.float64))
+    with pytest.raises(ValueError, match="unknown covariance"):
+        risk.factor_covariance(x, method="bogus")
+    # too few joint observations: NaN, as pandas
+    few = np.full((5, 3), np.nan)
+    few[0, 0], few[1, 1] = 1.0, 2.0
+    got = risk.factor_covariance(torch.from_numpy(few)).numpy()
+    want = np.asarray(jax_risk.factor_covariance(jnp.asarray(few)))
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+
+
+def _model_pair(seed):
+    r = _panel(seed, d=50, n=30, missing=0.05, dead_rows=0)
+    got = risk.statistical_risk_model(torch.from_numpy(r), 4, method="eigh")
+    want = jax_risk.statistical_risk_model(jnp.asarray(r), 4, method="eigh")
+    # the same model on both sides (column signs from eigh may differ):
+    # hang the JAX model's arrays on the port's type
+    same = risk.RiskModel(*(torch.from_numpy(np.array(a)) for a in want))
+    return got, want, same
+
+
+def test_factored_products_match_jax():
+    _, want, same = _model_pair(5)
+    rng = np.random.default_rng(5)
+    w = rng.normal(size=(3, 30)) / 30
+    np.testing.assert_allclose(
+        risk.risk_matvec(same, torch.from_numpy(w)).numpy(),
+        np.asarray(jax_risk.risk_matvec(want, jnp.asarray(w))),
+        atol=1e-10, rtol=0)
+    np.testing.assert_allclose(
+        risk.portfolio_variance(same, torch.from_numpy(w)).numpy(),
+        np.asarray(jax_risk.portfolio_variance(want, jnp.asarray(w))),
+        atol=1e-10, rtol=0)
+    full = risk.full_covariance(same).numpy()
+    np.testing.assert_allclose(full, np.asarray(jax_risk.full_covariance(want)),
+                               atol=1e-10, rtol=0)
+    # the factored forms are the dense ones
+    np.testing.assert_allclose(
+        risk.risk_matvec(same, torch.from_numpy(w)).numpy(), w @ full.T,
+        atol=1e-10, rtol=0)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(max_weight=0.2),
+    dict(max_weight=0.2, turnover_penalty=0.05, return_weight=0.01,
+         prev=True),
+    dict(max_weight=0.05),          # infeasible legs: the equal fallback
+])
+def test_optimal_weights_matches_jax(kw):
+    _, want, same = _model_pair(6)
+    rng = np.random.default_rng(6)
+    signal = rng.normal(size=30)
+    signal[[2, 7]] = 0.0
+    kw = dict(kw)
+    prev = rng.normal(size=30) / 30 if kw.pop("prev", False) else None
+    got = risk.optimal_weights(
+        same, torch.from_numpy(signal), qp_iters=300,
+        prev_weights=None if prev is None else torch.from_numpy(prev), **kw)
+    ref = jax_risk.optimal_weights(
+        want, jnp.asarray(signal), qp_iters=300,
+        prev_weights=None if prev is None else jnp.asarray(prev), **kw)
+    assert bool(got[2]) == bool(ref[2])
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(ref[0]), atol=1e-10,
+                               rtol=0)
+    if bool(got[2]):
+        w = got[0].numpy()
+        assert abs(w[w > 0].sum() - 1.0) < 1e-6
+        assert abs(w[w < 0].sum() + 1.0) < 1e-6
+        assert np.all(w[[2, 7]] == 0.0)
