@@ -42,13 +42,16 @@ Phases, in order (any failure exits non-zero before the last line):
    ``solver_kernel="fused"``: (1) mvo_turnover with the sample covariance,
    (2) plain mvo in lanes of ``mvo_batch``, (3) mvo_turnover with the
    statistical risk model (20 factors, 252-day lookback, refit every 21
-   days) and the Anderson accelerator. Each: the kernels' launch counts
-   against the path's schedule, leg-sum and weight-cap invariants, a finite
-   summary; then the same step with ``solver_kernel="reference"``, held
-   against the fused run (paths 1 and 3: the reference kernel's backtest of
-   the fused run's signal over its first ``REF_DATES`` dates, against the
-   full run's first days on path 1 and the fused kernel's backtest of the
-   same dates on path 3). Then path 1 with ``turnover_mode="parallel"``:
+   days) and the Anderson accelerator, on its first 333 dates
+   (``PATH_DATES``). Each: the kernels' launch counts against the path's
+   schedule, leg-sum and weight-cap invariants, a finite summary; then the
+   same step with ``solver_kernel="reference"``, held against the fused
+   run (paths 1 and 3: the reference kernel's backtest of the fused run's
+   signal over its first ``REF_DATES`` dates, 333, against the full run's
+   first days on path 1 and path 3's whole run; depth cut to make room
+   for path 10, from path 3's 1332 dates with a reference over 666 and
+   path 1's reference over 666). Then path 1 with
+   ``turnover_mode="parallel"``:
    (6) at its penalty 0.1, held against path 1's own fused output (suffix
    days within ``DW_TOL`` on all but ``DW_SHARE``, certified days both
    polished or neither attempted within ``CERT_TOL``), and (7) at penalty
@@ -105,7 +108,29 @@ Phases, in order (any failure exits non-zero before the last line):
    its snapshot at date 300 and a restatement of date 320 replayed, both
    byte-equal; with the per-date advance wall p50/p99 and the
    synchronizing reads of a date by calling line;
-9. one ``kernels`` JSON line; then the last line
+9. path 10, the serving layer at path 1's market (F=50, N=1000, float32,
+   window 60, icir_top, zscore): (10a) ``TenantServer.serve`` of 64
+   equal-weight tenants (``bench.py``'s ``bench_tenant_sweep`` knob draw)
+   at D=1332, one rung-64 dispatch cold and warm, then 5 of them (rung 8,
+   3 pad lanes), one K1 launch a dispatch, 4 lanes bitwise the
+   single-tenant step and held to the same configs on the host CPU at
+   path 5's icir_top gate, ``serving_stats()`` against the host's count
+   and one cache entry a (bucket, rung); (10b) an ``mvo_turnover`` bucket
+   of 3 tenants (path 1's own first) on path 9's 333 dates, rung 8 with 5
+   pad lanes not computed: K1 once, K2 two segments a date a real tenant,
+   each tenant's invariants, tenant 0 held to 9a's clean step (selection
+   bitwise, weights at path 1's gate); (10c) ``serve_queued`` on 10a's
+   bucket (``bench.py``'s ``bench_serving_under_load`` recipe: 48
+   requests, ladder 1/4/8, the service time of a warm rung-8 dispatch, a
+   Poisson trace at twice its capacity, deadlines 40 service times,
+   ``max_depth`` 8 on a virtual clock, a dispatch fault plan): one verdict
+   a request, the delivered outputs bitwise ``serve()``'s, shed verdicts
+   with their reason, executions = delivered dispatches + poisoned
+   attempts; (10d) ``online_begin`` + ``advance_all`` for 10b's tenants 0
+   and 2 over path 9b's first 166 dates: K1 once a date, K2 as 9b a
+   tenant, tenant 0's rows held to 9b's at 9b's gates, the wall a date
+   p50/p99 and the synchronizing reads of a date by calling line;
+10. one ``kernels`` JSON line; then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs one card and exits non-zero, printing no result, without one or
@@ -1720,14 +1745,16 @@ PARALLEL_PATHS = {
                                         turnover_mode="parallel",
                                         turnover_penalty=0.0),
 }
-# paths 1 and 3 hold the reference kernel's backtest of the fused run's own
-# signal over its first REF_DATES dates only (cut to keep the script's time
-# as path 8 grew it). Path 1's backtest is causal to the bit, so its fused
-# side is the full run's first days; path 3's is not (its risk-model fits
-# round differently with fewer dates, and the Anderson chain carries that
-# far), so its fused side runs over the same dates again
-REF_DATES = 666
-REF_CUT = {"turnover": "full run", "turnover_risk_anderson": "rerun"}
+# depth cuts that keep the script's time as paths are added (never width:
+# F, N and every shape a kernel sees stay the paths'). Path 3's fused run
+# covers its first 333 dates (PATH_DATES); paths 1 and 3 hold the reference
+# kernel's backtest of the fused run's own signal over the first
+# REF_DATES[path] dates: 333 for path 1, whose backtest is causal to the
+# bit, so its fused side is the full run's first days; path 3's whole run
+# (its risk-model fits are not causal to the bit: they round differently
+# with fewer dates, and the Anderson chain carries that far)
+PATH_DATES = {"turnover": D, "mvo": D, "turnover_risk_anderson": 333}
+REF_DATES = {"turnover": 333, "turnover_risk_anderson": 333}
 # certified days against the scan: the QP is float64 (the JAX package's
 # bench.py holds 1e-4 at float32)
 CERT_TOL = 1e-5
@@ -1749,7 +1776,8 @@ def run_step(torch, fmt, arrays, sim: dict, kernel: str):
     return out, time.perf_counter() - t0, inputs
 
 
-def segment_launches(fmt, sim: dict, stats: dict | None = None):
+def segment_launches(fmt, sim: dict, stats: dict | None = None,
+                     d: int = D):
     """The segment kernel's launches the path's schedule implies, one per
     segment of every solve: ``(single-lane, lane-batch)`` launches, as the
     wrapper counts them (``launches - lane_launches``, ``lane_launches``).
@@ -1757,7 +1785,7 @@ def segment_launches(fmt, sim: dict, stats: dict | None = None):
     sequential suffix) or one chunk of ``mvo_batch`` dates, the ragged tail
     a chunk too (plain mvo; the parallel scheme's seed and each executed
     sweep, by its ``stats``); a chunk of one date is a single-lane
-    launch."""
+    launch. ``d``: the run's dates."""
     from factormodeling_tpu_torch.solvers.admm_qp import _ADAPT_EVERY
 
     s = fmt.SimulationSettings(returns=None, cap_flag=None,
@@ -1766,20 +1794,21 @@ def segment_launches(fmt, sim: dict, stats: dict | None = None):
     def segs(iters):
         return -(-iters // _ADAPT_EVERY)
 
-    lone = int(D % s.mvo_batch == 1)           # a tail chunk of one date
-    chunks = D // s.mvo_batch + int(D % s.mvo_batch > 1)
+    lone = int(d % s.mvo_batch == 1)           # a tail chunk of one date
+    chunks = d // s.mvo_batch + int(d % s.mvo_batch > 1)
     if s.method == "mvo":
         per = segs(s.resolved_qp_iters(False))
         return lone * per, chunks * per
     qp = segs(s.resolved_qp_iters(True))
     if s.turnover_mode == "scan":
-        return D * qp, 0
+        return d * qp, 0
     per = (segs(s.resolved_seed_iters())
            + stats["sweeps"] * segs(s.resolved_sweep_iters()))
     return stats["suffix_len"] * qp + lone * per, chunks * per
 
 
-def check_invariants(torch, path: str, out) -> None:
+def check_invariants(torch, path: str, out,
+                     max_weight: float = MAX_WEIGHT) -> None:
     """Leg sums and the weight cap on the traded days; prints them with the
     polish and Anderson tallies."""
     diag = out.sim.diagnostics
@@ -1788,7 +1817,7 @@ def check_invariants(torch, path: str, out) -> None:
                                   (diag.short_sum + 1.0).abs())
                     .cpu().numpy()[traded].max())
     w = out.sim.weights.nan_to_num()
-    cap_excess = float((w.abs() - MAX_WEIGHT).max())
+    cap_excess = float((w.abs() - max_weight).max())
     polished = int(diag.polished.sum())
     aa_acc = diag.anderson_accepted.cpu().numpy()
     log(f"path {path} fused invariants: {int(traded.sum())} traded days, max "
@@ -1843,7 +1872,9 @@ def path_phase(torch, seed: int, path: str, warm_up: bool):
     from factormodeling_tpu_torch.metrics import _cuda_rank_ic as rk
     from factormodeling_tpu_torch.ops import _cuda_admm as ak
 
-    arrays = make_inputs(F, D, N, seed)
+    d = PATH_DATES[path]
+    arrays = tuple(a[:, :d] if a.ndim == 3 else a[:d]
+                   for a in make_inputs(F, D, N, seed))
     if warm_up:   # library handles, allocator, kernel loads: a cut date range
         run_step(torch, fmt, tuple(a[:, :130] if a.ndim == 3 else a[:130]
                                    for a in arrays), PATHS[path], "fused")
@@ -1851,7 +1882,7 @@ def path_phase(torch, seed: int, path: str, warm_up: bool):
     rk.launches = ak.launches = ak.lane_launches = 0
     out, secs, inputs = run_step(torch, fmt, arrays, PATHS[path], "fused")
     launches = segment_counts(rk, ak)
-    log(f"path {path} fused: F={F} D={D} N={N} step {secs:.3f} s wall; "
+    log(f"path {path} fused: F={F} D={d} N={N} step {secs:.3f} s wall; "
         f"launches {json.dumps(launches)}")
 
     summ = {k: float(v) for k, v in out.summary._asdict().items()}
@@ -1860,20 +1891,20 @@ def path_phase(torch, seed: int, path: str, warm_up: bool):
         raise AssertionError(f"{path}: non-finite summary {summ}")
     check_invariants(torch, path, out)
     diag = out.sim.diagnostics
-    if int(diag.qp_solves) != D:
-        raise AssertionError(f"{path}: {int(diag.qp_solves)} QP solves, not {D}")
+    if int(diag.qp_solves) != d:
+        raise AssertionError(f"{path}: {int(diag.qp_solves)} QP solves, not {d}")
     if PATHS[path].get("qp_anderson") and not diag.anderson_accepted.sum() > 0:
         raise AssertionError(f"{path}: the Anderson accelerator never engaged")
-    check_launches(path, launches, segment_launches(fmt, PATHS[path]))
+    check_launches(path, launches, segment_launches(fmt, PATHS[path], d=d))
 
-    if path not in REF_CUT:
+    if path not in REF_DATES:
         ref, ref_secs, _ = run_step(torch, fmt, arrays, PATHS[path],
                                     "reference")
         log(f"path {path} reference: step {ref_secs:.3f} s wall")
         check_fused_vs_reference(torch, path, out.sim.weights,
                                  ref.sim.weights)
         return launches, out, secs
-    cut = REF_DATES
+    cut = REF_DATES[path]
     _, returns, _, cap, invest, universe = (a[:cut] for a in inputs)
 
     def backtest(kernel):
@@ -1889,9 +1920,8 @@ def path_phase(torch, seed: int, path: str, warm_up: bool):
             "wall")
         return sim.weights
 
-    fused = (out.sim.weights[:cut] if REF_CUT[path] == "full run"
-             else backtest("fused"))
-    check_fused_vs_reference(torch, path, fused, backtest("reference"))
+    check_fused_vs_reference(torch, path, out.sim.weights[:cut],
+                             backtest("reference"))
     return launches, out, secs
 
 
@@ -2141,7 +2171,7 @@ def resil_path(torch, fmt, seed: int) -> dict:
                               sim_kwargs=sim, device="cuda")
     spec = fmt.resil.FaultSpec.make(**R_FAULTS)
     pol = fmt.resil.DegradePolicy.make(**R_POLICY)
-    segs = segment_launches(fmt, PATHS["turnover"])[0] // D
+    segs = segment_launches(fmt, PATHS["turnover"], d=1)[0]
     want = {"rank_ic_postsort": 1, "admm_segment": R_DATES * segs,
             "admm_segment_lanes": 0}
     runs = {}
@@ -2234,7 +2264,7 @@ def resil_path(torch, fmt, seed: int) -> dict:
     if not share <= DW_SHARE:
         raise AssertionError(f"resil chaos: card and CPU weights differ on "
                              f"{share:.2%} of days")
-    return dict(clean=runs["clean"][0],
+    return dict(clean=runs["clean"][0], clean_secs=runs["clean"][1],
                 launches={k: v[2] for k, v in runs.items()})
 
 
@@ -2270,7 +2300,8 @@ def online_path(torch, fmt, seed: int, clean) -> dict:
     resumed from the snapshot at P9_RESUME_DATE byte-equal to straight
     through; a restatement of P9_RESTATE_DATE with the same content
     REPLAYED byte-equal. Prints the per-date advance wall p50/p99 and the
-    synchronizing reads a date. Returns the straight run's launches."""
+    synchronizing reads a date. Returns the straight run's launches and its
+    rows by finalized day."""
     from factormodeling_tpu_torch.metrics import _cuda_rank_ic as rk
     from factormodeling_tpu_torch.ops import _cuda_admm as ak
     from factormodeling_tpu_torch.online import DateSlice, OnlineEngine
@@ -2321,7 +2352,7 @@ def online_path(torch, fmt, seed: int, clean) -> dict:
             raise AssertionError(f"online: date {t} {v.status} {v.reason}")
         rows.update({int(o["day"]): o for o in v.outputs})
     launches = segment_counts(rk, ak)
-    segs = segment_launches(fmt, PATHS["turnover"])[0] // D
+    segs = segment_launches(fmt, PATHS["turnover"], d=1)[0]
     want = {"rank_ic_postsort": R_DATES,
             "admm_segment": (R_DATES - 1) * segs, "admm_segment_lanes": 0}
     ms = np.asarray(walls[1:]) * 1e3
@@ -2411,7 +2442,7 @@ def online_path(torch, fmt, seed: int, clean) -> dict:
     if not (dup.reason == "duplicate" and res_equal and rep_equal
             and straight.verdict_complete() and resumed.verdict_complete()):
         raise AssertionError("online: resume or replay not byte-equal")
-    return launches
+    return launches, rows
 
 
 def checkpointed_sweep_path(torch, fmt, out, inputs) -> None:
@@ -2469,6 +2500,415 @@ def checkpointed_sweep_path(torch, fmt, out, inputs) -> None:
                              f"manager_sweep in {parted}")
 
 
+
+# path 10: serving at path 1's market (F=50, N=1000, float32 panels, window
+# 60, icir_top, zscore). 10a: an equal-weight bucket of S_TENANTS tenants at
+# D=1332 with bench.py::bench_tenant_sweep's knob draw, served once cold,
+# once warm, then S_PROBE of them (rung 8, 3 pad lanes), S_CHECKED lanes
+# held bitwise to the single-tenant step and against the host CPU
+S_TENANTS, S_PROBE, S_CHECKED = 64, 5, 4
+# 10c: bench.py::bench_serving_under_load's recipe at path 1's market: the
+# service time of one warm rung-8 dispatch, a Poisson trace at S_LOAD x
+# that capacity, deadlines S_DEADLINE_X x the service time
+S_REQUESTS, S_LADDER, S_LOAD, S_DEADLINE_X, S_DEPTH = 48, (1, 4, 8), 2.0, 40, 8
+S_FAULTS = dict(seed=36, error_rate=0.05, poison_rate=0.05)
+# 10d: advance_all over path 9b's first S_ONLINE_DATES dates
+S_ONLINE_DATES = 166
+
+
+def serving_configs(fmt, n: int):
+    """bench.py::bench_tenant_sweep's knob draw, in its order: one
+    signature bucket (equal weights, window 60), every value leaf
+    varied."""
+    rng = np.random.default_rng(17)
+    out = []
+    for i in range(n):
+        mix = rng.uniform(0.2, 1.0, size=F)
+        out.append(fmt.serve.TenantConfig(
+            top_k=1 + i % F, icir_threshold=-1.0, manager_mix=mix,
+            max_weight=float(0.05 + 0.2 * rng.uniform()),
+            pct=float(0.1 + 0.2 * rng.uniform()),
+            tcost_scale=float(rng.uniform(0.5, 2.0)),
+            method="equal", window=WINDOW))
+    return out
+
+
+def turnover_configs(fmt):
+    """Path 10b's bucket: path 1's own tenant (9b's), then two tenants
+    with other penalties, caps and cost scales."""
+    import dataclasses
+
+    t0 = fmt.serve.TenantConfig(
+        method="mvo_turnover", window=WINDOW, lookback_period=T_LOOKBACK,
+        top_k=5, icir_threshold=0.03, max_weight=MAX_WEIGHT, pct=0.1,
+        turnover_penalty=0.1, sim_static={"solver_kernel": "fused"})
+    return [t0,
+            dataclasses.replace(t0, turnover_penalty=0.05, max_weight=0.02,
+                                tcost_scale=0.5),
+            dataclasses.replace(t0, turnover_penalty=0.2, max_weight=0.05,
+                                tcost_scale=2.0)]
+
+
+def _panels(arrays) -> dict:
+    return dict(zip(("factors", "returns", "factor_ret", "cap_flag",
+                     "investability", "universe"), arrays))
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _tree_equal(fmt, a, b) -> bool:
+    """Every leaf of two output trees equal to the bit (shapes and bytes of
+    the host copies)."""
+    from factormodeling_tpu_torch._device import host_array
+
+    la = fmt.resil.checkpoint.tree_leaves(a)
+    lb = fmt.resil.checkpoint.tree_leaves(b)
+    return len(la) == len(lb) and all(
+        host_array(x).shape == host_array(y).shape
+        and host_array(x).tobytes() == host_array(y).tobytes()
+        for x, y in zip(la, lb))
+
+
+def serve_path(torch, fmt, seed: int) -> dict:
+    """Path 10a: ``TenantServer.serve`` of S_TENANTS equal-weight tenants
+    at F=50, D=1332, N=1000 (one rung-64 dispatch, cold then warm), then
+    S_PROBE of them (rung 8, 3 pad lanes): one K1 launch a dispatch;
+    S_CHECKED lanes bitwise the single-tenant step on the card and held to
+    the same configs served on the host CPU at path 5's icir_top gate;
+    ``serving_stats()`` against the host's count of the calls; one cache
+    entry a (bucket, rung). Returns the launches of the three dispatches
+    and the configs."""
+    from factormodeling_tpu_torch.metrics import _cuda_rank_ic as rk
+    from factormodeling_tpu_torch.ops import _cuda_admm as ak
+    from factormodeling_tpu_torch.parallel import streaming
+
+    arrays = make_inputs(F, D, N, seed)
+    names = factor_names(F)
+    configs = serving_configs(fmt, S_TENANTS)
+    streaming.clear_streaming_cache()
+    server = fmt.serve.TenantServer(names=names, **_panels(arrays),
+                                    device="cuda")
+    rk.launches = ak.launches = ak.lane_launches = 0
+    k1, walls = [], []
+    for batch in (configs, configs, configs[:S_PROBE]):
+        before = rk.launches
+        res, secs = _timed(torch, lambda b=batch: server.serve(b))
+        k1.append(rk.launches - before)
+        walls.append(secs)
+    launches = segment_counts(rk, ak)
+    stats = server.serving_stats()
+    cache = streaming.streaming_cache_stats()
+    rung = min(r for r in server.pad_ladder if r >= S_TENANTS)
+    log(f"path serve (10a): {S_TENANTS} equal tenants, F={F} D={D} N={N}: "
+        f"rung-{rung} dispatch {walls[0]:.3f} s cold (the bucket's "
+        f"step built), {walls[1]:.3f} s warm, {S_TENANTS / walls[1]:.2f} "
+        f"configs/s; {S_PROBE} tenants (rung 8, 3 pad lanes) "
+        f"{walls[2]:.3f} s; K1 launches a dispatch {k1}; launches "
+        f"{json.dumps(launches)}; serving_stats "
+        f"{json.dumps({k: v for k, v in stats.items() if k != 'kernel_cache'})}"
+        f"; kernel cache {json.dumps(cache)}")
+    if k1 != [1, 1, 1] or launches["admm_segment"] or \
+            launches["admm_segment_lanes"]:
+        raise AssertionError(f"serve: K1 launches a dispatch {k1}, not one; "
+                             f"launches {launches}")
+    want = {"bucket_count": 1, "executables": 2, "dispatch_executions": 3,
+            "logical_dispatches": 3, "configs_served": 2 * S_TENANTS + S_PROBE,
+            "padded_lanes": 2 * (rung - S_TENANTS) + 8 - S_PROBE,
+            "rejected_configs": 0}
+    got = {k: stats[k] for k in want}
+    if got != want or (cache["size"], cache["misses"], cache["hits"],
+                       cache["evictions"]) != (2, 2, 1, 0):
+        raise AssertionError(f"serve: serving_stats {got}, the host count "
+                             f"{want}; cache {cache}")
+    for r in res:
+        summ = r.output.summary
+        sel_sum = r.output.selection.sum(1)
+        if not (all(bool(torch.isfinite(v)) for v in summ)
+                and bool(((sel_sum - 1).abs() <= 1e-5)
+                         .logical_or(sel_sum == 0).all())):
+            raise AssertionError(f"serve: tenant {r.index}: non-finite "
+                                 "summary or a selection row off 1 and 0")
+
+    # the lanes against the single-tenant step on the card (outside the
+    # counted run), then the same configs served on the host CPU
+    step = fmt.serve.make_tenant_research_step(names=names,
+                                               template=configs[0])
+    card_panels = [torch.as_tensor(a, device="cuda") for a in arrays]
+    bitwise = [_tree_equal(fmt, res[i].output, step(
+        configs[i].normalized(F, server.n_groups, dtype=np.float32),
+        *card_panels)) for i in range(S_CHECKED)]
+    host = fmt.serve.TenantServer(names=names, **_panels(arrays),
+                                  device="cpu")
+    t0 = time.perf_counter()
+    res_h = host.serve(configs[:S_CHECKED])
+    secs_h = time.perf_counter() - t0
+    log(f"path serve (10a): lanes 0-{S_CHECKED - 1} of the rung-8 dispatch "
+        f"bitwise the single-tenant step on the card: {bitwise}; the same "
+        f"{S_CHECKED} configs on the host CPU: {secs_h:.1f} s")
+    if not all(bitwise):
+        raise AssertionError("serve: a lane parts from the single-tenant "
+                             "step")
+    for i in range(S_CHECKED):
+        out, out_h = res[i].output, res_h[i].output
+        dw = (out.selection.cpu() - out_h.selection).abs().max(-1).values
+        share = float((dw > P5_DW_TOL).double().mean())
+        legs = leg_differences(torch, out, out_h)
+        d_sharpe = abs(float(out.summary.sharpe) - float(out_h.summary.sharpe))
+        log(f"path serve (10a) tenant {i} vs the CPU: selection max |dw| "
+            f"{float(dw.max()):.3e}, share of dates > {P5_DW_TOL}: "
+            f"{share:.4f} (limit {P5_DW_SHARE}); |d sharpe| {d_sharpe:.3e}; "
+            f"legs {json.dumps(legs)} (tol {P5_SAME_LEGS_RET_TOL} on "
+            "calm_max_d_return)")
+        if not (share <= P5_DW_SHARE
+                and legs["calm_max_d_return"] <= P5_SAME_LEGS_RET_TOL
+                and (legs["flips"] or d_sharpe <= P5_SAME_LEGS_SHARPE_TOL)):
+            raise AssertionError(f"serve: tenant {i} differs between the "
+                                 "card and the CPU")
+    return dict(launches=launches, configs=configs, arrays=arrays)
+
+
+def turnover_serve_path(torch, fmt, seed: int, clean, clean_secs: float):
+    """Path 10b: an mvo_turnover bucket of 3 tenants (turnover_configs) on
+    the first R_DATES dates of path 1's inputs, default ladder (rung 8, 5
+    pad lanes, not computed): K1 once, K2 two segments a date a real
+    tenant; the invariants of every tenant; tenant 0 held to path 9a's
+    clean step (selection bitwise, weights at DW_TOL/DW_SHARE). Returns the
+    launches and the configs."""
+    from factormodeling_tpu_torch.metrics import _cuda_rank_ic as rk
+    from factormodeling_tpu_torch.ops import _cuda_admm as ak
+
+    arrays = tuple(a[:, :R_DATES] if a.ndim == 3 else a[:R_DATES]
+                   for a in make_inputs(F, D, N, seed))
+    configs = turnover_configs(fmt)
+    server = fmt.serve.TenantServer(names=factor_names(F),
+                                    **_panels(arrays), device="cuda")
+    rk.launches = ak.launches = ak.lane_launches = 0
+    res, secs = _timed(torch, lambda: server.serve(configs))
+    launches = segment_counts(rk, ak)
+    segs = segment_launches(fmt, PATHS["turnover"], d=1)[0]
+    want = {"rank_ic_postsort": 1,
+            "admm_segment": len(configs) * R_DATES * segs,
+            "admm_segment_lanes": 0}
+    stats = server.serving_stats()
+    log(f"path serve_turnover (10b): {len(configs)} mvo_turnover tenants, "
+        f"F={F} D={R_DATES} N={N}, rung 8 ({stats['padded_lanes']} pad "
+        f"lanes): {secs:.3f} s wall, {secs / len(configs):.3f} s a tenant "
+        f"({secs / len(configs) / clean_secs:.3f}x path 9a's clean step, "
+        f"{clean_secs:.3f} s, in this call); launches {json.dumps(launches)} "
+        f"(schedule {json.dumps(want)})")
+    if launches != want or stats["padded_lanes"] != 5:
+        raise AssertionError(f"serve_turnover: launches {launches}, the "
+                             f"schedule implies {want}")
+    for i, (c, r) in enumerate(zip(configs, res)):
+        out = r.output
+        check_invariants(torch, f"serve_turnover[{i}]", out,
+                         max_weight=float(c.max_weight))
+        if int(out.sim.diagnostics.qp_solves) != R_DATES or not all(
+                bool(torch.isfinite(v)) for v in out.summary):
+            raise AssertionError(f"serve_turnover: tenant {i}: QP solves "
+                                 "or summary off")
+    out = res[0].output
+    sel_equal = bool(torch.equal(out.selection, clean.selection))
+    dw = (out.sim.weights.nan_to_num()
+          - clean.sim.weights.nan_to_num()).abs().max(-1).values
+    share = float((dw > DW_TOL).double().mean())
+    w_bitwise = _bytes_equal(out.sim.weights, clean.sim.weights)
+    tenant = configs[0].normalized(F, server.n_groups, dtype=np.float32)
+    log(f"path serve_turnover (10b) tenant 0 vs path 9a's clean step: "
+        f"selection bitwise {sel_equal}; weights bitwise {w_bitwise}, max "
+        f"|dw| {float(dw.max()):.3e}, share of days > {DW_TOL}: {share:.4f} "
+        f"(limit {DW_SHARE}), days bitwise "
+        f"{int((dw == 0).sum())} of {R_DATES}; the server's knobs are the "
+        f"panels' float32 (max_weight {float(tenant.max_weight)!r}, "
+        f"turnover_penalty {float(tenant.turnover_penalty)!r}), the step's "
+        f"Python floats")
+    if not (sel_equal and share <= DW_SHARE):
+        raise AssertionError("serve_turnover: tenant 0 parts from path 9a's "
+                             "clean step")
+    return launches, configs
+
+
+def queue_path(torch, fmt, served) -> None:
+    """Path 10c: ``serve_queued`` on 10a's bucket (bench.py::
+    bench_serving_under_load's recipe): S_REQUESTS requests on the ladder
+    S_LADDER, the service time of one warm rung-8 dispatch, a Poisson
+    trace at S_LOAD x its capacity (seed 31), deadlines S_DEADLINE_X x the
+    service time, AdmissionPolicy(max_depth=S_DEPTH) on a VirtualClock,
+    the fault plan S_FAULTS. Every request one verdict, the served outputs
+    bitwise serve()'s, shed verdicts with their reason, and the step's
+    executions equal to the delivered dispatches plus the poisoned
+    attempts."""
+    from factormodeling_tpu_torch.metrics import _cuda_rank_ic as rk
+    from factormodeling_tpu_torch.serve import queue as q
+
+    configs = served["configs"][:S_REQUESTS]
+    server = fmt.serve.TenantServer(names=factor_names(F),
+                                    **_panels(served["arrays"]),
+                                    pad_ladder=S_LADDER, device="cuda")
+    warm = configs[:S_LADDER[-1]]
+    server.serve(warm)
+    _, service_s = _timed(torch, lambda: server.serve(warm))
+    rate = S_LOAD * S_LADDER[-1] / service_s
+    reqs = q.make_requests(configs, q.poisson_arrivals(S_REQUESTS,
+                                                       rate_hz=rate, seed=31),
+                           deadline_s=S_DEADLINE_X * service_s)
+    plan = fmt.resil.DispatchFaultPlan(**S_FAULTS)
+    stats0 = server.serving_stats()
+    before = rk.launches
+    res, secs = _timed(torch, lambda: server.serve_queued(
+        reqs, admission=fmt.serve.AdmissionPolicy(max_depth=S_DEPTH),
+        service_model=lambda _t, _r: service_s, clock=q.VirtualClock(),
+        fault_plan=plan))
+    k1 = rk.launches - before
+    stats = server.serving_stats()
+    c = res.counters
+    executions = (stats["dispatch_executions"]
+                  - stats0["dispatch_executions"])
+    logical = stats["logical_dispatches"] - stats0["logical_dispatches"]
+    poisoned = sum(plan.roll(k) == "dispatch_poison"
+                   for k in range(c["dispatches"] + c["retry_count"]))
+    failed = {v["dispatch"] for v in res.verdicts
+              if v["verdict"] == q.FAILED and v["dispatch"] is not None}
+    by_rid = res.by_rid()
+    delivered = sorted(res.outputs)
+    ref = server.serve([configs[rid] for rid in delivered])
+    bitwise = [_tree_equal(fmt, res.outputs[rid], r.output)
+               for rid, r in zip(delivered, ref)]
+    shed = [v for v in res.verdicts if v["verdict"] == q.SHED]
+    log(f"path serve_queued (10c): {S_REQUESTS} requests, ladder {S_LADDER}, "
+        f"service {service_s:.4f} s (one warm rung-8 dispatch), Poisson at "
+        f"{rate:.2f} Hz ({S_LOAD}x capacity), deadline "
+        f"{S_DEADLINE_X * service_s:.3f} s, max_depth {S_DEPTH}, faults "
+        f"{json.dumps(S_FAULTS)}: {secs:.3f} s wall; counters "
+        f"{json.dumps(c)}; step executions {executions}, logical dispatches "
+        f"{logical}, poisoned attempts {poisoned}, failed dispatches "
+        f"{len(failed)}; K1 launches {k1}; shed reasons "
+        f"{sorted({v['detail'] for v in shed})}; {sum(bitwise)} of "
+        f"{len(bitwise)} delivered outputs bitwise serve()'s")
+    if sorted(by_rid) != list(range(S_REQUESTS)) or (
+            c["served"] + c["shed_count"] + c["deadline_miss_count"]
+            + c["failed_count"]) != S_REQUESTS:
+        raise AssertionError("serve_queued: a request without exactly one "
+                             "verdict")
+    if not (all(bitwise) and bitwise and all(v["detail"] for v in shed)):
+        raise AssertionError("serve_queued: a delivered output parts from "
+                             "serve(), or a shed verdict has no reason")
+    if not (logical == c["dispatches"]
+            and executions == c["dispatches"] - len(failed) + poisoned
+            and k1 == executions):
+        raise AssertionError("serve_queued: executions, logical dispatches "
+                             "and poisoned attempts do not add up")
+
+
+def advance_all_path(torch, fmt, seed: int, configs, rows9b) -> dict:
+    """Path 10d: ``online_begin`` for 10b's tenants 0 and 2 (one session,
+    rung 8) and ``advance_all`` over the first S_ONLINE_DATES dates of path
+    9b's inputs, one at a time: K1 once a date, K2 as 9b per tenant;
+    tenant 0's rows held to 9b's engine rows at 9b's gates (the server
+    normalizes the knobs to the panels' float32, the engine to float64).
+    Prints the wall a date (each date fenced) and the synchronizing reads
+    of the last date by calling line. Returns the launches."""
+    from factormodeling_tpu_torch.metrics import _cuda_rank_ic as rk
+    from factormodeling_tpu_torch.online import DateSlice
+    from factormodeling_tpu_torch.ops import _cuda_admm as ak
+
+    arrays = tuple(a[:, :R_DATES] if a.ndim == 3 else a[:R_DATES]
+                   for a in make_inputs(F, D, N, seed))
+    factors, returns, factor_ret, cap, invest, universe = arrays
+    server = fmt.serve.TenantServer(names=factor_names(F),
+                                    **_panels(arrays), device="cuda")
+    server.online_begin([configs[0], configs[2]])
+
+    def date_slice(t):
+        return DateSlice(factors=factors[:, t], returns=returns[t],
+                         factor_ret=factor_ret[t], cap_flag=cap[t],
+                         investability=invest[t], universe=universe[t])
+
+    rk.launches = ak.launches = ak.lane_launches = 0
+    rows, walls = [], []
+    for t in range(S_ONLINE_DATES):
+        if t == S_ONLINE_DATES - 1:
+            adv, syncs = _sync_reads(torch, lambda: server.advance_all(
+                date_slice(t)))
+        else:
+            adv, secs = _timed(torch, lambda: server.advance_all(
+                date_slice(t)))
+            walls.append(secs)
+        rows.append(adv)
+    launches = segment_counts(rk, ak)
+    segs = segment_launches(fmt, PATHS["turnover"], d=1)[0]
+    want = {"rank_ic_postsort": S_ONLINE_DATES,
+            "admm_segment": 2 * (S_ONLINE_DATES - 1) * segs,
+            "admm_segment_lanes": 0}
+    ms = np.asarray(walls[1:]) * 1e3
+    stats = server.serving_stats()
+    log(f"path advance_all (10d): tenants 0 and 2 of 10b, one session "
+        f"(rung 8, {stats['padded_lanes'] // S_ONLINE_DATES} pad lanes), "
+        f"{S_ONLINE_DATES} dates one at a time, F={F} N={N}, float32 "
+        f"panels: wall per date (fenced) p50 {np.percentile(ms, 50):.3f} "
+        f"ms, p99 {np.percentile(ms, 99):.3f} ms, max {ms.max():.3f} ms, "
+        f"total {sum(walls):.3f} s; launches {json.dumps(launches)} "
+        f"(schedule {json.dumps(want)}); synchronizing reads in the last "
+        f"date's advance: {sum(syncs.values())}, by calling line "
+        f"{json.dumps(syncs)}")
+    if launches != want:
+        raise AssertionError(f"advance_all: launches {launches}, the "
+                             f"schedule implies {want}")
+
+    days = list(range(S_ONLINE_DATES - 1))
+    mine = [rows[t + 1][0].output for t in days]
+    if [int(o.day) for o in mine] != days or not all(o.ready for o in mine):
+        raise AssertionError("advance_all: finalized days out of order")
+
+    def stack(key):
+        return torch.stack([getattr(o, key) for o in mine]).cpu()
+
+    def engine(key):
+        return torch.from_numpy(np.stack([rows9b[d][key] for d in days]))
+
+    d_sel = (stack("selection") - engine("selection")).abs().max(-1).values
+    d_sig = (stack("signal").nan_to_num()
+             - engine("signal").nan_to_num()).abs().max(-1).values
+    w_on, w_eng = stack("weights").nan_to_num(), engine("weights").nan_to_num()
+    dw = (w_on - w_eng).abs().max(-1).values
+    share = float((dw > DW_TOL).double().mean())
+    agree = dw <= DW_TOL
+    lc_bad = int(((stack("long_count") != engine("long_count")) & agree)
+                 .sum())
+    ok_bad = int(((stack("solver_ok") != engine("solver_ok")) & agree).sum())
+    same = (w_on == w_eng).all(-1)
+    books = same & torch.cat([same.new_ones(1), same[:-1]])
+    d_pnl = (stack("log_return") - engine("log_return")).abs()
+    pnl_agree = float(d_pnl[books].max()) if bool(books.any()) else 0.0
+    other = [rows[t + 1][1].output for t in days]
+    finite = all(bool(torch.isfinite(o.log_return)) for o in other)
+    cut = len(days)
+    log(f"path advance_all (10d) tenant 0 vs path 9b's engine rows (days "
+        f"0-{cut - 1}): selection rows differing {int((d_sel > 0).sum())} "
+        f"(max |d| {float(d_sel.max()):.3e}); signal rows differing "
+        f"{int((d_sig > 0).sum())}, beyond {P9_SIG_TOL}: "
+        f"{int((d_sig > P9_SIG_TOL).sum())}; weights max |dw| "
+        f"{float(dw.max()):.3e}, share of days > {DW_TOL}: {share:.4f} "
+        f"(limit {DW_SHARE}), days bitwise {int(same.sum())}; leg counts and "
+        f"solver_ok where the weights agree: {lc_bad} and {ok_bad} differ; "
+        f"daily P&L on the {int(books.sum())} days whose books (and the day "
+        f"before's) are equal: max |d| {pnl_agree:.3e} (tol {P8_RET_TOL}), "
+        f"on all days {float(d_pnl.max()):.3e}; tenant 2's P&L finite "
+        f"{finite}")
+    if not (share <= DW_SHARE and int((d_sel > 0).sum()) == 0
+            and int((d_sig > P9_SIG_TOL).sum()) <= DW_SHARE * cut):
+        raise AssertionError("advance_all: tenant 0's selection, signal or "
+                             "weights part from path 9b's rows")
+    if lc_bad or ok_bad or not pnl_agree <= P8_RET_TOL or not finite:
+        raise AssertionError("advance_all: leg counts, solver acceptance or "
+                             "P&L differ where the books agree")
+    return launches
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2572,23 +3012,49 @@ def main() -> int:
     log(f"path 9a phase (clean, inert and chaos runs, checks, CPU run): "
         f"{time.perf_counter() - t0:.1f} s wall")
     t0 = time.perf_counter()
-    launches["online"] = online_path(torch, fmt, args.seed, resil["clean"])
-    del resil
+    launches["online"], rows9b = online_path(torch, fmt, args.seed,
+                                             resil["clean"])
     log(f"path 9b phase (warm-up, {R_DATES} dates, checks, resume, "
         f"replay): {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    served = serve_path(torch, fmt, args.seed)
+    launches["serve"] = served["launches"]
+    log(f"path 10a phase (three dispatches, checks, single-tenant steps, "
+        f"CPU run): {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    launches["serve_turnover"], s_configs = turnover_serve_path(
+        torch, fmt, args.seed, resil["clean"], resil["clean_secs"])
+    del resil
+    log(f"path 10b phase (run, checks): {time.perf_counter() - t0:.1f} s "
+        "wall")
+    t0 = time.perf_counter()
+    queue_path(torch, fmt, served)
+    del served
+    log(f"path 10c phase (service time, queue, re-serve, checks): "
+        f"{time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    launches["advance_all"] = advance_all_path(torch, fmt, args.seed,
+                                               s_configs, rows9b)
+    del rows9b
+    log(f"path 10d phase ({S_ONLINE_DATES} dates, checks): "
+        f"{time.perf_counter() - t0:.1f} s wall")
     # each kernel's launches on the paths that run its form: K1 once in each
     # of paths 1-3, in path 8a's icir_top selection and in path 9a's chaos
-    # step, and once a date in path 9b's online advance
+    # step, once a date in path 9b's online advance, once a dispatch in
+    # paths 10a and 10b and once a date in path 10d's session
     k1 = {p: launches[p]["rank_ic_postsort"] for p in
-          (*PATHS, "multimanager", "resil", "online")}
+          (*PATHS, "multimanager", "resil", "online", "serve",
+           "serve_turnover", "advance_all")}
     kernels["rank_ic_postsort"]["launches"] = sum(k1.values())
     kernels["rank_ic_postsort"]["launches_by_path"] = k1
-    # the segment's single-lane launches: path 1, and the sequential
-    # suffixes of paths 6-7; its lane launches: path 2's chunks, and the
-    # seed and sweep chunks of paths 6-7 (each as the wrapper counted it)
+    # the segment's single-lane launches: path 1, the sequential suffixes
+    # of paths 6-7, path 9a's chaos step, path 9b's advance and paths 10b
+    # and 10d (a real tenant's days, never a pad lane's); its lane
+    # launches: path 2's chunks, and the seed and sweep chunks of paths 6-7
+    # (each as the wrapper counted it)
     single = {p: launches[p]["admm_segment"] for p in
               ("turnover", "turnover_parallel", "turnover_parallel_decoupled",
-               "resil", "online")}
+               "resil", "online", "serve_turnover", "advance_all")}
     lanes = {p: launches[p]["admm_segment_lanes"] for p in
              ("mvo", "turnover_parallel", "turnover_parallel_decoupled")}
     kernels["admm_segment"]["launches"] = sum(single.values())

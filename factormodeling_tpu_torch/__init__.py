@@ -9,8 +9,9 @@ rolling factor selection (``fmt.selection``), the multi-manager layer
 (``fmt.parallel.manager_sweep``, checkpointed or not), the run report and
 stage counters (``fmt.obs``), the resilience layer (``fmt.resil``: fault
 injection, the degrade policy, checkpoints), the online advance
-(``fmt.online``: the research step a date at a time) and its tenant
-configuration (``fmt.serve``), the risk model (``fmt.risk``), the seeded
+(``fmt.online``: the research step a date at a time), many-tenant serving
+(``fmt.serve``: the batched tenant step, ``TenantServer`` with its pad
+ladder and many-tenant online advance, the request queue and admission), the risk model (``fmt.risk``), the seeded
 RNG lanes (``fmt.rng``), the dense panel model (``fmt.panel``), and the
 modules that need pandas, each
 imported on first use: the reference's pandas surface (``fmt.compat``) and

@@ -14,8 +14,9 @@
 - :mod:`.retry`: the bounded-backoff retry combinator under the snapshot
   IO.
 
-Checkpointing of the streaming chunk loop and of the serving queue has no
-counterpart here: neither loop is ported.
+The serving queue (``serve/queue.py``) checkpoints through
+:mod:`.checkpoint` too. Checkpointing of the streaming chunk loop has no
+counterpart here: that loop is not ported.
 """
 
 from factormodeling_tpu_torch.resil.checkpoint import (  # noqa: F401

@@ -1,7 +1,6 @@
 """The tenant research configuration: per-tenant knobs as value leaves,
 program-shaping residue as static fields (port of
-``factormodeling_tpu/serve/tenant.py``; of the serving layer only this
-module is ported, for the online advance).
+``factormodeling_tpu/serve/tenant.py``, not its ``mesh_key``).
 
 - **value leaves**: knobs that enter the computation as VALUES (the top-k
   count, the ICIR threshold, a manager-mix weight vector over the factor
