@@ -130,7 +130,31 @@ Phases, in order (any failure exits non-zero before the last line):
    and 2 over path 9b's first 166 dates: K1 once a date, K2 as 9b a
    tenant, tenant 0's rows held to 9b's at 9b's gates, the wall a date
    p50/p99 and the synchronizing reads of a date by calling line;
-10. one ``kernels`` JSON line; then the last line
+10. path 11, the obs layer at the same widths: (11a) path 9a's inert and
+   chaos runs built with ``collect_probes=True`` (the chaos run with the
+   staleness canary): the inert run bitwise its clean, unprobed run; the
+   chaos run's frames through ``RunReport.add_probes`` with the inert
+   run's ``numerics_baseline``, the watchdog naming ``ops/factors_raw``;
+   ``iters_to_converge`` within the budget and equal to the CPU chaos
+   run's on all but ``DW_SHARE`` of days; K1 1 and K2 666 a run; then a
+   run of the first 90 dates at 200 iterations, unprobed and probed on the
+   card under torch's sync debug mode (the reads the probes add) and
+   probed on the CPU, the tally firing and equal to the CPU's; (11b) the
+   segment kernel's ``collect=1`` form at T=60, N=1000, float64, the tally
+   exact against its plain version; (11c) 9b's tenant as an
+   ``OnlineEngine(flight=True, lineage=True, sentry=...)`` over 64 dates,
+   a checkpoint a date, a restatement, a kill at date 32 and a resume: its
+   rows bitwise an unhooked engine's, the resumed ledger and alert log
+   byte-equal to straight through, the checkers clean, one finished span
+   tree a tick, the wall a date beside 9b's and one state hash timed;
+   (11d) 10c's drain with ``flight``, ``lineage``, ``sentry`` and an
+   ``on_alert`` collector (its verdict log 10c's line for line, the
+   conservation, trace, traffic, ledger and sentry checkers clean),
+   ``serve(lineage=True)`` on 10a's rung-8 bucket and
+   ``advance_all(meter=, series=)`` over 16 of 10d's dates, each bitwise
+   its unhooked run; path 8c runs with ``lineage=`` on, its resumed
+   ledger byte-equal to a straight-through checkpointed run's;
+11. one ``kernels`` JSON line; then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs one card and exits non-zero, printing no result, without one or
@@ -510,6 +534,48 @@ def admm_phase(torch, seed: int) -> tuple:
         f"(one {LANES}-lane call) {plain_ms:.4f} ms, bound {b_ms:.6f} ms "
         f"({b_by})")
     return entry, lanes
+
+
+def collect_phase(torch, seed: int) -> dict:
+    """Path 11b: the segment kernel's ``collect=1``, ``anderson=0`` form
+    (the iterations-to-converge tally the probed step launches) at path
+    1's shape (T=60, N=1000, K=2, float64), on a turnover day (L1 on, the
+    timed one) and a plain-MVO day, against its plain version: the tally
+    exact, x, z, u and dz within ADMM_TOL. Returns its JSON entry."""
+    from factormodeling_tpu_torch.ops import _cuda_admm as ak
+    from factormodeling_tpu_torch.segment_phases import sample_day_operands
+
+    kw = dict(relax=1.7, seg_len=SEG_LEN, collect=True)
+    tol = ADMM_TOL["float64"]
+    entry = None
+    for l1 in (0.1, 0.0):
+        ops = sample_day_operands(torch.float64, seed + 2, 1, l1)
+        out = ak.admm_segment(*ops, **kw)
+        ref = ak.admm_segment_plain(*ops, **kw)
+        torch.cuda.synchronize()
+        err = max(float((a - b_).abs().max()) for a, b_ in zip(out[:4],
+                                                               ref[:4]))
+        conv, conv_ref = int(out[6]), int(ref[6])
+        log(f"kernel admm_segment collect=1 float64 T={T_LOOKBACK} N={N} "
+            f"K={K_LEGS} seg_len={SEG_LEN} l1={l1}: max_abs_err {err:.3e} "
+            f"(tol {tol}) on x, z, u, dz; conv tally {conv} (plain "
+            f"{conv_ref}); tallies {[int(v) for v in out[4:]]}")
+        if not (err <= tol and [int(v) for v in out[4:]]
+                == [int(v) for v in ref[4:]]):
+            raise AssertionError(f"admm_segment collect=1 l1={l1}: max "
+                                 f"|err| {err} (tol {tol}) or a tally apart")
+        if entry is None:
+            ms, _ = segment_device_ms(torch, ak, ops, 200, **kw)
+            wrap_ms = cuda_ms(torch, lambda: ak.admm_segment(*ops, **kw), 50)
+            plain_ms = cuda_ms(torch,
+                               lambda: ak.admm_segment_plain(*ops, **kw), 5)
+            entry = _segment_entry("admm_segment_collect", ak, ops, kw, err,
+                                   ms, wrap_ms, plain_ms, "float64")
+            log(f"kernel admm_segment collect=1 float64: device {ms:.4f} "
+                f"ms/launch, wrapper {wrap_ms:.4f} ms/call, plain "
+                f"{plain_ms:.4f} ms, bound {entry['bound_ms']:.6f} ms "
+                f"({entry['bound_by']})")
+    return entry
 
 
 def _segment_entry(name: str, ak, ops, kw, err: float, ms: float,
@@ -2082,6 +2148,11 @@ R_FAULTS = dict(seed=10, nan_rate=1e-4, inf_rate=1e-4, drop_rate=0.02,
                 collapse_rate=0.02, collapse_keep=5)
 R_POLICY = dict(min_universe=50, quarantine_nan_frac=0.5, clamp_absmax=5.0,
                 carry_fallback=True)
+#: path 11a: the probes of 9a's inert and chaos runs
+P11_PROBED = dict(collect_probes=True)
+P11_STAGES = ["ops/factors_raw", "ops/factors_delta", "selection/rolling",
+              "composite/blend", "solver/admm", "backtest/weights",
+              "backtest/pnl"]
 # path 9b against path 9a's clean step: a signal row whose largest cell
 # difference exceeds this (float32 z-scores of order 1) counts as parted
 P9_SIG_TOL = 1e-5
@@ -2093,11 +2164,12 @@ def _bytes_equal(a, b) -> bool:
     return a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()
 
 
-def _run_resil_step(torch, fmt, inputs, cfg, **kw):
-    """One call of the research step built from ``cfg`` with counters on;
-    returns (output, seconds)."""
+def _run_resil_step(torch, fmt, inputs, cfg, build=None, **kw):
+    """One call of the research step built from ``cfg`` with counters on
+    (and the build options ``build``); returns (output, seconds)."""
     step = fmt.build_research_step(**dict(cfg.as_kwargs(),
-                                          collect_counters=True))
+                                          collect_counters=True,
+                                          **(build or {})))
     if inputs[0].is_cuda:
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2175,12 +2247,16 @@ def resil_path(torch, fmt, seed: int) -> dict:
     want = {"rank_ic_postsort": 1, "admm_segment": R_DATES * segs,
             "admm_segment_lanes": 0}
     runs = {}
-    for name, kw in (("clean", {}),
-                     ("inert", dict(fault_spec=fmt.resil.FaultSpec.off(),
-                                    policy=fmt.resil.DegradePolicy.make())),
-                     ("chaos", dict(fault_spec=spec, policy=pol))):
+    # path 11a: the inert and chaos runs are built with the probes on (the
+    # chaos run with the staleness canary), which adds no run
+    for name, build, kw in (
+            ("clean", {}, {}),
+            ("inert", P11_PROBED, dict(fault_spec=fmt.resil.FaultSpec.off(),
+                                       policy=fmt.resil.DegradePolicy.make())),
+            ("chaos", dict(P11_PROBED, probe_canary=True),
+             dict(fault_spec=spec, policy=pol))):
         rk.launches = ak.launches = ak.lane_launches = 0
-        out, secs = _run_resil_step(torch, fmt, inputs, cfg, **kw)
+        out, secs = _run_resil_step(torch, fmt, inputs, cfg, build, **kw)
         launches = segment_counts(rk, ak)
         runs[name] = (out, secs, launches)
         log(f"path resil {name}: F={F} D={R_DATES} N={N} step {secs:.3f} s "
@@ -2201,9 +2277,9 @@ def resil_path(torch, fmt, seed: int) -> dict:
                lambda o: o.sim.diagnostics.primal_residual))
     parted = [k for k, get in leaves if not _bytes_equal(get(clean),
                                                          get(inert))]
-    log(f"path resil inert (FaultSpec.off, DegradePolicy.make) vs clean: "
-        f"{len(leaves) - len(parted)} of {len(leaves)} outputs bitwise "
-        f"equal; parted {parted}")
+    log(f"path resil inert (FaultSpec.off, DegradePolicy.make, probes on) "
+        f"vs clean (probes off): {len(leaves) - len(parted)} of "
+        f"{len(leaves)} outputs bitwise equal; parted {parted}")
     if parted:
         raise AssertionError(f"resil: the inert run parts from the clean "
                              f"step in {parted}")
@@ -2250,6 +2326,7 @@ def resil_path(torch, fmt, seed: int) -> dict:
                                   blend_method="zscore", sim_kwargs=sim,
                                   device="cpu")
     host, secs_h = _run_resil_step(torch, fmt, inputs_h, cfg_h,
+                                   dict(P11_PROBED, probe_canary=True),
                                    fault_spec=spec, policy=pol)
     dw = (chaos.sim.weights.cpu().nan_to_num()
           - host.sim.weights.nan_to_num()).abs().max(-1).values
@@ -2264,8 +2341,139 @@ def resil_path(torch, fmt, seed: int) -> dict:
     if not share <= DW_SHARE:
         raise AssertionError(f"resil chaos: card and CPU weights differ on "
                              f"{share:.2%} of days")
+    t0 = time.perf_counter()
+    tally = probes_path(torch, fmt, runs["inert"][0], chaos, host, arrays,
+                        sim)
+    log(f"path 11a phase (watchdog, tallies, sync counts, CPU tally run): "
+        f"{time.perf_counter() - t0:.1f} s wall")
     return dict(clean=runs["clean"][0], clean_secs=runs["clean"][1],
-                launches={k: v[2] for k, v in runs.items()})
+                launches={k: v[2] for k, v in runs.items()}, tally=tally)
+
+
+# 9a's runs take the default budget (40 warm iterations), within which no
+# day of path 1's market reaches the tally's 1e-3 grade (the polish does
+# the rest); the tally is held firing on a run of the first P11_TALLY_DATES
+# dates at P11_TALLY_ITERS iterations, on the card and on the CPU
+P11_TALLY_DATES, P11_TALLY_ITERS = 90, 200
+
+
+def probes_path(torch, fmt, inert, chaos, host, arrays, sim) -> dict:
+    """Path 11a: the probes of 9a's runs. The inert run's frames through
+    ``RunReport.add_probes`` give the baseline
+    (``regression.numerics_baseline``); the chaos run's watchdog must name
+    ``ops/factors_raw``, the first stage R_FAULTS injects into, and the
+    inert run's none. ``iters_to_converge`` of the chaos run in
+    ``[0, qp_iters]`` every day and equal to the CPU chaos run's on all
+    but DW_SHARE of days. Then the tally run: the first P11_TALLY_DATES
+    dates at P11_TALLY_ITERS iterations, unprobed and probed on the card
+    under the sync debug mode (the reads the probes add), and probed on
+    the CPU: the tally firing on some solved day, equal to the CPU's on
+    all but DW_SHARE of days, bitwise the unprobed run's outputs.
+    Returns the probed runs' K2 launches."""
+    from factormodeling_tpu_torch.metrics import _cuda_rank_ic as rk
+    from factormodeling_tpu_torch.ops import _cuda_admm as ak
+
+    for name, out in (("inert", inert), ("chaos", chaos), ("cpu", host)):
+        if list(out.probes) != P11_STAGES:
+            raise AssertionError(f"11a: the {name} run's probes "
+                                 f"{list(out.probes)}, not {P11_STAGES}")
+    base = fmt.obs.RunReport("path 11a inert")
+    base.add_probes("resil/inert", inert.probes)
+    baseline = fmt.obs.regression.numerics_baseline(base.all_rows())
+    rep = fmt.obs.RunReport("path 11a chaos")
+    verdict = rep.add_probes("resil/chaos", chaos.probes, baseline=baseline)
+    clean_verdict = fmt.obs.watchdog(inert.probes, baseline=baseline)
+    host_verdict = fmt.obs.watchdog(host.probes, baseline=baseline)
+    frames = fmt.obs.summarize_probes(chaos.probes)
+    counts = {k: [v["nan_count"], v["inf_count"]] for k, v in frames.items()}
+    log(f"path 11a watchdog on the chaos run (baseline: the inert run's "
+        f"numerics rows): first_bad_stage {verdict['first_bad_stage']!r}, "
+        f"dropped {verdict['dropped']}; on the inert run "
+        f"{clean_verdict['first_bad_stage']!r}; on the CPU chaos run "
+        f"{host_verdict['first_bad_stage']!r}; chaos finite_frac "
+        f"{json.dumps(verdict['finite_frac'])}; nan/inf counts "
+        f"{json.dumps(counts)}")
+    if not (verdict["first_bad_stage"] == "ops/factors_raw"
+            and clean_verdict["first_bad_stage"] is None
+            and host_verdict["first_bad_stage"] == "ops/factors_raw"):
+        raise AssertionError("11a: the watchdog does not name the first "
+                             "injected stage")
+    iters = fmt.SimulationSettings(
+        returns=None, cap_flag=None, investability_flag=None,
+        **sim).resolved_qp_iters(turnover=True)
+    itc = chaos.sim.diagnostics.iters_to_converge.cpu()
+    itc_h = host.sim.diagnostics.iters_to_converge
+    same = float((itc == itc_h).double().mean())
+    log(f"path 11a iters_to_converge of the chaos run: range "
+        f"[{int(itc.min())}, {int(itc.max())}] (budget {iters}), days > 0: "
+        f"{int((itc > 0).sum())} of {int(chaos.sim.diagnostics.active.sum())} "
+        f"active; equal to the CPU's on {same:.4f} of days (limit "
+        f"{1 - DW_SHARE})")
+    if not (int(itc.min()) >= 0 and int(itc.max()) <= iters
+            and same >= 1 - DW_SHARE):
+        raise AssertionError("11a: iters_to_converge out of range or apart "
+                             "from the CPU's")
+
+    cut = P11_TALLY_DATES
+    sub = tuple(a[:, :cut] if a.ndim == 3 else a[:cut] for a in arrays)
+    tsim = dict(sim, qp_iters=P11_TALLY_ITERS)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        inputs, cfg = fmt.convert(*sub, names=factor_names(F), window=WINDOW,
+                                  select_method="icir_top",
+                                  blend_method="zscore", sim_kwargs=tsim,
+                                  device=dev)
+        for probed in ((False, True) if dev == "cuda" else (True,)):
+            build = P11_PROBED if probed else {}
+            if dev == "cuda":
+                rk.launches = ak.launches = ak.lane_launches = 0
+                (out, secs), syncs = _sync_reads(
+                    torch, lambda: _run_resil_step(torch, fmt, inputs, cfg,
+                                                   build))
+                runs[(dev, probed)] = (out, secs, syncs,
+                                       segment_counts(rk, ak))
+            else:
+                out, secs = _run_resil_step(torch, fmt, inputs, cfg, build)
+                runs[(dev, probed)] = (out, secs, {}, None)
+    plain, probed_out = runs[("cuda", False)][0], runs[("cuda", True)][0]
+    cpu = runs[("cpu", True)][0]
+    n_plain = sum(runs[("cuda", False)][2].values())
+    n_probed = sum(runs[("cuda", True)][2].values())
+    sites_plain, sites_probed = runs[("cuda", False)][2], runs[("cuda",
+                                                               True)][2]
+    added = {k: sites_probed.get(k, 0) - sites_plain.get(k, 0)
+             for k in sorted(set(sites_plain) | set(sites_probed))
+             if sites_probed.get(k, 0) != sites_plain.get(k, 0)}
+    itc = probed_out.sim.diagnostics.iters_to_converge.cpu()
+    itc_h = cpu.sim.diagnostics.iters_to_converge
+    same = float((itc == itc_h).double().mean())
+    parted = [k for k, a, b in (
+        ("selection", plain.selection, probed_out.selection),
+        ("signal", plain.signal, probed_out.signal),
+        ("weights", plain.sim.weights, probed_out.sim.weights),
+        ("log_return", plain.sim.result.log_return,
+         probed_out.sim.result.log_return))
+        if not _bytes_equal(a, b)]
+    launches = runs[("cuda", True)][3]
+    log(f"path 11a tally run: first {cut} dates at qp_iters "
+        f"{P11_TALLY_ITERS}: unprobed {runs[('cuda', False)][1]:.3f} s, "
+        f"probed {runs[('cuda', True)][1]:.3f} s on the card (sync debug "
+        f"mode on), {runs[('cpu', True)][1]:.1f} s on the CPU; launches "
+        f"{json.dumps(launches)}; iters_to_converge > 0 on "
+        f"{int((itc > 0).sum())} days (max {int(itc.max())}), equal to the "
+        f"CPU's on {same:.4f} of days; probed outputs bitwise the "
+        f"unprobed: parted {parted}; synchronizing reads: unprobed "
+        f"{n_plain}, probed {n_probed}, the difference by calling line "
+        f"{json.dumps(added)}")
+    if not (int((itc > 0).sum()) > 0 and int(itc.max()) <= P11_TALLY_ITERS
+            and same >= 1 - DW_SHARE and not parted):
+        raise AssertionError("11a: the tally run's iters_to_converge never "
+                             "fires, parts from the CPU's, or the probes "
+                             "move an output")
+    return launches
+
+
+
 
 
 def _sync_reads(torch, fn):
@@ -2442,13 +2650,172 @@ def online_path(torch, fmt, seed: int, clean) -> dict:
     if not (dup.reason == "duplicate" and res_equal and rep_equal
             and straight.verdict_complete() and resumed.verdict_complete()):
         raise AssertionError("online: resume or replay not byte-equal")
-    return launches, rows
+    return launches, rows, ms
+
+
+# path 11c: 9b's tenant with every engine hook on, over 9b's first
+# P11C_DATES dates, a checkpoint every date (horizon P11C_HORIZON: each
+# save holds the ring's states, ~2.2 MB each at this width), the kill at
+# P11C_KILL and a restatement of P11C_RESTATE inside the horizon, re-sent
+# after the last date
+P11C_DATES, P11C_HORIZON, P11C_KILL, P11C_RESTATE = 64, 4, 32, 62
+
+
+def engine_sentry(fmt):
+    """The engine's sentry: zero-budget burns over rejected and replayed
+    dates and a CUSUM on the slice's NaN share."""
+    from factormodeling_tpu_torch.obs import sentry as sn
+
+    return sn.Sentry(detectors=[
+        sn.BurnRateDetector("reject_rate", bad="rejected", total="ingested",
+                            budget=0.0),
+        sn.BurnRateDetector("replay_rate", bad="replayed", total="ingested",
+                            budget=0.0),
+        sn.CusumDetector("nan_frac", k=0.5, h=5.0, warmup=5)])
+
+
+def hooked_online_path(torch, fmt, seed: int, ms9b) -> None:
+    """Path 11c: an ``OnlineEngine(flight=True, lineage=True, sentry=...)``
+    for 9b's tenant over the first P11C_DATES dates, checkpointed every
+    date, with a restatement of P11C_RESTATE: its rows bitwise those of an
+    unhooked engine fed the same stream; ``ledger_errors``, ``row_errors``
+    and ``sentry_errors`` empty, one finished span tree a tick; a run
+    killed after P11C_KILL and resumed from its snapshot ends with a
+    ledger and an alert log byte-equal to the straight run's. Prints the
+    wall a date p50/p99 beside 9b's and the cost of one state hash."""
+    from factormodeling_tpu_torch.obs.lineage import ledger_errors
+    from factormodeling_tpu_torch.obs.reqtrace import row_errors
+    from factormodeling_tpu_torch.obs.sentry import sentry_errors
+    from factormodeling_tpu_torch.online import DateSlice, OnlineEngine
+    from factormodeling_tpu_torch.online import engine as engine_mod
+    from factormodeling_tpu_torch.resil.checkpoint import fingerprint
+    from factormodeling_tpu_torch.serve import TenantConfig
+
+    cut = P11C_DATES
+    arrays = tuple(a[:, :cut] if a.ndim == 3 else a[:cut]
+                   for a in make_inputs(F, D, N, seed))
+    factors, returns, factor_ret, cap, invest, universe = arrays
+    tmpl = TenantConfig(method="mvo_turnover", window=WINDOW,
+                        lookback_period=T_LOOKBACK, top_k=5,
+                        icir_threshold=0.03, max_weight=MAX_WEIGHT, pct=0.1,
+                        turnover_penalty=0.1,
+                        sim_static={"solver_kernel": "fused"})
+    ck_dir = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(ck_dir, exist_ok=True)
+
+    def engine(ck=None, hooked=True):
+        kw = dict(flight=True, lineage=True,
+                  sentry=engine_sentry(fmt)) if hooked else {}
+        if ck is not None:
+            kw.update(checkpoint=ck, checkpoint_every=1)
+        return OnlineEngine(names=factor_names(F), n_assets=N, template=tmpl,
+                            has_universe=True, horizon=P11C_HORIZON,
+                            dtype=torch.float32, device="cuda", **kw)
+
+    def date_slice(t, scale=1.0):
+        return DateSlice(factors=factors[:, t] * np.float32(scale),
+                         returns=returns[t], factor_ret=factor_ret[t],
+                         cap_flag=cap[t], investability=invest[t],
+                         universe=universe[t])
+
+    def feed(eng, dates, walls=None):
+        rows = []
+        for t in dates:
+            t0 = time.perf_counter()
+            v = eng.ingest(t, date_slice(t))
+            if walls is not None:
+                walls.append(time.perf_counter() - t0)
+            if v.status != "applied":
+                raise AssertionError(f"11c: date {t} {v.status}")
+            rows.extend(v.outputs)
+        return rows
+
+    def restate(eng):
+        v = eng.ingest(P11C_RESTATE, date_slice(P11C_RESTATE, 1.5),
+                       restate=True)
+        if v.status != "replayed":
+            raise AssertionError(f"11c: restatement {v.status} {v.reason}")
+        return list(v.outputs)
+
+    def cks(name):
+        path = os.path.join(ck_dir, name)
+        if os.path.exists(path):
+            os.unlink(path)
+        return path
+
+    plain = engine(hooked=False)
+    walls_plain = []
+    rows_plain = feed(plain, range(cut), walls_plain) + restate(plain)
+    walls = []
+    # the straight and the killed runs write the same snapshot path in
+    # turn: an incident cites the checkpoint, so the paths must agree
+    straight = engine(cks("hooked.ckpt"))
+    rows_hooked = feed(straight, range(cut), walls) + restate(straight)
+    killed = engine(cks("hooked.ckpt"))
+    feed(killed, range(P11C_KILL + 1))
+    del killed
+    resumed = engine(os.path.join(ck_dir, "hooked.ckpt"))
+    if resumed.last_date != P11C_KILL:
+        raise AssertionError(f"11c: resumed at {resumed.last_date}")
+    feed(resumed, range(P11C_KILL + 1, cut))
+    restate(resumed)
+
+    bitwise = len(rows_plain) == len(rows_hooked) and all(
+        all(np.asarray(a[k]).tobytes() == np.asarray(b[k]).tobytes()
+            for k in a) for a, b in zip(rows_plain, rows_hooked))
+    rows = (straight.flight_rows() + straight.lineage_rows()
+            + straight.sentry_rows())
+    errors = (ledger_errors(rows) + row_errors(rows) + sentry_errors(rows))
+    ticks = straight.counters["ingested_dates"]
+    traces = [r for r in straight.flight_rows()]
+    finished = sum(1 for r in traces if r["complete"])
+    led_equal = resumed._lineage.state() == straight._lineage.state()
+    alerts_equal = resumed._sentry.state() == straight._sentry.state()
+    # the lineage hash of one state on the card: the copy to the host and
+    # the sha256 pass, timed alone
+    hash_s = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fingerprint(*engine_mod._jax_leaves(straight._state))
+        hash_s.append(time.perf_counter() - t0)
+    nbytes = sum(a.nbytes for a in engine_mod._jax_leaves(straight._state))
+    ms = np.asarray(walls[1:]) * 1e3
+    ms_plain = np.asarray(walls_plain[1:]) * 1e3
+    kinds = [r["edge_kind"] for r in straight.lineage_rows()]
+    alerts = straight._sentry.alerts
+    log(f"path 11c: {cut} dates, every hook on, a checkpoint every date "
+        f"(horizon {P11C_HORIZON}), restatement of {P11C_RESTATE}: wall "
+        f"per date p50 {np.percentile(ms, 50):.3f} ms, p99 "
+        f"{np.percentile(ms, 99):.3f} ms; the same dates unhooked "
+        f"without checkpoints p50 {np.percentile(ms_plain, 50):.3f} ms, p99 "
+        f"{np.percentile(ms_plain, 99):.3f} ms (9b, hooks off, one "
+        f"checkpoint in {R_DATES} dates: p50 {np.percentile(ms9b, 50):.3f} "
+        f"ms, p99 {np.percentile(ms9b, 99):.3f} ms); one state hash "
+        f"{np.median(hash_s) * 1e3:.3f} ms ({nbytes / 1e6:.1f} MB to the "
+        f"host and sha256); rows bitwise the unhooked engine's: {bitwise} "
+        f"({len(rows_hooked)} rows); lineage edges "
+        f"{json.dumps({k: kinds.count(k) for k in sorted(set(kinds))})}; "
+        f"alerts {[(a['detector'], a['signal']) for a in alerts]}, incidents "
+        f"{len(straight._sentry.incidents)}; traces {len(traces)} for "
+        f"{ticks} ticks, finished {finished}; findings {errors}; resumed "
+        f"after the kill at {P11C_KILL}: ledger byte-equal {led_equal}, "
+        f"alert log byte-equal {alerts_equal}")
+    if not (bitwise and not errors and len(traces) == ticks
+            and finished == ticks and led_equal and alerts_equal):
+        raise AssertionError("11c: the hooked engine parts from the "
+                             "unhooked one, a checker has findings, or the "
+                             "resumed ledger or alert log differs")
 
 
 def checkpointed_sweep_path(torch, fmt, out, inputs) -> None:
-    """Path 8c: ``checkpointed_manager_sweep`` at path 8b's shape, killed
-    inside its second chunk and resumed from the snapshot: every output
-    bitwise equal to 8b's ``manager_sweep``."""
+    """Path 8c: ``checkpointed_manager_sweep`` at path 8b's shape with the
+    provenance ledger on (``lineage=``), killed inside its second chunk and
+    resumed from the snapshot: every output bitwise equal to 8b's
+    ``manager_sweep``, and the resumed ledger byte-equal to the ledger of a
+    straight-through checkpointed run, with no referential finding."""
+    from factormodeling_tpu_torch.obs.lineage import (LineageLedger,
+                                                      ledger_errors)
     from factormodeling_tpu_torch.parallel import sweep as sweep_mod
 
     factors, cw, settings = inputs
@@ -2474,7 +2841,8 @@ def checkpointed_sweep_path(torch, fmt, out, inputs) -> None:
     try:
         fmt.parallel.checkpointed_manager_sweep(
             factors, cw, settings, combo_batch=SWEEP_BATCH,
-            checkpoint=fmt.resil.Checkpointer(ck), device="cuda")
+            checkpoint=fmt.resil.Checkpointer(ck), lineage=LineageLedger(),
+            device="cuda")
         raise AssertionError("path 8c: the interrupt did not fire")
     except Interrupted:
         pass
@@ -2483,21 +2851,45 @@ def checkpointed_sweep_path(torch, fmt, out, inputs) -> None:
     first = time.perf_counter() - t0
     state, _ = fmt.resil.load_snapshot(ck)
     t0 = time.perf_counter()
+    ledger = LineageLedger()
     resumed = fmt.parallel.checkpointed_manager_sweep(
         factors, cw, settings, combo_batch=SWEEP_BATCH,
-        checkpoint=fmt.resil.Checkpointer(ck), device="cuda")
+        checkpoint=fmt.resil.Checkpointer(ck), lineage=ledger,
+        device="cuda")
     torch.cuda.synchronize()
     second = time.perf_counter() - t0
+    ck2 = os.path.join(ck_dir, "sweep_straight.ckpt")
+    if os.path.exists(ck2):
+        os.unlink(ck2)
+    straight = LineageLedger()
+    t0 = time.perf_counter()
+    fmt.parallel.checkpointed_manager_sweep(
+        factors, cw, settings, combo_batch=SWEEP_BATCH,
+        checkpoint=fmt.resil.Checkpointer(ck2), lineage=straight,
+        device="cuda")
+    third = time.perf_counter() - t0
+    kinds = [e["edge_kind"] for e in ledger.edges]
+    led_equal = ledger.state() == straight.state()
+    led_errors = ledger_errors(ledger.rows("parallel/sweep"))
     parted = [f for f in resumed._fields
               if not _bytes_equal(getattr(resumed, f), getattr(out, f))]
     log(f"path checkpointed_sweep: C={SWEEP_C} combos in chunks of "
         f"{4 * SWEEP_BATCH}, interrupted in chunk 2 after {first:.3f} s "
         f"(snapshot: {state['next_chunk']} chunk); resumed {second:.3f} s; "
         f"outputs bitwise equal to path 8b's manager_sweep: "
-        f"{len(resumed) - len(parted)} of {len(resumed)}, parted {parted}")
+        f"{len(resumed) - len(parted)} of {len(resumed)}, parted {parted}; "
+        f"lineage: {kinds.count('sweep_chunk')} sweep_chunk edges and "
+        f"{kinds.count('source')} source, the resumed ledger byte-equal to "
+        f"a straight-through checkpointed run's ({third:.3f} s): "
+        f"{led_equal}, ledger_errors {led_errors}")
     if state["next_chunk"] != 1 or parted:
         raise AssertionError(f"path 8c: resumed sweep parts from "
                              f"manager_sweep in {parted}")
+    n_chunks = -(-SWEEP_C // (4 * SWEEP_BATCH))
+    if not (led_equal and not led_errors
+            and kinds.count("sweep_chunk") == n_chunks):
+        raise AssertionError("path 8c: the resumed ledger parts from the "
+                             "straight-through run's")
 
 
 
@@ -2670,6 +3062,29 @@ def serve_path(torch, fmt, seed: int) -> dict:
                 and (legs["flips"] or d_sharpe <= P5_SAME_LEGS_SHARPE_TOL)):
             raise AssertionError(f"serve: tenant {i} differs between the "
                                  "card and the CPU")
+    # path 11d: serve(lineage=True) on the rung-8 bucket: the lanes bitwise
+    # the unhooked dispatch's, one edge a lane, no referential finding
+    from factormodeling_tpu_torch.obs.lineage import (LineageLedger,
+                                                      ledger_errors)
+
+    ledger = LineageLedger()
+    # the panels' fingerprint (every panel to the host and sha256) is taken
+    # once a server: timed apart from the dispatch's own books
+    _, secs_fp = _timed(torch, server.panels_fingerprint)
+    res_l, secs_l = _timed(torch, lambda: server.serve(configs[:S_PROBE],
+                                                       lineage=ledger))
+    same = [_tree_equal(fmt, a.output, b.output) for a, b in zip(res_l, res)]
+    kinds = [e["edge_kind"] for e in ledger.edges]
+    errors = ledger_errors(ledger.rows("serve/sync"))
+    log(f"path 11d serve(lineage=True), {S_PROBE} tenants (rung 8): "
+        f"{secs_l:.3f} s ({walls[2]:.3f} s without), after the panels' "
+        f"fingerprint, once a server, {secs_fp:.3f} s; lanes bitwise the "
+        f"unhooked dispatch's: {same}; edges "
+        f"{json.dumps({k: kinds.count(k) for k in sorted(set(kinds))})}; "
+        f"findings {errors}")
+    if not (all(same) and kinds.count("dispatch") == S_PROBE and not errors):
+        raise AssertionError("11d: serve(lineage=True) parts from serve() "
+                             "or its ledger has findings")
     return dict(launches=launches, configs=configs, arrays=arrays)
 
 
@@ -2805,6 +3220,46 @@ def queue_path(torch, fmt, served) -> None:
         raise AssertionError("serve_queued: executions, logical dispatches "
                              "and poisoned attempts do not add up")
 
+    # path 11d: the same drain with every queue hook on and an on_alert
+    # collector: the verdict log line for line 10c's, the checkers clean
+    from factormodeling_tpu_torch.obs.lineage import (ledger_errors,
+                                                      traffic_errors)
+    from factormodeling_tpu_torch.obs.metering import conservation_errors
+    from factormodeling_tpu_torch.obs.reqtrace import row_errors
+    from factormodeling_tpu_torch.obs.sentry import sentry_errors
+
+    seen = []
+    _, secs_fp = _timed(torch, server.panels_fingerprint)
+    rep = fmt.obs.RunReport("path 11d")
+    with rep.activate():
+        hooked, secs_h = _timed(torch, lambda: server.serve_queued(
+            reqs, admission=fmt.serve.AdmissionPolicy(max_depth=S_DEPTH,
+                                                      on_alert=seen.append),
+            service_model=lambda _t, _r: service_s, clock=q.VirtualClock(),
+            fault_plan=plan, flight=True, lineage=True, sentry=True))
+    rows = rep.all_rows()
+    metering = [r for r in rows if r["kind"] == "metering"]
+    errors = (sum((conservation_errors(r) for r in metering), [])
+              + row_errors(rows) + traffic_errors(rows) + ledger_errors(rows)
+              + sentry_errors(rows))
+    same_log = hooked.log_lines() == res.log_lines()
+    alerts = [(a["detector"], a["signal"]) for a in hooked.sentry.alerts]
+    kinds = sorted({r["kind"] for r in rows})
+    log(f"path 11d serve_queued with flight, lineage, sentry and an "
+        f"on_alert collector: {secs_h:.3f} s wall ({secs:.3f} s without); "
+        f"verdict log line for line 10c's: {same_log} "
+        f"({len(hooked.verdicts)} lines); report kinds {kinds}; traces "
+        f"{len(hooked.flight.recorder.traces)}, dispatch edges "
+        f"{sum(e['edge_kind'] == 'dispatch' for e in hooked.lineage.edges)}, "
+        f"alerts {alerts} (on_alert saw {len(seen)}), incidents "
+        f"{len(hooked.sentry.incidents)}; metering accounts "
+        f"{len(hooked.flight.meter.accounts)}; findings {errors}; the "
+        f"panels' fingerprint, taken before the drain, {secs_fp:.3f} s")
+    if not (same_log and not errors and len(seen) == len(hooked.sentry.alerts)
+            and len(hooked.flight.recorder.traces) == S_REQUESTS):
+        raise AssertionError("11d: the hooked drain parts from 10c's, or a "
+                             "checker has findings")
+
 
 def advance_all_path(torch, fmt, seed: int, configs, rows9b) -> dict:
     """Path 10d: ``online_begin`` for 10b's tenants 0 and 2 (one session,
@@ -2908,7 +3363,39 @@ def advance_all_path(torch, fmt, seed: int, configs, rows9b) -> dict:
     if lc_bad or ok_bad or not pnl_agree <= P8_RET_TOL or not finite:
         raise AssertionError("advance_all: leg counts, solver acceptance or "
                              "P&L differ where the books agree")
+
+    # path 11d: advance_all(meter=, series=) over the first P11D_DATES
+    # dates in a fresh session: the rows bitwise the unmetered run's, the
+    # meter's accounts conserved, one health sample a date
+    from factormodeling_tpu_torch.obs.metering import (CostMeter,
+                                                       conservation_errors)
+    from factormodeling_tpu_torch.obs.reqtrace import HealthSeries
+
+    metered = fmt.serve.TenantServer(names=factor_names(F),
+                                     **_panels(arrays), device="cuda")
+    metered.online_begin([configs[0], configs[2]])
+    meter, series = CostMeter(), HealthSeries()
+    same = True
+    for t in range(P11D_DATES):
+        adv = metered.advance_all(date_slice(t), date=t, meter=meter,
+                                  series=series)
+        same = same and all(_tree_equal(fmt, a.output, b.output)
+                            for a, b in zip(adv, rows[t]))
+    row = meter.row("online/advance_all/metering")
+    errors = conservation_errors(row)
+    log(f"path 11d advance_all(meter=, series=) over {P11D_DATES} dates: "
+        f"rows bitwise the unmetered run's: {same}; {len(meter.accounts)} "
+        f"accounts, conservation findings {errors}; fenced wall a date, "
+        f"mean {meter.totals.get('wall_s', 0.0) / P11D_DATES * 1e3:.3f} "
+        f"ms; health samples {series.count}")
+    if not (same and not errors and series.count == P11D_DATES):
+        raise AssertionError("11d: the metered advance parts from the "
+                             "unmetered one or its meter is not conserved")
     return launches
+
+
+#: path 11d: advance_all with the meter and the health series
+P11D_DATES = 16
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2950,6 +3437,7 @@ def main() -> int:
     kernels = {"rank_ic_postsort": rank_ic_phase(torch, rk, args.seed)}
     kernels["admm_segment"], kernels["admm_segment_lanes"] = admm_phase(
         torch, args.seed)
+    kernels["admm_segment_collect"] = collect_phase(torch, args.seed)
     kernels["admm_segment_anderson_mvo_day"] = anderson_phase(torch,
                                                               args.seed)
     t0 = time.perf_counter()
@@ -3008,14 +3496,22 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s wall")
     t0 = time.perf_counter()
     resil = resil_path(torch, fmt, args.seed)
-    launches["resil"] = resil["launches"]["chaos"]
+    launches["resil"] = resil["launches"]["clean"]
+    collect = {"resil_inert": resil["launches"]["inert"]["admm_segment"],
+               "resil_chaos": resil["launches"]["chaos"]["admm_segment"],
+               "tally": resil["tally"]["admm_segment"]}
     log(f"path 9a phase (clean, inert and chaos runs, checks, CPU run): "
         f"{time.perf_counter() - t0:.1f} s wall")
     t0 = time.perf_counter()
-    launches["online"], rows9b = online_path(torch, fmt, args.seed,
-                                             resil["clean"])
+    launches["online"], rows9b, ms9b = online_path(torch, fmt, args.seed,
+                                                   resil["clean"])
     log(f"path 9b phase (warm-up, {R_DATES} dates, checks, resume, "
         f"replay): {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    hooked_online_path(torch, fmt, args.seed, ms9b)
+    log(f"path 11c phase (unhooked, hooked, killed and resumed runs of "
+        f"{P11C_DATES} dates, checks): {time.perf_counter() - t0:.1f} s "
+        f"wall")
     t0 = time.perf_counter()
     served = serve_path(torch, fmt, args.seed)
     launches["serve"] = served["launches"]
@@ -3039,7 +3535,7 @@ def main() -> int:
     log(f"path 10d phase ({S_ONLINE_DATES} dates, checks): "
         f"{time.perf_counter() - t0:.1f} s wall")
     # each kernel's launches on the paths that run its form: K1 once in each
-    # of paths 1-3, in path 8a's icir_top selection and in path 9a's chaos
+    # of paths 1-3, in path 8a's icir_top selection and in path 9a's clean
     # step, once a date in path 9b's online advance, once a dispatch in
     # paths 10a and 10b and once a date in path 10d's session
     k1 = {p: launches[p]["rank_ic_postsort"] for p in
@@ -3048,10 +3544,11 @@ def main() -> int:
     kernels["rank_ic_postsort"]["launches"] = sum(k1.values())
     kernels["rank_ic_postsort"]["launches_by_path"] = k1
     # the segment's single-lane launches: path 1, the sequential suffixes
-    # of paths 6-7, path 9a's chaos step, path 9b's advance and paths 10b
-    # and 10d (a real tenant's days, never a pad lane's); its lane
-    # launches: path 2's chunks, and the seed and sweep chunks of paths 6-7
-    # (each as the wrapper counted it)
+    # of paths 6-7, path 9a's clean step, path 9b's advance and paths 10b
+    # and 10d (a real tenant's days, never a pad lane's); its collect=1
+    # form: path 9a's probed inert and chaos steps and path 11a's probed
+    # tally run; its lane launches: path 2's chunks, and the seed and sweep
+    # chunks of paths 6-7 (each as the wrapper counted it)
     single = {p: launches[p]["admm_segment"] for p in
               ("turnover", "turnover_parallel", "turnover_parallel_decoupled",
                "resil", "online", "serve_turnover", "advance_all")}
@@ -3061,6 +3558,8 @@ def main() -> int:
     kernels["admm_segment"]["launches_by_path"] = single
     kernels["admm_segment_lanes"]["launches"] = sum(lanes.values())
     kernels["admm_segment_lanes"]["launches_by_path"] = lanes
+    kernels["admm_segment_collect"]["launches"] = sum(collect.values())
+    kernels["admm_segment_collect"]["launches_by_path"] = collect
     kernels["admm_segment_anderson"]["launches"] = (
         launches["turnover_risk_anderson"]["admm_segment"])
     kernels["admm_segment_anderson_mvo_day"]["launches"] = 0   # no path

@@ -35,9 +35,11 @@ class SolverDiagnostics(NamedTuple):
     the JAX package's record: ADMM primal residual (NaN without a solver),
     solver acceptance, pre-shift leg sums, traded days, polish acceptance
     and residuals, the scheme stats, the Anderson accept / rollback tallies
-    per solved day (0 with ``qp_anderson=0``), and the iterations-to-
-    converge read, which stays 0: the JAX package fills it only under its
-    probes layer, which the port has not ported."""
+    per solved day (0 with ``qp_anderson=0``), and the first ADMM
+    iteration at which the combined residual reached the polish grade a
+    solved day (0 when the budget ran out first, and 0 on every day unless
+    the solves collected it: ``build_research_step(collect_probes=True)``
+    or ``obs.probing()``)."""
 
     primal_residual: torch.Tensor
     solver_ok: torch.Tensor

@@ -1,6 +1,6 @@
-"""Host-side run report: span timers, counter summaries and cost rows merged
-into one JSONL/dict artifact (port of ``factormodeling_tpu/obs/report.py``,
-the part the library layers call).
+"""Host-side run report: span timers, counter summaries, numerics probes
+and cost rows merged into one JSONL/dict artifact (port of
+``factormodeling_tpu/obs/report.py``, the part the library layers call).
 
 The library's layers (``parallel/sweep.py``, the compat ``Simulation``)
 record into the *active* report when one is installed, and are no-ops when
@@ -240,6 +240,26 @@ class RunReport:
                             f"got {type(counters).__name__}")
         self.record(name, kind="counters",
                     counters=summarize_counters(counters))
+
+    def add_probes(self, name: str, probes, baseline: dict | None = None,
+                   tol: float = 1e-6) -> dict | None:
+        """Record a step's numerics probes (``ResearchOutput.probes``, a
+        ``{stage: ProbeFrame}`` dict) as one ``kind="numerics"`` row per
+        stage and a ``kind="watchdog"`` attribution row; the frames come to
+        the host in one copy. None is ignored, so callers can pass
+        ``output.probes`` unconditionally. ``baseline`` maps stage -> known
+        good finite fraction (``obs.regression.numerics_baseline`` extracts
+        one from a clean report), or a :func:`~.probes.probe_profile`.
+        Returns the watchdog row (None when no probes were given)."""
+        if not probes:
+            return None
+        from factormodeling_tpu_torch.obs import probes as _probes
+
+        summaries = _probes.summarize_probes(probes)
+        for stage, summary in summaries.items():
+            self.record(name, kind="numerics", stage=stage, **summary)
+        verdict = _probes.watchdog(summaries, baseline=baseline, tol=tol)
+        return self.record(name, kind="watchdog", **verdict)
 
     def add_cost_analysis(self, name: str, fn=None, *args, **kwargs) -> dict:
         """A ``kind="cost"`` row in the JAX package's failure form: PyTorch

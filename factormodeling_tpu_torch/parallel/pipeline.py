@@ -6,12 +6,13 @@
 
 on one device, with the JAX package's resilience arguments (a
 ``FaultSpec`` injected at the stage boundaries, a ``DegradePolicy``'s
-quarantine, clamp and hold) and its device-side stage counters; the mesh
-and the numerics probes are not ported yet.
+quarantine, clamp and hold), its device-side stage counters and its
+numerics probes; the mesh is not ported yet.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, NamedTuple
 
@@ -25,6 +26,7 @@ from factormodeling_tpu_torch.backtest.settings import SimulationSettings
 from factormodeling_tpu_torch.composite.blend import composite_weighted
 from factormodeling_tpu_torch.metrics.factor_metrics import nan_mean_std
 from factormodeling_tpu_torch.obs import counters as obs_counters
+from factormodeling_tpu_torch.obs import probes as obs_probes
 from factormodeling_tpu_torch.resil import faults as resil_faults
 from factormodeling_tpu_torch.resil import policy as resil_policy
 from factormodeling_tpu_torch.selection.driver import rolling_selection
@@ -53,6 +55,10 @@ class ResearchOutput(NamedTuple):
     # StageCounters when the step was built with counter collection on,
     # else None (nothing of the counters ran)
     counters: obs_counters.StageCounters | None = None
+    # {stage: ProbeFrame} numerics probes when built with collect_probes,
+    # else None (nothing of the probes ran); feed to RunReport.add_probes
+    # or obs.probes.watchdog
+    probes: dict | None = None
 
 
 def result_summary(result: DailyResult) -> ResearchSummary:
@@ -107,19 +113,30 @@ def build_research_step(*, names, window: int,
     ``DegradePolicy.make()`` gives the clean outputs bit for bit.
     ``collect_counters`` (None reads ``obs.counters.counters_enabled()``)
     adds the :class:`~factormodeling_tpu_torch.obs.counters.StageCounters`
-    to the output, the policy's tallies among them. ``collect_probes`` and
-    ``probe_canary`` (the numerics probes) are not ported and raise.
+    to the output, the policy's tallies among them.
+
+    ``collect_probes`` (None reads ``obs.probes.probes_enabled()``) opens a
+    probe capture for each call and adds the JAX package's seven
+    ``ProbeFrame`` summaries, in its order, to ``output.probes``: the raw
+    factors, the staleness canary (``ops/factors_delta``, see below), the
+    selection, the signal, the per-day final ADMM residual, the shifted
+    weights and the daily P&L. Faults inject before a stage's probe; the
+    clamp applies after the blend's. The frames stay on the device; the
+    solves inside the call also collect ``iters_to_converge``
+    (``SolverDiagnostics``). With probes off nothing of them runs and the
+    outputs are bitwise those of a build without probes.
+    ``probe_canary``: the staleness canary's gate (None follows fault-spec
+    presence; False suppresses it; True adds it to a clean probed step,
+    for production monitoring of stale feeds).
     """
-    if collect_probes or probe_canary:
-        raise NotImplementedError(
-            "collect_probes / probe_canary (the numerics probes) are not "
-            "ported yet")
     names = tuple(names)
     select_kwargs = dict(select_kwargs or {})
     sim_kwargs = dict(sim_kwargs or {})
     dev = resolve_device(device)
     if collect_counters is None:
         collect_counters = obs_counters.counters_enabled()
+    if collect_probes is None:
+        collect_probes = obs_probes.probes_enabled()
     default_fault, default_policy = fault_spec, policy
     # validate the simulation knobs now rather than at the first call
     SimulationSettings(returns=None, cap_flag=None, investability_flag=None,
@@ -131,10 +148,34 @@ def build_research_step(*, names, window: int,
                      investability, universe)
         fault_spec = default_fault if fault_spec is None else fault_spec
         policy = default_policy if policy is None else policy
+        # the capture is open for the whole call, so the solves inside it
+        # collect their convergence telemetry too
+        cap_ctx = (obs_probes.capture() if collect_probes
+                   else contextlib.nullcontext())
+        with cap_ctx as cap:
+            out = _run(factors, returns, factor_ret, cap_flag, investability,
+                       universe, fault_spec, policy)
+        if collect_probes:
+            out = out._replace(probes=cap.frames())
+        return out
+
+    def _run(factors, returns, factor_ret, cap_flag, investability,
+             universe, fault_spec, policy) -> ResearchOutput:
+        canary = (fault_spec is not None if probe_canary is None
+                  else bool(probe_canary))
         if fault_spec is not None:
             factors = resil_faults.inject("ops/factors_raw", factors,
                                           fault_spec, date_axis=1)
             universe = resil_faults.inject_universe(universe, fault_spec)
+        if collect_probes:
+            # raw panels legitimately carry NaN: only a baseline judges them
+            obs_probes.probe("ops/factors_raw", factors, expect_finite=None)
+            if canary:
+                # stale dates move neither finite fraction nor absmax; the
+                # day-over-day delta's nonzero count sees them
+                obs_probes.probe("ops/factors_delta",
+                                 resil_faults.staleness_canary(factors),
+                                 expect_finite=None)
         qday = None
         sel_factors, sel_fr = factors, factor_ret
         if policy is not None:
@@ -147,6 +188,8 @@ def build_research_step(*, names, window: int,
         if fault_spec is not None:
             selection = resil_faults.inject("selection/rolling", selection,
                                             fault_spec, date_axis=0)
+        if collect_probes:
+            obs_probes.probe("selection/rolling", selection)
         # the blend takes the ORIGINAL factors: the quarantine protects the
         # rolling windows, not the day's own cross-section
         signal = composite_weighted(factors, names, selection,
@@ -154,6 +197,10 @@ def build_research_step(*, names, window: int,
         if fault_spec is not None:
             signal = resil_faults.inject("composite/blend", signal,
                                          fault_spec, date_axis=0)
+        if collect_probes:
+            # out-of-universe cells are NaN by design: the healthy finite
+            # fraction is the universe coverage, not 1
+            obs_probes.probe("composite/blend", signal, expect_finite=None)
         clamped_cells = clamped_days = 0
         if policy is not None:
             signal, clamped_cells, clamped_days = resil_policy.clamp_signal(
@@ -163,6 +210,14 @@ def build_research_step(*, names, window: int,
             investability_flag=investability, universe=universe,
             degrade=policy, **sim_kwargs)
         sim = run_simulation(signal, settings)
+        if collect_probes:
+            # per-day final ADMM residuals (NaN on days without a solve)
+            obs_probes.probe("solver/admm", sim.diagnostics.primal_residual,
+                             expect_finite=None)
+            obs_probes.probe("backtest/weights", sim.weights,
+                             expect_finite=None)
+            obs_probes.probe("backtest/pnl", sim.result.log_return,
+                             expect_finite=None)
         counters = None
         if collect_counters:
             degrade = None

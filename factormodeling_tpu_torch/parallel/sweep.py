@@ -113,6 +113,34 @@ def _settings_identity(settings: SimulationSettings):
     return repr(sorted(static.items())), tensors
 
 
+#: the JAX package's SimulationSettings pytree leaves, in its field order
+#: (its static fields are no leaves; None fields are empty subtrees)
+_SETTINGS_LEAVES = ("returns", "cap_flag", "investability_flag", "universe",
+                    "degrade", "max_weight", "pct", "min_universe",
+                    "tcost_scale", "shrinkage_intensity", "turnover_penalty",
+                    "return_weight", "turnover_tol")
+
+
+def _jax_leaves(combo_weights, factors, settings) -> list:
+    """``jax.tree_util.tree_leaves((combo_weights, factors, settings))`` of
+    the JAX package's sweep, as host arrays: the tensors' host copies, the
+    Python knobs as ``np.asarray`` makes them, the policy's fields in its
+    leaf dtypes (int32, float32, float32, bool). The lineage ledger's
+    ``sweep_inputs`` id hashes them, so it is the JAX package's id."""
+    out = [combo_weights, factors]
+    for name in _SETTINGS_LEAVES:
+        v = getattr(settings, name)
+        if v is None:
+            continue
+        if name == "degrade":
+            out += [np.int32(v.min_universe),
+                    np.float32(v.quarantine_nan_frac),
+                    np.float32(v.clamp_absmax), np.bool_(v.carry_fallback)]
+        else:
+            out.append(v if isinstance(v, torch.Tensor) else np.asarray(v))
+    return out
+
+
 def checkpointed_manager_sweep(factors: torch.Tensor,
                                combo_weights: torch.Tensor,
                                settings: SimulationSettings, *,
@@ -131,13 +159,25 @@ def checkpointed_manager_sweep(factors: torch.Tensor,
     :func:`manager_sweep`'s. A resume skips the chunks the snapshot holds;
     a snapshot of another configuration (combo count, chunking, shapes,
     settings, input content) is skipped with a warning. Each chunk's
-    outputs move to the host once, for the snapshots; the returned outputs
-    are on the inputs' device. ``lineage`` (the JAX package's provenance
-    ledger) is not ported and raises."""
-    if lineage:
-        raise NotImplementedError(
-            "lineage= (the provenance ledger) is not ported yet")
+    outputs move to the host once, for the snapshots and the ledger; the
+    returned outputs are on the inputs' device.
+
+    ``lineage``: ``True`` or a shared
+    :class:`~factormodeling_tpu_torch.obs.lineage.LineageLedger` records
+    one ``sweep_chunk`` provenance edge a chunk (the chunk's output
+    fingerprint, derived from the ``sweep_inputs`` source: the JAX
+    package's fingerprint of the combos, the factors and the settings'
+    pytree leaves); the ledger rides the checkpoint, so a resumed sweep's
+    ledger is byte-equal to a straight-through run's, and its rows land on
+    the active report at the end. Off by default; ``obs.lineage`` is not
+    imported then."""
     dev = check_device(device, factors, combo_weights)
+    ledger = None
+    if lineage:
+        from factormodeling_tpu_torch.obs.lineage import LineageLedger
+
+        ledger = (lineage if isinstance(lineage, LineageLedger)
+                  else LineageLedger())
     c = int(combo_weights.shape[0])
     if chunk_combos is None:
         chunk_combos = combo_batch * 4
@@ -162,7 +202,18 @@ def checkpointed_manager_sweep(factors: torch.Tensor,
             host_parts = [SweepOutput(**p) for p in state["parts"]]
             parts = [SweepOutput(*(torch.tensor(a, device=dev) for a in p))
                      for p in host_parts]
+            if ledger is not None and "lineage" in state:
+                ledger.load_state(str(state["lineage"]))
             record_stage("parallel/sweep_resume", resumed_chunks=start)
+    inputs_id = None
+    if ledger is not None:
+        from factormodeling_tpu_torch.resil.checkpoint import fingerprint
+
+        # idempotent, and after any resume: the restored ledger already
+        # holds this source, so the resumed ledger stays byte-equal
+        inputs_id = ledger.source(
+            fingerprint(*_jax_leaves(combo_weights, factors, settings)),
+            "sweep_inputs")
 
     bounds = [(i, min(i + chunk_combos, c))
               for i in range(0, c, chunk_combos)]
@@ -171,13 +222,27 @@ def checkpointed_manager_sweep(factors: torch.Tensor,
         out = _combine_and_pnl(books, combo_weights[lo:hi], settings,
                                combo_batch)
         parts.append(out)
-        if checkpoint is not None:
+        if checkpoint is not None or ledger is not None:
             host_parts.append(SweepOutput(*(t.cpu().numpy() for t in out)))
+        if ledger is not None:
+            d = host_parts[-1]._asdict()
+            ledger.edge(fingerprint(*[d[k] for k in sorted(d)]),
+                        "sweep_chunk", [inputs_id], chunk=int(idx),
+                        combos=[int(lo), int(hi)])
+        if checkpoint is not None:
             checkpoint.maybe_save(
                 idx, {"next_chunk": idx + 1,
-                      "parts": [p._asdict() for p in host_parts]},
+                      "parts": [p._asdict() for p in host_parts],
+                      **({"lineage": ledger.state()}
+                         if ledger is not None else {})},
                 meta=ck_meta)
     record_stage("parallel/sweep", combos=c, factors=int(factors.shape[0]),
                  combo_batch=combo_batch, chunked=chunk_combos,
                  resumed_chunks=start)
+    if ledger is not None:
+        from factormodeling_tpu_torch.obs.report import active_report
+
+        rep = active_report()
+        if rep is not None:
+            rep.rows.extend(ledger.rows("parallel/sweep"))
     return SweepOutput(*(torch.cat(field) for field in zip(*parts)))

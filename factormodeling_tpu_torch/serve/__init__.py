@@ -16,7 +16,9 @@ mesh):
   :mod:`~factormodeling_tpu_torch.serve.admission`: the traffic layer
   (virtual-clock request queue, seeded Poisson and bursty arrival traces,
   deadline-aware batching, admission control with a shed/degrade ladder,
-  retried dispatch, checkpoint/resume; ``TenantServer.serve_queued``).
+  retried dispatch, checkpoint/resume; ``TenantServer.serve_queued``),
+  with the queue's :class:`FlightKit` (the flight recorder, the cost meter
+  and the health series, built by ``serve_queued(flight=True)``).
   Imported on first use (PEP 562 below): ``import
   factormodeling_tpu_torch.serve`` loads neither module.
 """
@@ -45,7 +47,8 @@ __all__ = ["DEFAULT_PAD_LADDER", "TenantAdvance", "TenantConfig",
 #: ``factormodeling_tpu_torch.serve`` must not load the queue or admission
 _LAZY = {
     "queue": ("DEADLINE_MISS", "FAILED", "SERVED", "SHED", "VERDICTS",
-              "DispatchEstimator", "QueueResult", "Request", "VirtualClock",
+              "DispatchEstimator", "FlightKit", "QueueResult", "Request",
+              "VirtualClock",
               "bursty_arrivals", "make_requests", "poisson_arrivals",
               "replay_traffic", "run_queued"),
     "admission": ("AdmissionPolicy", "LADDER_STEPS", "StaleCache"),

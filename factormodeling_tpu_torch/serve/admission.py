@@ -59,9 +59,10 @@ class AdmissionPolicy:
     consulted in order for each overloaded arrival; an empty ladder (or
     one no step of which applies) sheds.
 
-    ``on_alert`` is the observe-only hook of the JAX package's operations
-    sentry, which is not ported yet (ROADMAP queue 1 item 2): anything but
-    None raises ``NotImplementedError``. Excluded from
+    ``on_alert`` is the observe-only hook of the operations sentry: when
+    the queue runs with ``sentry=`` on, every firing alert dict is passed
+    to it at the dispatch boundary that fired it. No scheduling decision
+    reads its result. Default None, inert. Excluded from
     ``repr``/comparison: the checkpoint meta guard keys on
     ``repr(policy)``, and a callback must not invalidate snapshots whose
     scheduling-relevant policy is unchanged."""
@@ -89,10 +90,9 @@ class AdmissionPolicy:
                              f"{LADDER_STEPS}")
         if int(self.stale_cap) < 1:
             raise ValueError(f"stale_cap must be >= 1, got {self.stale_cap}")
-        if self.on_alert is not None:
-            raise NotImplementedError(
-                "AdmissionPolicy(on_alert=...) is not ported yet (ROADMAP "
-                "queue 1 item 2)")
+        if self.on_alert is not None and not callable(self.on_alert):
+            raise ValueError(f"on_alert must be callable or None, got "
+                             f"{self.on_alert!r}")
 
     def overloaded(self, *, depth: int, served_p99_s) -> "str | None":
         """The overload reason at this instant, or None. The p99 trigger

@@ -31,13 +31,16 @@ and :meth:`TenantServer.advance_all` advance many tenants a date at a time
 over ``online/advance.py``: one market advance a session and date (K1 once
 a date), then the tenant half per real lane.
 
-Not ported yet: ``mesh=`` (ROADMAP queue 1 item 5), ``serve(lineage=)``
-and ``advance_all(meter=, series=)`` (queue 1 item 2); each raises
-``NotImplementedError``.
+``serve(lineage=...)`` records one provenance edge a served lane, and
+``advance_all(meter=..., series=...)`` bills each session's fenced wall to
+a cost meter and samples a health series; their obs modules are imported
+only when asked. Not ported yet: ``mesh=`` (ROADMAP queue 1 item 5), which
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -51,7 +54,9 @@ from factormodeling_tpu_torch.parallel import streaming as _streaming
 from factormodeling_tpu_torch.parallel.pipeline import ResearchOutput
 from factormodeling_tpu_torch.serve.batched import (make_batched_research_step,
                                                     tree_lane)
-from factormodeling_tpu_torch.serve.tenant import TenantConfig, stack_configs
+from factormodeling_tpu_torch.serve.tenant import (TenantConfig,
+                                                   config_leaves,
+                                                   stack_configs)
 
 __all__ = ["DEFAULT_PAD_LADDER", "TenantAdvance", "TenantResult",
            "TenantServer"]
@@ -149,6 +154,7 @@ class TenantServer:
                        "configs_served": 0, "padded_lanes": 0,
                        "rejected_configs": 0}
         self._online: dict = {}
+        self._advance_ordinal = 0   # advance_all's default date label
 
     # ------------------------------------------------------- executables
 
@@ -241,12 +247,24 @@ class TenantServer:
     def serve(self, configs, *, lineage=None) -> list[TenantResult]:
         """Validate, bucket, pad, dispatch, demux (module docs). Returns
         one :class:`TenantResult` per submitted config, in order.
-        ``lineage`` is not ported yet and raises."""
-        if lineage:
-            raise _not_ported("serve(lineage=...)", 2)
+
+        ``lineage``: ``True`` or a
+        :class:`~factormodeling_tpu_torch.obs.lineage.LineageLedger`
+        records one edge a served lane, from the panels' and the config's
+        fingerprints to the fingerprint of the lane's weight book, with the
+        entry point (each dispatch copies its books to the host once). Its
+        rows land on the active report under ``serve/sync``. Off by
+        default; ``obs.lineage`` is not imported then."""
         configs = list(configs)
         if not configs:
             return []
+        ledger = panels_id = None
+        if lineage:
+            from factormodeling_tpu_torch.obs.lineage import LineageLedger
+
+            ledger = (lineage if isinstance(lineage, LineageLedger)
+                      else LineageLedger())
+            panels_id = ledger.source(self.panels_fingerprint(), "panels")
         normalized = self._normalize_all(configs)
         buckets: dict = {}
         for i, c in enumerate(normalized):
@@ -266,10 +284,34 @@ class TenantServer:
                              entry_point=name, rung=rung,
                              configs=len(chunk), padded_lanes=pad,
                              bucket_count=len(self._buckets_seen))
+                books = (out.sim.weights.cpu().numpy() if ledger is not None
+                         else None)
                 for lane, i in enumerate(chunk):
                     results[i] = TenantResult(index=i, config=configs[i],
                                               output=tree_lane(out, lane))
+                    if ledger is not None:
+                        self._lineage_edge(ledger, panels_id, normalized[i],
+                                           books[lane], skey, name, rung, i)
+        if ledger is not None:
+            from factormodeling_tpu_torch.obs.report import active_report
+
+            rep = active_report()
+            if rep is not None:
+                rep.rows.extend(ledger.rows("serve/sync"))
         return results
+
+    def _lineage_edge(self, ledger, panels_id, config, book, skey, name,
+                      rung, index) -> None:
+        """One served lane's edge: the book's fingerprint from the panels
+        and the config (the book, the artifact a consumer acts on, is
+        hashed alone)."""
+        from factormodeling_tpu_torch.resil.checkpoint import fingerprint
+
+        cfg_id = ledger.source(fingerprint(*config_leaves(config)), "config")
+        ledger.edge(fingerprint(book), "dispatch", [panels_id, cfg_id],
+                    code={"static_key": repr(skey), "bucket": name,
+                          "rung": int(rung), "mesh": None},
+                    rid=int(index))
 
     def serve_queued(self, requests, **kwargs):
         """Drain :class:`~factormodeling_tpu_torch.serve.queue.Request`s
@@ -351,29 +393,48 @@ class TenantServer:
                 _streaming._cached_kernel(None, config,
                                           lambda: session["batched"]))
 
-    def advance_all(self, date_slice, *, meter=None,
+    def advance_all(self, date_slice, *, date=None, meter=None,
                     series=None) -> "list[TenantAdvance]":
         """Advance every tenant of every session by one arriving date
         (:class:`~factormodeling_tpu_torch.online.state.DateSlice`): one
         market advance a session, then the tenant half per real lane.
         Returns one :class:`TenantAdvance` per config given to
         :meth:`online_begin`, in its order; ``output.ready`` is False on
-        the very first date. ``meter`` and ``series`` (and the JAX
-        package's ``date`` label of their samples) are not ported yet;
-        they raise."""
-        if meter is not None:
-            raise _not_ported("advance_all(meter=...)", 2)
-        if series is not None:
-            raise _not_ported("advance_all(series=...)", 2)
+        the very first date.
+
+        ``meter``: a
+        :class:`~factormodeling_tpu_torch.obs.metering.CostMeter`; each
+        session's fenced wall (``torch.cuda.synchronize`` inside the timed
+        window on the card) is split across its rung's lanes into one
+        account a (session, ``date``), pad lanes billed to
+        ``overhead/pad``. ``date`` labels the account (default: the
+        advance's ordinal). With ``meter=None`` no timer and no fence run.
+        ``series``: a
+        :class:`~factormodeling_tpu_torch.obs.reqtrace.HealthSeries`; each
+        call appends one sample at ``t = date``: depth the session count,
+        occupancy the mean real-lane share, shed rate 0."""
         if not self._online:
             raise RuntimeError("advance_all before online_begin — open an "
                                "online session first")
+        if date is None:
+            date = self._advance_ordinal
+        self._advance_ordinal += 1
         results: list = [None] * len(self._online_configs)
         for session in self._online.values():
             name, exe = self._online_executable(session)
             self._executables_seen.add(name)
+            if meter is not None:
+                self._fence()
+                t0 = time.perf_counter()
             mstate2, tstates2, outs = exe(session["lanes"], session["mstate"],
                                           session["tstates"], date_slice)
+            if meter is not None:
+                # the fence inside the window: the launches return before
+                # the card has run them
+                self._fence()
+                meter.charge([f"{name}@{date}"] * len(session["members"]),
+                             session["rung"],
+                             wall_s=time.perf_counter() - t0)
             session["mstate"], session["tstates"] = mstate2, tstates2
             self._stats["dispatch_executions"] += 1
             self._stats["logical_dispatches"] += 1
@@ -386,7 +447,16 @@ class TenantServer:
             for i, out in zip(session["members"], outs):
                 results[i] = TenantAdvance(
                     index=i, config=self._online_configs[i], output=out)
+        if series is not None:
+            occ = [len(s["members"]) / s["rung"]
+                   for s in self._online.values()]
+            series.sample(t=float(date), depth=len(self._online),
+                          occupancy=sum(occ) / len(occ), shed_rate=0.0)
         return results
+
+    def _fence(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # -------------------------------------------------------------- stats
 

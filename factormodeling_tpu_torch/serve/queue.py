@@ -38,9 +38,14 @@ The seconds charged a dispatch come from ``service_model`` (default: the
 estimator's estimate), not from the wall clock; the dispatches themselves
 run the real step, and their outputs are bitwise the synchronous path's.
 
-Not ported yet: the flight recorder, the provenance ledger and the
-operations sentry (``flight=``, ``lineage=``, ``sentry=``; ROADMAP queue 1
-item 2): each raises ``NotImplementedError``.
+The obs hooks are opt-in and import their modules only when asked:
+``flight=`` (the request flight recorder, the per-tenant cost meter and
+the health series, bundled as :class:`FlightKit`), ``lineage=`` (one
+provenance edge a delivered lane) and ``sentry=`` (alerts and incidents
+at every dispatch boundary, seen by ``AdmissionPolicy.on_alert``). They
+run on the virtual clock, so their rows are reproducible, and their state
+rides the checkpoint, so a resumed drain's rows are byte-equal to a
+straight-through drain's.
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ import math
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from factormodeling_tpu_torch import rng as rng_lanes
 from factormodeling_tpu_torch._device import host_array
@@ -72,12 +78,14 @@ from factormodeling_tpu_torch.serve.admission import (
     StaleCache,
 )
 from factormodeling_tpu_torch.serve.batched import tree_lane
-from factormodeling_tpu_torch.serve.tenant import _VALUE_LEAVES, TenantConfig
+from factormodeling_tpu_torch.serve.tenant import TenantConfig
+from factormodeling_tpu_torch.serve.tenant import \
+    config_leaves as _config_leaves
 
 __all__ = ["DEADLINE_MISS", "FAILED", "SERVED", "SHED", "VERDICTS",
-           "DispatchEstimator", "QueueResult", "Request", "VirtualClock",
-           "bursty_arrivals", "make_requests", "poisson_arrivals",
-           "replay_traffic", "run_queued"]
+           "DispatchEstimator", "FlightKit", "QueueResult", "Request",
+           "VirtualClock", "bursty_arrivals", "make_requests",
+           "poisson_arrivals", "replay_traffic", "run_queued"]
 
 #: the verdict state machine's four terminal states — every submitted
 #: request ends in exactly one (the loop asserts the counts sum)
@@ -273,8 +281,11 @@ class QueueResult(NamedTuple):
     outputs: dict       # rid -> ResearchOutput lane (SERVED + DEADLINE_MISS)
     counters: dict      # the kind="serving" row's counts
     clock_s: float      # virtual makespan (last event time)
+    flight: object = None  # the FlightKit when the recorder ran, else None
     traffic: list = None   # kind="traffic" arrival-trace rows (complete
     #                        drains only — the replay_traffic input)
+    lineage: object = None  # the LineageLedger when provenance ran
+    sentry: object = None   # the Sentry when the operations sentry ran
 
     def by_rid(self) -> dict:
         return {v["rid"]: v for v in self.verdicts}
@@ -316,6 +327,58 @@ def _sketch_restore(state: dict) -> QuantileSketch:
     return sk
 
 
+# ----------------------------------------------------- flight recorder kit
+
+_SERIES_CAP = 512  # health-series ring length, as the JAX package's default
+
+
+class FlightKit:
+    """The request flight recorder's three instruments, bundled for the
+    queue: the per-request causal span recorder
+    (:class:`~factormodeling_tpu_torch.obs.reqtrace.FlightRecorder`), the
+    per-tenant cost meter
+    (:class:`~factormodeling_tpu_torch.obs.metering.CostMeter`) and the
+    virtual-clock health series
+    (:class:`~factormodeling_tpu_torch.obs.reqtrace.HealthSeries`). Built
+    only when ``run_queued(flight=...)`` asks for it: the modules are
+    imported here. Its state rides the queue's checkpoint as one JSON
+    string."""
+
+    def __init__(self):
+        from factormodeling_tpu_torch.obs.metering import CostMeter
+        from factormodeling_tpu_torch.obs.reqtrace import (FlightRecorder,
+                                                           HealthSeries)
+
+        self.recorder = FlightRecorder()
+        self.meter = CostMeter()
+        self.series = HealthSeries(cap=_SERIES_CAP)
+        self.wait_sids: dict = {}  # rid -> open queue/wait span id
+
+    def rows(self, queue_name: str) -> list:
+        """Every flight row of the kit: the ``kind="reqtrace"`` rows (named
+        like the queue), the ``kind="metering"`` accounts row and the
+        ``kind="series"`` health row."""
+        return (self.recorder.rows(queue_name)
+                + [self.meter.row(f"{queue_name}/metering"),
+                   self.series.row(f"{queue_name}/health")])
+
+    def state(self) -> str:
+        return json.dumps(
+            {"trace": self.recorder.state(), "meter": self.meter.state(),
+             "series": self.series.state(),
+             "wait": {str(rid): sid
+                      for rid, sid in self.wait_sids.items()}},
+            sort_keys=True)
+
+    def load_state(self, state: str) -> None:
+        doc = json.loads(state)
+        self.recorder.load_state(doc["trace"])
+        self.meter.load_state(doc["meter"])
+        self.series.load_state(doc["series"])
+        self.wait_sids = {int(rid): int(sid)
+                          for rid, sid in doc.get("wait", {}).items()}
+
+
 # ------------------------------------------------------------- the loop
 
 
@@ -347,17 +410,30 @@ def run_queued(server, requests, *, admission=None, service_model=None,
     rows (rid, tenant, exact arrival and deadline seconds, static key,
     final verdict) on ``QueueResult.traffic`` and the active report; feed
     them to :func:`replay_traffic` to re-submit the trace.
-    ``flight``, ``lineage``, ``sentry``: not ported yet; they raise.
+
+    ``flight``: ``True`` builds a :class:`FlightKit` (or pass one to
+    accumulate accounts across drains whose rids differ): every request
+    gets a causal span tree on the virtual clock (``kind="reqtrace"``),
+    every dispatch's charged seconds split into per-tenant accounts with
+    the pad lanes billed to ``overhead/pad`` (``kind="metering"``), and the
+    queue's health is sampled at every dispatch boundary
+    (``kind="series"``). ``lineage``: ``True`` builds a
+    :class:`~factormodeling_tpu_torch.obs.lineage.LineageLedger` (or pass
+    one): every delivered lane records one edge from the panels and its
+    config to the fingerprint of its weight book, with the entry point and
+    the dispatch id; each dispatch copies its books to the host once.
+    ``sentry``: ``True`` builds a default
+    :class:`~factormodeling_tpu_torch.obs.sentry.Sentry` (or pass a
+    configured one); it observes at every dispatch boundary, its alerts go
+    to ``admission.on_alert`` (observe only), and a firing detector
+    captures an incident citing the chunk's traces, output ids, tenants
+    and the checkpoint. All three are off by default (their modules are
+    then not imported), ride the checkpoint, land their rows on the active
+    report on a complete drain, and return on the :class:`QueueResult`.
     ``_stop_after_dispatches``: test seam — return the partial result
     right after that many dispatches have snapshotted (the in-process half
     of the resume differential).
     """
-    for hook, value in (("flight", flight), ("lineage", lineage),
-                        ("sentry", sentry)):
-        if value:
-            raise NotImplementedError(
-                f"serve_queued({hook}=...) is not ported yet (ROADMAP "
-                f"queue 1 item 2)")
     requests = sorted(requests, key=lambda r: (r.arrival_s, r.rid))
     rids = [r.rid for r in requests]
     if len(set(rids)) != len(rids):
@@ -365,6 +441,20 @@ def run_queued(server, requests, *, admission=None, service_model=None,
     admission = admission if admission is not None else AdmissionPolicy()
     clock = clock if clock is not None else VirtualClock()
     estimator = estimator if estimator is not None else DispatchEstimator()
+    kit = None
+    if flight:
+        kit = flight if isinstance(flight, FlightKit) else FlightKit()
+    ledger = None
+    if lineage:
+        from factormodeling_tpu_torch.obs.lineage import LineageLedger
+
+        ledger = (lineage if isinstance(lineage, LineageLedger)
+                  else LineageLedger())
+    sn = None
+    if sentry:
+        from factormodeling_tpu_torch.obs.sentry import Sentry
+
+        sn = sentry if isinstance(sentry, Sentry) else Sentry()
     ladder = server.pad_ladder
     top = ladder[-1]
     n = len(requests)
@@ -413,7 +503,12 @@ def run_queued(server, requests, *, admission=None, service_model=None,
                    "retries": int(retries),
                    "retry_backoff_s": float(retry_backoff_s),
                    "flush_headroom_s": float(flush_headroom_s),
-                   "fault_plan": repr(fault_plan)}
+                   "fault_plan": repr(fault_plan),
+                   **({"flight": True} if kit is not None else {}),
+                   **({"lineage": True} if ledger is not None else {}),
+                   **({"sentry": True} if sn is not None else {})}
+        # a hook joins the guard only when on: snapshots of hook-off runs
+        # stay resumable by hook-off runs
         ck = _ckpt.Checkpointer(checkpoint_path, every=checkpoint_every)
         got = ck.resume(expect_meta=ck_meta)
         if got is not None:
@@ -432,6 +527,12 @@ def run_queued(server, requests, *, admission=None, service_model=None,
             sketches = {name: _sketch_restore(s)
                         for name, s in state["sketches"].items()}
             stale.load_state(state["stale"])
+            if kit is not None and "flight" in state:
+                kit.load_state(str(state["flight"]))
+            if ledger is not None and "lineage" in state:
+                ledger.load_state(str(state["lineage"]))
+            if sn is not None and "sentry" in state:
+                sn.load_state(str(state["sentry"]))
             for skey, items in state["pending"]:
                 # bucket keys restore in snapshot order, EMPTY buckets
                 # included — dispatch-order determinism across a resume
@@ -443,6 +544,26 @@ def run_queued(server, requests, *, admission=None, service_model=None,
                         cheap_cfg[rid] = server._normalize(
                             admission.cheapened(req_by_rid[rid].config))
                     bucket.append(_Pending(rid, bool(degraded)))
+
+    # --- lineage inputs: the panels are one source a drain (registered
+    # after a resume restored the ledger; the registration is idempotent),
+    # configs are hashed at their first dispatch, per (rid, degraded)
+    panels_id = lin_mesh = None
+    lin_cfg_ids: dict = {}
+    if ledger is not None:
+        panels_id = ledger.source(server.panels_fingerprint(), "panels")
+        lin_mesh = server.serving_stats().get("mesh_shape")
+
+    def lin_config_id(rid: int, degraded: bool) -> str:
+        key = (rid, degraded)
+        cid = lin_cfg_ids.get(key)
+        if cid is None:
+            cfg = (cheap_cfg if degraded else normalized)[rid]
+            cid = ledger.source(
+                _ckpt.fingerprint(*_config_leaves(cfg)), "config",
+                degraded=bool(degraded))
+            lin_cfg_ids[key] = cid
+        return cid
 
     def verdict(rid: int, kind: str, *, done_s: float, rung=None,
                 dispatch=None, detail: str = "") -> None:
@@ -457,6 +578,11 @@ def run_queued(server, requests, *, admission=None, service_model=None,
                "detail": detail}
         verdict_log.append(row)
         verdict_lines.append(json.dumps(row, sort_keys=True))
+        if kit is not None:
+            kit.recorder.event(str(rid), "verdict", t=done_s,
+                               verdict=kind, detail=detail or None)
+            kit.recorder.finish(str(rid), kind, t=done_s,
+                                rid=int(rid), detail=detail or None)
         done.add(rid)
         key = {SERVED: "served", SHED: "shed_count",
                DEADLINE_MISS: "deadline_miss_count",
@@ -492,7 +618,14 @@ def run_queued(server, requests, *, admission=None, service_model=None,
         """The admission decision at (virtual) arrival processing time:
         enqueue, or walk the policy's degrade ladder (admission module
         docs) — every path ends in an enqueue or a terminal verdict."""
+        if kit is not None:
+            kit.recorder.begin(str(r.rid), t=r.arrival_s, tenant=r.label,
+                               rid=int(r.rid))
+            kit.recorder.event(str(r.rid), "submit", t=r.arrival_s)
         if r.rid in invalid:
+            if kit is not None:
+                kit.recorder.event(str(r.rid), "reject", t=clock.now_s,
+                                   reason=invalid[r.rid])
             verdict(r.rid, FAILED, done_s=clock.now_s,
                     detail=f"rejected: {invalid[r.rid]}")
             return
@@ -501,6 +634,11 @@ def run_queued(server, requests, *, admission=None, service_model=None,
         if reason is None:
             skey = normalized[r.rid].static_key()
             pending.setdefault(skey, []).append(_Pending(r.rid, False))
+            if kit is not None:
+                kit.recorder.event(str(r.rid), "admit", t=clock.now_s,
+                                   bucket=repr(skey))
+                kit.wait_sids[r.rid] = kit.recorder.open(
+                    str(r.rid), "queue/wait", t=clock.now_s)
             return
         for step in admission.ladder:
             if step == SERVE_STALE:
@@ -514,6 +652,10 @@ def run_queued(server, requests, *, admission=None, service_model=None,
                     stale.put(key, source_rid, out)
                     outputs[r.rid] = out
                     counters["stale_served"] += 1
+                    if kit is not None:
+                        kit.recorder.event(
+                            str(r.rid), "stale", t=clock.now_s,
+                            reason=reason, source_rid=int(source_rid))
                     # a stale answer delivered past the deadline is still
                     # a miss — the dispatch path's rule, applied here too
                     kind = (SERVED if clock.now_s <= r.deadline_s
@@ -533,10 +675,22 @@ def run_queued(server, requests, *, admission=None, service_model=None,
                     pending.setdefault(skey, []).append(
                         _Pending(r.rid, True))
                     counters["cheap_fallbacks"] += 1
+                    if kit is not None:
+                        kit.recorder.event(
+                            str(r.rid), "cheap_fallback", t=clock.now_s,
+                            reason=reason, bucket=repr(skey))
+                        kit.wait_sids[r.rid] = kit.recorder.open(
+                            str(r.rid), "queue/wait", t=clock.now_s)
                     return
             elif step == REJECT_NEW:
+                if kit is not None:
+                    kit.recorder.event(str(r.rid), "shed", t=clock.now_s,
+                                       reason=reason)
                 verdict(r.rid, SHED, done_s=clock.now_s, detail=reason)
                 return
+        if kit is not None:
+            kit.recorder.event(str(r.rid), "shed", t=clock.now_s,
+                               reason=f"{reason}; no ladder step applied")
         verdict(r.rid, SHED, done_s=clock.now_s,
                 detail=f"{reason}; no ladder step applied")
 
@@ -613,25 +767,60 @@ def run_queued(server, requests, *, admission=None, service_model=None,
         if chunk_deadline <= clock.now_s:
             chunk_deadline = None
 
+        # batch formation: close each member's queue-wait span and open
+        # the shared dispatch span (same dispatch index, rung, pad fraction
+        # and member list in every member's tree)
+        d_sids: dict = {}
+        attempt_log: list = []
+        dispatch_out_ids: list = []  # lineage edge ids (sentry incidents)
+        if kit is not None:
+            t_form = clock.now_s
+            pad_f = (rung - len(chunk)) / rung
+            members = [str(p.rid) for p in chunk]
+            for p in chunk:
+                wsid = kit.wait_sids.pop(p.rid, None)
+                if wsid is not None:
+                    kit.recorder.close(str(p.rid), wsid, t=t_form,
+                                       bucket=tag)
+                d_sids[p.rid] = kit.recorder.open(
+                    str(p.rid), "dispatch", t=t_form,
+                    dispatch=dispatch_idx, rung=int(rung),
+                    pad_fraction=round(pad_f, 6),
+                    downgraded=bool(downgraded),
+                    degraded=bool(p.degraded), members=members)
+
         def one_attempt():
             nonlocal attempt_counter
             k = attempt_counter
             attempt_counter += 1
+            t0 = clock.now_s
             clock.advance(service)
             fault = fault_plan.roll(k) if fault_plan is not None else None
             if fault == "dispatch_error":
                 counters["dispatch_faults"] += 1
+                attempt_log.append((k, t0, clock.now_s, fault))
                 raise DispatchFault("dispatch_error", k)
             out = server._dispatch_padded(skey, rung, lanes, template)
             if fault == "dispatch_poison":
                 # the dispatch "completed" but its outputs fail validation
                 # and are discarded — distinct class, same retry path
                 counters["dispatch_faults"] += 1
+                attempt_log.append((k, t0, clock.now_s, fault))
                 raise DispatchFault("dispatch_poison", k)
+            attempt_log.append((k, t0, clock.now_s, None))
             return out
 
         def count_retry(_attempt, _exc, _delay):
             counters["retry_count"] += 1
+
+        def flight_attempts(rid) -> None:
+            # retries as child spans of the dispatch span, with the resil
+            # attempt indices
+            for k, a0, a1, fault in attempt_log:
+                sid = kit.recorder.open(str(rid), "attempt", t=a0,
+                                        parent=d_sids[rid],
+                                        attempt=int(k), fault=fault)
+                kit.recorder.close(str(rid), sid, t=a1)
 
         try:
             name, out, pad = retry_call(
@@ -641,18 +830,50 @@ def run_queued(server, requests, *, admission=None, service_model=None,
                 clock=lambda: clock.now_s, sleep=clock.advance,
                 on_retry=count_retry)
         except DispatchFault as e:
+            if kit is not None:
+                for p in chunk:
+                    flight_attempts(p.rid)
+                    kit.recorder.close(str(p.rid), d_sids[p.rid],
+                                       t=clock.now_s, error=str(e))
+                # every attempt burned service time and delivered nothing:
+                # explicit overhead, not a bill
+                for _ in attempt_log:
+                    kit.meter.overhead("overhead/failed", wall_s=service)
             for p in chunk:
                 verdict(p.rid, FAILED, done_s=clock.now_s, rung=rung,
                         dispatch=dispatch_idx,
                         detail=f"dispatch failed after retries: {e}")
             _remove_from_pending(skey, chunk)
+            _sample_health(len(chunk), rung)
+            _observe_sentry(chunk, rung, [])
             _finish_dispatch(downgraded)
             return
 
         t_done = clock.now_s
         estimator.observe(tag, rung, service)
         counters["padded_lanes"] += pad
+        if kit is not None:
+            for p in chunk:
+                flight_attempts(p.rid)
+                kit.recorder.close(str(p.rid), d_sids[p.rid], t=t_done)
+                kit.recorder.event(str(p.rid), "demux", t=t_done)
+            # metering: the successful attempt's cost splits across the
+            # rung's lanes (pad lanes -> overhead/pad); earlier failed
+            # attempts are explicit retry overhead
+            for _ in attempt_log[:-1]:
+                kit.meter.overhead("overhead/retry", wall_s=service)
+            qp = _qp_per_lane(out, rung)
+            kit.meter.charge(
+                [req_by_rid[p.rid].label for p in chunk], rung,
+                wall_s=service,
+                per_lane=None if qp is None else {"qp_solves": qp},
+                **({"qp_solves": 0.0} if qp is not None else {}))
         stale_enabled = SERVE_STALE in admission.ladder
+        host_books = None
+        if ledger is not None:
+            # one device-to-host copy of the rung's weight books; each
+            # lane's fingerprint then hashes a host slice
+            host_books = host_array(out.sim.weights)
         for lane, p in enumerate(chunk):
             out_lane = tree_lane(out, lane)
             outputs[p.rid] = out_lane
@@ -663,12 +884,69 @@ def run_queued(server, requests, *, admission=None, service_model=None,
             verdict(p.rid, kind, done_s=t_done, rung=rung,
                     dispatch=dispatch_idx,
                     detail="cheap_fallback" if p.degraded else "")
+            if ledger is not None:
+                # one content-addressed edge a delivered lane:
+                # book fingerprint <- {panels, config}, with the entry
+                # point and the flight recorder's dispatch id
+                edge_id = ledger.edge(
+                    _ckpt.fingerprint(host_books[lane]), "dispatch",
+                    [panels_id, lin_config_id(p.rid, p.degraded)],
+                    code={"static_key": tag, "bucket": name,
+                          "rung": int(rung), "mesh": lin_mesh},
+                    trace={"dispatch": int(dispatch_idx)},
+                    rid=int(p.rid), tenant=r.label)
+                if sn is not None:
+                    dispatch_out_ids.append(edge_id)
         _remove_from_pending(skey, chunk)
         record_stage("serve/queue/dispatch", kind="stage",
                      entry_point=name, rung=rung, configs=len(chunk),
                      padded_lanes=pad, downgraded=bool(downgraded),
                      virtual_t_s=_round(t_done))
+        _sample_health(len(chunk), rung)
+        _observe_sentry(chunk, rung, dispatch_out_ids)
         _finish_dispatch(downgraded)
+
+    def _sample_health(chunk_len: int, rung: int) -> None:
+        # at the dispatch boundary, before the checkpoint in
+        # _finish_dispatch, so the sample rides the snapshot
+        if kit is None:
+            return
+        kit.series.sample(
+            t=clock.now_s, depth=depth(),
+            occupancy=chunk_len / rung,
+            shed_rate=counters["shed_count"] / max(1, arr_idx),
+            served_p99_s=served_p99())
+
+    def _observe_sentry(chunk, rung, out_ids) -> None:
+        # at the dispatch boundary, before the checkpoint, so the alert
+        # log rides the snapshot
+        if sn is None:
+            return
+        fired = sn.observe(
+            t=clock.now_s,
+            counters={"submitted": arr_idx,
+                      "served": counters["served"],
+                      "failed": counters["failed_count"],
+                      "retries": counters["retry_count"],
+                      "shed": counters["shed_count"],
+                      "deadline_miss": counters["deadline_miss_count"],
+                      "dispatches": counters["dispatches"]},
+            gauges={"depth": depth(),
+                    "occupancy": len(chunk) / rung,
+                    "pad_fraction": (rung - len(chunk)) / rung,
+                    "served_p99_s": served_p99()},
+            accounts=kit.meter.accounts if kit is not None else None,
+            context={
+                "trace_ids": ([str(p.rid) for p in chunk]
+                              if kit is not None else []),
+                "output_ids": out_ids,
+                "tenants": [req_by_rid[p.rid].label for p in chunk],
+                "checkpoint": (f"{checkpoint_path}@{dispatch_idx}"
+                               if ck is not None else None)})
+        if fired and admission.on_alert is not None:
+            # observe only: no scheduling decision reads the hook's result
+            for alert in fired:
+                admission.on_alert(alert)
 
     def _finish_dispatch(downgraded) -> None:
         nonlocal dispatch_idx
@@ -690,7 +968,7 @@ def run_queued(server, requests, *, admission=None, service_model=None,
         # round-trips exactly
         pend = [(skey, [[p.rid, p.degraded] for p in items])
                 for skey, items in pending.items()]
-        return {"verdict_log": list(verdict_lines),
+        state = {"verdict_log": list(verdict_lines),
                 "clock_s": np.asarray(clock.now_s, np.float64),
                 "arr_idx": arr_idx, "attempt_counter": attempt_counter,
                 "dispatch_idx": dispatch_idx,
@@ -700,6 +978,14 @@ def run_queued(server, requests, *, admission=None, service_model=None,
                              for nm, sk in sketches.items()},
                 "stale": stale.state(flatten=_flatten_output),
                 "pending": pend}
+        # the hooks ride the same snapshot seam, one JSON string each
+        if kit is not None:
+            state["flight"] = kit.state()
+        if ledger is not None:
+            state["lineage"] = ledger.state()
+        if sn is not None:
+            state["sentry"] = sn.state()
+        return state
 
     # ------------------------------------------------------ the event loop
     while True:
@@ -767,8 +1053,14 @@ def run_queued(server, requests, *, admission=None, service_model=None,
                 for scope, sk in sketches.items():
                     rep.latency.sketches.setdefault(
                         scope, QuantileSketch()).merge(sk)
+            # the hooks' rows land only on a complete drain: a partial
+            # trace set or ledger is the dangling shape --strict rejects
+            for hook in (kit, ledger, sn):
+                if hook is not None:
+                    rep.rows.extend(hook.rows(queue_name))
     return QueueResult(verdicts=verdict_log, outputs=outputs,
-                       counters=row, clock_s=clock.now_s, traffic=traffic)
+                       counters=row, clock_s=clock.now_s, flight=kit,
+                       traffic=traffic, lineage=ledger, sentry=sn)
 
 
 # ---------------------------------------------------- recorded-traffic replay
@@ -804,6 +1096,21 @@ def replay_traffic(server, rows, configs, *, name=None,
                             deadline_s=float(row["deadline_s"]),
                             tenant=row.get("tenant")))
     return run_queued(server, reqs, **kwargs)
+
+
+# --------------------------------------------------- flight cost sources
+
+
+def _qp_per_lane(out, rung: int):
+    """Per-lane QP solve counts from the dispatch output's
+    ``SolverDiagnostics``, or None when the output does not carry them in
+    the ``[rung]`` shape (metering is "when available", never a crash).
+    One copy to the host a dispatch."""
+    qp = getattr(getattr(getattr(out, "sim", None), "diagnostics", None),
+                 "qp_solves", None)
+    if not isinstance(qp, torch.Tensor) or tuple(qp.shape) != (rung,):
+        return None
+    return [float(v) for v in host_array(qp)]
 
 
 # ----------------------------------------------------------- tree helpers
@@ -843,13 +1150,6 @@ def _rehang_output(server, leaves):
         raise ValueError(f"a stale cache entry holds {len(leaves)} leaves, "
                          f"a served lane {want}")
     return _ckpt._rehang(skeleton, iter(leaves), server.device)
-
-
-def _config_leaves(config: TenantConfig) -> list:
-    """The config's value leaves, in the JAX package's pytree order (None
-    leaves absent)."""
-    return [np.asarray(getattr(config, name)) for name in _VALUE_LEAVES
-            if getattr(config, name) is not None]
 
 
 def _stale_key(config: TenantConfig) -> str:

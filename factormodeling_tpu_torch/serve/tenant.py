@@ -25,7 +25,7 @@ from typing import Any
 import numpy as np
 import torch
 
-__all__ = ["TenantConfig", "stack_configs"]
+__all__ = ["TenantConfig", "config_leaves", "stack_configs"]
 
 #: weight schemes a tenant may request (SimulationSettings.method)
 _METHODS = ("equal", "linear", "mvo", "mvo_turnover")
@@ -41,6 +41,13 @@ _RESERVED_SIM_KEYS = frozenset({
     "method", "max_weight", "pct", "shrinkage_intensity",
     "turnover_penalty", "return_weight", "tcost_scale", "lookback_period",
 })
+
+
+def config_leaves(config) -> list:
+    """A config's value leaves as host arrays, in the JAX package's pytree
+    order (None leaves absent): what its fingerprints hash."""
+    return [np.asarray(getattr(config, name)) for name in _VALUE_LEAVES
+            if getattr(config, name) is not None]
 
 
 def _sim_settings_cls():

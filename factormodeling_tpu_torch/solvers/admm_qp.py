@@ -46,6 +46,7 @@ from typing import NamedTuple
 
 import torch
 
+from factormodeling_tpu_torch.obs import probes as _obs_probes
 from factormodeling_tpu_torch.ops._cuda_admm import (_CONV_TOL, admm_segment,
                                                      anderson_init,
                                                      anderson_step,
@@ -81,8 +82,11 @@ class ADMMResult(NamedTuple):
     aa_accepted: torch.Tensor  # int32: Anderson extrapolations taken
     aa_rejected: torch.Tensor  # int32: safeguard rollbacks
     # first 1-based iteration at which max(|x - z|, rho dz) <= _CONV_TOL,
-    # 0 if never; None unless the solve was asked to collect it
+    # 0 if never; None unless the solve collected it
     iters_to_converge: torch.Tensor | None = None
+    # [(B,) n_segments, 3] per segment: primal residual, dual residual and
+    # the adapted rho; None unless the solve collected it
+    residual_traj: torch.Tensor | None = None
 
     @property
     def warm_state(self) -> "ADMMWarmState":
@@ -267,6 +271,13 @@ def _polish_candidate(mv, masked_solver, prob: BoxQPProblem, q, l1, z,
     return best[2], best[3]
 
 
+def _collecting(collect) -> bool:
+    """``collect``, or the probes gate where it is None."""
+    if collect is None:
+        return _obs_probes.collection_active()
+    return bool(collect)
+
+
 def _rho_start(prob: BoxQPProblem, l1, rho0: float):
     """Problem-aware initial penalty rho* ~ l1 * n_free / 20 per lane,
     clipped."""
@@ -286,7 +297,8 @@ def _admm_iterations(make_solver, prob: BoxQPProblem, q, l1, rho0, iters,
     ``nu = G^{-1}(E xt - b)`` with ``xt = solve_m(rho (z - u) - q)``.
     ``polish_ops`` is ``None`` or ``(mv, masked_solver)``. ``anderson``:
     history depth of the safeguarded Anderson accelerator (0 off).
-    ``collect``: tally the first iteration reaching ``_CONV_TOL``.
+    ``collect``: tally the first iteration reaching ``_CONV_TOL`` and keep
+    the per-segment residual trajectory.
     ``fused_segment``: optional ``(z, u, rho, seg_len, last) -> (x, z, u,
     dz, acc, rej, conv)`` running one whole segment; the residual-balancing
     tail is shared.
@@ -350,6 +362,8 @@ def _admm_iterations(make_solver, prob: BoxQPProblem, q, l1, rho0, iters,
         rho_new = torch.clamp(rho * step, *_RHO_BOUNDS)
         done = (r_prim + r_dual) <= torch.finfo(dtype).eps
         rho_new = torch.where(done, rho, rho_new)
+        if collect:
+            traj.append(torch.stack((r_prim, r_dual, rho_new), -1))
         return x, z, u * (rho / rho_new)[:, None], rho_new, (acc, rej, conv)
 
     rho = _rho_start(prob, l1, rho0)
@@ -364,6 +378,7 @@ def _admm_iterations(make_solver, prob: BoxQPProblem, q, l1, rho0, iters,
         z = torch.clamp(torch.nan_to_num(warm.z), prob.lo, prob.hi)
         u = torch.nan_to_num(warm.u) * (rho_prev / rho)[:, None]
     x = z
+    traj: list = []
     tallies = tuple(torch.zeros(lanes, dtype=torch.int32, device=dev)
                     for _ in range(3))
     iters = int(iters)
@@ -378,7 +393,8 @@ def _admm_iterations(make_solver, prob: BoxQPProblem, q, l1, rho0, iters,
     prim = torch.abs(x - z).amax(-1)
     acc, rej, conv = tallies
     extras = dict(aa_accepted=acc, aa_rejected=rej,
-                  iters_to_converge=conv if collect else None)
+                  iters_to_converge=conv if collect else None,
+                  residual_traj=torch.stack(traj, 1) if collect else None)
 
     nan = torch.full((lanes,), float("nan"), dtype=dtype, device=dev)
     if polish_ops is None:
@@ -556,7 +572,7 @@ def admm_solve_lowrank(alpha, V: torch.Tensor, s: torch.Tensor,
                        polish: bool = True,
                        polish_passes: int | None = None,
                        vvt: torch.Tensor | None = None,
-                       anderson: int = 0, collect: bool = False,
+                       anderson: int = 0, collect: bool | None = None,
                        kernel: str = "reference") -> ADMMResult:
     """Low-rank path: ``P = diag(alpha) + V' diag(s) V`` with ``V``
     ``[T, n]``, ``T << n``, or ``B`` lanes of such problems with ``V``
@@ -569,7 +585,10 @@ def admm_solve_lowrank(alpha, V: torch.Tensor, s: torch.Tensor,
     ``polish`` runs the guarded active-set refinement at exit. ``vvt`` is an
     optional precomputed ``V @ V.T`` (scalar alpha only). ``anderson`` is
     the Anderson history depth (0 off). ``collect`` fills
-    ``iters_to_converge`` (the JAX package gates it on its probes layer).
+    ``iters_to_converge`` and ``residual_traj``; None reads
+    :func:`~factormodeling_tpu_torch.obs.probes.collection_active` here,
+    where the solve starts, as the JAX package reads it where the solve is
+    traced.
     ``kernel``: ``"reference"`` runs the iteration loop in torch ops;
     ``"fused"`` runs each segment, all lanes at once, as one launch of the
     segment kernel (its plain version on a CPU tensor) for
@@ -579,6 +598,7 @@ def admm_solve_lowrank(alpha, V: torch.Tensor, s: torch.Tensor,
         raise ValueError(f"unknown solver kernel {kernel!r}")
     single, alpha, V, s, prob, warm_start = _as_lanes(alpha, V, s, prob,
                                                       warm_start)
+    collect = _collecting(collect)
     n = V.shape[-1]
     if vvt is not None and single:
         vvt = vvt[None]
@@ -631,7 +651,7 @@ def admm_solve_dense(P: torch.Tensor, prob: BoxQPProblem, *, rho: float = 2.0,
                      warm_start: ADMMWarmState | None = None,
                      polish: bool = True,
                      polish_passes: int | None = None,
-                     anderson: int = 0,
+                     anderson: int = 0, collect: bool | None = None,
                      kernel: str = "reference") -> ADMMResult:
     """Dense-P path (small n: factor-selection MVO): ``P [n, n]`` symmetric
     PSD, or ``B`` lanes ``P [B, n, n]`` with every other operand on the
@@ -677,7 +697,8 @@ def admm_solve_dense(P: torch.Tensor, prob: BoxQPProblem, *, rho: float = 2.0,
                            polish_ops=(mv, masked_solver) if polish else None,
                            polish_passes=(_POLISH_PASSES if polish_passes
                                           is None else int(polish_passes)),
-                           anderson=int(anderson))
+                           anderson=int(anderson),
+                           collect=_collecting(collect))
     if single:
         res = ADMMResult(*(None if f is None else f[0] for f in res))
     return res

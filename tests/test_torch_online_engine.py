@@ -11,8 +11,9 @@ case by case from the JAX package's ``tests/test_online.py`` and
 - a killed engine (the die hook, in a child interpreter) resumes from its
   checkpoint with no date applied twice and none lost, byte-equal to a
   straight-through run; a snapshot of another configuration never resumes;
-- the engine's rows are the JAX engine's at the step tolerances, and the
-  obs hooks it does not port raise.
+- the engine's rows are the JAX engine's at the step tolerances, and its
+  obs hooks record (their differentials are the ``test_torch_obs_*``
+  files).
 """
 
 import os
@@ -325,9 +326,16 @@ def test_engine_snapshot_is_the_jax_format_and_rows_match_jax(tmp_path):
 
 
 def test_engine_unported_hooks_raise_and_default_is_the_card(tmp_path):
-    for hook in ("flight", "lineage", "sentry"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            engine(**{hook: True})
+    # the engine's obs hooks are all ported now: each records, none raises
+    # (their differentials against the JAX engine are in
+    # test_torch_obs_lineage.py, test_torch_obs_sentry.py and
+    # test_torch_obs_flight.py)
+    for hook, rows in (("flight", "flight_rows"), ("lineage", "lineage_rows"),
+                       ("sentry", "sentry_rows")):
+        eng = engine(**{hook: True})
+        feed(eng, make_market(), dates=range(3))
+        assert getattr(eng, rows)() != [] or hook == "sentry"
+        assert getattr(engine(), rows)() == []
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             OnlineEngine(names=NAMES, n_assets=N,

@@ -39,6 +39,7 @@ from factormodeling_tpu.serve.tenant import TenantConfig as JaxTenant
 from factormodeling_tpu_torch import resil
 from factormodeling_tpu_torch.parallel import sweep as sweep_mod
 from factormodeling_tpu_torch.resil import checkpoint as ckpt
+from factormodeling_tpu_torch.resil.checkpoint import tree_leaves
 from factormodeling_tpu_torch.resil import faults
 from factormodeling_tpu_torch.resil import policy
 from factormodeling_tpu_torch.serve import TenantConfig
@@ -378,9 +379,18 @@ def test_off_spec_and_default_policy_are_the_clean_step():
                 (inert.selection, inert.signal, tuple(inert.sim[:4]),
                  tuple(inert.summary)))):
         assert _bytes(a) == _bytes(b)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        fmt.build_research_step(names=NAMES, window=WINDOW,
-                                collect_probes=True, device="cpu")
+    # probes on (ported): the outputs stay bitwise the clean step's
+    probed = fmt.build_research_step(names=NAMES, window=WINDOW,
+                                     sim_kwargs=_STEP_SIM,
+                                     collect_probes=True, device="cpu")(
+        *arrays, fault_spec=resil.FaultSpec.off(),
+        policy=resil.DegradePolicy.make())
+    assert len(probed.probes) == 7
+    for a, b in zip(tree_leaves((clean.selection, clean.signal,
+                                 tuple(clean.sim[:4]))),
+                    tree_leaves((probed.selection, probed.signal,
+                                 tuple(probed.sim[:4])))):
+        assert _bytes(a) == _bytes(b)
     with fmt.obs.collecting():
         built = fmt.build_research_step(names=NAMES, window=WINDOW,
                                         sim_kwargs=dict(method="equal"),
@@ -628,9 +638,17 @@ def test_checkpointed_sweep_interrupted_and_resumed_is_bitwise(
             factors, cw, other, combo_batch=2, chunk_combos=3,
             checkpoint=resil.Checkpointer(ck), device="cpu")
         assert "different configuration" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="not ported"):
-        fmt.parallel.checkpointed_manager_sweep(factors, cw, settings,
-                                                lineage=True, device="cpu")
+    # the provenance ledger (ported): one sweep_chunk edge a chunk, the
+    # outputs unchanged
+    from factormodeling_tpu_torch.obs.lineage import LineageLedger
+
+    led = LineageLedger()
+    lined = fmt.parallel.checkpointed_manager_sweep(
+        factors, cw, settings, combo_batch=2, chunk_combos=3, lineage=led,
+        device="cpu")
+    np.testing.assert_array_equal(lined.log_return.numpy(),
+                                  resumed.log_return.numpy())
+    assert [e["edge_kind"] for e in led.edges].count("sweep_chunk") == 3
 
 
 # ------------------------------------------------- blend tilt and tenants

@@ -19,8 +19,9 @@ float64 with seeded numpy inputs (F=5, D=30, N=8, window 6).
 - ``advance_all`` lanes against the JAX package's at the step
   tolerances, and bitwise the port's single-tenant ``online_step_parts``
   rows.
-- The unported hooks raise ``NotImplementedError``; ``TenantServer()``
-  without ``device="cpu"`` raises on a machine without a card.
+- ``mesh=`` raises ``NotImplementedError``, the obs hooks run;
+  ``TenantServer()`` without ``device="cpu"`` raises on a machine without
+  a card.
 """
 
 import dataclasses
@@ -433,22 +434,53 @@ def test_advance_all_lanes_bitwise_single_tenant_rows(market, advanced):
 # ------------------------------------------------- unported and card-only
 
 
-@pytest.mark.parametrize("call", [
-    lambda s: TenantServer(names=NAMES, device="cpu", mesh=object(),
-                           **s._market),
-    lambda s: s.serve([cfg(top_k=1)], lineage=True),
-    lambda s: s.serve_queued([], flight=True),
-    lambda s: s.serve_queued([], lineage=True),
-    lambda s: s.serve_queued([], sentry=True),
-    lambda s: s.advance_all(None, meter=object()),
-    lambda s: s.advance_all(None, series=object()),
+def _advance_hooked(server, **hook):
+    """One ``advance_all`` with an obs hook on; returns the hook."""
+    server.online_begin([cfg(top_k=1)])
+    server.advance_all(_slices(server._market, DateSlice)[0], **hook)
+    return next(iter(hook.values()))
+
+
+def _meter():
+    from factormodeling_tpu_torch.obs.metering import CostMeter
+
+    return CostMeter()
+
+
+def _series():
+    from factormodeling_tpu_torch.obs.reqtrace import HealthSeries
+
+    return HealthSeries()
+
+
+# the serving hooks are ported: only the mesh raises; each other hook runs
+# and records (its differential against the JAX package is in the
+# test_torch_obs_* files)
+@pytest.mark.parametrize("call,check", [
+    (lambda s: TenantServer(names=NAMES, device="cpu", mesh=object(),
+                            **s._market), None),
+    (lambda s: s.serve([cfg(top_k=1)], lineage=True),
+     lambda r: len(r) == 1),
+    (lambda s: s.serve_queued([], flight=True),
+     lambda r: r.flight is not None and r.flight.rows("q")),
+    (lambda s: s.serve_queued([], lineage=True),
+     lambda r: r.lineage is not None),
+    (lambda s: s.serve_queued([], sentry=True),
+     lambda r: r.sentry is not None),
+    (lambda s: _advance_hooked(s, meter=_meter()),
+     lambda m: len(m.accounts) == 1),
+    (lambda s: _advance_hooked(s, series=_series()),
+     lambda h: h.count == 1),
 ], ids=["mesh", "lineage", "flight", "queue_lineage", "sentry", "meter",
         "series"])
-def test_unported_hooks_raise(market, call):
+def test_unported_hooks_raise(market, call, check):
     server = TenantServer(names=NAMES, device="cpu", **market)
     server._market = market
-    with pytest.raises(NotImplementedError, match="queue 1 item"):
-        call(server)
+    if check is None:
+        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+            call(server)
+    else:
+        assert check(call(server))
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="needs a machine "

@@ -444,8 +444,11 @@ def test_admission_policy_and_stale_cache_guards():
         AdmissionPolicy(ladder=("panic",))
     with pytest.raises(ValueError, match="p99"):
         AdmissionPolicy(p99_budget_s=-1.0)
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        AdmissionPolicy(on_alert=print)
+    # the sentry's observe-only hook is ported: a callable is taken, and
+    # anything else is refused with the reason
+    assert AdmissionPolicy(on_alert=print).on_alert is print
+    with pytest.raises(ValueError, match="on_alert"):
+        AdmissionPolicy(on_alert=1)
     cache = StaleCache(cap=2)
     cache.put("a", 0, [np.zeros(2)])
     cache.put("b", 1, [np.ones(2)])
