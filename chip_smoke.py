@@ -74,7 +74,8 @@ Phases, in order (any failure exits non-zero before the last line):
    ``build_research_step`` with ``icir_top`` (K3 again), ``mvo``, ``pca``
    and ``regression`` selection at window 60, each blended and backtested
    with equal weights; two K3 launches in all; then the same path on the
-   CPU from the same inputs, held against the card;
+   CPU on its first 333 dates (cut from 1332 for path 12), held against
+   the card's run of those dates;
 7. path 8, the multi-manager layer: (8a) the notebook's multi-manager
    backtest at F=50, D=1332, N=1000 — icir_top daily factor weights (one K1
    launch), the 50 equal-weight manager books (``pct=0.1``) combined by
@@ -100,12 +101,13 @@ Phases, in order (any failure exits non-zero before the last line):
    active unheld days, its ``DegradeStats`` equal to a host recount from
    the drawn masks, the same cell on the host CPU at path 1's weight
    gate), K1 once and K2 two segments a date in each run; (9b) an
-   ``OnlineEngine`` for path 1's tenant fed the 333 dates one at a time,
+   ``OnlineEngine`` for path 1's tenant fed the first 166 of those dates
+   one at a time (cut from 333 to make room for path 12),
    held against 9a's clean step (selection rows bitwise, signal rows
    within ``P9_SIG_TOL``, weights at path 1's gate, leg counts and solver
    acceptance exact where the weights agree, daily P&L where the books
    agree), K1 once a date and K2 as on path 1, a fresh engine resumed from
-   its snapshot at date 300 and a restatement of date 320 replayed, both
+   its snapshot at date 140 and a restatement of date 155 replayed, both
    byte-equal; with the per-date advance wall p50/p99 and the
    synchronizing reads of a date by calling line;
 9. path 10, the serving layer at path 1's market (F=50, N=1000, float32,
@@ -142,8 +144,9 @@ Phases, in order (any failure exits non-zero before the last line):
    probed on the CPU, the tally firing and equal to the CPU's; (11b) the
    segment kernel's ``collect=1`` form at T=60, N=1000, float64, the tally
    exact against its plain version; (11c) 9b's tenant as an
-   ``OnlineEngine(flight=True, lineage=True, sentry=...)`` over 64 dates,
-   a checkpoint a date, a restatement, a kill at date 32 and a resume: its
+   ``OnlineEngine(flight=True, lineage=True, sentry=...)`` over 32 dates
+   (cut from 64 for path 12), a checkpoint a date, a restatement, a kill
+   at date 16 and a resume: its
    rows bitwise an unhooked engine's, the resumed ledger and alert log
    byte-equal to straight through, the checkers clean, one finished span
    tree a tick, the wall a date beside 9b's and one state hash timed;
@@ -154,7 +157,29 @@ Phases, in order (any failure exits non-zero before the last line):
    ``advance_all(meter=, series=)`` over 16 of 10d's dates, each bitwise
    its unhooked run; path 8c runs with ``lineage=`` on, its resumed
    ledger byte-equal to a straight-through checkpointed run's;
-11. one ``kernels`` JSON line; then the last line
+11. path 12, the scenario engine and out-of-core streaming: (12a)
+   ``scenarios.run_scenarios`` on 10a's market and equal tenant, the
+   regime (``bench.py``'s knobs), bootstrap (blocks of D // 12) and
+   adversarial (window 20, NaN, Inf, outlier, stale, drop and collapse
+   draws, the default ``DegradePolicy``) families, 32 paths each in chunks
+   of 16: K1 once a dispatch (the hoist), the ``off()`` specs' paths
+   bitwise the plain tenant step, bootstrap indices in range, adversarial
+   draws inside their windows, every path finite, paths/s and one path
+   against one tenant step, 2 adversarial paths against the host CPU on
+   the first 333 dates at path 5's gates; (12b) the regime
+   family killed after 2 of 4 chunks through ``_FMT_SCEN_STOP_AFTER_CHUNK``
+   and resumed, rows and ``lineage=`` ledger byte-equal to straight
+   through; (12c) 10b's ``mvo_turnover`` tenant under the regime family, 2
+   paths over the first 166 dates, K2 as the schedule; (12d) ``bench.py``'s
+   north star, 200 x 5040 x 5000 float32 in chunks of 10 from a device
+   source, ``streamed_linear_research`` and the equal backtest: K1 20
+   times, the first 2 chunks' stats bitwise the one-shot stats, the
+   one-pass composite against the two-pass flow, the wall and the memory
+   peak, K1 timed at 50,400 rows of 5000; (12e) its host form, 16 factors
+   (1.6 GB) streamed from host memory serially, prefetched and from chunk
+   files through the pinned copy stream, bitwise equal, with each wall and
+   host-to-device rate;
+12. one ``kernels`` JSON line; then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs one card and exits non-zero, printing no result, without one or
@@ -287,6 +312,9 @@ P5_SAME_LEGS_RET_TOL = 1e-6
 P5_SIGN_NOISE = 1e-6
 P5_SELECTORS = {"icir_top": {}, "mvo": {"qp_iters": 500}, "pca": {},
                 "regression": {}}
+# the CPU reference runs the path's first P5_CPU_DATES dates, beside the
+# card's run of the same dates (cut from 1332 to make room for path 12)
+P5_CPU_DATES = 333
 
 # path 4 on the card against the same sweep on the CPU (the XLA formulation
 # of ts_decay, the same backtest): a decayed value that rounds the other way
@@ -1444,8 +1472,14 @@ def scoring_path(torch, fmt, seed: int) -> dict:
         launches = {"rank_ic_fused": rs.launches,
                     "rank_ic_postsort": rk.launches,
                     "admm_segment": ak.launches}
+        # the CPU reference on the first P5_CPU_DATES dates, beside the
+        # card's run of the same dates (the table aggregates every date)
+        card_c, host_c = (type(x)(*(a[:, :P5_CPU_DATES] if a.ndim == 3
+                                    else a[:P5_CPU_DATES] for a in x))
+                          for x in (card, host))
+        table_c, outs_c, _ = _scoring_run(torch, fmt, card_c, "cuda")
         t0 = time.perf_counter()
-        table_h, outs_h, secs_h = _scoring_run(torch, fmt, host, "cpu")
+        table_h, outs_h, secs_h = _scoring_run(torch, fmt, host_c, "cpu")
         total_h = time.perf_counter() - t0
     log(f"path scoring_selection: F={F} D={D} N={N} window {WINDOW}: "
         f"{total:.3f} s wall on the card ("
@@ -1480,7 +1514,7 @@ def scoring_path(torch, fmt, seed: int) -> dict:
     if not (err_rank <= RANK_IC_TOL and same):
         raise AssertionError("scoring path: the fused and post-sort routes' "
                              "tables differ")
-    err_tab = {c: float(((table[c].cpu() - table_h[c]).abs()
+    err_tab = {c: float(((table_c[c].cpu() - table_h[c]).abs()
                          / (1.0 + table_h[c].abs())).max()) for c in cols}
 
     errs = {}
@@ -1498,17 +1532,22 @@ def scoring_path(torch, fmt, seed: int) -> dict:
         if not all(np.isfinite(v) for v in summ.values()):
             raise AssertionError(f"scoring path {method}: non-finite summary "
                                  f"{summ}")
-        dw = (sel.cpu() - outs_h[method].selection).abs().max(-1).values
+        # against the CPU: the card's run of the CPU reference's dates
+        out_c = outs_c[method]
+        dw = (out_c.selection.cpu()
+              - outs_h[method].selection).abs().max(-1).values
         share = float((dw > P5_DW_TOL).double().mean())
         errs[method] = (float(dw.max()), share)
+        summ_c = {k: float(v) for k, v in out_c.summary._asdict().items()}
         summ_h = {k: float(v)
                   for k, v in outs_h[method].summary._asdict().items()}
         # the equal-weight legs: (date, asset) cells long on one side and
         # not on the other, or short on one and not on the other
-        legs = leg_differences(torch, out, outs_h[method])
-        d_sharpe = abs(summ["sharpe"] - summ_h["sharpe"])
+        legs = leg_differences(torch, out_c, outs_h[method])
+        d_sharpe = abs(summ_c["sharpe"] - summ_h["sharpe"])
         log(f"path scoring_selection {method}: {int((rowsum > 0).sum())} "
-            f"dates selected; summary {json.dumps(summ)}; vs the CPU: max "
+            f"dates selected; summary {json.dumps(summ)}; vs the CPU on the "
+            f"first {P5_CPU_DATES} dates: max "
             f"|dw| {errs[method][0]:.3e}, share of dates with |dw| > "
             f"{P5_DW_TOL}: {share:.4f}, max |d sharpe| {d_sharpe:.3e}; legs "
             + json.dumps(legs) + f" (tol {P5_SAME_LEGS_RET_TOL} on "
@@ -1535,9 +1574,10 @@ def scoring_path(torch, fmt, seed: int) -> dict:
     # pca against a per-date bound from the card's own eigenvalue gaps
     from factormodeling_tpu_torch.selection.selectors import (
         SelectionContext, _windowed_moments)
-    ctx = SelectionContext(metrics_win={}, factor_ret=card.factor_ret,
-                           ret_win_sum=card.factor_ret, window=WINDOW)
-    mu, cov = _windowed_moments(ctx, torch.arange(D, device="cuda"),
+    ctx = SelectionContext(metrics_win={}, factor_ret=card_c.factor_ret,
+                           ret_win_sum=card_c.factor_ret, window=WINDOW)
+    mu, cov = _windowed_moments(ctx, torch.arange(P5_CPU_DATES,
+                                                  device="cuda"),
                                 use_shrinkage=True)
     finite = torch.isfinite(cov).all(-1).all(-1) & torch.isfinite(mu).all(-1)
     ev, vec = torch.linalg.eigh(torch.where(finite[:, None, None], cov,
@@ -1548,7 +1588,7 @@ def scoring_path(torch, fmt, seed: int) -> dict:
     clipped_sum = lead.clamp(min=0.0).sum(-1)
     bound_t = (P5_PCA_GAP_K * torch.finfo(torch.float32).eps * ev[:, -1]
                / ((ev[:, -1] - ev[:, -2]) * clipped_sum)).cpu()
-    dw_pca = (outs["pca"].selection.cpu()
+    dw_pca = (outs_c["pca"].selection.cpu()
               - outs_h["pca"].selection).abs().max(-1).values
     ratio = float((dw_pca / bound_t)[finite.cpu()].nan_to_num().max())
     log(f"path scoring_selection pca: max over dates of |dw| / "
@@ -2157,7 +2197,11 @@ P11_STAGES = ["ops/factors_raw", "ops/factors_delta", "selection/rolling",
 # difference exceeds this (float32 z-scores of order 1) counts as parted
 P9_SIG_TOL = 1e-5
 # the online engine's snapshot and restatement dates
-P9_RESUME_DATE, P9_RESTATE_DATE = 300, 320
+# 9b: the online advance over the first P9B_DATES dates (cut from 333 to
+# make room for path 12; 10d reads its rows), the resume and restatement
+# inside them
+P9B_DATES = 166
+P9_RESUME_DATE, P9_RESTATE_DATE = 140, 155
 
 
 def _bytes_equal(a, b) -> bool:
@@ -2499,7 +2543,7 @@ def _sync_reads(torch, fn):
 def online_path(torch, fmt, seed: int, clean) -> dict:
     """Path 9b: an ``OnlineEngine`` for path 1's tenant (icir_top top 5,
     zscore, mvo_turnover, penalty 0.1, max_weight 0.03, lookback and
-    window 60, fused) ingests dates 0..R_DATES-1 of path 1's inputs one at
+    window 60, fused) ingests dates 0..P9B_DATES-1 of path 1's inputs one at
     a time on the card, held against path 9a's clean step: the selection
     and signal rows (bitwise, or the rows the card's reductions part
     counted), the traded weights at DW_TOL/DW_SHARE, the leg counts and
@@ -2515,7 +2559,7 @@ def online_path(torch, fmt, seed: int, clean) -> dict:
     from factormodeling_tpu_torch.online import DateSlice, OnlineEngine
     from factormodeling_tpu_torch.serve import TenantConfig
 
-    arrays = tuple(a[:, :R_DATES] if a.ndim == 3 else a[:R_DATES]
+    arrays = tuple(a[:, :P9B_DATES] if a.ndim == 3 else a[:P9B_DATES]
                    for a in make_inputs(F, D, N, seed))
     factors, returns, factor_ret, cap, invest, universe = arrays
     tmpl = TenantConfig(method="mvo_turnover", window=WINDOW,
@@ -2548,9 +2592,9 @@ def online_path(torch, fmt, seed: int, clean) -> dict:
     straight = engine(checkpoint=ck, checkpoint_every=P9_RESUME_DATE + 1)
     rk.launches = ak.launches = ak.lane_launches = 0
     rows, walls = {}, []
-    for t in range(R_DATES):
+    for t in range(P9B_DATES):
         t0 = time.perf_counter()
-        if t == R_DATES - 1:    # the last date counts its synchronizing reads
+        if t == P9B_DATES - 1:    # the last date counts its synchronizing reads
             v, syncs = _sync_reads(torch, lambda: straight.ingest(
                 t, date_slice(t)))
         else:
@@ -2561,10 +2605,10 @@ def online_path(torch, fmt, seed: int, clean) -> dict:
         rows.update({int(o["day"]): o for o in v.outputs})
     launches = segment_counts(rk, ak)
     segs = segment_launches(fmt, PATHS["turnover"], d=1)[0]
-    want = {"rank_ic_postsort": R_DATES,
-            "admm_segment": (R_DATES - 1) * segs, "admm_segment_lanes": 0}
+    want = {"rank_ic_postsort": P9B_DATES,
+            "admm_segment": (P9B_DATES - 1) * segs, "admm_segment_lanes": 0}
     ms = np.asarray(walls[1:]) * 1e3
-    log(f"path online: {R_DATES} dates ingested one at a time, F={F} N={N}, "
+    log(f"path online: {P9B_DATES} dates ingested one at a time, F={F} N={N}, "
         f"float32 panels: advance wall per date p50 "
         f"{np.percentile(ms, 50):.3f} ms, p99 {np.percentile(ms, 99):.3f} "
         f"ms, max {ms.max():.3f} ms, total {sum(walls):.3f} s; launches "
@@ -2575,13 +2619,13 @@ def online_path(torch, fmt, seed: int, clean) -> dict:
         raise AssertionError(f"online: launches {launches}, the schedule "
                              f"implies {want}")
     days = sorted(rows)
-    if days != list(range(R_DATES - 1)):
+    if days != list(range(P9B_DATES - 1)):
         raise AssertionError(f"online: finalized days {days[:3]}..")
 
     def stack(key):
         return torch.from_numpy(np.stack([rows[d][key] for d in days]))
 
-    cut = R_DATES - 1
+    cut = P9B_DATES - 1
     d_sel = (stack("selection") - clean.selection[:cut].cpu()).abs()
     d_sig = (stack("signal").nan_to_num()
              - clean.signal[:cut].cpu().nan_to_num()).abs().max(-1).values
@@ -2626,7 +2670,7 @@ def online_path(torch, fmt, seed: int, clean) -> dict:
         raise AssertionError(f"online: resumed at {resumed.last_date}")
     dup = resumed.ingest(P9_RESUME_DATE, date_slice(P9_RESUME_DATE))
     res_rows = {}
-    for t in range(P9_RESUME_DATE + 1, R_DATES):
+    for t in range(P9_RESUME_DATE + 1, P9B_DATES):
         res_rows.update({int(o["day"]): o for o in
                          resumed.ingest(t, date_slice(t)).outputs})
     res_equal = all(
@@ -2658,7 +2702,7 @@ def online_path(torch, fmt, seed: int, clean) -> dict:
 # save holds the ring's states, ~2.2 MB each at this width), the kill at
 # P11C_KILL and a restatement of P11C_RESTATE inside the horizon, re-sent
 # after the last date
-P11C_DATES, P11C_HORIZON, P11C_KILL, P11C_RESTATE = 64, 4, 32, 62
+P11C_DATES, P11C_HORIZON, P11C_KILL, P11C_RESTATE = 32, 4, 16, 30
 
 
 def engine_sentry(fmt):
@@ -2790,7 +2834,7 @@ def hooked_online_path(torch, fmt, seed: int, ms9b) -> None:
         f"{np.percentile(ms, 99):.3f} ms; the same dates unhooked "
         f"without checkpoints p50 {np.percentile(ms_plain, 50):.3f} ms, p99 "
         f"{np.percentile(ms_plain, 99):.3f} ms (9b, hooks off, one "
-        f"checkpoint in {R_DATES} dates: p50 {np.percentile(ms9b, 50):.3f} "
+        f"checkpoint in {P9B_DATES} dates: p50 {np.percentile(ms9b, 50):.3f} "
         f"ms, p99 {np.percentile(ms9b, 99):.3f} ms); one state hash "
         f"{np.median(hash_s) * 1e3:.3f} ms ({nbytes / 1e6:.1f} MB to the "
         f"host and sha256); rows bitwise the unhooked engine's: {bitwise} "
@@ -3397,6 +3441,497 @@ def advance_all_path(torch, fmt, seed: int, configs, rows9b) -> dict:
 #: path 11d: advance_all with the meter and the health series
 P11D_DATES = 16
 
+# path 12a: the scenario engine at path 1's width (10a's market and its
+# equal tenant knobs), SC_PATHS paths a family in chunks of SC_CHUNK; the
+# regime knobs are bench.py's (:2540-2542), the bootstrap's blocks D // 12
+SC_PATHS, SC_CHUNK = 32, 16
+SC_REGIME = dict(seed=7, vol_scale=2.0, mean_shift=-0.005, corr_tighten=0.4)
+SC_ADV = dict(seed=11, window_len=20, nan_rate=0.01, inf_rate=0.005,
+              outlier_rate=0.005, stale_rate=0.2, drop_rate=0.1,
+              collapse_rate=0.1, collapse_keep=50)
+# 2 adversarial paths on the first SC_CPU_DATES dates, card against the
+# host CPU from the same host draws, at path 5's gates
+# (``_scenario_cpu_check``)
+SC_CPU_PATHS, SC_CPU_DATES = 2, 333
+# 12b: the regime family, chunks of SC_KILL_CHUNK, killed after 2
+SC_KILL_CHUNK, SC_KILL_AFTER = 8, 2
+# 12c: path 9's turnover tenant under the regime family
+SC_TURNOVER_PATHS, SC_TURNOVER_DATES = 2, 166
+# 12d: bench.py's north star (:1296-1390) at full size, streamed from a
+# device source; 12e: its host-resident form (:1408)
+NS_F, NS_D, NS_N, NS_CHUNK, NS_WINDOW = 200, 5040, 5000, 10, 60
+NS_HOST_F, NS_HOST_CHUNK = 16, 4
+# the one-pass composite against the two-pass flow: float32 sums over 200
+# factors of weights x z-scores (|z| <~ 5), normalized before (two-pass)
+# or after (one-pass) the sum: ~200 float32 roundings of values <~ 5
+NS_COMPOSITE_TOL = 1e-4
+
+
+def _scenario_template(fmt):
+    """10a's first tenant: equal weights, window 60, icir_top."""
+    return serving_configs(fmt, 1)[0]
+
+
+def _legs(w):
+    """The long and short memberships of a book's weights."""
+    w = w.nan_to_num()
+    return w > 0, w < 0
+
+
+def _adversarial_host_check(spec, d: int, n: int) -> None:
+    """Every day and cell draw of every path lies inside the path's
+    window."""
+    for p in range(SC_PATHS):
+        key = (spec.seed, p)
+        in_win, stale, drop, collapse = spec.schedule(key, d)
+        if (stale | drop | collapse)[~in_win].any():
+            raise AssertionError(f"scenarios: path {p} day draws outside "
+                                 "its window")
+        for m in spec.cell_masks(key, (d, n), in_win):
+            if m is not None and m[~in_win].any():
+                raise AssertionError(f"scenarios: path {p} cell draws "
+                                     "outside its window")
+
+
+def scenario_path(torch, fmt, seed: int) -> dict:
+    """Path 12a: ``run_scenarios`` of the regime, bootstrap and adversarial
+    families at F=50, D=1332, N=1000 (float32, 10a's equal tenant),
+    SC_PATHS paths each in chunks of SC_CHUNK (the adversarial family under
+    the default ``DegradePolicy``): K1 once a dispatch (the hoist); the
+    ``off()`` specs' paths bitwise the tenant's plain step; bootstrap day
+    indices in range; adversarial draws inside their windows; finite
+    metrics on every path; 2 adversarial paths held against the host CPU
+    on the first SC_CPU_DATES dates. Prints paths/s a family and one path
+    against one tenant step. Returns the K1 launches."""
+    from factormodeling_tpu_torch import scenarios
+    from factormodeling_tpu_torch.metrics import _cuda_rank_ic as rk
+    from factormodeling_tpu_torch.serve.batched import (
+        make_tenant_research_step)
+
+    arrays = make_inputs(F, D, N, seed)
+    names = factor_names(F)
+    tpl = _scenario_template(fmt)
+    panels = {k: torch.from_numpy(v).cuda()
+              for k, v in _panels(arrays).items()}
+    tenant = tpl.normalized(F, len(fmt.composite.prefix_group_ids(names)[1]),
+                            dtype=np.float32)
+    step = make_tenant_research_step(names=names, template=tpl)
+    base, step_secs = _timed(torch, lambda: step(tenant, *panels.values()))
+    base, step_secs = _timed(torch, lambda: step(tenant, *panels.values()))
+    k1 = 0
+
+    def run(spec, n_paths, chunk, **kw):
+        nonlocal k1
+        before = rk.launches
+        res, secs = _timed(torch, lambda: scenarios.run_scenarios(
+            names=names, template=tpl, spec=spec, n_paths=n_paths,
+            chunk=chunk, device="cuda", **panels, **kw))
+        got = rk.launches - before
+        if got != -(-n_paths // chunk):
+            raise AssertionError(f"scenarios: {got} K1 launches for "
+                                 f"{-(-n_paths // chunk)} dispatches")
+        k1 += got
+        return res, secs
+
+    # the identity specs: every path bitwise the plain step
+    for spec in (scenarios.RegimeSpec.off(seed=3),
+                 scenarios.AdversarialSpec.off(seed=4)):
+        res, _ = run(spec, 2, 2, return_books=True)
+        for p in range(2):
+            book = res.book(p)
+            if not all(torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0))
+                       for a, b in ((book.signal, base.signal),
+                                    (book.sim.weights, base.sim.weights),
+                                    (book.sim.result.log_return,
+                                     base.sim.result.log_return))):
+                raise AssertionError(f"scenarios: {type(spec).__name__}.off "
+                                     f"path {p} is not the plain step")
+    families = {
+        "regime": (scenarios.RegimeSpec.make(**SC_REGIME), None),
+        "bootstrap": (scenarios.BootstrapSpec.make(seed=5,
+                                                   block_len=D // 12), None),
+        "adversarial": (scenarios.AdversarialSpec.make(**SC_ADV),
+                        fmt.resil.DegradePolicy.make()),
+    }
+    boot = families["bootstrap"][0]
+    for p in range(SC_PATHS):
+        idx = boot.day_index((boot.seed, p), D)
+        if not ((idx >= 0) & (idx < D)).all():
+            raise AssertionError(f"scenarios: bootstrap path {p} day index "
+                                 "out of range")
+    _adversarial_host_check(families["adversarial"][0], D, N)
+    for family, (spec, policy) in families.items():
+        runner = scenarios.make_scenario_runner(names=names, template=tpl,
+                                                family=family)
+        res, secs = run(spec, SC_PATHS, SC_CHUNK, policy=policy,
+                        runner=runner)
+        pnl = next(r for r in res.rows if r["metric"] == "pnl_total")
+        log(f"path scenarios (12a) {family}: {SC_PATHS} paths in "
+            f"{-(-SC_PATHS // SC_CHUNK)} dispatches, {secs:.3f} s, "
+            f"{SC_PATHS / secs:.2f} paths/s, one path {secs / SC_PATHS:.4f} s "
+            f"= {secs / SC_PATHS / step_secs:.3f}x one tenant step "
+            f"({step_secs:.4f} s); pnl VaR {pnl['var']} ES {pnl['es']} "
+            f"p50 {pnl['p50']}; nonfinite paths {res.nonfinite_path_count}; "
+            f"degrade {json.dumps(res.degrade)}")
+        if res.nonfinite_path_count or not res.finite_ok:
+            raise AssertionError(f"scenarios: {family} non-finite paths "
+                                 f"{res.nonfinite}")
+    _scenario_cpu_check(torch, fmt, arrays, names, tpl,
+                        families["adversarial"])
+    return {"rank_ic_postsort": k1}
+
+
+def _scenario_cpu_check(torch, fmt, arrays, names, tpl, family) -> None:
+    """12a's adversarial paths 0..SC_CPU_PATHS-1 on the first SC_CPU_DATES
+    dates, card against host CPU, at path 5's gates: the selection rows at
+    P5_DW_TOL on all but P5_DW_SHARE of the dates; the daily return on a
+    calm day (no leg member flipped that day or the day before) within
+    P5_SAME_LEGS_RET_TOL. Legs flip where rounding decides them
+    (``leg_differences``: a selection weight of ~1e-9 against 0, a signal
+    whose sign is rounding, and here the blasted rows of ~1e9 cells, whose
+    z-scores are float32 rounding); the flips inside the corruption window
+    (or the day after it) are counted apart."""
+    from factormodeling_tpu_torch import scenarios
+
+    spec, policy = family
+    cut = tuple(a[:, :SC_CPU_DATES] if a.ndim == 3 else a[:SC_CPU_DATES]
+                for a in arrays)
+    books = {}
+    for dev in ("cuda", "cpu"):
+        books[dev] = scenarios.run_scenarios(
+            names=names, template=tpl, spec=spec, policy=policy,
+            n_paths=SC_CPU_PATHS, chunk=SC_CPU_PATHS, return_books=True,
+            device=dev, **{k: torch.from_numpy(v).to(dev)
+                           for k, v in _panels(cut).items()}).books
+    for p in range(SC_CPU_PATHS):
+        card = fmt.serve.batched.tree_lane(books["cuda"], p)
+        host = fmt.serve.batched.tree_lane(books["cpu"], p)
+        dsel = (card.selection.cpu() - host.selection).abs().max(-1).values
+        share = float((dsel > P5_DW_TOL).double().mean())
+        legs = leg_differences(torch, card, host)
+        in_win = spec.schedule((spec.seed, p), SC_CPU_DATES)[0]
+        window = torch.from_numpy(in_win | np.roll(in_win, 1))
+        w_c = card.sim.weights.nan_to_num().cpu()
+        w_h = host.sim.weights.nan_to_num()
+        flip_day = (((w_c > 0) != (w_h > 0)) | ((w_c < 0) != (w_h < 0))
+                    ).any(-1)
+        log(f"path scenarios (12a) adversarial path {p}, {SC_CPU_DATES} "
+            f"dates, card vs CPU: selection share beyond {P5_DW_TOL} "
+            f"{share:.4f}; legs " + json.dumps(legs)
+            + f"; flipped days inside the window or after it "
+            f"{int((flip_day & window).sum())}; pnl "
+            f"{float(card.summary.total_log_return):.6f} / "
+            f"{float(host.summary.total_log_return):.6f} (tol "
+            f"{P5_SAME_LEGS_RET_TOL} on calm_max_d_return)")
+        if (share > P5_DW_SHARE
+                or not legs["calm_max_d_return"] <= P5_SAME_LEGS_RET_TOL
+                or not np.isfinite(float(card.summary.total_log_return))):
+            raise AssertionError(f"scenarios: adversarial path {p} card vs "
+                                 "CPU beyond path 5's gates")
+
+
+def scenario_resume_path(torch, fmt, seed: int) -> dict:
+    """Path 12b: the regime family, SC_PATHS paths in chunks of
+    SC_KILL_CHUNK, stopped after SC_KILL_AFTER chunks through the
+    ``_FMT_SCEN_STOP_AFTER_CHUNK`` seam and resumed from its checkpoint:
+    rows and ``lineage=`` ledger byte-equal to a straight-through run."""
+    from factormodeling_tpu_torch import scenarios
+    from factormodeling_tpu_torch.metrics import _cuda_rank_ic as rk
+    from factormodeling_tpu_torch.obs.lineage import LineageLedger
+    from factormodeling_tpu_torch.scenarios import engine as sc_engine
+
+    panels = {k: torch.from_numpy(v).cuda()
+              for k, v in _panels(make_inputs(F, D, N, seed)).items()}
+    kw = dict(names=factor_names(F), template=_scenario_template(fmt),
+              spec=scenarios.RegimeSpec.make(**SC_REGIME), n_paths=SC_PATHS,
+              chunk=SC_KILL_CHUNK, device="cuda", **panels)
+    ck = os.path.join(ROOT, "build", "chip_smoke", "scenarios.ckpt")
+    os.makedirs(os.path.dirname(ck), exist_ok=True)
+    if os.path.exists(ck):
+        os.unlink(ck)
+    before = rk.launches
+    straight_ledger = LineageLedger()
+    straight, s_secs = _timed(torch, lambda: scenarios.run_scenarios(
+        lineage=straight_ledger, **kw))
+    os.environ[sc_engine._STOP_ENV] = str(SC_KILL_AFTER)
+    try:
+        part, p_secs = _timed(torch, lambda: scenarios.run_scenarios(
+            checkpoint_path=ck, lineage=LineageLedger(), **kw))
+    finally:
+        del os.environ[sc_engine._STOP_ENV]
+    ledger = LineageLedger()
+    resumed, r_secs = _timed(torch, lambda: scenarios.run_scenarios(
+        checkpoint_path=ck, lineage=ledger, **kw))
+    n_chunks = -(-SC_PATHS // SC_KILL_CHUNK)
+    k1 = rk.launches - before
+    log(f"path scenarios (12b): regime, {SC_PATHS} paths in {n_chunks} "
+        f"chunks: straight {s_secs:.3f} s, killed after {SC_KILL_AFTER} "
+        f"chunks {p_secs:.3f} s, resumed {r_secs:.3f} s; rows equal "
+        f"{resumed.rows == straight.rows}, ledgers byte-equal "
+        f"{ledger.state() == straight_ledger.state()}; K1 {k1}")
+    if part.completed or part.rows:
+        raise AssertionError("scenarios: the stop seam did not stop the run")
+    if resumed.rows != straight.rows \
+            or ledger.state() != straight_ledger.state():
+        raise AssertionError("scenarios: the resumed run is not the "
+                             "straight-through run")
+    if k1 != 2 * n_chunks:
+        raise AssertionError(f"scenarios (12b): {k1} K1 launches for "
+                             f"{2 * n_chunks} dispatches")
+    return {"rank_ic_postsort": k1}
+
+
+def scenario_turnover_path(torch, fmt, seed: int) -> dict:
+    """Path 12c: 10b's first tenant (``mvo_turnover``, path 1's knobs) under
+    the regime family, SC_TURNOVER_PATHS paths over the first
+    SC_TURNOVER_DATES dates: K1 once, K2 as the schedule (two segments a
+    date a path), finite metrics."""
+    from factormodeling_tpu_torch import scenarios
+    from factormodeling_tpu_torch.metrics import _cuda_rank_ic as rk
+    from factormodeling_tpu_torch.ops import _cuda_admm as ak
+
+    cut = tuple(a[:, :SC_TURNOVER_DATES] if a.ndim == 3
+                else a[:SC_TURNOVER_DATES] for a in make_inputs(F, D, N, seed))
+    rk.launches = ak.launches = ak.lane_launches = 0
+    res, secs = _timed(torch, lambda: scenarios.run_scenarios(
+        names=factor_names(F), template=turnover_configs(fmt)[0],
+        spec=scenarios.RegimeSpec.make(**SC_REGIME),
+        n_paths=SC_TURNOVER_PATHS, chunk=SC_TURNOVER_PATHS, device="cuda",
+        **{k: torch.from_numpy(v).cuda() for k, v in _panels(cut).items()}))
+    launches = segment_counts(rk, ak)
+    segs = segment_launches(fmt, PATHS["turnover"], d=1)[0]
+    want = {"rank_ic_postsort": 1,
+            "admm_segment": SC_TURNOVER_PATHS * SC_TURNOVER_DATES * segs,
+            "admm_segment_lanes": 0}
+    log(f"path scenarios (12c): mvo_turnover under the regime family, "
+        f"{SC_TURNOVER_PATHS} paths x {SC_TURNOVER_DATES} dates, {secs:.3f} "
+        f"s ({secs / SC_TURNOVER_PATHS:.3f} s a path); launches "
+        f"{json.dumps(launches)}; nonfinite paths {res.nonfinite_path_count}")
+    if launches != want:
+        raise AssertionError(f"scenarios (12c): launches {launches}, the "
+                             f"schedule implies {want}")
+    if not res.finite_ok:
+        raise AssertionError("scenarios (12c): non-finite path metrics")
+    return launches
+
+
+def _north_star_market(torch, seed: int):
+    """bench.py's north-star panels on the card: returns, cap flags, all
+    investable (from ``seed``)."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    rets = 0.02 * torch.randn((NS_D, NS_N), generator=g, device="cuda")
+    cap = torch.randint(1, 4, (NS_D, NS_N), generator=g,
+                        device="cuda").float()
+    return rets, cap
+
+
+def _north_star_source(torch, rets, seed: int):
+    """The device source: chunk ``i`` regenerated on the card from a seeded
+    generator, ``0.02 * returns + N(0, 1)`` (bench.py's)."""
+    g = torch.Generator(device="cuda")
+
+    def source(i):
+        g.manual_seed(seed * 100_003 + i)
+        return 0.02 * rets[None] + torch.randn((NS_CHUNK, NS_D, NS_N),
+                                               generator=g, device="cuda")
+
+    return source
+
+
+def _momentum_fn(torch):
+    """bench.py's factorwise momentum weights of a chunk (a stable callable:
+    the streaming LRU keys on it)."""
+    from factormodeling_tpu_torch.ops._window import rolling_sum, shift
+
+    i = torch.arange(NS_D, device="cuda")
+    processed = ((i >= NS_WINDOW) & (i <= NS_D - 2))[None, :]
+
+    def chunk_momentum(stats_d):
+        fr = stats_d["factor_return"]                    # [C, D]
+        sums = rolling_sum(torch.where(torch.isnan(fr), 0.0, fr), NS_WINDOW,
+                           axis=1)
+        mom = torch.clamp(shift(sums, 1, axis=1, fill_value=0.0), min=0.0)
+        return torch.where(processed, mom, 0.0)
+
+    return chunk_momentum
+
+
+def north_star_path(torch, fmt, seed: int) -> tuple:
+    """Path 12d: bench.py's north star at full size, 200 x 5040 x 5000
+    float32 in chunks of 10 from a device source:
+    ``streamed_linear_research`` (z-score, shift 2, rank-IC and factor
+    returns, momentum weights), then the equal backtest at pct 0.1. Gates:
+    the first 2 chunks' streamed stats bitwise the one-shot
+    ``daily_factor_stats`` of the same 20 factors; the one-pass composite
+    against the two-pass flow within NS_COMPOSITE_TOL; K1 20 times. Times
+    K1 at the chunk's 50,400 rows of 5000 beside its plain version, its
+    bound and ``torch.sort`` + gather + K1. Returns ``(launches, K1's
+    north-star fields)``."""
+    from factormodeling_tpu_torch.metrics import _cuda_rank_ic as rk
+    from factormodeling_tpu_torch.metrics import daily_factor_stats
+    from factormodeling_tpu_torch.parallel import streaming
+
+    rets, cap = _north_star_market(torch, seed + 6)
+    source = _north_star_source(torch, rets, seed + 6)
+    momentum = _momentum_fn(torch)
+    n_chunks = NS_F // NS_CHUNK
+    stats = ("rank_ic", "factor_return")
+    kw = dict(transform="zscore", shift_periods=2, stats=stats,
+              fuse_source=True, device="cuda")
+    settings = fmt.SimulationSettings(
+        returns=rets, cap_flag=cap,
+        investability_flag=torch.ones_like(rets), method="equal", pct=0.1)
+
+    def one_pass():
+        res = streaming.streamed_linear_research(
+            source, n_chunks, rets, chunk_weight_fn=momentum, **kw)
+        return res, fmt.run_simulation(res["composite"], settings)
+
+    # a warm-up over two chunks (allocator, the library handles)
+    streaming.streamed_linear_research(source, 2, rets,
+                                       chunk_weight_fn=momentum, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    rk.launches = 0
+    (res, sim), secs = _timed(torch, one_pass)
+    k1 = rk.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # the two-pass flow: stats, per-date normalized weights, composite
+    (two, comp2), secs2 = _timed(torch, lambda: _two_pass(
+        torch, streaming, source, n_chunks, rets, momentum, stats))
+    d_comp = float((res["composite"] - comp2).abs().max())
+    # the first two chunks one-shot
+    first = torch.cat([source(0), source(1)])
+    one = daily_factor_stats(first, rets, shift_periods=2, stats=stats)
+    bitwise = all(torch.equal(res[k][:2 * NS_CHUNK].nan_to_num(7.0),
+                              one[k].nan_to_num(7.0)) for k in stats)
+    total = float(sim.result.log_return.nansum())
+    log(f"path north star (12d): {NS_F} x {NS_D} x {NS_N} float32 in "
+        f"{n_chunks} chunks of {NS_CHUNK} from a device source, one pass "
+        f"(stats, momentum, z-score blend) + equal backtest: {secs:.3f} s "
+        f"wall, peak {peak:.2f} GiB; K1 {k1} launches; two-pass flow "
+        f"{secs2:.3f} s; composite one-pass vs two-pass max |d| {d_comp:.3e} "
+        f"(tol {NS_COMPOSITE_TOL}); first 2 chunks bitwise one-shot "
+        f"{bitwise}; total log return {total:.6f}")
+    del first, one
+    if k1 != n_chunks:
+        raise AssertionError(f"north star: {k1} K1 launches, {n_chunks} "
+                             "chunks")
+    if not bitwise:
+        raise AssertionError("north star: streamed stats are not the "
+                             "one-shot stats")
+    if not d_comp <= NS_COMPOSITE_TOL or not np.isfinite(total) \
+            or not bool(torch.isfinite(res["composite"]).all()):
+        raise AssertionError("north star: composite or P&L off")
+    return {"rank_ic_postsort": k1}, _north_star_k1(torch, rk, source, rets)
+
+
+def _two_pass(torch, streaming, source, n_chunks, rets, momentum, stats):
+    daily = streaming.streamed_factor_stats(source, n_chunks, rets,
+                                            shift_periods=2, stats=stats,
+                                            fuse_source=True, device="cuda")
+    u = momentum(daily)
+    norm = u.sum(0)
+    w = torch.where(norm > 0, u / torch.where(norm > 0, norm, 1.0), 0.0)
+    comp = streaming.streamed_weighted_composite(
+        source, [w[s] for s in streaming.chunk_slices(NS_F, NS_CHUNK)],
+        fuse_source=True, device="cuda")
+    return daily, comp
+
+
+def _north_star_k1(torch, rk, source, rets) -> dict:
+    """K1 at a north-star chunk's 50,400 rows of 5000: per launch, its plain
+    version, its bound (each input read once) and the post-sort route
+    (``torch.sort`` + gather + K1) on the same keys."""
+    fac = source(0)
+    key = fac.reshape(-1, NS_N)                # the chunk's C * D rows
+    payload = rets.expand(fac.shape).reshape(-1, NS_N)
+    rows = key.shape[0]
+
+    def route():
+        s, idx = torch.sort(key, dim=-1)
+        return rk.rank_ic_postsort(s, torch.gather(payload, -1, idx))
+
+    s_key, idx = torch.sort(key, dim=-1)
+    r_s = torch.gather(payload, -1, idx)
+    got, _ = rk.rank_ic_postsort(s_key, r_s)
+    want, _ = rk.rank_ic_postsort_plain(s_key, r_s)
+    err = _held(torch, f"rank_ic_postsort R={rows} M={NS_N}", got, want,
+                RANK_IC_TOL)
+    ms = cuda_ms(torch, lambda: rk.rank_ic_postsort(s_key, r_s), 10)
+    plain = cuda_ms(torch, lambda: rk.rank_ic_postsort_plain(s_key, r_s), 2)
+    route_ms = cuda_ms(torch, route, 3)
+    b_ms, b_by = bound(8.0 * rows * NS_N + 8.0 * rows, 12.0 * rows * NS_N)
+    log(f"kernel rank_ic_postsort at the north-star chunk R={rows} "
+        f"M={NS_N}: max_abs_err {err:.3e}, {ms:.4f} ms/launch, plain "
+        f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), torch.sort + "
+        f"gather + K1 {route_ms:.4f} ms")
+    return {"north_star_rows": rows, "north_star_ms": ms,
+            "north_star_plain_ms": plain, "north_star_bound_ms": b_ms,
+            "north_star_max_abs_err": err,
+            "north_star_sort_gather_k1_ms": route_ms}
+
+
+def north_star_host_path(torch, fmt, seed: int) -> dict:
+    """Path 12e: bench.py's ``north_star_host`` shape, NS_HOST_F factors at
+    5040 x 5000 float32 in host memory (1.6 GB), chunks of NS_HOST_CHUNK:
+    ``streamed_factor_stats`` from the host stack serially, prefetched, and
+    from chunk files (``io.save_factor_stack_chunks`` to a temporary
+    directory, then ``io.disk_chunk_source``, a warm read), each through
+    the pinned copy stream: bitwise equal. Prints each wall and the
+    achieved host-to-device rate."""
+    import tempfile
+
+    from factormodeling_tpu_torch import io as fio
+    from factormodeling_tpu_torch.metrics import _cuda_rank_ic as rk
+    from factormodeling_tpu_torch.parallel import streaming
+
+    rets, _ = _north_star_market(torch, seed + 6)
+    source = _north_star_source(torch, rets, seed + 7)
+    stack = torch.cat([source(i)[:NS_HOST_CHUNK]
+                       for i in range(NS_HOST_F // NS_HOST_CHUNK)]).cpu()
+    host = stack.numpy()
+    nbytes = host.nbytes
+    src, slices = streaming.host_array_source(host, NS_HOST_CHUNK)
+    kw = dict(shift_periods=2, stats=("rank_ic", "factor_return"),
+              device="cuda")
+    runs, walls = {}, {}
+    before = rk.launches
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        runs["warm"], _ = _timed(torch, lambda: streaming.streamed_factor_stats(
+            src, 1, rets, **kw))
+        for name, s, pre in (("serial", src, 0), ("prefetched", src, 1)):
+            runs[name], walls[name] = _timed(
+                torch, lambda s=s, pre=pre: streaming.streamed_factor_stats(
+                    s, len(slices), rets, prefetch=pre, **kw))
+        t0 = time.perf_counter()
+        fio.save_factor_stack_chunks(tmp, (host[s] for s in slices),
+                                     factor_names=[f"f{i}" for i in
+                                                   range(NS_HOST_F)])
+        write = time.perf_counter() - t0
+        dsrc, dslices, _ = fio.disk_chunk_source(tmp)
+        runs["disk"], walls["disk"] = _timed(
+            torch, lambda: streaming.streamed_factor_stats(
+                dsrc, len(dslices), rets, prefetch=1, **kw))
+    k1 = rk.launches - before - 1
+    same = all(torch.equal(runs["serial"][k].nan_to_num(7.0),
+                           runs[o][k].nan_to_num(7.0))
+               for o in ("prefetched", "disk") for k in runs["serial"])
+    rates = {k: nbytes / v / 1e9 for k, v in walls.items()}
+    log(f"path north star host (12e): {NS_HOST_F} x {NS_D} x {NS_N} float32 "
+        f"({nbytes / 1e9:.2f} GB) in chunks of {NS_HOST_CHUNK}: walls "
+        + ", ".join(f"{k} {walls[k]:.3f} s ({rates[k]:.2f} GB/s host to "
+                    f"device)" for k in walls)
+        + f"; chunk files written in {write:.3f} s (read warm); bitwise "
+        f"equal {same}; K1 {k1}")
+    if not same:
+        raise AssertionError("north star host: serial, prefetched and disk "
+                             "runs differ")
+    if k1 != 3 * len(slices):
+        raise AssertionError(f"north star host: {k1} K1 launches")
+    return {"rank_ic_postsort": k1 + 1}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3505,7 +4040,7 @@ def main() -> int:
     t0 = time.perf_counter()
     launches["online"], rows9b, ms9b = online_path(torch, fmt, args.seed,
                                                    resil["clean"])
-    log(f"path 9b phase (warm-up, {R_DATES} dates, checks, resume, "
+    log(f"path 9b phase (warm-up, {P9B_DATES} dates, checks, resume, "
         f"replay): {time.perf_counter() - t0:.1f} s wall")
     t0 = time.perf_counter()
     hooked_online_path(torch, fmt, args.seed, ms9b)
@@ -3534,24 +4069,51 @@ def main() -> int:
     del rows9b
     log(f"path 10d phase ({S_ONLINE_DATES} dates, checks): "
         f"{time.perf_counter() - t0:.1f} s wall")
+    t12 = time.perf_counter()
+    t0 = time.perf_counter()
+    launches["scenarios"] = scenario_path(torch, fmt, args.seed)
+    log(f"path 12a phase (identity runs, three families, CPU check): "
+        f"{time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    launches["scenarios_resume"] = scenario_resume_path(torch, fmt, args.seed)
+    log(f"path 12b phase (straight, killed, resumed): "
+        f"{time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    launches["scenarios_turnover"] = scenario_turnover_path(torch, fmt,
+                                                            args.seed)
+    log(f"path 12c phase: {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    launches["north_star"], k1_north = north_star_path(torch, fmt, args.seed)
+    log(f"path 12d phase (warm-up, one pass, two-pass flow, one-shot check, "
+        f"K1 timing): {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    launches["north_star_host"] = north_star_host_path(torch, fmt, args.seed)
+    log(f"path 12e phase (serial, prefetched, disk): "
+        f"{time.perf_counter() - t0:.1f} s wall")
+    log(f"path 12: {time.perf_counter() - t12:.1f} s wall")
     # each kernel's launches on the paths that run its form: K1 once in each
     # of paths 1-3, in path 8a's icir_top selection and in path 9a's clean
     # step, once a date in path 9b's online advance, once a dispatch in
-    # paths 10a and 10b and once a date in path 10d's session
+    # paths 10a and 10b, once a date in path 10d's session, once a dispatch
+    # in paths 12a-12c and once a chunk in 12d-12e
     k1 = {p: launches[p]["rank_ic_postsort"] for p in
           (*PATHS, "multimanager", "resil", "online", "serve",
-           "serve_turnover", "advance_all")}
+           "serve_turnover", "advance_all", "scenarios", "scenarios_resume",
+           "scenarios_turnover", "north_star", "north_star_host")}
     kernels["rank_ic_postsort"]["launches"] = sum(k1.values())
     kernels["rank_ic_postsort"]["launches_by_path"] = k1
+    kernels["rank_ic_postsort"].update(k1_north)
     # the segment's single-lane launches: path 1, the sequential suffixes
-    # of paths 6-7, path 9a's clean step, path 9b's advance and paths 10b
-    # and 10d (a real tenant's days, never a pad lane's); its collect=1
+    # of paths 6-7, path 9a's clean step, path 9b's advance, paths 10b
+    # and 10d (a real tenant's days, never a pad lane's) and path 12c (two
+    # regime paths' days); its collect=1
     # form: path 9a's probed inert and chaos steps and path 11a's probed
     # tally run; its lane launches: path 2's chunks, and the seed and sweep
     # chunks of paths 6-7 (each as the wrapper counted it)
     single = {p: launches[p]["admm_segment"] for p in
               ("turnover", "turnover_parallel", "turnover_parallel_decoupled",
-               "resil", "online", "serve_turnover", "advance_all")}
+               "resil", "online", "serve_turnover", "advance_all",
+               "scenarios_turnover")}
     lanes = {p: launches[p]["admm_segment_lanes"] for p in
              ("mvo", "turnover_parallel", "turnover_parallel_decoupled")}
     kernels["admm_segment"]["launches"] = sum(single.values())
@@ -3579,7 +4141,10 @@ def main() -> int:
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "wrapper_ms", "cluster", "smem_bytes", "launches_by_path",
              "path_max_abs_err",
-             "path_ms", "path_plain_ms", "path_bound_ms", "path_library_ms")
+             "path_ms", "path_plain_ms", "path_bound_ms", "path_library_ms",
+             "north_star_rows", "north_star_max_abs_err", "north_star_ms",
+             "north_star_plain_ms", "north_star_bound_ms",
+             "north_star_sort_gather_k1_ms")
     log(json.dumps({"kernels": [{k: kern[k] for k in order if k in kern}
                                 for kern in kernels.values()]}))
     print(json.dumps({"ok": True, "device": {

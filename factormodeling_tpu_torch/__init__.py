@@ -12,10 +12,12 @@ injection, the degrade policy, checkpoints), the online advance
 (``fmt.online``: the research step a date at a time), many-tenant serving
 (``fmt.serve``: the batched tenant step, ``TenantServer`` with its pad
 ladder and many-tenant online advance, the request queue and admission), the risk model (``fmt.risk``), the seeded
-RNG lanes (``fmt.rng``), the dense panel model (``fmt.panel``), and the
-modules that need pandas, each
-imported on first use: the reference's pandas surface (``fmt.compat``) and
-the loaders and artifact store (``fmt.io``, with pyarrow for parquet).
+RNG lanes (``fmt.rng``), the dense panel model (``fmt.panel``), the
+scenario engine (``factormodeling_tpu_torch.scenarios``, imported only by
+its caller), and two modules imported on first use: the reference's pandas
+surface (``fmt.compat``) and the loaders, the artifact store and the
+out-of-core chunk files (``fmt.io``; its table readers need pandas, and
+pyarrow for parquet).
 
 The JAX package stays the reference; this package mirrors its layout and
 public array layouts (``[F, D, N]`` stacks, ``[D, N]`` panels, ``[D, F]``

@@ -19,9 +19,16 @@
   caching (``cached``, keyed by :func:`fingerprint`).
 
 Arrays go to the device once per load (one copy of the densified block);
-labels stay on the host in the panels' vocabularies. pandas (and pyarrow,
-for parquet) are needed here, so the package imports this module on first
-use.
+labels stay on the host in the panels' vocabularies.
+- **Out-of-core stacks**: :func:`save_factor_stack_chunks` writes a factor
+  stack as factor-axis chunk files and a manifest, in the JAX package's
+  layout (either package reads a stack the other wrote), and
+  :func:`disk_chunk_source` streams it back through
+  ``parallel.streamed_*``.
+
+pandas (and pyarrow, for parquet) are imported by the functions that read
+or write tables, on first call; the chunk files need numpy only, so they
+work on a machine without pandas.
 """
 
 from __future__ import annotations
@@ -32,7 +39,6 @@ from pathlib import Path
 from typing import Callable, NamedTuple, Sequence
 
 import numpy as np
-import pandas as pd
 import torch
 
 from factormodeling_tpu_torch._device import host_array, resolve_device
@@ -43,11 +49,13 @@ __all__ = [
     "ArtifactStore",
     "FactorReturns",
     "MarketData",
+    "disk_chunk_source",
     "fingerprint",
     "load_factor_returns",
     "load_factors",
     "load_symbol_features",
     "read_table",
+    "save_factor_stack_chunks",
     "write_table",
 ]
 
@@ -57,6 +65,8 @@ _FEATURE_COLUMNS = ("log_return", "cap_flag", "investability_flag")
 def read_table(path: str | Path, **kwargs) -> pd.DataFrame:
     """Read a CSV or parquet table by extension (``.parquet``/``.pq`` ->
     parquet, anything else -> CSV)."""
+    import pandas as pd
+
     path = Path(path)
     if path.suffix in (".parquet", ".pq"):
         return pd.read_parquet(path, **kwargs)
@@ -78,6 +88,8 @@ def write_table(df: pd.DataFrame, path: str | Path) -> Path:
 def _long_frame(df: pd.DataFrame, date_col: str,
                 symbol_col: str) -> pd.DataFrame:
     """Normalize a long table: datetime dates, (date, symbol) MultiIndex."""
+    import pandas as pd
+
     if date_col in df.columns:
         df = df.assign(**{date_col: pd.to_datetime(df[date_col])})
         df = df.set_index([date_col, symbol_col])
@@ -114,6 +126,8 @@ class FactorReturns(NamedTuple):
     factor_names: tuple
 
     def to_frame(self) -> pd.DataFrame:
+        import pandas as pd
+
         return pd.DataFrame(host_array(self.values),
                             index=pd.Index(self.dates, name="date"),
                             columns=list(self.factor_names))
@@ -153,6 +167,8 @@ def load_factor_returns(path: str | Path, *, date_col: str = "date",
                         dtype=torch.float32, device=None) -> FactorReturns:
     """Load the per-date factor-return schema
     (``9.single_factor_returns.csv``)."""
+    import pandas as pd
+
     dev = resolve_device(device)
     df = read_table(path)
     if date_col in df.columns:
@@ -221,6 +237,8 @@ class ArtifactStore:
         return write_table(df, self.path(name))
 
     def load_frame(self, name: str) -> pd.DataFrame:
+        import pandas as pd
+
         return pd.read_parquet(self.path(name))
 
     # ---- panels
@@ -255,3 +273,72 @@ class ArtifactStore:
         df = compute()
         self.save_frame(name, df)
         return df
+
+
+# ------------------------------------- out-of-core factor-stack ingestion
+
+
+def save_factor_stack_chunks(root: str | Path, chunks, *, factor_names,
+                             dates=None, symbols=None) -> Path:
+    """Write a factor stack to disk as factor-axis chunk files + a manifest.
+
+    ``chunks``: an iterable of ``float[C_i, D, N]`` arrays or tensors (a
+    generator writes stacks that never exist whole in host memory). Each
+    chunk lands in ``chunk_{i:04d}.npy`` as float32 (.npy memory-maps
+    without a copy); ``manifest.json`` records the chunk sizes, ``d``,
+    ``n``, the factor names and optional date/symbol vocabularies — the
+    JAX package's files, byte for byte on the same inputs.
+    """
+    import json
+
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    names = list(factor_names)
+    sizes = []
+    d = n = None
+    for i, chunk in enumerate(chunks):
+        arr = np.ascontiguousarray(np.asarray(host_array(chunk),
+                                              dtype=np.float32))
+        if d is None:
+            d, n = arr.shape[1], arr.shape[2]
+        elif arr.shape[1:] != (d, n):
+            raise ValueError(f"chunk {i} shape {arr.shape[1:]} != {(d, n)}")
+        np.save(root / f"chunk_{i:04d}.npy", arr)
+        sizes.append(int(arr.shape[0]))
+    if sum(sizes) != len(names):
+        raise ValueError(f"chunks hold {sum(sizes)} factors, "
+                         f"{len(names)} names given")
+    manifest = {"sizes": sizes, "d": d, "n": n, "factor_names": names}
+    if dates is not None:
+        manifest["dates"] = [str(x) for x in np.asarray(dates)]
+    if symbols is not None:
+        manifest["symbols"] = [str(x) for x in np.asarray(symbols)]
+    (root / "manifest.json").write_text(json.dumps(manifest))
+    return root
+
+
+def disk_chunk_source(root: str | Path, *, sharding=None):
+    """``(source, slices, manifest)`` over a
+    :func:`save_factor_stack_chunks` directory (either package's).
+
+    ``source(i)`` memory-maps chunk ``i`` (``np.load(mmap_mode='r')``); the
+    ``parallel.streamed_*`` functions copy its pages into a pinned staging
+    buffer and on to the device (with ``prefetch``, on their loader
+    thread), so host memory holds pages transiently instead of a second
+    copy of the stack. ``sharding=`` (date-sharded chunks) is not ported
+    yet (ROADMAP queue 1 item 5).
+    """
+    import json
+
+    if sharding is not None:
+        raise NotImplementedError("disk_chunk_source(sharding=...) is not "
+                                  "ported yet (ROADMAP queue 1 item 5)")
+    root = Path(root)
+    manifest = json.loads((root / "manifest.json").read_text())
+    bounds = np.cumsum([0] + manifest["sizes"])
+    slices = [slice(int(a), int(b)) for a, b in zip(bounds[:-1], bounds[1:])]
+
+    def source(i):
+        return np.load(root / f"chunk_{i:04d}.npy", mmap_mode="r")
+
+    return source, slices, manifest

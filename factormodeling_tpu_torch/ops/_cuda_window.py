@@ -61,13 +61,26 @@ _ENTRY = {torch.float32: "fm_window_stream_f32",
 
 
 def _lags(x: torch.Tensor, window: int):
-    """``(x3, lag)``: the panel as ``[R, D, N]`` and a function giving the
-    ``[R, D, N]`` view of every cell's value ``j`` dates back (NaN above
-    date 0)."""
+    """``(x3, padded, lag)``: the panel as ``[R, D, N]``, the panel with
+    ``window - 1`` NaN dates above date 0, and a function giving the
+    ``[R, D, N]`` view of a ``padded``-shaped tensor ``j`` dates back."""
     d, n = x.shape[-2:]
     x3 = x.reshape(-1, d, n)
     padded = F.pad(x3, (0, 0, window - 1, 0), value=float("nan"))
-    return x3, lambda j: padded[:, window - 1 - j:window - 1 - j + d]
+
+    def lag(j, t=padded):
+        return t[:, window - 1 - j:window - 1 - j + d]
+
+    return x3, padded, lag
+
+
+def _window_count(valid: torch.Tensor, window: int, d: int) -> torch.Tensor:
+    """Valid cells in each trailing window of a padded ``bool[R, D+W-1, N]``
+    mask, as ``x``'s dtype: an integer count, so equal to a per-lag sum in
+    any order."""
+    cs = F.pad(torch.cumsum(valid, dim=1, dtype=torch.int32),
+               (0, 0, 1, 0))
+    return cs[:, window:window + d] - cs[:, :d]
 
 
 def _div(a: torch.Tensor, b: float) -> torch.Tensor:
@@ -78,59 +91,59 @@ def _div(a: torch.Tensor, b: float) -> torch.Tensor:
 
 
 def decay_streaming_plain(x: torch.Tensor, window: int) -> torch.Tensor:
-    """Linear-decay trailing mean, weights ``window - j`` on lag ``j``."""
-    x3, lag = _lags(x, window)
+    """Linear-decay trailing mean, weights ``window - j`` on lag ``j``
+    (added lag by lag from lag 0, the kernel's order)."""
+    x3, padded, lag = _lags(x, window)
+    valid = ~torch.isnan(padded)
+    zeroed = torch.where(valid, padded, 0.0)
     acc = torch.zeros_like(x3)
-    cnt = torch.zeros_like(x3)
     for j in range(window):
-        sl = lag(j)
-        valid = ~torch.isnan(sl)
-        acc = acc + (window - j) * torch.where(valid, sl, 0.0)
-        cnt = cnt + valid.to(x.dtype)
+        acc = acc + (window - j) * lag(j, zeroed)
+    cnt = _window_count(valid, window, x3.shape[1])
     denom = window * (window + 1) / 2.0
     return torch.where(cnt == window, _div(acc, denom), float("nan")).reshape(x.shape)
 
 
 def ts_rank_streaming_plain(x: torch.Tensor, window: int) -> torch.Tensor:
     """Fractional average-tie rank of each cell within its trailing window
-    (NaN compares false; -0.0 ties with +0.0)."""
-    x3, lag = _lags(x, window)
+    (NaN compares false; -0.0 ties with +0.0). The counts are integers,
+    exact in any order."""
+    x3, padded, lag = _lags(x, window)
     less = torch.zeros_like(x3)
     eq = torch.zeros_like(x3)
-    cnt = torch.zeros_like(x3)
     for j in range(window):
         sl = lag(j)
-        less = less + (sl < x3).to(x.dtype)
-        eq = eq + (sl == x3).to(x.dtype)
-        cnt = cnt + (~torch.isnan(sl)).to(x.dtype)
+        less += sl < x3
+        eq += sl == x3
+    cnt = _window_count(~torch.isnan(padded), window, x3.shape[1])
     pct = _div(less + 0.5 * (eq + 1.0), window)
     return torch.where(cnt == window, pct, float("nan")).reshape(x.shape)
 
 
 def _moments_plain(x: torch.Tensor, window: int, zscore: bool) -> torch.Tensor:
     """ddof=1 std (or z-score) from two passes over the window: the mean,
-    then the centered sum of squares; a constant finite window has std
-    exactly 0 (and z-score NaN)."""
-    x3, lag = _lags(x, window)
+    then the centered sum of squares, each added lag by lag from lag 0 (the
+    kernel's order); a constant finite window has std exactly 0 (and
+    z-score NaN)."""
+    x3, padded, lag = _lags(x, window)
+    nan = torch.isnan(padded)
+    zeroed = torch.where(nan, 0.0, padded)
     s1 = torch.zeros_like(x3)
-    cnt = torch.zeros_like(x3)
-    mn = torch.full_like(x3, float("inf"))
-    mx = torch.full_like(x3, float("-inf"))
     for j in range(window):
-        sl = lag(j)
-        valid = ~torch.isnan(sl)
-        s1 = s1 + torch.where(valid, sl, 0.0)
-        cnt = cnt + valid.to(x.dtype)
-        mn = torch.minimum(mn, torch.where(valid, sl, float("inf")))
-        mx = torch.maximum(mx, torch.where(valid, sl, float("-inf")))
+        s1 = s1 + lag(j, zeroed)
+    cnt = _window_count(~nan, window, x3.shape[1])
+    # min and max are exact in any order: over the window axis at once
+    wins = torch.where(nan, float("inf"), padded).unfold(1, window, 1)
+    mn = wins.amin(-1)
+    mx = torch.where(nan, float("-inf"), padded).unfold(1, window, 1).amax(-1)
+    del wins
     mean = _div(s1, window)
     if window <= 1:   # ddof=1 with one observation: pandas std is NaN
         var = torch.full_like(x3, float("nan"))
     else:
         s2 = torch.zeros_like(x3)
         for j in range(window):
-            sl = lag(j)
-            dev = torch.where(torch.isnan(sl), 0.0, sl - mean)
+            dev = torch.where(lag(j, nan), 0.0, lag(j) - mean)
             s2 = s2 + dev * dev
         var = _div(s2, window - 1)
         constant = (mn == mx) & torch.isfinite(mn) & torch.isfinite(mx)

@@ -100,7 +100,15 @@ def tenant_step_parts(names, template: TenantConfig):
     :class:`~factormodeling_tpu_torch.resil.policy.DegradePolicy`) the
     composite is absmax-clamped after the blend and the simulation runs
     with the policy's hold and carry guards; ``policy=None`` (every
-    serving caller) runs none of that."""
+    serving caller) runs none of that.
+
+    ``tenant_body`` is the composition of its two halves, which it carries
+    as attributes: ``tenant_body.prefix(tenant, ctx, factors, universe,
+    policy=None) -> (selection, signal)`` (selector, mix, blend, clamp) and
+    ``tenant_body.simulate(tenant, selection, signal, returns, cap_flag,
+    investability, universe, policy=None)`` (simulation and summary), so a
+    caller whose paths share the factors and the context runs the prefix
+    once (the scenario engine's regime family)."""
     return _make_parts(names, template)
 
 
@@ -135,8 +143,7 @@ def _make_parts(names, template: TenantConfig):
                                            window, universe=universe,
                                            stats=needs)
 
-    def tenant_body(t: TenantConfig, ctx, factors, returns, cap_flag,
-                    investability, universe, policy=None) -> ResearchOutput:
+    def prefix(t: TenantConfig, ctx, factors, universe, policy=None):
         kwargs = dict(select_static)
         if select_method == "icir_top":
             kwargs.update(top_x=int(_num(t.top_k)),
@@ -159,6 +166,10 @@ def _make_parts(names, template: TenantConfig):
 
             with obs_stage("resil/clamp"):
                 signal, _, _ = resil_policy.clamp_signal(signal, policy)
+        return sel, signal
+
+    def simulate(t: TenantConfig, sel, signal, returns, cap_flag,
+                 investability, universe, policy=None) -> ResearchOutput:
         settings = SimulationSettings(
             returns=returns, cap_flag=cap_flag,
             investability_flag=investability, universe=universe,
@@ -174,6 +185,13 @@ def _make_parts(names, template: TenantConfig):
         return ResearchOutput(selection=sel, signal=signal, sim=sim,
                               summary=summary)
 
+    def tenant_body(t: TenantConfig, ctx, factors, returns, cap_flag,
+                    investability, universe, policy=None) -> ResearchOutput:
+        sel, signal = prefix(t, ctx, factors, universe, policy=policy)
+        return simulate(t, sel, signal, returns, cap_flag, investability,
+                        universe, policy=policy)
+
+    tenant_body.prefix, tenant_body.simulate = prefix, simulate
     return build_ctx, tenant_body
 
 

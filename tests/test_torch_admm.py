@@ -47,6 +47,7 @@ from factormodeling_tpu_torch.ops._linalg import aa_mix, spd_solve
 from factormodeling_tpu_torch.solvers import (ADMMWarmState, BoxQPProblem,
                                               admm_solve_lowrank)
 from factormodeling_tpu_torch.solvers.admm_qp import first_segment_inputs
+from tests.torch_threads import torch_one_thread  # noqa: F401
 
 
 def _problem(seed, t=12, n=40, max_weight=0.2, l1=0.1, k=2):

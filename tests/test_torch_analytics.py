@@ -18,6 +18,7 @@ import numpy as np
 import pandas as pd
 import pytest
 import torch
+from tests.torch_threads import torch_one_thread  # noqa: F401
 
 matplotlib.use("Agg")
 import matplotlib.pyplot as plt  # noqa: E402

@@ -18,6 +18,7 @@ from factormodeling_tpu.backtest import SimulationSettings as JaxSettings
 from factormodeling_tpu.backtest import run_simulation as jax_run
 from factormodeling_tpu_torch.backtest import (SimulationSettings,
                                                run_simulation)
+from tests.torch_threads import torch_one_thread  # noqa: F401
 
 
 def _market(seed, d=30, n=24):

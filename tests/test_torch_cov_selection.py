@@ -27,6 +27,7 @@ from factormodeling_tpu_torch.selection import (ledoit_wolf_shrinkage,
                                                 rolling_selection,
                                                 selection_metric_needs)
 from factormodeling_tpu_torch.solvers import BoxQPProblem, admm_solve_dense
+from tests.torch_threads import torch_one_thread  # noqa: F401
 
 TOL = 1e-10
 

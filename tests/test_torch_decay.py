@@ -19,6 +19,7 @@ from factormodeling_tpu.analytics.decay import (
 from factormodeling_tpu.backtest import SimulationSettings as JaxSettings
 from factormodeling_tpu_torch.analytics.decay import _annualize
 from factormodeling_tpu_torch.ops import _cuda_window as cw
+from tests.torch_threads import torch_one_thread  # noqa: F401
 
 WINDOWS = (1, 3, 5, 10)
 TOL = 1e-9

@@ -22,6 +22,7 @@ import torch
 from factormodeling_tpu_torch import ops
 from factormodeling_tpu_torch.metrics import daily_factor_stats
 from factormodeling_tpu_torch.ops import _cuda_fused as cf
+from tests.torch_threads import torch_one_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))

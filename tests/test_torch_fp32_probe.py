@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from factormodeling_tpu_torch import fp32_probe as fp
+from tests.torch_threads import torch_one_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("k", [0, 1, 64])

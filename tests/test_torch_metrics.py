@@ -30,6 +30,7 @@ from factormodeling_tpu_torch.metrics import (METRIC_COLUMNS,
                                               rolling_metrics,
                                               single_factor_metrics)
 from factormodeling_tpu_torch.metrics._special import betainc
+from tests.torch_threads import torch_one_thread  # noqa: F401
 
 TOL = 1e-10
 

@@ -42,6 +42,7 @@ from factormodeling_tpu_torch import io as tio
 from factormodeling_tpu_torch import panel as tpanel
 from factormodeling_tpu_torch.compat import portfolio_simulation as port_ps
 from factormodeling_tpu_torch.obs import latency as tlat
+from tests.torch_threads import torch_one_thread  # noqa: F401
 
 D, N, F = 12, 6, 3
 
@@ -353,12 +354,15 @@ def test_port_imports_without_pandas():
         import factormodeling_tpu_torch.compat as compat
         assert fmt.multimanager is multimanager and callable(manager_sweep)
         assert fmt.obs.RunReport and fmt.panel.Panel
+        # io imports without pandas (its chunk files need numpy only);
+        # its table readers raise when called
+        assert callable(fmt.io.disk_chunk_source)
         try:
-            fmt.io
+            fmt.io.read_table("x.csv")
         except ImportError:
             pass
         else:
-            raise AssertionError("io imported without pandas")
+            raise AssertionError("read_table ran without pandas")
         bad = [m for m in sys.modules if m.split(".")[0] in
                ("pandas", "pyarrow", "matplotlib", "jax")]
         assert not bad, bad

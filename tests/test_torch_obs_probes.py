@@ -49,6 +49,7 @@ from factormodeling_tpu_torch.resil import faults
 from factormodeling_tpu_torch.solvers import (admm_solve_dense,
                                               admm_solve_lowrank)
 from tests.test_torch_admm import _jax_prob, _problem, _torch_prob
+from tests.torch_threads import torch_one_thread  # noqa: F401
 
 T = torch.from_numpy
 #: float32 sums of the same cells in two orders: relative rounding of the

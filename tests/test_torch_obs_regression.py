@@ -31,6 +31,7 @@ from factormodeling_tpu_torch.resil import DispatchFaultPlan
 from factormodeling_tpu_torch.serve import TenantConfig, TenantServer
 from factormodeling_tpu_torch.serve.queue import (bursty_arrivals,
                                                   make_requests)
+from tests.torch_threads import torch_one_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 TOOLS = REPO / "tools"

@@ -15,6 +15,7 @@ from factormodeling_tpu import ops as jops
 from factormodeling_tpu.ops import _rank as jrank
 from factormodeling_tpu_torch import ops as tops
 from factormodeling_tpu_torch.ops import _rank as trank
+from tests.torch_threads import torch_one_thread  # noqa: F401
 
 F, D, N, G = 3, 30, 16, 5
 TOL = 1e-10

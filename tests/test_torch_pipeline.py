@@ -30,6 +30,7 @@ import torch
 
 import factormodeling_tpu_torch as fmt
 from factormodeling_tpu.parallel import build_research_step as jax_build
+from tests.torch_threads import torch_one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "factormodeling_tpu_torch"

@@ -22,6 +22,7 @@ from factormodeling_tpu.metrics.factor_metrics import \
 from factormodeling_tpu_torch.metrics import _cuda_rank_ic as rk
 from factormodeling_tpu_torch.metrics import daily_factor_stats, rolling_metrics
 from factormodeling_tpu_torch.ops._rank import sorted_avg_ranks
+from tests.torch_threads import torch_one_thread  # noqa: F401
 
 # f64 throughout: both sides sum the same products in different orders
 TOL = 1e-12

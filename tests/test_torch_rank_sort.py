@@ -22,6 +22,7 @@ from factormodeling_tpu_torch import _build
 from factormodeling_tpu_torch.metrics import _cuda_rank_ic as rk
 from factormodeling_tpu_torch.metrics import _cuda_rank_sort as rs
 from factormodeling_tpu_torch.metrics import daily_factor_stats
+from tests.torch_threads import torch_one_thread  # noqa: F401
 
 # float32 moments over a few hundred terms summed in two orders: the JAX
 # test's own tolerance for its fused kernel

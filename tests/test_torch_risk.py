@@ -17,6 +17,7 @@ import torch
 
 from factormodeling_tpu import risk as jax_risk
 from factormodeling_tpu_torch import risk
+from tests.torch_threads import torch_one_thread  # noqa: F401
 
 
 def _panel(seed, d=40, n=60, missing=0.1, dead_rows=5):

@@ -25,6 +25,7 @@ from factormodeling_tpu_torch.ops._window import (masked_shift, rolling_count,
                                                   rolling_sum, shift)
 from factormodeling_tpu_torch.selection import (rolling_selection,
                                                 selection_metric_needs)
+from tests.torch_threads import torch_one_thread  # noqa: F401
 
 TOL = 1e-10
 _PREFIXES = ("alpha", "beta", "gamma")

@@ -43,6 +43,7 @@ from factormodeling_tpu_torch.serve import (TenantConfig, TenantServer,
                                             make_tenant_research_step,
                                             stack_configs)
 from factormodeling_tpu_torch.serve import batched as batched_mod
+from tests.torch_threads import torch_one_thread  # noqa: F401
 
 F, D, N, WINDOW = 5, 30, 8, 6
 NAMES = ("fam0_f0_flx", "fam0_f1_eq", "fam1_f2_flx", "fam1_f3_long",

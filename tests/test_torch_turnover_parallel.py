@@ -28,6 +28,7 @@ from factormodeling_tpu.backtest import run_simulation as jax_run
 from factormodeling_tpu.backtest import sweep_stats as jax_sweep_stats
 from factormodeling_tpu_torch.backtest import (SimulationSettings,
                                                run_simulation, sweep_stats)
+from tests.torch_threads import torch_one_thread  # noqa: F401
 
 D, N = 16, 12
 

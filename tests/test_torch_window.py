@@ -16,6 +16,7 @@ from factormodeling_tpu.ops import _pallas_window as jpw
 from factormodeling_tpu_torch import ops
 from factormodeling_tpu_torch.ops import _cuda_fused as cf
 from factormodeling_tpu_torch.ops import _cuda_window as cw
+from tests.torch_threads import torch_one_thread  # noqa: F401
 
 FORMS = {"decay": (cw.decay_streaming, jpw.decay_streaming),
          "rank": (cw.ts_rank_streaming, jpw.ts_rank_streaming),
