@@ -52,9 +52,11 @@ Phases, in order (any failure exits non-zero before the last line):
    for path 10, from path 3's 1332 dates with a reference over 666 and
    path 1's reference over 666). Then path 1 with
    ``turnover_mode="parallel"``:
-   (6) at its penalty 0.1, held against path 1's own fused output (suffix
-   days within ``DW_TOL`` on all but ``DW_SHARE``, certified days both
-   polished or neither attempted within ``CERT_TOL``), and (7) at penalty
+   (6) at its penalty 0.1 on its first ``P6_DATES`` dates (666, cut from
+   1332 to make room for path 13), held against path 1's own fused output
+   on those days (suffix days within ``DW_TOL`` on all but ``DW_SHARE``,
+   certified days both polished or neither attempted within
+   ``CERT_TOL``), and (7) at penalty
    0, fused and reference, every day certified, held against the scan of
    its first ``P7_SCAN_DATES`` dates; each with ``sweep_stats``' coverage
    and QP count, and the segment kernel's single-lane and lane-batch
@@ -118,9 +120,10 @@ Phases, in order (any failure exits non-zero before the last line):
    single-tenant step and held to the same configs on the host CPU at
    path 5's icir_top gate, ``serving_stats()`` against the host's count
    and one cache entry a (bucket, rung); (10b) an ``mvo_turnover`` bucket
-   of 3 tenants (path 1's own first) on path 9's 333 dates, rung 8 with 5
-   pad lanes not computed: K1 once, K2 two segments a date a real tenant,
-   each tenant's invariants, tenant 0 held to 9a's clean step (selection
+   of 3 tenants (path 1's own first) on path 9's 333 dates, rung 8 with
+   5 pad lanes not computed: K1
+   once, K2 two segments a date a real tenant, each tenant's invariants,
+   tenant 0 held to 9a's clean step on those dates (selection
    bitwise, weights at path 1's gate); (10c) ``serve_queued`` on 10a's
    bucket (``bench.py``'s ``bench_serving_under_load`` recipe: 48
    requests, ladder 1/4/8, the service time of a warm rung-8 dispatch, a
@@ -179,7 +182,24 @@ Phases, in order (any failure exits non-zero before the last line):
    (1.6 GB) streamed from host memory serially, prefetched and from chunk
    files through the pinned copy stream, bitwise equal, with each wall and
    host-to-device rate;
-12. one ``kernels`` JSON line; then the last line
+12. path 13, the mesh layer on ``torch.distributed`` as a world of one
+   over NCCL (an in-process store; one card holds one NCCL rank, so more
+   ranks run only as the CPU tests' ``gloo`` worlds), formed by the first
+   mesh and destroyed at the end, every sharded run held against its
+   unsharded twin at ``P13_TOL``: (13a) ``make_sharded_research_step`` on
+   a (1, 1) ``("factor", "date")`` mesh at path 1's width on its first
+   166 dates, K1 once and K2 332 times, its wall beside the unsharded
+   step's, bitwise or not, and the comms ledger's collectives a stage
+   (none in the backtest); (13b) ``make_sharded_manager_sweep`` on a
+   ``("combo",)`` mesh at 8b's 1000 combos; (13c) the asset-sharded step
+   (icir_top / equal, 1332 x 1000) under each layout mode and under
+   ``choose_asset_specs``' plan (its layout stages run on ``meta``
+   tensors), K1 once a run; (13d) ``TenantServer(mesh=...)`` on a (1, 1) ``("configs",
+   "assets")`` mesh: 10a's rung-8 dispatch of 5 tenants and 10d's two
+   turnover tenants over 16 dates; (13e) ``streamed_factor_stats(mesh=)``
+   from 12e's host stack through a date-block source, bitwise 12e's
+   serial run, K1 once a chunk;
+13. one ``kernels`` JSON line; then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs one card and exits non-zero, printing no result, without one or
@@ -1864,8 +1884,12 @@ REF_DATES = {"turnover": 333, "turnover_risk_anderson": 333}
 # certified days against the scan: the QP is float64 (the JAX package's
 # bench.py holds 1e-4 at float32)
 CERT_TOL = 1e-5
-# path 7 against the scan on every day, and the scan's cut
-P7_ALL_TOL, P7_SCAN_DATES = 1e-4, 333
+# path 7 against the scan on every day, and the scan's cut (333 until PR
+# 15, then 166 to make room for path 13)
+P7_ALL_TOL, P7_SCAN_DATES = 1e-4, 166
+# path 6 runs the first P6_DATES dates (cut from 1332 to make room for
+# path 13), held against path 1's first days (its backtest is causal)
+P6_DATES = 666
 
 
 def run_step(torch, fmt, arrays, sim: dict, kernel: str):
@@ -2031,14 +2055,6 @@ def path_phase(torch, seed: int, path: str, warm_up: bool):
     return launches, out, secs
 
 
-def day_dw(torch, a, b):
-    """Per-day max |dw| of two runs' trade weights: entry t is day t's
-    weights (row t + 1 of the panels shifted one day; the universe is whole,
-    so the shift is plain); the last day has no row."""
-    return (a.sim.weights.nan_to_num()
-            - b.sim.weights.nan_to_num()).abs().max(-1).values[1:]
-
-
 def polish_both(torch, da, db, days: int):
     """The days (of the first ``days``) whose polish both runs' diagnostics
     ``da``, ``db`` accepted or neither attempted."""
@@ -2055,12 +2071,13 @@ def parallel_run(torch, fmt, arrays, path: str, kernel: str):
     from factormodeling_tpu_torch.ops import _cuda_admm as ak
 
     sim = PARALLEL_PATHS[path]
+    d = arrays[1].shape[0]
     rk.launches = ak.launches = ak.lane_launches = 0
     out, secs, inputs = run_step(torch, fmt, arrays, sim, kernel)
     launches = segment_counts(rk, ak)
     diag = out.sim.diagnostics
     stats = fmt.backtest.sweep_stats(diag)
-    log(f"path {path} {kernel}: F={F} D={D} N={N} step {secs:.3f} s wall; "
+    log(f"path {path} {kernel}: F={F} D={d} N={N} step {secs:.3f} s wall; "
         f"launches {json.dumps(launches)}; sweep_stats {json.dumps(stats)}; "
         f"polish_stats {json.dumps(fmt.backtest.polish_stats(diag))}")
     summ = {k: float(v) for k, v in out.summary._asdict().items()}
@@ -2068,39 +2085,47 @@ def parallel_run(torch, fmt, arrays, path: str, kernel: str):
         raise AssertionError(f"{path}: non-finite summary {summ}")
     s = fmt.SimulationSettings(returns=None, cap_flag=None,
                                investability_flag=None, **sim)
-    if stats["converged_days"] + stats["suffix_len"] != D:
+    if stats["converged_days"] + stats["suffix_len"] != d:
         raise AssertionError(f"{path}: converged days and suffix do not "
                              f"cover the run: {stats}")
     if not 1 <= stats["sweeps"] <= s.turnover_sweeps:
         raise AssertionError(f"{path}: {stats['sweeps']} sweeps")
-    if stats["qp_solves"] != D + stats["sweeps"] * D + stats["suffix_len"]:
+    if stats["qp_solves"] != d + stats["sweeps"] * d + stats["suffix_len"]:
         raise AssertionError(f"{path}: {stats['qp_solves']} QP solves, not "
                              "the seed, the sweeps and the suffix")
     if kernel == "fused":
-        check_launches(path, launches, segment_launches(fmt, sim, stats))
+        check_launches(path, launches, segment_launches(fmt, sim, stats,
+                                                        d=d))
     return out, secs, stats, launches, inputs
 
 
 def turnover_parallel_path(torch, seed: int, scan_out, scan_secs: float):
-    """Path 6: path 1 in the fixed-point scheme, fused, held against path
-    1's own fused output (the scan, same inputs): equal weights on the
-    suffix days, within ``CERT_TOL`` on certified days that both polished
-    or neither attempted. Returns its launches."""
+    """Path 6: path 1 in the fixed-point scheme over its first P6_DATES
+    dates, fused, held against path 1's own fused output on those days
+    (the scan, same inputs; causal): equal weights on the suffix days,
+    within ``CERT_TOL`` on certified days that both polished or neither
+    attempted. Returns its launches."""
     import factormodeling_tpu_torch as fmt
 
     path = "turnover_parallel"
-    arrays = make_inputs(F, D, N, seed)
+    d = P6_DATES
+    arrays = tuple(a[:, :d] if a.ndim == 3 else a[:d]
+                   for a in make_inputs(F, D, N, seed))
     out, secs, stats, launches, _ = parallel_run(torch, fmt, arrays, path,
                                                  "fused")
     check_invariants(torch, path, out)
     start = stats["converged_days"]
-    dw = day_dw(torch, out, scan_out)
+    scan_w = scan_out.sim.weights[:d]
+    # entry t is day t's weights (row t + 1 of the panels shifted one day;
+    # the universe is whole, so the shift is plain); the last day has none
+    dw = (out.sim.weights.nan_to_num()
+          - scan_w.nan_to_num()).abs().max(-1).values[1:]
     suffix = dw[start:]
     share = float((suffix > DW_TOL).double().mean()) if len(suffix) else 0.0
     bitwise = bool(torch.equal(out.sim.weights[start + 1:].nan_to_num(),
-                               scan_out.sim.weights[start + 1:].nan_to_num()))
+                               scan_w[start + 1:].nan_to_num()))
     cert = polish_both(torch, out.sim.diagnostics, scan_out.sim.diagnostics,
-                       D - 1)[:start]
+                       d - 1)[:start]
     cert_dw = float(dw[:start][cert].max()) if bool(cert.any()) else 0.0
     # entry t + 1 of the weights is day t's: the certified days that hold
     # a position (the days before the selection window are flat), and the
@@ -2108,8 +2133,8 @@ def turnover_parallel_path(torch, seed: int, scan_out, scan_secs: float):
     # day's weights and exit state
     held = torch.nonzero((out.sim.weights[1:start + 1].nan_to_num() != 0)
                          .any(-1)).flatten().tolist()
-    hand_dw = float(dw[start]) if 0 < start < D - 1 else 0.0
-    log(f"path {path} vs path 1 (the scan): suffix days {start}-{D - 1}: max "
+    hand_dw = float(dw[start]) if 0 < start < d - 1 else 0.0
+    log(f"path {path} vs path 1 (the scan): suffix days {start}-{d - 1}: max "
         f"|dw| {float(suffix.max()) if len(suffix) else 0.0:.3e}, share of "
         f"days > {DW_TOL}: {share:.4f} (limit {DW_SHARE}), bitwise {bitwise}; "
         f"certified days {start}, those holding a position {held}, "
@@ -2117,8 +2142,8 @@ def turnover_parallel_path(torch, seed: int, scan_out, scan_secs: float):
         f"{cert_dw:.3e} (tol {CERT_TOL}); hand-over day {start} from day "
         f"{start - 1} ({'holding a position' if start - 1 in held else 'flat'}"
         f"): |dw| {hand_dw:.3e} (tol {DW_TOL})")
-    log(f"path {path}: {secs:.3f} s wall, {secs / scan_secs:.3f}x path 1's "
-        f"fused {scan_secs:.3f} s in this call")
+    log(f"path {path}: {d} dates {secs:.3f} s wall; path 1's fused run of "
+        f"{D} dates {scan_secs:.3f} s in this call")
     if not share <= DW_SHARE:
         raise AssertionError(f"{path}: suffix weights differ from the scan's "
                              f"on {share:.2%} of days")
@@ -2950,6 +2975,8 @@ S_REQUESTS, S_LADDER, S_LOAD, S_DEADLINE_X, S_DEPTH = 48, (1, 4, 8), 2.0, 40, 8
 S_FAULTS = dict(seed=36, error_rate=0.05, poison_rate=0.05)
 # 10d: advance_all over path 9b's first S_ONLINE_DATES dates
 S_ONLINE_DATES = 166
+# 10b: the first P10B_DATES of path 9's dates
+P10B_DATES = 333
 
 
 def serving_configs(fmt, n: int):
@@ -3134,15 +3161,17 @@ def serve_path(torch, fmt, seed: int) -> dict:
 
 def turnover_serve_path(torch, fmt, seed: int, clean, clean_secs: float):
     """Path 10b: an mvo_turnover bucket of 3 tenants (turnover_configs) on
-    the first R_DATES dates of path 1's inputs, default ladder (rung 8, 5
-    pad lanes, not computed): K1 once, K2 two segments a date a real
+    the first P10B_DATES dates of path 1's inputs, default ladder (rung 8,
+    5 pad lanes, not computed): K1 once, K2 two segments a date a real
     tenant; the invariants of every tenant; tenant 0 held to path 9a's
-    clean step (selection bitwise, weights at DW_TOL/DW_SHARE). Returns the
-    launches and the configs."""
+    clean step on those dates (causal; selection bitwise but for the cut
+    run's last row, which the processed range zeroes; weights at
+    DW_TOL/DW_SHARE). Returns the launches and the configs."""
     from factormodeling_tpu_torch.metrics import _cuda_rank_ic as rk
     from factormodeling_tpu_torch.ops import _cuda_admm as ak
 
-    arrays = tuple(a[:, :R_DATES] if a.ndim == 3 else a[:R_DATES]
+    d = P10B_DATES
+    arrays = tuple(a[:, :d] if a.ndim == 3 else a[:d]
                    for a in make_inputs(F, D, N, seed))
     configs = turnover_configs(fmt)
     server = fmt.serve.TenantServer(names=factor_names(F),
@@ -3152,15 +3181,16 @@ def turnover_serve_path(torch, fmt, seed: int, clean, clean_secs: float):
     launches = segment_counts(rk, ak)
     segs = segment_launches(fmt, PATHS["turnover"], d=1)[0]
     want = {"rank_ic_postsort": 1,
-            "admm_segment": len(configs) * R_DATES * segs,
+            "admm_segment": len(configs) * d * segs,
             "admm_segment_lanes": 0}
     stats = server.serving_stats()
+    per_date = clean_secs / R_DATES
     log(f"path serve_turnover (10b): {len(configs)} mvo_turnover tenants, "
-        f"F={F} D={R_DATES} N={N}, rung 8 ({stats['padded_lanes']} pad "
+        f"F={F} D={d} N={N}, rung 8 ({stats['padded_lanes']} pad "
         f"lanes): {secs:.3f} s wall, {secs / len(configs):.3f} s a tenant "
-        f"({secs / len(configs) / clean_secs:.3f}x path 9a's clean step, "
-        f"{clean_secs:.3f} s, in this call); launches {json.dumps(launches)} "
-        f"(schedule {json.dumps(want)})")
+        f"({secs / len(configs) / d / per_date:.3f}x path 9a's clean step "
+        f"a date, {clean_secs:.3f} s for {R_DATES} dates, in this call); "
+        f"launches {json.dumps(launches)} (schedule {json.dumps(want)})")
     if launches != want or stats["padded_lanes"] != 5:
         raise AssertionError(f"serve_turnover: launches {launches}, the "
                              f"schedule implies {want}")
@@ -3168,22 +3198,23 @@ def turnover_serve_path(torch, fmt, seed: int, clean, clean_secs: float):
         out = r.output
         check_invariants(torch, f"serve_turnover[{i}]", out,
                          max_weight=float(c.max_weight))
-        if int(out.sim.diagnostics.qp_solves) != R_DATES or not all(
+        if int(out.sim.diagnostics.qp_solves) != d or not all(
                 bool(torch.isfinite(v)) for v in out.summary):
             raise AssertionError(f"serve_turnover: tenant {i}: QP solves "
                                  "or summary off")
     out = res[0].output
-    sel_equal = bool(torch.equal(out.selection, clean.selection))
+    sel_equal = bool(torch.equal(out.selection[:d - 1],
+                                 clean.selection[:d - 1]))
     dw = (out.sim.weights.nan_to_num()
-          - clean.sim.weights.nan_to_num()).abs().max(-1).values
+          - clean.sim.weights[:d].nan_to_num()).abs().max(-1).values
     share = float((dw > DW_TOL).double().mean())
-    w_bitwise = _bytes_equal(out.sim.weights, clean.sim.weights)
+    w_bitwise = _bytes_equal(out.sim.weights, clean.sim.weights[:d])
     tenant = configs[0].normalized(F, server.n_groups, dtype=np.float32)
     log(f"path serve_turnover (10b) tenant 0 vs path 9a's clean step: "
         f"selection bitwise {sel_equal}; weights bitwise {w_bitwise}, max "
         f"|dw| {float(dw.max()):.3e}, share of days > {DW_TOL}: {share:.4f} "
         f"(limit {DW_SHARE}), days bitwise "
-        f"{int((dw == 0).sum())} of {R_DATES}; the server's knobs are the "
+        f"{int((dw == 0).sum())} of {d}; the server's knobs are the "
         f"panels' float32 (max_weight {float(tenant.max_weight)!r}, "
         f"turnover_penalty {float(tenant.turnover_penalty)!r}), the step's "
         f"Python floats")
@@ -3929,7 +3960,318 @@ def north_star_host_path(torch, fmt, seed: int) -> dict:
                              "runs differ")
     if k1 != 3 * len(slices):
         raise AssertionError(f"north star host: {k1} K1 launches")
-    return {"rank_ic_postsort": k1 + 1}
+    return {"rank_ic_postsort": k1 + 1}, dict(host=host, rets=rets,
+                                              serial=runs["serial"])
+
+
+# path 13: the mesh layer as a world of one over NCCL. 13a runs path 1's
+# first P13_DATES dates; every sharded run is held to its unsharded twin
+# at P13_TOL (a world of one runs the same operations, so it is bitwise)
+P13_DATES = 166
+P13_TOL = 1e-10
+P13_ONLINE_DATES = 16
+
+
+def _max_diff(torch, a, b) -> float:
+    """max |a - b| with NaN where both are NaN (a NaN against a number is
+    inf)."""
+    a, b = a.double(), b.double()
+    both = torch.isnan(a) & torch.isnan(b)
+    d = torch.where(both, 0.0, (a - b).abs())
+    return float(torch.nan_to_num(d, nan=float("inf")).max()) if d.numel() \
+        else 0.0
+
+
+def _tree_diff(torch, fmt, a, b) -> float:
+    """The largest :func:`_max_diff` over two output trees' tensor
+    leaves."""
+    from factormodeling_tpu_torch.serve.batched import _tree_map
+
+    diffs = []
+    _tree_map(lambda x, y: diffs.append(
+        _max_diff(torch, x, y) if isinstance(x, torch.Tensor)
+        and x.is_floating_point() else
+        (0.0 if not isinstance(x, torch.Tensor) or torch.equal(x, y)
+         else float("inf"))), a, b)
+    return max(diffs)
+
+
+def _held13(what: str, err: float) -> None:
+    if not err <= P13_TOL:
+        raise AssertionError(f"path 13 {what}: {err} from the unsharded run "
+                             f"(tol {P13_TOL})")
+
+
+def mesh_step_path(torch, fmt, seed: int) -> dict:
+    """13a: ``make_sharded_research_step`` on a (1, 1) ``("factor",
+    "date")`` mesh at path 1's width on its first P13_DATES dates, held
+    against the unsharded step: K1 once, K2 two segments a date; the
+    walls and the ledger's collectives a stage."""
+    from factormodeling_tpu_torch.metrics import _cuda_rank_ic as rk
+    from factormodeling_tpu_torch.obs import comms
+    from factormodeling_tpu_torch.ops import _cuda_admm as ak
+    from factormodeling_tpu_torch.parallel import (make_mesh,
+                                                   make_sharded_research_step)
+
+    d = P13_DATES
+    arrays = tuple(a[:, :d] if a.ndim == 3 else a[:d]
+                   for a in make_inputs(F, D, N, seed))
+    sim = dict(PATHS["turnover"], max_weight=MAX_WEIGHT,
+               solver_kernel="fused")
+    inputs, cfg = fmt.convert(*arrays, names=factor_names(F), window=WINDOW,
+                              select_method="icir_top", blend_method="zscore",
+                              sim_kwargs=sim, device="cuda")
+    kw = cfg.as_kwargs()
+    kw.pop("device")
+    ref, ref_secs = _timed(torch, lambda: fmt.build_research_step(
+        **kw, device="cuda")(*inputs))
+    mesh = make_mesh(("factor", "date"), device="cuda")
+    step, shard = make_sharded_research_step(mesh, **kw)
+    blocks = shard(*inputs)
+    rk.launches = ak.launches = ak.lane_launches = 0
+    with comms.recording(mesh) as ledger:
+        out, secs = _timed(torch, lambda: step(*blocks))
+    launches = segment_counts(rk, ak)
+    want = segment_launches(fmt, PATHS["turnover"], d=d)
+    fields = {"selection": (out.selection, ref.selection),
+              "signal": (out.signal, ref.signal),
+              "weights": (out.sim.weights, ref.sim.weights),
+              "log_return": (out.sim.result.log_return,
+                             ref.sim.result.log_return)}
+    errs = {k: _max_diff(torch, a, b) for k, (a, b) in fields.items()}
+    bitwise = all(torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0))
+                  for a, b in fields.values())
+    by_stage = {s: {k: v["count"] for k, v in agg["collectives"].items()}
+                for s, agg in ledger.by_stage().items()}
+    log(f"path 13a sharded step: (1, 1) ('factor', 'date') mesh over "
+        f"{torch.distributed.get_backend()}, F={F} D={d} N={N} "
+        f"mvo_turnover fused: {secs:.3f} s wall, the unsharded step "
+        f"{ref_secs:.3f} s ({secs / ref_secs:.3f}x); max |diff| "
+        f"{json.dumps(errs)} (tol {P13_TOL}), bitwise {bitwise}; launches "
+        f"{json.dumps(launches)} (schedule K1 1, K2 {want}); ledger "
+        f"collectives a stage {json.dumps(by_stage)}, bytes moved "
+        f"{ledger.totals()['bytes_moved']}")
+    for k, e in errs.items():
+        _held13(f"13a {k}", e)
+    if (launches["rank_ic_postsort"] != 1
+            or (launches["admm_segment"], launches["admm_segment_lanes"])
+            != tuple(want)):
+        raise AssertionError(f"path 13a: launches {launches}, schedule K1 1, "
+                             f"K2 {want}")
+    if any(s.startswith(("backtest/", "solver/")) for s in by_stage):
+        raise AssertionError(f"path 13a: a collective in the backtest: "
+                             f"{by_stage}")
+    return launches
+
+
+def mesh_sweep_path(torch, fmt) -> dict:
+    """13b: ``make_sharded_manager_sweep`` on a ``("combo",)`` world of one
+    at 8b's 1000 combos, held against 8b's ``manager_sweep``."""
+    from factormodeling_tpu_torch.metrics import _cuda_rank_ic as rk
+    from factormodeling_tpu_torch.ops import _cuda_admm as ak
+    from factormodeling_tpu_torch.parallel import (make_mesh,
+                                                   make_sharded_manager_sweep)
+
+    factors, cw, settings = sweep_inputs(torch, fmt, "cuda")
+    want, want_secs = _timed(torch, lambda: fmt.parallel.manager_sweep(
+        factors, cw, settings, combo_batch=SWEEP_BATCH, device="cuda"))
+    sweep = make_sharded_manager_sweep(make_mesh(("combo",), device="cuda"),
+                                       combo_batch=SWEEP_BATCH)
+    rk.launches = ak.launches = ak.lane_launches = 0
+    got, secs = _timed(torch, lambda: sweep(factors, cw, settings))
+    launches = segment_counts(rk, ak)
+    err = max(_max_diff(torch, a, b) for a, b in zip(got, want))
+    log(f"path 13b sharded sweep: {cw.shape[0]} combos, {SWEEP_F} x "
+        f"{SWEEP_D} x {SWEEP_N} float32 on a ('combo',) world of one: "
+        f"{secs:.4f} s wall, 8b's sweep {want_secs:.4f} s; max |diff| "
+        f"{err:.3e} (tol {P13_TOL}); launches {json.dumps(launches)}")
+    _held13("13b", err)
+    return launches
+
+
+def mesh_asset_path(torch, fmt, seed: int) -> dict:
+    """13c: the asset-sharded step, icir_top / equal at path 1's full
+    1332 x 1000, on a (1, 1) ``("date", "assets")`` mesh under each layout
+    mode and under ``choose_asset_specs``' plan (its layout stages run
+    on ``meta`` tensors), each held against the unsharded step; K1 once a
+    run."""
+    from factormodeling_tpu_torch.metrics import _cuda_rank_ic as rk
+    from factormodeling_tpu_torch.obs import comms
+    from factormodeling_tpu_torch.ops import _cuda_admm as ak
+    from factormodeling_tpu_torch.parallel import (
+        AssetSpecPlan, choose_asset_specs, make_asset_mesh,
+        make_asset_sharded_research_step)
+
+    arrays = make_inputs(F, D, N, seed)
+    inputs, cfg = fmt.convert(*arrays, names=factor_names(F), window=WINDOW,
+                              select_method="icir_top", blend_method="zscore",
+                              sim_kwargs=dict(method="equal", pct=P8_PCT),
+                              device="cuda")
+    kw = cfg.as_kwargs()
+    kw.pop("device")
+    ref, ref_secs = _timed(torch, lambda: fmt.build_research_step(
+        **kw, device="cuda")(*inputs))
+    mesh = make_asset_mesh(("date", "assets"), device="cuda")
+    t0 = time.perf_counter()
+    chosen, ranking = choose_asset_specs(mesh, shapes=(F, D, N),
+                                         dtype=torch.float32, **kw)
+    choose_secs = time.perf_counter() - t0
+    plans = {m: AssetSpecPlan(mesh, default=m) for m in ("auto", "reshard",
+                                                         "gather")}
+    plans["chosen"] = chosen
+    rk.launches = ak.launches = ak.lane_launches = 0
+    rows = {}
+    for label, plan in plans.items():
+        step, shard = make_asset_sharded_research_step(mesh, **kw, plan=plan)
+        blocks = shard(*inputs)
+        with comms.recording(mesh) as ledger:
+            out, secs = _timed(torch, lambda: step(*blocks))
+        err = max(_max_diff(torch, a, b) for a, b in (
+            (out.selection, ref.selection), (out.signal, ref.signal),
+            (out.sim.weights, ref.sim.weights),
+            (out.sim.result.log_return, ref.sim.result.log_return)))
+        rows[label] = {"secs": round(secs, 3), "max_abs_err": err,
+                       "collectives": ledger.totals()["collectives"]}
+        _held13(f"13c {label}", err)
+    launches = segment_counts(rk, ak)
+    log(f"path 13c asset-sharded step: (1, 1) ('date', 'assets') mesh, "
+        f"icir_top / equal, F={F} D={D} N={N}: the unsharded step "
+        f"{ref_secs:.3f} s; by plan {json.dumps(rows)} (tol {P13_TOL}); the "
+        f"chooser {choose_secs:.3f} s on meta tensors, plan "
+        f"{json.dumps(chosen.spec_table())}, total bytes by mode "
+        f"{json.dumps(ranking['__total__']['ranked'])}; launches "
+        f"{json.dumps(launches)}")
+    if launches["rank_ic_postsort"] != len(plans):
+        raise AssertionError(f"path 13c: K1 launched "
+                             f"{launches['rank_ic_postsort']} times, not once "
+                             f"a run")
+    return launches
+
+
+def mesh_serve_path(torch, fmt, seed: int) -> dict:
+    """13d: ``TenantServer(mesh=...)`` on a (1, 1) ``("configs",
+    "assets")`` mesh: 10a's rung-8 dispatch of 5 tenants, and 10d's two
+    turnover tenants advanced over P13_ONLINE_DATES dates, held against
+    the unsharded server; K1 once a dispatch and once a date."""
+    from factormodeling_tpu_torch.metrics import _cuda_rank_ic as rk
+    from factormodeling_tpu_torch.online import DateSlice
+    from factormodeling_tpu_torch.ops import _cuda_admm as ak
+    from factormodeling_tpu_torch.parallel import make_mesh
+
+    arrays = make_inputs(F, D, N, seed)
+    factors, returns, factor_ret, cap, invest, universe = arrays
+    configs = serving_configs(fmt, S_TENANTS)[:S_PROBE]
+    t_cfgs = turnover_configs(fmt)
+    t_cfgs = [t_cfgs[0], t_cfgs[2]]
+    mesh = make_mesh(("configs", "assets"), device="cuda")
+    servers = {"plain": fmt.serve.TenantServer(
+        names=factor_names(F), **_panels(arrays), device="cuda"),
+        "mesh": fmt.serve.TenantServer(
+            names=factor_names(F), **_panels(arrays), mesh=mesh)}
+    got, walls = {}, {}
+    for label, server in servers.items():
+        if label == "mesh":
+            rk.launches = ak.launches = ak.lane_launches = 0
+        served, walls[f"{label} serve"] = _timed(
+            torch, lambda s=server: s.serve(configs))
+        server.online_begin(t_cfgs)
+        rows = []
+        t0 = time.perf_counter()
+        for t in range(P13_ONLINE_DATES):
+            rows.append(server.advance_all(DateSlice(
+                factors=factors[:, t], returns=returns[t],
+                factor_ret=factor_ret[t], cap_flag=cap[t],
+                investability=invest[t], universe=universe[t])))
+        torch.cuda.synchronize()
+        walls[f"{label} advance"] = time.perf_counter() - t0
+        got[label] = (served, rows)
+    launches = segment_counts(rk, ak)
+    serve_err = max(_tree_diff(torch, fmt, a.output, b.output)
+                    for a, b in zip(got["mesh"][0], got["plain"][0]))
+    adv_err = max(_tree_diff(torch, fmt, a.output, b.output)
+                  for ra, rb in zip(got["mesh"][1], got["plain"][1])
+                  for a, b in zip(ra, rb))
+    segs = segment_launches(fmt, PATHS["turnover"], d=1)[0]
+    want = {"rank_ic_postsort": 1 + P13_ONLINE_DATES,
+            "admm_segment": 2 * (P13_ONLINE_DATES - 1) * segs,
+            "admm_segment_lanes": 0}
+    log(f"path 13d sharded server: (1, 1) ('configs', 'assets') mesh: "
+        f"{S_PROBE} equal tenants (rung 8) and 2 turnover tenants over "
+        f"{P13_ONLINE_DATES} dates; walls "
+        f"{json.dumps({k: round(v, 3) for k, v in walls.items()})} s; max "
+        f"|diff| serve {serve_err:.3e}, advance {adv_err:.3e} (tol "
+        f"{P13_TOL}); mesh_shape "
+        f"{json.dumps(servers['mesh'].serving_stats()['mesh_shape'])}; "
+        f"launches {json.dumps(launches)} (schedule {json.dumps(want)})")
+    _held13("13d serve", serve_err)
+    _held13("13d advance_all", adv_err)
+    if launches != want:
+        raise AssertionError(f"path 13d: launches {launches}, schedule "
+                             f"{want}")
+    return launches
+
+
+def mesh_stream_path(torch, fmt, ns_host: dict) -> dict:
+    """13e: ``streamed_factor_stats(mesh=...)`` on 12e's host stack from a
+    date-block source (``chunk_sharding``) on a ``("date",)`` world of one,
+    bitwise 12e's serial run; K1 once a chunk."""
+    from factormodeling_tpu_torch.metrics import _cuda_rank_ic as rk
+    from factormodeling_tpu_torch.ops import _cuda_admm as ak
+    from factormodeling_tpu_torch.parallel import make_mesh, streaming
+
+    mesh = make_mesh(("date",), device="cuda")
+    src, slices = streaming.host_array_source(
+        ns_host["host"], NS_HOST_CHUNK,
+        sharding=streaming.chunk_sharding(mesh))
+    rk.launches = ak.launches = ak.lane_launches = 0
+    got, secs = _timed(torch, lambda: streaming.streamed_factor_stats(
+        src, len(slices), ns_host["rets"], shift_periods=2,
+        stats=("rank_ic", "factor_return"), mesh=mesh))
+    launches = segment_counts(rk, ak)
+    serial = ns_host["serial"]
+    bitwise = all(torch.equal(got[k].nan_to_num(7.0),
+                              serial[k].nan_to_num(7.0)) for k in serial)
+    log(f"path 13e date-sharded streaming: {NS_HOST_F} x {NS_D} x {NS_N} "
+        f"float32 from host memory in chunks of {NS_HOST_CHUNK} on a "
+        f"('date',) world of one: {secs:.3f} s wall; bitwise 12e's serial "
+        f"run {bitwise}; launches {json.dumps(launches)}")
+    if not bitwise:
+        raise AssertionError("path 13e: the date-sharded stats differ from "
+                             "12e's serial run")
+    if launches["rank_ic_postsort"] != len(slices):
+        raise AssertionError(f"path 13e: {launches['rank_ic_postsort']} K1 "
+                             f"launches for {len(slices)} chunks")
+    return launches
+
+
+def mesh_paths(torch, fmt, seed: int, ns_host: dict) -> dict:
+    """Path 13 in a world of one over NCCL (an in-process store), formed
+    by the first mesh and destroyed at the end; a world that fails to
+    form or a collective that fails fails the run. Returns each part's
+    launches."""
+    from factormodeling_tpu_torch.parallel import release_world
+
+    out = {}
+    try:
+        for key, label, fn in (
+                ("mesh_step", "13a", lambda: mesh_step_path(torch, fmt, seed)),
+                ("mesh_sweep", "13b", lambda: mesh_sweep_path(torch, fmt)),
+                ("mesh_asset", "13c", lambda: mesh_asset_path(torch, fmt,
+                                                              seed)),
+                ("mesh_serve", "13d", lambda: mesh_serve_path(torch, fmt,
+                                                              seed)),
+                ("mesh_stream", "13e", lambda: mesh_stream_path(
+                    torch, fmt, ns_host))):
+            t0 = time.perf_counter()
+            out[key] = fn()
+            log(f"path {label} phase: {time.perf_counter() - t0:.1f} s wall")
+        if torch.distributed.get_backend() != "nccl":
+            raise AssertionError("path 13 ran on "
+                                 f"{torch.distributed.get_backend()}, not "
+                                 "nccl")
+    finally:
+        release_world()
+    return out
 
 
 def main() -> int:
@@ -4087,33 +4429,40 @@ def main() -> int:
     log(f"path 12d phase (warm-up, one pass, two-pass flow, one-shot check, "
         f"K1 timing): {time.perf_counter() - t0:.1f} s wall")
     t0 = time.perf_counter()
-    launches["north_star_host"] = north_star_host_path(torch, fmt, args.seed)
+    launches["north_star_host"], ns_host = north_star_host_path(
+        torch, fmt, args.seed)
     log(f"path 12e phase (serial, prefetched, disk): "
         f"{time.perf_counter() - t0:.1f} s wall")
     log(f"path 12: {time.perf_counter() - t12:.1f} s wall")
+    t0 = time.perf_counter()
+    launches.update(mesh_paths(torch, fmt, args.seed, ns_host))
+    del ns_host
+    log(f"path 13: {time.perf_counter() - t0:.1f} s wall")
     # each kernel's launches on the paths that run its form: K1 once in each
     # of paths 1-3, in path 8a's icir_top selection and in path 9a's clean
     # step, once a date in path 9b's online advance, once a dispatch in
     # paths 10a and 10b, once a date in path 10d's session, once a dispatch
-    # in paths 12a-12c and once a chunk in 12d-12e
+    # in paths 12a-12c, once a chunk in 12d-12e, once in 13a, once a plan
+    # in 13c, once a dispatch and a date in 13d and once a chunk in 13e
     k1 = {p: launches[p]["rank_ic_postsort"] for p in
           (*PATHS, "multimanager", "resil", "online", "serve",
            "serve_turnover", "advance_all", "scenarios", "scenarios_resume",
-           "scenarios_turnover", "north_star", "north_star_host")}
+           "scenarios_turnover", "north_star", "north_star_host",
+           "mesh_step", "mesh_asset", "mesh_serve", "mesh_stream")}
     kernels["rank_ic_postsort"]["launches"] = sum(k1.values())
     kernels["rank_ic_postsort"]["launches_by_path"] = k1
     kernels["rank_ic_postsort"].update(k1_north)
     # the segment's single-lane launches: path 1, the sequential suffixes
     # of paths 6-7, path 9a's clean step, path 9b's advance, paths 10b
-    # and 10d (a real tenant's days, never a pad lane's) and path 12c (two
-    # regime paths' days); its collect=1
+    # and 10d (a real tenant's days, never a pad lane's), path 12c (two
+    # regime paths' days) and paths 13a and 13d; its collect=1
     # form: path 9a's probed inert and chaos steps and path 11a's probed
     # tally run; its lane launches: path 2's chunks, and the seed and sweep
     # chunks of paths 6-7 (each as the wrapper counted it)
     single = {p: launches[p]["admm_segment"] for p in
               ("turnover", "turnover_parallel", "turnover_parallel_decoupled",
                "resil", "online", "serve_turnover", "advance_all",
-               "scenarios_turnover")}
+               "scenarios_turnover", "mesh_step", "mesh_serve")}
     lanes = {p: launches[p]["admm_segment_lanes"] for p in
              ("mvo", "turnover_parallel", "turnover_parallel_decoupled")}
     kernels["admm_segment"]["launches"] = sum(single.values())

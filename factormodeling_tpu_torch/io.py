@@ -325,20 +325,19 @@ def disk_chunk_source(root: str | Path, *, sharding=None):
     ``parallel.streamed_*`` functions copy its pages into a pinned staging
     buffer and on to the device (with ``prefetch``, on their loader
     thread), so host memory holds pages transiently instead of a second
-    copy of the stack. ``sharding=`` (date-sharded chunks) is not ported
-    yet (ROADMAP queue 1 item 5).
+    copy of the stack. With ``sharding`` (``parallel.chunk_sharding`` of a
+    date-sharded mesh) ``source(i)`` is this rank's date block of the map,
+    so only its pages are read.
     """
     import json
 
-    if sharding is not None:
-        raise NotImplementedError("disk_chunk_source(sharding=...) is not "
-                                  "ported yet (ROADMAP queue 1 item 5)")
     root = Path(root)
     manifest = json.loads((root / "manifest.json").read_text())
     bounds = np.cumsum([0] + manifest["sizes"])
     slices = [slice(int(a), int(b)) for a, b in zip(bounds[:-1], bounds[1:])]
 
     def source(i):
-        return np.load(root / f"chunk_{i:04d}.npy", mmap_mode="r")
+        chunk = np.load(root / f"chunk_{i:04d}.npy", mmap_mode="r")
+        return chunk if sharding is None else sharding.block(chunk)
 
     return source, slices, manifest

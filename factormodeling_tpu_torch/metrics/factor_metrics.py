@@ -26,7 +26,8 @@ from factormodeling_tpu_torch.metrics._special import betainc
 from factormodeling_tpu_torch.ops._window import masked_shift, rolling_sum, shift
 
 __all__ = ["METRIC_COLUMNS", "aggregate_metrics", "daily_factor_stats",
-           "nan_mean_std", "rolling_metrics", "single_factor_metrics"]
+           "daily_factor_stats_dates", "nan_mean_std", "rolling_metrics",
+           "single_factor_metrics"]
 
 METRIC_COLUMNS = (
     "IC",
@@ -128,6 +129,24 @@ def daily_factor_stats(factors: torch.Tensor, returns: torch.Tensor,
         beta = torch.where(den > 0, num / den, float("nan"))
         out["factor_return"] = torch.where(enough, beta, float("nan"))
     return out
+
+
+def daily_factor_stats_dates(factors: torch.Tensor, returns: torch.Tensor,
+                             dates: slice, *, shift_periods: int = 1,
+                             universe: torch.Tensor | None = None,
+                             stats: tuple = ("ic", "rank_ic",
+                                             "factor_return")) -> dict:
+    """:func:`daily_factor_stats` of the ``dates`` slice only: the shift
+    runs over every date of ``factors [F, D, N]`` (it reads earlier
+    dates), the stats over the slice's rows alone, each row as the whole
+    run computes it. The sharded steps score a rank's dates with it."""
+    if shift_periods:
+        factors = (masked_shift(factors, universe, shift_periods,
+                                axis=_DATE_AXIS) if universe is not None
+                   else shift(factors, shift_periods, axis=_DATE_AXIS))
+    return daily_factor_stats(
+        factors[:, dates], returns[dates], shift_periods=0,
+        universe=None if universe is None else universe[dates], stats=stats)
 
 
 def _t_sf_two_sided(t: torch.Tensor, df: torch.Tensor) -> torch.Tensor:

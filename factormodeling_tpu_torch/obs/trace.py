@@ -5,18 +5,30 @@
 ``torch.profiler`` trace groups the block's host work and the kernels it
 launches under ``name``; outside a profiler the marker only records a
 range and the block's results are unchanged. ``annotate(name)`` is the
-decorator form.
+decorator form. The names of the stages open on this thread are kept in
+order (:func:`active_stages`): the comms ledger charges a collective to the
+innermost of them that it knows (``obs/comms.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import threading
 
 import torch
 
-__all__ = ["stage", "annotate"]
+__all__ = ["active_stages", "stage", "annotate"]
+
+_open = threading.local()
 
 
+def active_stages() -> tuple:
+    """The stage names open on this thread, outermost first."""
+    return tuple(getattr(_open, "names", ()))
+
+
+@contextlib.contextmanager
 def stage(name: str):
     """A ``torch.profiler.record_function`` context manager for one
     pipeline stage::
@@ -24,7 +36,13 @@ def stage(name: str):
         with obs.stage("selection/rolling"):
             sel = rolling_selection(...)
     """
-    return torch.profiler.record_function(name)
+    prev = getattr(_open, "names", [])
+    _open.names = prev + [name]
+    try:
+        with torch.profiler.record_function(name):
+            yield
+    finally:
+        _open.names = prev
 
 
 def annotate(name: str):
@@ -34,7 +52,7 @@ def annotate(name: str):
     def deco(fn):
         @functools.wraps(fn)
         def wrapped(*args, **kwargs):
-            with torch.profiler.record_function(name):
+            with stage(name):
                 return fn(*args, **kwargs)
 
         return wrapped

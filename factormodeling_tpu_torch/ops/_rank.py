@@ -9,8 +9,9 @@ order, as the JAX package's sort does; the tie tests compare neighbours with
 ``!=``, so each NaN is its own run and -0.0 ties with +0.0. A multi-key sort
 is a chain of stable single-key sorts from the least significant key up,
 and order-dependent results go back to the original order by a scatter.
-The JAX package's sharding hints (``_assetspec.hint``) are the identity
-without a mesh and have no counterpart here.
+The JAX package's sharding hints at these sorts (``_assetspec.hint``)
+have no counterpart here: the port's sorts always see whole rows, and its
+asset-sharded step forms them once a stage (``ops/_assetspec.py``).
 """
 
 from __future__ import annotations

@@ -1,0 +1,424 @@
+"""Multi-process ``torch.distributed`` correctness check (worker and
+launcher; port of ``factormodeling_tpu/parallel/_dist_check.py``).
+
+The launcher spawns real processes on this host, one rank each; they
+rendezvous through ``initialize_cluster("file://...")`` (a ``FileStore``
+in a temporary directory: no port to race for), form a ``gloo`` world on
+the CPU posing as two hosts (``LOCAL_WORLD_SIZE`` is half the world, so
+``make_hybrid_mesh`` puts its first axis across them), and every rank
+runs, on the same seeded float64 inputs:
+
+- the factor x date sharded research step (``make_hybrid_mesh(("factor",
+  "date"))``) for four selector/weight configurations, each held against
+  the rank's own unsharded step at 1e-10 (Sharpe 1e-8), then prints
+  ``DIST_OK <rank>``;
+- the asset-sharded step on a ``("date", "assets")`` mesh and on a flat
+  ``("assets",)`` mesh in each layout mode, held the same way, then prints
+  ``DIST_ASSET_OK <rank>``;
+- then the comms ledgers, an ``all_reduce``, the layout chooser, the
+  sharded sweep, date-sharded streaming, the sharded ``TenantServer`` and
+  the divisibility errors.
+
+Each rank writes what it computed to ``<out_dir>/rank<r>.pt`` (numpy
+arrays and plain values), which the tests compare with the JAX package's
+sharded counterparts. The ranks import only the port: each asserts that
+no ``jax`` and no ``factormodeling_tpu.`` module is loaded.
+
+Worker entry: ``python -m factormodeling_tpu_torch.parallel._dist_check
+<rank> <n_proc> <store_dir> <out_dir>``.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+_NPROC = 2
+
+#: worker-log substrings that mean the installed torch cannot run the check
+#: at all (no gloo backend), not that the code under test failed
+UNSUPPORTED_MARKERS = (
+    "Gloo is not available",
+    "gloo backend is not available",
+)
+
+F, D, N, WINDOW = 8, 32, 16, 6
+NAMES = ("a_eq", "a_flx", "b_long", "b_short",
+         "c_eq", "c_flx", "d_long", "d_short")
+#: the sharded step's configurations: (label, select_method, sim_kwargs)
+STEP_CASES = (
+    ("icir_top_equal", "icir_top", dict(method="equal", pct=0.3)),
+    ("momentum_linear", "momentum", dict(method="linear", max_weight=0.3)),
+    ("icir_top_mvo", "icir_top", dict(method="mvo", lookback_period=8,
+                                      mvo_batch=8, qp_iters=60)),
+    ("icir_top_mvo_turnover", "icir_top",
+     dict(method="mvo_turnover", lookback_period=8, qp_iters=40)),
+)
+ASSET_SIM = dict(method="equal", pct=0.3)
+MODES = ("auto", "reshard", "gather")
+
+
+class DistributedUnsupported(RuntimeError):
+    """The installed torch cannot run multi-process collectives on the
+    CPU: skip the check, don't fail it."""
+
+
+def unsupported_reason(output: str) -> str | None:
+    """The first worker-log line matching a known capability marker (None
+    when the failure is a real one)."""
+    for line in output.splitlines():
+        if any(marker in line for marker in UNSUPPORTED_MARKERS):
+            return line.strip()[-300:]
+    return None
+
+
+def market(seed: int = 7):
+    """The seeded float64 inputs every rank builds alike."""
+    rng = np.random.default_rng(seed)
+    factors = rng.normal(size=(F, D, N))
+    factors[rng.uniform(size=factors.shape) < 0.05] = np.nan
+    returns = rng.normal(scale=0.02, size=(D, N))
+    factor_ret = rng.normal(scale=0.01, size=(D, F))
+    cap = rng.integers(1, 4, size=(D, N)).astype(float)
+    invest = np.ones((D, N))
+    universe = rng.uniform(size=(D, N)) > 0.05
+    return factors, returns, factor_ret, cap, invest, universe
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def _out_arrays(out) -> dict:
+    return {"selection": _np(out.selection), "signal": _np(out.signal),
+            "log_return": _np(out.sim.result.log_return),
+            "weights": _np(out.sim.weights),
+            "sharpe": float(out.summary.sharpe)}
+
+
+def _held(got: dict, want: dict, label: str) -> float:
+    """Largest gap of ``got`` from ``want`` (NaN where both are NaN); raises
+    past 1e-10 (Sharpe 1e-8)."""
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k]
+        tol = 1e-8 if k in ("sharpe", "weights") else 1e-10
+        gap = float(np.nanmax(np.abs(np.asarray(g) - np.asarray(w)),
+                              initial=0.0))
+        if (np.isnan(g) != np.isnan(w)).any() or not gap <= tol:
+            raise AssertionError(f"{label} {k}: gap {gap} (tol {tol})")
+        worst = max(worst, gap)
+    return worst
+
+
+def _ops(ledger) -> list:
+    return [op._asdict() for op in ledger.ops]
+
+
+def _step_leg(raw, res: dict) -> None:
+    import torch
+
+    from factormodeling_tpu_torch.obs import comms
+    from factormodeling_tpu_torch.parallel import (
+        build_research_step, make_hybrid_mesh, make_sharded_research_step)
+
+    full = [torch.as_tensor(a) for a in raw]
+    mesh = make_hybrid_mesh(("factor", "date"), device="cpu")
+    res["mesh_shape"] = tuple(mesh.shape)
+    for label, select, sim in STEP_CASES:
+        cfg = dict(names=NAMES, window=WINDOW, select_method=select,
+                   sim_kwargs=sim)
+        step, shard = make_sharded_research_step(mesh, **cfg)
+        with comms.recording(mesh) as ledger:
+            out = _out_arrays(step(*shard(*raw)))
+        local = _out_arrays(build_research_step(**cfg, device="cpu")(*full))
+        res[f"step/{label}"] = out
+        res[f"step/{label}/err"] = _held(out, local, label)
+        res[f"step/{label}/ledger"] = _ops(ledger)
+    # faults, a policy, counters and probes read the whole stack: the step
+    # gathers it, then scores and blends its blocks as before
+    from factormodeling_tpu_torch import obs, resil
+
+    cfg = dict(names=NAMES, window=WINDOW, sim_kwargs=ASSET_SIM,
+               collect_counters=True, collect_probes=True,
+               fault_spec=resil.FaultSpec.make(seed=1, nan_rate=0.01,
+                                               drop_rate=0.05),
+               policy=resil.DegradePolicy.make(min_universe=5,
+                                               carry_fallback=True))
+    step, shard = make_sharded_research_step(mesh, **cfg)
+    got = step(*shard(*raw))
+    local = build_research_step(**cfg, device="cpu")(*full)
+    res["step/faulted/err"] = _held(_out_arrays(got), _out_arrays(local),
+                                    "faulted")
+    res["step/faulted/counters"] = (obs.summarize_counters(got.counters),
+                                    obs.summarize_counters(local.counters))
+    res["step/faulted/probes"] = sorted(got.probes)
+
+
+def _asset_leg(raw, res: dict) -> None:
+    import torch
+
+    from factormodeling_tpu_torch.obs import comms
+    from factormodeling_tpu_torch.parallel import (
+        AssetSpecPlan, build_research_step, make_asset_mesh, make_hybrid_mesh,
+        make_asset_sharded_research_step)
+
+    cfg = dict(names=NAMES, window=WINDOW, sim_kwargs=ASSET_SIM)
+    local = _out_arrays(build_research_step(**cfg, device="cpu")(
+        *[torch.as_tensor(a) for a in raw]))
+    for label, mesh in (("date_assets", make_hybrid_mesh(("date", "assets"),
+                                                         device="cpu")),
+                        ("assets", make_asset_mesh(device="cpu"))):
+        res[f"asset/{label}/mesh_shape"] = tuple(mesh.shape)
+        for mode in MODES:
+            step, shard = make_asset_sharded_research_step(
+                mesh, **cfg, plan=AssetSpecPlan(mesh, default=mode))
+            with comms.recording(mesh) as ledger:
+                out = _out_arrays(step(*shard(*raw)))
+            res[f"asset/{label}/{mode}"] = out
+            res[f"asset/{label}/{mode}/err"] = _held(out, local,
+                                                     f"{label} {mode}")
+            res[f"asset/{label}/{mode}/ledger"] = _ops(ledger)
+
+
+def _rest(raw, res: dict, tmp: str) -> None:
+    import torch
+
+    import factormodeling_tpu_torch as fmt
+    from factormodeling_tpu_torch import io as tio
+    from factormodeling_tpu_torch.online import DateSlice
+    from factormodeling_tpu_torch.parallel import (
+        choose_asset_specs, chunk_sharding, combo_weight_matrix,
+        host_array_source, make_hybrid_mesh, make_mesh,
+        make_asset_sharded_research_step, make_sharded_manager_sweep,
+        make_sharded_research_step, manager_sweep, streamed_factor_stats,
+        streamed_linear_research, streamed_weighted_composite)
+    from factormodeling_tpu_torch.serve import TenantConfig, TenantServer
+
+    factors, returns, factor_ret, cap, invest, universe = raw
+    cfg = dict(names=NAMES, window=WINDOW, sim_kwargs=ASSET_SIM)
+
+    # an all_reduce over each axis of the (factor, date) mesh
+    from factormodeling_tpu_torch.parallel.mesh import all_reduce
+
+    fmesh = make_hybrid_mesh(("factor", "date"), device="cpu")
+    mine = torch.tensor([float(torch.distributed.get_rank() + 1)])
+    res["all_reduce"] = {a: [float(all_reduce(mine, fmesh, a, op=o))
+                             for o in ("sum", "max", "min")]
+                         for a in ("factor", "date")}
+
+    # the chooser on the 2-D asset mesh: shapes only
+    amesh = make_hybrid_mesh(("date", "assets"), device="cpu")
+    plan, ranking = choose_asset_specs(amesh, shapes=(F, D, N), **cfg)
+    res["chooser/plan"] = plan.spec_table()
+    res["chooser/ranking"] = ranking
+    step, shard = make_asset_sharded_research_step(amesh, **cfg, plan=plan)
+    res["chooser/run"] = _out_arrays(step(*shard(*raw)))
+
+    # the sharded sweep
+    cmesh = make_mesh(("combo",), device="cpu")
+    rng = np.random.default_rng(4)
+    combos = np.stack([rng.choice(F, 3, replace=False) for _ in range(8)])
+    cw = combo_weight_matrix(combos, F, device="cpu")
+    settings = fmt.SimulationSettings(
+        returns=torch.as_tensor(returns), cap_flag=torch.as_tensor(cap),
+        investability_flag=torch.as_tensor(invest),
+        universe=torch.as_tensor(universe), method="equal", pct=0.3)
+    fac = torch.as_tensor(factors)
+    sharded = make_sharded_manager_sweep(cmesh, combo_batch=2)(fac, cw,
+                                                               settings)
+    plain = manager_sweep(fac, cw, settings, combo_batch=2, device="cpu")
+    res["sweep"] = {k: _np(v) for k, v in sharded._asdict().items()}
+    res["sweep/plain"] = {k: _np(v) for k, v in plain._asdict().items()}
+
+    # date-sharded streaming: whole chunks, block chunks, a disk source
+    dmesh = make_mesh(("date",), device="cpu")
+    ret_t, uni_t = torch.as_tensor(returns), torch.as_tensor(universe)
+    src, sl = host_array_source(factors, 3)
+    bsrc, _ = host_array_source(factors, 3, sharding=chunk_sharding(dmesh))
+    tio.save_factor_stack_chunks(os.path.join(tmp, "chunks"),
+                                 [factors[s] for s in sl],
+                                 factor_names=list(NAMES))
+    dsrc, dsl, _ = tio.disk_chunk_source(os.path.join(tmp, "chunks"),
+                                         sharding=chunk_sharding(dmesh))
+    kw = dict(shift_periods=2, universe=uni_t)
+    serial = streamed_factor_stats(src, len(sl), ret_t, device="cpu", **kw)
+    res["stream/serial"] = {k: _np(v) for k, v in serial.items()}
+    for label, source in (("whole", src), ("block", bsrc), ("disk", dsrc)):
+        got = streamed_factor_stats(source, len(sl), ret_t, mesh=dmesh, **kw)
+        res[f"stream/{label}"] = {k: _np(v) for k, v in got.items()}
+    # the disk chunks are float32: their own unsharded run
+    plain_disk, _, _ = tio.disk_chunk_source(os.path.join(tmp, "chunks"))
+    res["stream/disk/plain"] = {k: _np(v) for k, v in streamed_factor_stats(
+        plain_disk, len(sl), ret_t, device="cpu", **kw).items()}
+
+    def momentum(stats):
+        fr = torch.nan_to_num(stats["factor_return"])
+        return torch.clamp(torch.cumsum(fr, dim=1), 0.0, 1.0)
+
+    lin_kw = dict(chunk_weight_fn=momentum, universe=uni_t, shift_periods=2)
+    res["stream/linear"] = {k: _np(v) for k, v in streamed_linear_research(
+        bsrc, len(sl), ret_t, mesh=dmesh, **lin_kw).items()}
+    res["stream/linear/plain"] = {k: _np(v) for k, v in
+                                  streamed_linear_research(
+                                      src, len(sl), ret_t, device="cpu",
+                                      **lin_kw).items()}
+    w = [np.full((s.stop - s.start, D), 0.5) for s in sl]
+    res["stream/composite"] = _np(streamed_weighted_composite(
+        bsrc, w, universe=uni_t, mesh=dmesh))
+    res["stream/composite/plain"] = _np(streamed_weighted_composite(
+        src, w, universe=uni_t, device="cpu"))
+
+    # the sharded server: a rung-8 dispatch of 5 tenants, then 6 dates of
+    # advance_all, against the unsharded server
+    smesh = make_mesh(("configs", "assets"), device="cpu")
+    panels = dict(factors=factors, returns=returns, factor_ret=factor_ret,
+                  cap_flag=cap, investability=invest, universe=universe)
+    turnover = dict(method="mvo_turnover", lookback_period=6,
+                    max_weight=0.5, sim_static=(("qp_iters", 30),))
+    configs = [TenantConfig(window=WINDOW, icir_threshold=-1.0, top_k=k,
+                            pct=0.2 + 0.05 * k) for k in (1, 2, 3, 4)]
+    configs.append(TenantConfig(window=WINDOW, icir_threshold=-1.0,
+                                top_k=2, **turnover))
+    servers = {"mesh": TenantServer(names=NAMES, pad_ladder=(1, 4, 8),
+                                    mesh=smesh, **panels),
+               "plain": TenantServer(names=NAMES, pad_ladder=(1, 4, 8),
+                                     device="cpu", **panels)}
+    for label, server in servers.items():
+        served = server.serve(configs)
+        res[f"serve/{label}"] = [_out_arrays(r.output) for r in served]
+        res[f"serve/{label}/stats"] = server.serving_stats()["mesh_shape"]
+        server.online_begin(configs[:4])
+        rows = []
+        for t in range(6):
+            adv = server.advance_all(DateSlice(
+                factors[:, t], returns[t], factor_ret[t], cap[t], invest[t],
+                universe[t]))
+            rows.append([(bool(a.output.ready), _np(a.output.weights),
+                          _np(a.output.signal)) for a in adv])
+        res[f"advance/{label}"] = rows
+
+    # divisibility errors
+    errors = {}
+    bad = make_mesh(("factor", "date"), device="cpu")
+    for label, call in (
+            ("factors", lambda: make_sharded_research_step(
+                bad, names=NAMES[:7], window=WINDOW)),
+            ("dates", lambda: make_sharded_research_step(
+                bad, names=NAMES, window=WINDOW)[1](
+                    factors[:, :D - 1], returns[:D - 1], factor_ret[:D - 1],
+                    cap[:D - 1], invest[:D - 1], universe[:D - 1])),
+            ("assets", lambda: make_asset_sharded_research_step(
+                make_mesh(("assets",), device="cpu"), **cfg)[1](
+                    factors[..., :N - 1], returns[:, :N - 1], factor_ret,
+                    cap[:, :N - 1], invest[:, :N - 1],
+                    universe[:, :N - 1])),
+            ("combos", lambda: make_sharded_manager_sweep(cmesh)(
+                fac, cw[:7], settings))):
+        try:
+            call()
+            errors[label] = None
+        except ValueError as e:
+            errors[label] = str(e)
+    res["errors"] = errors
+
+
+def worker(rank: int, n_proc: int, store_dir: str, out_dir: str) -> None:
+    import torch
+    import torch.distributed as dist
+
+    from factormodeling_tpu_torch.parallel import (initialize_cluster,
+                                                   num_slices)
+
+    torch.set_num_threads(1)
+    if not dist.is_gloo_available():
+        print("Gloo is not available in this torch build", flush=True)
+        raise SystemExit(3)
+    initialize_cluster(f"file://{os.path.join(store_dir, 'store')}", n_proc,
+                       rank, backend="gloo")
+    try:
+        raw = market()
+        res: dict = {"rank": rank, "world": n_proc, "slices": num_slices()}
+        _step_leg(raw, res)
+        print(f"DIST_OK {rank}", flush=True)
+        _asset_leg(raw, res)
+        print(f"DIST_ASSET_OK {rank}", flush=True)
+        _rest(raw, res, tempfile.mkdtemp(dir=out_dir))
+        res["modules"] = sorted(m for m in sys.modules
+                                if m in ("jax", "factormodeling_tpu")
+                                or m.startswith("jax.")
+                                or m.startswith("factormodeling_tpu."))
+        assert not res["modules"], res["modules"]
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def launch(timeout: float = 300.0, n_proc: int = _NPROC,
+           out_dir: str | None = None) -> str:
+    """Spawn ``n_proc`` worker processes and raise unless every one
+    prints ``DIST_OK`` and ``DIST_ASSET_OK``; returns the directory the
+    ranks wrote their results to (``out_dir``, or a fresh temporary
+    one)."""
+    out_dir = out_dir or tempfile.mkdtemp()
+    store_dir = tempfile.mkdtemp(dir=out_dir)
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               LOCAL_WORLD_SIZE=str(max(n_proc // 2, 1)))
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    # output to files, not pipes: a rank dumping a long traceback would
+    # fill a pipe and block until the timeout
+    logs = [open(os.path.join(out_dir, f"rank{r}.log"), "w+")
+            for r in range(n_proc)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "factormodeling_tpu_torch.parallel._dist_check",
+         str(rank), str(n_proc), store_dir, out_dir],
+        stdout=logs[rank], stderr=subprocess.STDOUT, text=True, env=env)
+        for rank in range(n_proc)]
+    deadline = time.monotonic() + timeout
+    timed_out = False
+    while any(p.poll() is None for p in procs):
+        if time.monotonic() > deadline or any(
+                p.returncode not in (None, 0) for p in procs):
+            timed_out = time.monotonic() > deadline
+            break
+        time.sleep(0.2)
+    outs = []
+    for p, log in zip(procs, logs):
+        if p.poll() is None:
+            p.kill()
+            p.wait(timeout=10)
+        log.flush()
+        log.seek(0)
+        outs.append(log.read())
+        log.close()
+    failed = [(r, p, out) for r, (p, out) in enumerate(zip(procs, outs))
+              if p.returncode != 0 or f"DIST_OK {r}" not in out
+              or f"DIST_ASSET_OK {r}" not in out]
+    if failed:
+        for r, out in enumerate(outs):
+            reason = unsupported_reason(out)
+            if reason is not None:
+                raise DistributedUnsupported(
+                    f"distributed worker {r}: {reason}")
+        # the rank that crashed on its own, not a killed survivor
+        failed.sort(key=lambda t: (t[1].returncode is None
+                                   or t[1].returncode < 0))
+        rank, p, out = failed[0]
+        raise RuntimeError(
+            f"distributed worker {rank} failed (rc={p.returncode}, "
+            f"timeout={timed_out}):\n" + out[-4000:])
+    return out_dir
+
+
+if __name__ == "__main__":
+    worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4])

@@ -1,0 +1,415 @@
+"""Asset-axis scale-out: the asset-sharded research step and the
+ledger-driven layout chooser (port of
+``factormodeling_tpu/parallel/asset_shard.py``).
+
+- :func:`make_asset_mesh` builds a mesh carrying the asset axis (a flat
+  ``("assets",)`` mesh by default; serving uses ``("configs",
+  "assets")``; ``cluster.make_hybrid_mesh`` gives the multi-host form).
+- :func:`make_asset_sharded_research_step` is the
+  ``make_sharded_research_step`` sibling with the asset axis on every
+  ``[..., N]`` operand. The factor stack stays this rank's
+  ``[F, D/d, N/s]`` block until a cross-sectional stage needs whole rows:
+  the scoring and the blend each form them under the plan's mode for
+  their stage (``ops/_assetspec.py``: ``auto``, ``reshard``, ``gather``),
+  compute on the rows this rank holds (under ``reshard`` every rank scores
+  and blends its own ``1/(d s)`` of the dates) and gather the row results,
+  the ``[D, F]`` tables and the ``[D, N]`` signal, to every rank. The four
+  ``[D, N]`` panels and ``factor_ret`` are gathered whole at the inputs:
+  the backtest runs on every rank on the gathered signal, as the factor x
+  date step's does, since its turnover day loop and its outputs need every
+  row. With counters or probes on the step gathers the stack as well
+  (they read it whole) and runs the unsharded stages.
+- :func:`choose_asset_specs` ranks each stage's modes by the comms
+  ledger's bytes (``obs/comms.py``) without running the step on data: for
+  each mode it runs the inputs' gathers and the scoring's and the blend's
+  layouts on ``meta`` tensors with the ledger recording only: the same
+  collectives through the same wrappers, which issue nothing, while the
+  stages' compute is replaced by empty results of its output shapes, so
+  no kernel launches and the bytes come from the shapes alone. The
+  backtest is left out: it moves nothing in any mode. :func:`record_spec_choices` lands the
+  verdicts as ``kind="spec_choice"`` rows in the JAX package's schema.
+
+Each plan stage's collectives are charged to the stage's own name (the
+plan opens it), so no two stages share a ledger scope; a stage that issued
+nothing in every mode (its sites never ran) is judged by the candidates'
+totals, and its row says ``"attribution": "total"``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from factormodeling_tpu_torch._device import check_device
+from factormodeling_tpu_torch.composite.blend import composite_weighted
+from factormodeling_tpu_torch.metrics.factor_metrics import \
+    daily_factor_stats
+from factormodeling_tpu_torch.obs import comms as obs_comms
+from factormodeling_tpu_torch.obs import counters as obs_counters
+from factormodeling_tpu_torch.obs import probes as obs_probes
+from factormodeling_tpu_torch.obs.report import record_stage
+from factormodeling_tpu_torch.obs.trace import stage as obs_stage
+from factormodeling_tpu_torch.ops._assetspec import (
+    ASSET_SORT_STAGES,
+    _MODES,
+    AssetSpecPlan,
+    active_plan,
+    hint,
+    plan as install_plan,
+)
+from factormodeling_tpu_torch.ops._window import masked_shift, shift
+from factormodeling_tpu_torch.parallel.mesh import (ASSET_AXIS, Placement,
+                                                    _block, all_gather,
+                                                    axis_index, axis_size,
+                                                    make_mesh, mesh_device,
+                                                    panel_sharding,
+                                                    stack_sharding)
+from factormodeling_tpu_torch.parallel.pipeline import _make_run, _tables
+from factormodeling_tpu_torch.selection.driver import \
+    selection_metric_needs
+
+__all__ = [
+    "ASSET_SORT_STAGES",
+    "AssetSpecPlan",
+    "asset_in_shardings",
+    "choose_asset_specs",
+    "make_asset_mesh",
+    "make_asset_sharded_research_step",
+    "record_spec_choices",
+]
+
+
+def _names(mesh) -> tuple:
+    return tuple(mesh.mesh_dim_names or ())
+
+
+def _shape(mesh) -> dict:
+    return {n: int(s) for n, s in zip(_names(mesh), mesh.shape)}
+
+
+def make_asset_mesh(axis_names: tuple[str, ...] = (ASSET_AXIS,),
+                    n_devices: int | None = None, *, device=None):
+    """A mesh carrying the asset axis: flat ``("assets",)`` by default,
+    or any axis tuple containing :data:`~.mesh.ASSET_AXIS` (the serving
+    layer's ``("configs", "assets")``)."""
+    if ASSET_AXIS not in axis_names:
+        raise ValueError(f"axis_names {axis_names} carry no "
+                         f"{ASSET_AXIS!r} axis")
+    return make_mesh(axis_names, n_devices=n_devices, device=device)
+
+
+def asset_in_shardings(mesh, date_axis: str | None = None,
+                       asset_axis: str = ASSET_AXIS) -> tuple:
+    """The research step's declared input placements under an asset mesh:
+    ``factors [F, D, N]`` and the ``[D, N]`` panels carry the asset axis
+    on ``N`` (plus the date axis when given); ``factor_ret [D, F]`` never
+    touches ``N`` and shards dates only."""
+    if asset_axis not in _names(mesh):
+        raise ValueError(f"mesh has no {asset_axis!r} axis "
+                         f"(axes: {_names(mesh)})")
+    if date_axis is not None and date_axis not in _names(mesh):
+        raise ValueError(f"mesh has no {date_axis!r} axis "
+                         f"(axes: {_names(mesh)})")
+    fs = stack_sharding(mesh, None, date_axis, asset_axis)
+    ps = panel_sharding(mesh, date_axis, asset_axis)
+    frs = Placement(mesh, (date_axis, None))
+    return (fs, ps, frs, ps, ps, ps)
+
+
+def _same_grid(a, b) -> bool:
+    return (a is b or (_names(a) == _names(b)
+                       and tuple(a.shape) == tuple(b.shape)
+                       and torch.equal(a.mesh.cpu(), b.mesh.cpu())))
+
+
+class _AssetLayout:
+    """The asset-sharded step's scoring and blend (module docs); the
+    active plan decides the rows each stage forms. ``factors`` is this
+    rank's ``[F, D/d, N/s]`` block, the ``[D, N]`` panels are whole.
+    ``shapes_only``: the chooser's form, on ``meta`` tensors: the same
+    collectives on the same shapes, the stages' compute replaced by empty
+    results of its output shapes."""
+
+    def __init__(self, mesh, date_axis, asset_axis, shapes_only=False):
+        self.mesh, self.da, self.aa = mesh, date_axis, asset_axis
+        self.shapes_only = shapes_only
+
+    def stats(self, factors, returns, *, shift_periods, universe, stats):
+        """:func:`daily_factor_stats` of this rank's rows. The shift reads
+        earlier dates of each asset, so the block is gathered over the
+        date axis and shifted before it forms rows."""
+        n, st = returns.shape[0], "metrics/rank_ic"
+        with obs_stage("selection/daily_stats"):
+            xs = factors
+            if shift_periods:
+                if self.da is not None:
+                    xs = all_gather(xs, self.mesh, self.da, dim=1)
+                if self.shapes_only:
+                    pass
+                elif universe is not None:
+                    cols = _block(returns.shape[1],
+                                  axis_size(self.mesh, self.aa),
+                                  axis_index(self.mesh, self.aa))
+                    xs = masked_shift(xs, universe[:, cols], shift_periods,
+                                      axis=1)
+                else:
+                    xs = shift(xs, shift_periods, axis=1)
+            rows = hint(xs, st, batch_dim=1, batch_axis=self.da,
+                        batch_whole=bool(shift_periods))
+            p = active_plan()
+            span = p.row_span(st, n, self.da)
+            if self.shapes_only:
+                blk = _stats_like(rows, stats)
+            else:
+                blk = daily_factor_stats(
+                    rows, returns[span], shift_periods=0,
+                    universe=None if universe is None else universe[span],
+                    stats=stats)
+            return _tables(blk, returns.dtype, lambda t: p.gather_rows(
+                t, st, n, dim=2, batch_axis=self.da))
+
+    def blend(self, factors, names, selection, *, method, universe):
+        """The blend of this rank's rows, then the ``[D, N]`` signal
+        gathered to every rank."""
+        n, st = selection.shape[0], "composite/blend"
+        with obs_stage(st):
+            rows = hint(factors, st, batch_dim=1, batch_axis=self.da)
+            p = active_plan()
+            span = p.row_span(st, n, self.da)
+            sig = rows[0] if self.shapes_only else composite_weighted(
+                rows, names, selection[span], method=method,
+                universe=None if universe is None else universe[span])
+            return p.gather_rows(sig, st, n, dim=0, batch_axis=self.da)
+
+
+def _stats_like(rows, stats) -> dict:
+    """Empty ``[F, rows]`` tables of the keys and dtypes
+    :func:`daily_factor_stats` returns for ``stats`` (read off a one-row
+    run on the CPU)."""
+    probe = daily_factor_stats(torch.zeros(1, 1, 2, dtype=rows.dtype),
+                               torch.zeros(1, 2, dtype=rows.dtype),
+                               shift_periods=0, stats=stats)
+    return {k: torch.empty(rows.shape[:2], dtype=v.dtype, device=rows.device)
+            for k, v in probe.items()}
+
+
+def _gather_inputs(in_shardings, blocks, full: bool) -> list:
+    """The step's inputs as its stages take them: the panels and
+    ``factor_ret`` whole, the stack this rank's block (whole when
+    ``full``)."""
+    with obs_stage("parallel/inputs"):
+        return [b if b is None or (i == 0 and not full) else p.gather(b)
+                for i, (b, p) in enumerate(zip(blocks, in_shardings))]
+
+
+def _resolve_date_axis(mesh, date_axis):
+    if date_axis == "auto":
+        return "date" if "date" in _names(mesh) else None
+    return date_axis
+
+
+def make_asset_sharded_research_step(mesh, *, names, window: int,
+                                     select_method: str = "icir_top",
+                                     select_kwargs=None,
+                                     blend_method: str = "zscore",
+                                     sim_kwargs=None,
+                                     date_axis: str | None = "auto",
+                                     asset_axis: str = ASSET_AXIS,
+                                     plan: AssetSpecPlan | None = None,
+                                     collect_counters: bool | None = None,
+                                     collect_probes: bool | None = None):
+    """The research step over an asset-carrying mesh (module docs).
+
+    Returns ``(step, shard_inputs)`` as
+    :func:`~.pipeline.make_sharded_research_step` does, with the asset
+    axis on every ``[..., N]`` operand and ``plan`` (an
+    :class:`AssetSpecPlan`, typically :func:`choose_asset_specs`' winner;
+    None is every stage ``auto``) installed for each call.
+    ``date_axis="auto"`` uses the mesh's ``"date"`` axis when it has one.
+    The step carries ``.mesh``, ``.declared_in_shardings`` and
+    ``.plan``."""
+    date_axis = _resolve_date_axis(mesh, date_axis)
+    if plan is None:
+        plan = AssetSpecPlan(mesh, axis=asset_axis)
+    if not _same_grid(plan.mesh, mesh):
+        # the plan's collectives run on PLAN.mesh's groups, so a plan
+        # chosen on another rank grid would move data on the wrong one
+        raise ValueError(
+            f"plan was chosen on a different mesh (axes "
+            f"{_names(plan.mesh)}, grid {tuple(plan.mesh.shape)}) than the "
+            f"step mesh (axes {_names(mesh)}, grid {tuple(mesh.shape)}); "
+            f"re-run choose_asset_specs on this mesh")
+    if plan.axis != asset_axis:
+        raise ValueError(f"plan shards assets over {plan.axis!r}, the step "
+                         f"over {asset_axis!r}")
+    in_shardings = asset_in_shardings(mesh, date_axis, asset_axis)
+    record_stage("parallel/asset_shard", kind="stage",
+                 mesh_shape=_shape(mesh), factors=len(tuple(names)),
+                 window=window, select_method=select_method,
+                 blend_method=blend_method, spec_plan=plan.spec_table())
+    if collect_counters is None:
+        collect_counters = obs_counters.counters_enabled()
+    if collect_probes is None:
+        collect_probes = obs_probes.probes_enabled()
+    full = bool(collect_counters or collect_probes)
+    layout = _AssetLayout(mesh, date_axis, asset_axis)
+    run = _make_run(names=names, window=window, select_method=select_method,
+                    select_kwargs=select_kwargs, blend_method=blend_method,
+                    sim_kwargs=sim_kwargs, collect_counters=collect_counters,
+                    collect_probes=collect_probes, probe_canary=None,
+                    fault_spec=None, policy=None,
+                    stats_fn=None if full else layout.stats,
+                    blend_fn=None if full else layout.blend,
+                    sim_stage="backtest/weights")
+    dev = mesh_device(mesh)
+
+    def step(*blocks):
+        check_device(dev, *blocks)
+        inputs = _gather_inputs(in_shardings, blocks, full)
+        with install_plan(plan):
+            return run(*inputs)
+
+    n_size = axis_size(mesh, asset_axis)
+    d_size = axis_size(mesh, date_axis)
+
+    def shard_inputs(factors, returns, factor_ret, cap_flag, investability,
+                     universe):
+        if returns.shape[-1] % n_size:
+            raise ValueError(
+                f"{returns.shape[-1]} assets are not divisible by the "
+                f"mesh's '{asset_axis}' axis ({n_size}); pad the asset "
+                f"axis (all-NaN columns, universe=False) or pick a mesh "
+                f"whose asset axis divides N")
+        if returns.shape[0] % d_size:
+            raise ValueError(
+                f"{returns.shape[0]} dates are not divisible by the "
+                f"mesh's '{date_axis}' axis ({d_size}); pad the date axis "
+                f"or pick a mesh whose date axis divides D")
+        args = (factors, returns, factor_ret, cap_flag, investability,
+                universe)
+        return tuple(None if a is None else p.shard(a)
+                     for a, p in zip(args, in_shardings))
+
+    step.mesh = mesh
+    step.declared_in_shardings = in_shardings
+    step.plan = plan
+    return step, shard_inputs
+
+
+# ---------------------------------------------------------------- chooser
+
+
+def _meta_blocks(in_shardings, shapes, dtype):
+    """``meta`` tensors of this rank's block shapes: the chooser's
+    candidates run on shapes alone."""
+    f, d, n = shapes
+    dims = ((f, d, n), (d, n), (d, f), (d, n), (d, n), (d, n))
+    dtypes = (dtype,) * 5 + (torch.bool,)
+    out = []
+    for shape, dt, p in zip(dims, dtypes, in_shardings):
+        p.check(shape)
+        block = [s // axis_size(p.mesh, a) if a is not None else s
+                 for s, a in zip(shape, p.dims + (None,) * len(shape))]
+        out.append(torch.empty(block, dtype=dt, device="meta"))
+    return out
+
+
+def _stage_ops(ledger, stage: str):
+    return [op for op in ledger.ops if op.stage == stage]
+
+
+def choose_asset_specs(mesh, *, names, window: int, shapes,
+                       select_method: str = "icir_top", select_kwargs=None,
+                       blend_method: str = "zscore", sim_kwargs=None,
+                       date_axis: str | None = "auto",
+                       asset_axis: str = ASSET_AXIS,
+                       stages=ASSET_SORT_STAGES,
+                       modes=_MODES, dtype=torch.float64):
+    """Rank every layout mode per stage by the comms ledger's bytes and
+    return ``(plan, ranking)``:
+
+    - ``plan``: the winning :class:`AssetSpecPlan` (each stage pinned to
+      its cheapest mode), ready for
+      :func:`make_asset_sharded_research_step`;
+    - ``ranking``: ``{stage: {"ranked": [[mode, bytes], ...] (ascending),
+      "attribution": "stage" | "total", "by_axis": {axis: bytes}}}`` plus
+      a ``"__total__"`` entry with each candidate's bytes.
+
+    ``shapes`` is ``(F, D, N)``. Each candidate traces the inputs, the
+    scoring and the blend once on ``meta`` tensors with the ledger
+    recording only (module docs): no data moves and no kernel launches.
+    ``sim_kwargs`` is the JAX package's argument and changes nothing here:
+    the backtest moves the same bytes in every mode. Ties rank in
+    ``modes`` order, so ``"auto"`` wins a tie."""
+    date_axis = _resolve_date_axis(mesh, date_axis)
+    in_shardings = asset_in_shardings(mesh, date_axis, asset_axis)
+    blocks = _meta_blocks(in_shardings, shapes, dtype)
+    layout = _AssetLayout(mesh, date_axis, asset_axis, shapes_only=True)
+    needs = selection_metric_needs(select_method, select_kwargs)
+    ledgers: dict = {}
+    for mode in modes:
+        candidate = AssetSpecPlan(mesh, axis=asset_axis, default=mode)
+        with obs_comms.recording(mesh, record_only=True) as ledger, \
+                install_plan(candidate):
+            factors, returns, factor_ret, _, _, universe = _gather_inputs(
+                in_shardings, blocks, False)
+            # the scoring runs only for a selector that reads it, with
+            # the selection's shift (its count moves no byte); the blend
+            # takes a [D, F] selection, factor_ret's shape
+            if needs:
+                layout.stats(factors, returns, shift_periods=1,
+                             universe=universe, stats=needs)
+            layout.blend(factors, names, factor_ret, method=blend_method,
+                         universe=universe)
+        ledgers[mode] = ledger
+
+    totals = {mode: ledgers[mode].totals() for mode in modes}
+    ranking: dict = {"__total__": {
+        "ranked": sorted(([m, totals[m]["bytes_moved"]] for m in modes),
+                         key=lambda mb: (mb[1], modes.index(mb[0]))),
+        "by_axis": {m: totals[m]["by_axis"] for m in modes},
+    }}
+    chosen: dict = {}
+    for stage in stages:
+        per_mode = {m: sum(op.bytes_moved
+                           for op in _stage_ops(ledgers[m], stage))
+                    for m in modes}
+        attribution = "stage"
+        if not any(_stage_ops(ledgers[m], stage) for m in modes):
+            # no site of this stage ran: judge by the whole run instead
+            per_mode = {m: totals[m]["bytes_moved"] for m in modes}
+            attribution = "total"
+        ranked = sorted(([m, per_mode[m]] for m in modes),
+                        key=lambda mb: (mb[1], modes.index(mb[0])))
+        winner = ranked[0][0]
+        chosen[stage] = winner
+        if attribution == "stage":
+            by_axis: dict = {}
+            for op in _stage_ops(ledgers[winner], stage):
+                by_axis[op.axis] = by_axis.get(op.axis, 0.0) + op.bytes_moved
+        else:
+            by_axis = totals[winner]["by_axis"]
+        ranking[stage] = {"ranked": ranked, "attribution": attribution,
+                          "by_axis": by_axis}
+    return AssetSpecPlan(mesh, axis=asset_axis, modes=chosen), ranking
+
+
+def record_spec_choices(plan: AssetSpecPlan, ranking: dict,
+                        name: str = "asset_spec") -> list[dict]:
+    """Land the chooser's verdicts as ``kind="spec_choice"`` report rows
+    (one per stage) on the active RunReport, and return them: the stage,
+    the CHOSEN mode (the plan's, possibly a caller's override), the
+    ledger's ranked ``winner``, the full ranking, and the winner's
+    per-axis byte split, in the JAX package's schema."""
+    rows = []
+    for stage, entry in ranking.items():
+        if stage == "__total__":
+            continue
+        ranked = entry["ranked"]
+        fields = dict(kind="spec_choice", stage=stage,
+                      chosen=plan.mode_for(stage), winner=ranked[0][0],
+                      ranked=ranked, attribution=entry.get("attribution"),
+                      by_axis=entry.get("by_axis"),
+                      mesh_shape=_shape(plan.mesh))
+        record_stage(f"{name}/{stage}", **fields)
+        rows.append({"name": f"{name}/{stage}", **fields})
+    return rows

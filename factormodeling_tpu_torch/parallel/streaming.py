@@ -35,8 +35,20 @@ Serial, prefetched and device-sourced runs of the same chunks give bitwise
 the same results: the compute on each chunk is the same.
 
 The per-chunk callables are kept in a bounded LRU (the serving layer's
-per-(bucket, rung) steps share it). ``mesh=``/``sharding=`` (date-sharded
-streaming across cards) are not ported yet (ROADMAP queue 1 item 5).
+per-(bucket, rung) steps share it).
+
+With ``mesh=`` (a mesh with a ``date_axis``, one rank a device) streaming
+is date-sharded: every rank streams every factor chunk but computes on its
+own dates only, and the per-date results are gathered over the date axis
+at the end of the run (``parallel/mesh.py``'s collectives, charged to the
+function's ``streaming/*`` stage). A chunk may arrive whole or as this
+rank's date block (:func:`host_array_source` / ``io.disk_chunk_source``
+with ``sharding=chunk_sharding(mesh)`` read only that block from the
+host); the scoring's shift reads earlier dates, so a block chunk is
+gathered over the date axis before it is scored. Each row is computed as
+the unsharded run computes it, so ``streamed_factor_stats`` gives bitwise
+the unsharded stats. The panels are passed whole, as every rank holds the
+same inputs.
 """
 
 from __future__ import annotations
@@ -49,9 +61,13 @@ import torch
 
 from factormodeling_tpu_torch import ops
 from factormodeling_tpu_torch._device import resolve_device
-from factormodeling_tpu_torch.metrics import daily_factor_stats
+from factormodeling_tpu_torch.metrics.factor_metrics import (
+    daily_factor_stats, daily_factor_stats_dates)
 from factormodeling_tpu_torch.obs.report import record_stage
 from factormodeling_tpu_torch.obs.trace import stage as obs_stage
+from factormodeling_tpu_torch.parallel.mesh import (Placement, _block,
+                                                    all_gather, axis_index,
+                                                    axis_size, mesh_device)
 
 __all__ = ["chunk_sharding", "chunk_slices", "clear_streaming_cache",
            "host_array_source", "set_kernel_cache_size",
@@ -118,11 +134,6 @@ def _cached_kernel(source, config, build):
     return fn
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1 "
-                               f"item 5)")
-
-
 def chunk_slices(n_factors: int, chunk: int) -> list[slice]:
     """Contiguous factor-axis slices of width ``chunk`` (last may be short)."""
     if chunk <= 0:
@@ -131,19 +142,52 @@ def chunk_slices(n_factors: int, chunk: int) -> list[slice]:
             for i in range(0, n_factors, chunk)]
 
 
-def chunk_sharding(mesh, date_axis: str = "date"):
-    """Not ported yet: date-sharded chunks need the mesh layer."""
-    raise _not_ported("chunk_sharding")
+def chunk_sharding(mesh, date_axis: str = "date") -> Placement:
+    """The placement of a streamed ``[C, D, N]`` chunk on a date-sharded
+    mesh: factor chunks stream serially, dates span the ranks."""
+    return Placement(mesh, (None, date_axis, None))
 
 
 def host_array_source(stack, chunk: int, sharding=None):
     """``(source, slices)`` for a host-resident ``float[F, D, N]`` stack:
     ``source(i)`` is chunk ``i``'s host view; the streamed functions stage
-    it to the device (module docs)."""
-    if sharding is not None:
-        raise _not_ported("host_array_source(sharding=...)")
+    it to the device (module docs). With ``sharding`` (a
+    :func:`chunk_sharding`) the view is this rank's date block only, so
+    only that block crosses to the device."""
     slices = chunk_slices(stack.shape[0], chunk)
+    if sharding is not None:
+        return (lambda i: sharding.block(stack[slices[i]])), slices
     return (lambda i: stack[slices[i]]), slices
+
+
+class _Dates:
+    """This rank's share of a date-sharded streaming run (module docs);
+    ``None`` mesh: the whole run on one device."""
+
+    def __init__(self, mesh, date_axis: str, n_dates: int):
+        self.mesh, self.axis, self.n = mesh, date_axis, n_dates
+        size = axis_size(mesh, date_axis)
+        if n_dates % size:
+            raise ValueError(f"{n_dates} dates are not divisible by the "
+                             f"mesh's '{date_axis}' axis ({size})")
+        self.own = _block(n_dates, size, axis_index(mesh, date_axis))
+
+    def whole(self, fac: torch.Tensor) -> torch.Tensor:
+        """The chunk on every date (a block chunk gathered)."""
+        if fac.shape[1] == self.n:
+            return fac
+        return all_gather(fac, self.mesh, self.axis, dim=1)
+
+    def mine(self, fac: torch.Tensor) -> torch.Tensor:
+        """This rank's dates of the chunk (a block chunk as it came)."""
+        return fac[:, self.own] if fac.shape[1] == self.n else fac
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        return all_gather(x, self.mesh, self.axis, dim=dim)
+
+
+def _run_device(mesh, device):
+    return mesh_device(mesh) if mesh is not None else resolve_device(device)
 
 
 class _Stager:
@@ -244,11 +288,6 @@ def _placed(x, device):
     return torch.as_tensor(np.asarray(x), device=device)
 
 
-def _check_unported(mesh, what: str) -> None:
-    if mesh is not None:
-        raise _not_ported(f"{what}(mesh=...)")
-
-
 def streamed_factor_stats(source: Callable, n_chunks: int, returns, *,
                           shift_periods: int = 1, universe=None,
                           stats: tuple = ("ic", "rank_ic", "factor_return"),
@@ -279,14 +318,19 @@ def streamed_factor_stats(source: Callable, n_chunks: int, returns, *,
     :class:`~factormodeling_tpu_torch.obs.lineage.LineageLedger` records
     one ``stream_chunk`` edge per chunk; the ledger rides the checkpoint,
     and its rows land on the active report at completion. Off by default.
+
+    ``mesh`` / ``date_axis``: date-sharded streaming (module docs); the
+    run's device is the mesh's. Each rank's checkpoint holds its own
+    date blocks, so give each rank its own checkpoint path.
     """
-    _check_unported(mesh, "streamed_factor_stats")
     if n_chunks <= 0:
         raise ValueError(f"n_chunks must be positive, got {n_chunks}")
-    dev = resolve_device(device)
+    dev = _run_device(mesh, device)
     returns, universe = _placed(returns, dev), _placed(universe, dev)
     one = _stats_kernel(source if fuse_source else None, shift_periods,
                         tuple(stats))
+    dates = (None if mesh is None
+             else _Dates(mesh, date_axis, int(returns.shape[0])))
 
     ledger = inputs_id = _lfp = None
     if lineage:
@@ -334,7 +378,12 @@ def streamed_factor_stats(source: Callable, n_chunks: int, returns, *,
     chunks = _chunks(source, n_chunks, fuse_source=fuse_source,
                              prefetch=prefetch, device=dev, start=start)
     for i, fac in enumerate(chunks, start=start):
-        _keep(one(fac, returns, universe))
+        if dates is None:
+            _keep(one(fac, returns, universe))
+        else:
+            with obs_stage("streaming/stats"):
+                fac = dates.whole(fac)
+            _keep(one(fac, returns, universe, dates.own))
         if ledger is not None:
             # edge before the save, so the snapshot carries its own chunk
             p = parts[-1]
@@ -353,8 +402,12 @@ def streamed_factor_stats(source: Callable, n_chunks: int, returns, *,
         rep = active_report()
         if rep is not None:
             rep.rows.extend(ledger.rows("streaming/stats"))
-    return {k: torch.cat([torch.as_tensor(p[k], device=dev) for p in parts])
-            for k in parts[0]}
+    out = {k: torch.cat([torch.as_tensor(p[k], device=dev) for p in parts])
+           for k in parts[0]}
+    if dates is not None:
+        with obs_stage("streaming/stats"):
+            out = {k: dates.gather(v, 1) for k, v in out.items()}
+    return out
 
 
 def _stats_kernel(fused_source, shift_periods: int, stats: tuple):
@@ -363,8 +416,13 @@ def _stats_kernel(fused_source, shift_periods: int, stats: tuple):
     do (its hits and misses count alike)."""
 
     def build():
-        def kernel(fac, returns, universe):
+        def kernel(fac, returns, universe, dates=None):
+            # dates: score those dates only (a date-sharded run's rank)
             with obs_stage("streaming/stats"):
+                if dates is not None:
+                    return daily_factor_stats_dates(
+                        fac, returns, dates, shift_periods=shift_periods,
+                        universe=universe, stats=stats)
                 return daily_factor_stats(fac, returns,
                                           shift_periods=shift_periods,
                                           universe=universe, stats=stats)
@@ -431,16 +489,20 @@ def streamed_linear_research(source: Callable, n_chunks: int, returns, *,
     Returns a dict: the requested per-date ``stats`` tensors ``[F, D]``,
     ``"unnormalized_weights"`` ``[F, D]``, ``"weight_norm"`` ``[D]`` and
     ``"composite"`` ``[D, N]`` (zero on dates with no positive weight).
+    With ``mesh`` (module docs) each chunk's ``[C, D]`` stats are gathered
+    over the date axis before ``chunk_weight_fn`` (its windows read every
+    date), and the composite at the end.
     """
-    _check_unported(mesh, "streamed_linear_research")
     if n_chunks <= 0:
         raise ValueError(f"n_chunks must be positive, got {n_chunks}")
     _check_transform(transform)
-    dev = resolve_device(device)
+    dev = _run_device(mesh, device)
     returns, universe = _placed(returns, dev), _placed(universe, dev)
+    dates = (None if mesh is None
+             else _Dates(mesh, date_axis, int(returns.shape[0])))
     one = _linear_research_kernel(source if fuse_source else None,
                                   chunk_weight_fn, transform, shift_periods,
-                                  tuple(stats))
+                                  tuple(stats), dates)
     stat_parts, u_parts, total, norm = [], [], None, None
     chunks = _chunks(source, n_chunks, fuse_source=fuse_source,
                              prefetch=prefetch, device=dev)
@@ -458,6 +520,9 @@ def streamed_linear_research(source: Callable, n_chunks: int, returns, *,
            for k in stat_parts[0]}
     out["unnormalized_weights"] = torch.cat(u_parts)
     out["weight_norm"] = norm
+    if dates is not None:
+        with obs_stage("streaming/linear_research"):
+            total = dates.gather(total, 0)
     safe = torch.where(norm > 0, norm, 1.0)
     out["composite"] = torch.where((norm > 0)[:, None],
                                    total / safe[:, None], 0.0)
@@ -465,23 +530,43 @@ def streamed_linear_research(source: Callable, n_chunks: int, returns, *,
 
 
 def _linear_research_kernel(fused_source, chunk_weight_fn, transform,
-                            shift_periods: int, stats: tuple):
+                            shift_periods: int, stats: tuple, dates=None):
+    """One cached per-chunk callable per (source, config, date share): a
+    date-sharded rank scores and blends its own dates (module docs)."""
     def build():
         def kernel(fac, returns, universe):
             with obs_stage("streaming/linear_research"):
-                stats_d = daily_factor_stats(fac, returns,
-                                             shift_periods=shift_periods,
-                                             universe=universe, stats=stats)
+                if dates is None:
+                    stats_d = daily_factor_stats(
+                        fac, returns, shift_periods=shift_periods,
+                        universe=universe, stats=stats)
+                    u = chunk_weight_fn(stats_d)                  # [C, D]
+                    z = _apply_transform(fac, universe, transform)
+                    part = torch.einsum("fd,fdn->dn", u, torch.nan_to_num(z))
+                    return stats_d, u, part
+                whole = dates.whole(fac)
+                own = dates.own
+                mine = daily_factor_stats_dates(
+                    whole, returns, own, shift_periods=shift_periods,
+                    universe=universe, stats=stats)
+                stats_d = {k: dates.gather(v, 1) for k, v in mine.items()}
                 u = chunk_weight_fn(stats_d)                      # [C, D]
-                z = _apply_transform(fac, universe, transform)
-                part = torch.einsum("fd,fdn->dn", u, torch.nan_to_num(z))
+                z = _apply_transform(
+                    dates.mine(fac),
+                    None if universe is None else universe[own], transform)
+                part = torch.einsum("fd,fdn->dn", u[:, own],
+                                    torch.nan_to_num(z))
                 return stats_d, u, part
 
         return kernel
 
+    # the entry's closure holds `dates`, so its mesh's id is not reused
+    # while the entry lives
+    share = None if dates is None else (id(dates.mesh), dates.axis,
+                                        dates.n, dates.own.start)
     return _cached_kernel(fused_source, ("linear_research", chunk_weight_fn,
-                                         transform, shift_periods, stats),
-                          build)
+                                         transform, shift_periods, stats,
+                                         share), build)
 
 
 def streamed_weighted_composite(source: Callable,
@@ -502,25 +587,37 @@ def streamed_weighted_composite(source: Callable,
       transform: per-chunk normalization before the contraction: "zscore"
         (per-date cross-sectional), "rank" ([0, 1] cross-sectional rank),
         "none", or any callable ``float[C, D, N] -> float[C, D, N]``.
-      fuse_source / prefetch / device: as :func:`streamed_factor_stats`.
+      fuse_source / prefetch / device / mesh / date_axis: as
+        :func:`streamed_factor_stats` (with a mesh each rank blends its own
+        dates and the composite is gathered at the end).
 
     Returns the composite ``float[D, N]``.
     """
-    _check_unported(mesh, "streamed_weighted_composite")
     _check_transform(transform)
     chunk_weights = list(chunk_weights)
     if not chunk_weights:
         raise ValueError("chunk_weights is empty")
-    dev = resolve_device(device)
+    dev = _run_device(mesh, device)
     universe = _placed(universe, dev)
+    dates = None
+    if mesh is not None:
+        dates = _Dates(mesh, date_axis, int(np.shape(chunk_weights[0])[1]))
+        if universe is not None:
+            universe = universe[dates.own]
     one = _composite_kernel(source if fuse_source else None, transform)
     total = None
     chunks = _chunks(source, len(chunk_weights),
                              fuse_source=fuse_source, prefetch=prefetch,
                              device=dev)
     for w, fac in zip(chunk_weights, chunks):
-        part = one(fac, _placed(w, dev), universe)
+        w = _placed(w, dev)
+        if dates is not None:
+            w, fac = w[:, dates.own], dates.mine(fac)
+        part = one(fac, w, universe)
         total = part if total is None else total + part
+    if dates is not None:
+        with obs_stage("streaming/composite"):
+            total = dates.gather(total, 0)
     record_stage("streaming/composite", chunks=len(chunk_weights),
                  fused=fuse_source, prefetch=prefetch,
                  cache=streaming_cache_stats())

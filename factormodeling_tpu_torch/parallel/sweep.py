@@ -1,5 +1,5 @@
 """Candidate-combo sweep: many factor combinations, one backtest each (port
-of ``factormodeling_tpu/parallel/sweep.py``, its single-device part).
+of ``factormodeling_tpu/parallel/sweep.py``).
 
 The reference would run ``run_multimanager_backtest`` once per combo, each
 time recomputing every manager's daily weight book. The per-manager books
@@ -11,6 +11,8 @@ package's ``lax.map(..., batch_size=combo_batch)``): a chunk's books
 gets the result of its own ``[D, N]`` call and the working set stays one
 chunk. :func:`checkpointed_manager_sweep` runs the same chunks as a host
 loop that snapshots after each, for runs that must survive interruption.
+:func:`make_sharded_manager_sweep` splits the book pass by factors and the
+combos over a ``("combo",)`` mesh, one rank a device.
 """
 
 from __future__ import annotations
@@ -26,10 +28,13 @@ from factormodeling_tpu_torch.backtest.pnl import daily_portfolio_returns
 from factormodeling_tpu_torch.backtest.settings import SimulationSettings
 from factormodeling_tpu_torch.multimanager import compute_manager_weights
 from factormodeling_tpu_torch.obs.report import record_stage
+from factormodeling_tpu_torch.obs.trace import stage as obs_stage
+from factormodeling_tpu_torch.parallel.mesh import (all_gather, axis_index,
+                                                    axis_size, mesh_device)
 from factormodeling_tpu_torch.parallel.pipeline import result_summary
 
 __all__ = ["SweepOutput", "checkpointed_manager_sweep", "combo_weight_matrix",
-           "manager_sweep"]
+           "make_sharded_manager_sweep", "manager_sweep"]
 
 
 class SweepOutput(NamedTuple):
@@ -246,3 +251,52 @@ def checkpointed_manager_sweep(factors: torch.Tensor,
         if rep is not None:
             rep.rows.extend(ledger.rows("parallel/sweep"))
     return SweepOutput(*(torch.cat(field) for field in zip(*parts)))
+
+
+def make_sharded_manager_sweep(mesh, *, combo_axis: str = "combo",
+                               combo_batch: int = 8):
+    """The sweep over a 1-D mesh: ``sweep(factors, combo_weights, settings)
+    -> SweepOutput``, full on every rank.
+
+    The book pass runs factor-sharded over ``combo_axis`` (each rank builds
+    the complete ``[D, N]`` books of its factors, the last rank's block
+    padded with zero books when the axis does not divide ``F``), and the
+    books are gathered once. The combos split over the same axis: each rank
+    runs its ``C/S`` combos in chunks of ``combo_batch``, and the per-combo
+    outputs are gathered. ``C`` must be divisible by the mesh size (pad
+    with zero-weight combos otherwise). Every rank passes the same full
+    inputs."""
+    size = axis_size(mesh, combo_axis)
+    rank = axis_index(mesh, combo_axis)
+    dev = mesh_device(mesh)
+
+    def sweep(factors, combo_weights, settings) -> SweepOutput:
+        check_device(dev, factors, combo_weights)
+        f = int(factors.shape[0])
+        c = int(combo_weights.shape[0])
+        if c % size:
+            raise ValueError(
+                f"{c} combos are not divisible by the mesh's "
+                f"'{combo_axis}' axis ({size}); pad with zero-weight combos "
+                f"or pick a mesh whose combo axis divides C")
+        k = -(-f // size)
+        if (size - 1) * k >= f:
+            raise ValueError(f"{f} factors leave a rank of the mesh's "
+                             f"'{combo_axis}' axis ({size}) no book to build")
+        with obs_stage("sweep/books"):
+            books, _, _ = compute_manager_weights(
+                factors[rank * k:(rank + 1) * k], settings, device=dev)
+            if books.shape[0] < k:
+                books = torch.cat([books, books.new_zeros(
+                    (k - books.shape[0],) + tuple(books.shape[1:]))])
+            books = all_gather(books, mesh, combo_axis, dim=0)[:f]
+        per = c // size
+        with obs_stage("sweep/combo_pnl"):
+            out = _combine_and_pnl(
+                books, combo_weights[rank * per:(rank + 1) * per], settings,
+                combo_batch)
+            return SweepOutput(*(all_gather(t, mesh, combo_axis, dim=0)
+                                 for t in out))
+
+    sweep.mesh = mesh
+    return sweep

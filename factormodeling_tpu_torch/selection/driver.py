@@ -49,16 +49,19 @@ def build_selection_context(factors: torch.Tensor, returns: torch.Tensor,
                             factor_ret: torch.Tensor, window: int,
                             *, universe: torch.Tensor | None = None,
                             shift_periods: int = 2,
-                            stats: tuple = _ALL_STATS) -> SelectionContext:
+                            stats: tuple = _ALL_STATS,
+                            stats_fn=None) -> SelectionContext:
     """Precompute the whole-sample tensors selectors consume (``factors``
     ``[F, D, N]`` unshifted, ``returns`` ``[D, N]``, ``factor_ret``
     ``[D, F]``). A window of W dates aggregates its last W-1 dates of
-    double-shifted stats, as the reference's in-slice shift does."""
+    double-shifted stats, as the reference's in-slice shift does.
+    ``stats_fn`` replaces :func:`daily_factor_stats` (same arguments, the
+    ``[F, D]`` tables back): the sharded step scores its blocks there."""
     metrics_win = {}
     if stats:
-        daily = daily_factor_stats(factors, returns,
-                                   shift_periods=shift_periods,
-                                   universe=universe, stats=stats)
+        daily = (stats_fn or daily_factor_stats)(
+            factors, returns, shift_periods=shift_periods,
+            universe=universe, stats=stats)
         rm = rolling_metrics(daily, max(window - 1, 1))
         metrics_win = {k: shift(v, 1, axis=-1) for k, v in rm.items()}
     return finish_selection_context(metrics_win, factor_ret, window)
@@ -103,9 +106,10 @@ def rolling_selection(factors: torch.Tensor, returns: torch.Tensor,
                       factor_ret: torch.Tensor, window: int,
                       method: str = "icir_top", method_kwargs: dict | None = None,
                       *, universe: torch.Tensor | None = None,
-                      shift_periods: int = 2) -> torch.Tensor:
+                      shift_periods: int = 2, stats_fn=None) -> torch.Tensor:
     """Daily factor weights ``float[D, F]``: zero outside the processed range
-    ``dates[window:-1]``, rows normalized to sum 1 (all-zero rows stay 0)."""
+    ``dates[window:-1]``, rows normalized to sum 1 (all-zero rows stay 0).
+    ``stats_fn``: as :func:`build_selection_context`'s."""
     selector = FACTOR_SELECTION_METHODS.get(method)
     if selector is None:
         raise ValueError(f"Unknown factor selection method: {method}")
@@ -114,6 +118,7 @@ def rolling_selection(factors: torch.Tensor, returns: torch.Tensor,
     needs = selection_metric_needs(method, method_kwargs)
     ctx = build_selection_context(factors, returns, factor_ret, window,
                                   universe=universe,
-                                  shift_periods=shift_periods, stats=needs)
+                                  shift_periods=shift_periods, stats=needs,
+                                  stats_fn=stats_fn)
     raw = selector(ctx, **(method_kwargs or {}))  # [D, F]
     return finalize_selection(raw, window)

@@ -34,8 +34,19 @@ a date), then the tenant half per real lane.
 ``serve(lineage=...)`` records one provenance edge a served lane, and
 ``advance_all(meter=..., series=...)`` bills each session's fenced wall to
 a cost meter and samples a health series; their obs modules are imported
-only when asked. Not ported yet: ``mesh=`` (ROADMAP queue 1 item 5), which
-raises ``NotImplementedError``.
+only when asked.
+
+``TenantServer(mesh=...)`` serves over a ``("configs", "assets")`` mesh,
+one rank a device, every rank holding the same inputs and making the same
+calls: the market panels are stored asset-sharded (each rank its ``N/S``
+columns, ``parallel/asset_shard.asset_in_shardings``) and gathered for a
+dispatch, a bucket's real lanes split over the ``"configs"`` axis (each
+rank computes its block of lanes) and the lanes' outputs are gathered, so
+every rank returns every tenant's result. An online session's lanes split
+the same way: each rank advances the tenant state of its own lanes, the
+market advance runs on every rank on the whole date slice. The mesh joins
+the cache key (``serve/tenant.mesh_key``), so two meshes never share a
+built step.
 """
 
 from __future__ import annotations
@@ -50,12 +61,16 @@ from factormodeling_tpu_torch._device import resolve_device
 from factormodeling_tpu_torch.composite import prefix_group_ids
 from factormodeling_tpu_torch.obs import record_stage
 from factormodeling_tpu_torch.obs.compile_log import entry_point_tag
+from factormodeling_tpu_torch.obs.trace import stage as obs_stage
 from factormodeling_tpu_torch.parallel import streaming as _streaming
+from factormodeling_tpu_torch.parallel.mesh import (all_gather, axis_index,
+                                                    axis_size, mesh_device)
 from factormodeling_tpu_torch.parallel.pipeline import ResearchOutput
-from factormodeling_tpu_torch.serve.batched import (make_batched_research_step,
+from factormodeling_tpu_torch.serve.batched import (_stack, _tree_map,
+                                                    make_batched_research_step,
                                                     tree_lane)
 from factormodeling_tpu_torch.serve.tenant import (TenantConfig,
-                                                   config_leaves,
+                                                   config_leaves, mesh_key,
                                                    stack_configs)
 
 __all__ = ["DEFAULT_PAD_LADDER", "TenantAdvance", "TenantResult",
@@ -90,11 +105,6 @@ def _rung_for(count: int, ladder) -> int:
     return ladder[-1]
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1 "
-                               f"item {item})")
-
-
 class TenantServer:
     """Many-tenant serving over one fixed market panel set (module docs).
 
@@ -107,15 +117,18 @@ class TenantServer:
       pad_ladder: strictly ascending positive batch-size rungs (default
         ``1/8/64/512``).
       device: None is the card (it raises without one); ``"cpu"`` runs on
-        the host.
-      mesh: not ported yet; anything but None raises.
+        the host. With a mesh the device is the mesh's.
+      mesh: optional ``DeviceMesh`` with a ``config_axis`` and/or an
+        ``asset_axis`` (module docs); either may be missing (a flat
+        ``("assets",)`` mesh shards the panels only).
+      config_axis / asset_axis: the mesh axis names (defaults
+        ``"configs"`` / ``"assets"``).
     """
 
     def __init__(self, *, names, factors, returns, factor_ret, cap_flag,
                  investability, universe=None,
-                 pad_ladder=DEFAULT_PAD_LADDER, device=None, mesh=None):
-        if mesh is not None:
-            raise _not_ported("TenantServer(mesh=...)", 5)
+                 pad_ladder=DEFAULT_PAD_LADDER, device=None, mesh=None,
+                 config_axis="configs", asset_axis="assets"):
         self.names = tuple(names)
         # validated, not normalized: a descending or duplicated ladder is a
         # typo, rejected with the reason before anything runs
@@ -131,11 +144,19 @@ class TenantServer:
                              f"(no duplicate or out-of-order rungs), "
                              f"got {pad_ladder!r}")
         self.pad_ladder = ladder
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self._config_axis = config_axis
+        self._asset_axis = asset_axis
+        self.device = (mesh_device(mesh) if mesh is not None
+                       else resolve_device(device))
         self._panels = tuple(
             None if a is None else torch.as_tensor(a, device=self.device)
             for a in (factors, returns, factor_ret, cap_flag, investability,
                       universe))
+        self.n_assets = int(self._panels[1].shape[-1])
+        self._placements = None
+        if mesh is not None:
+            self._panels = self._shard_panels(self._panels)
         f, d, _ = self._panels[0].shape
         if len(self.names) != f:
             raise ValueError(f"{len(self.names)} names for a factor stack "
@@ -156,12 +177,80 @@ class TenantServer:
         self._online: dict = {}
         self._advance_ordinal = 0   # advance_all's default date label
 
+    # --------------------------------------------------------- sharding
+
+    def _shard_panels(self, panels):
+        """Keep this rank's asset block of every ``[..., N]`` panel
+        (``asset_in_shardings`` with no date axis; ``factor_ret [D, F]``
+        whole); a mesh without the asset axis keeps them whole."""
+        from factormodeling_tpu_torch.parallel.asset_shard import \
+            asset_in_shardings
+
+        if self._asset_axis not in tuple(self.mesh.mesh_dim_names):
+            return panels
+        size = axis_size(self.mesh, self._asset_axis)
+        if self.n_assets % size:
+            raise ValueError(
+                f"{self.n_assets} assets are not divisible by the mesh's "
+                f"'{self._asset_axis}' axis ({size}); pad the asset axis or "
+                f"pick a mesh whose asset axis divides N")
+        self._placements = asset_in_shardings(self.mesh, None,
+                                              self._asset_axis)
+        return tuple(None if p is None else pl.shard(p, self.device)
+                     for p, pl in zip(panels, self._placements))
+
+    def _market_panels(self) -> tuple:
+        """The whole market panels (an asset-sharded server gathers its
+        blocks)."""
+        if self._placements is None:
+            return self._panels
+        with obs_stage("parallel/inputs"):
+            return tuple(None if p is None else pl.gather(p)
+                         for p, pl in zip(self._panels, self._placements))
+
+    def _lanes_split(self) -> bool:
+        """Whether the mesh has a config axis: then a dispatch's lanes are
+        split over it (a size-1 axis too: this rank holds every lane)."""
+        return (self.mesh is not None
+                and self._config_axis in tuple(self.mesh.mesh_dim_names))
+
+    def _config_share(self) -> tuple:
+        """(size, index) of this rank along the config axis ((1, 0)
+        without one)."""
+        if not self._lanes_split():
+            return 1, 0
+        return (axis_size(self.mesh, self._config_axis),
+                axis_index(self.mesh, self._config_axis))
+
+    def _lane_block(self, n: int) -> tuple:
+        """This rank's lanes of ``n`` real ones: ``(indices, per)`` with
+        ``per`` lanes a rank; a rank past the real lanes gets the last
+        real lane's index (its output is gathered and dropped)."""
+        size, idx = self._config_share()
+        per = -(-n // size)
+        return [i for i in range(idx * per, min((idx + 1) * per, n))] \
+            or [n - 1], per
+
+    def _gather_lanes(self, tree, per: int):
+        """Each leaf's ``[per, ...]`` lanes gathered over the config axis
+        (``[size * per, ...]``, rank order)."""
+        with obs_stage("serve/tenants"):
+            return _tree_map(lambda a: all_gather(
+                torch.cat([a] + [a[-1:]] * (per - a.shape[0]))
+                if a.shape[0] < per else a,
+                self.mesh, self._config_axis, dim=0), tree)
+
     # ------------------------------------------------------- executables
 
     def _entry_key(self, skey, rung: int) -> tuple:
         shapes = tuple(None if a is None else
                        (tuple(a.shape), str(a.dtype)) for a in self._panels)
-        return ("serve", self.names, skey, rung, shapes)
+        key = ("serve", self.names, skey, rung, shapes)
+        if self.mesh is not None:
+            # another mesh runs other collectives on other groups: never
+            # one cache entry for two meshes
+            key += (mesh_key(self.mesh),)
+        return key
 
     def entry_name(self, skey, rung: int) -> str:
         """The stable per-(bucket, rung) entry-point name, under which the
@@ -220,10 +309,20 @@ class TenantServer:
         self._buckets_seen.add(skey)
         real = len(lanes)
         pad = rung - real
-        stacked = stack_configs(list(lanes) + [lanes[-1]] * pad)
         name, step = self._executable(skey, rung, template)
         self._executables_seen.add(name)
-        out = step(stacked, *self._panels, lanes=real)
+        if self._lanes_split():
+            mine, per = self._lane_block(real)
+            stacked = stack_configs([lanes[i] for i in mine])
+            out = self._gather_lanes(step(stacked, *self._market_panels()),
+                                     per)
+            # the real lanes in order, then the pad lanes as the
+            # unsharded step fills them: lane real-1's output
+            out = _tree_map(lambda a: torch.cat(
+                [a[:real]] + [a[real - 1:real]] * pad), out)
+        else:
+            stacked = stack_configs(list(lanes) + [lanes[-1]] * pad)
+            out = step(stacked, *self._market_panels(), lanes=real)
         self._stats["dispatch_executions"] += 1
         self._stats["configs_served"] += real
         self._stats["padded_lanes"] += pad
@@ -241,7 +340,7 @@ class TenantServer:
         if fp is None:
             from factormodeling_tpu_torch.resil.checkpoint import fingerprint
 
-            fp = self._panels_fp = fingerprint(*self._panels)
+            fp = self._panels_fp = fingerprint(*self._market_panels())
         return fp
 
     def serve(self, configs, *, lineage=None) -> list[TenantResult]:
@@ -310,7 +409,7 @@ class TenantServer:
         cfg_id = ledger.source(fingerprint(*config_leaves(config)), "config")
         ledger.edge(fingerprint(book), "dispatch", [panels_id, cfg_id],
                     code={"static_key": repr(skey), "bucket": name,
-                          "rung": int(rung), "mesh": None},
+                          "rung": int(rung), "mesh": self._mesh_shape()},
                     rid=int(index))
 
     def serve_queued(self, requests, **kwargs):
@@ -348,7 +447,7 @@ class TenantServer:
             buckets.setdefault(c.static_key(), []).append(i)
 
         has_universe = self._panels[5] is not None
-        n_assets = int(self._panels[1].shape[-1])
+        n_assets = self.n_assets
         dtype = self._panels[1].dtype
         self._online = {}
         self._online_configs = configs
@@ -369,16 +468,19 @@ class TenantServer:
                         [s[1] for s in steps])
 
             # a bucket wider than the top rung becomes several sessions,
-            # each advancing its own MarketState copy
+            # each advancing its own MarketState copy; over a config axis
+            # each rank holds and advances its own block of the lanes
             for lo in range(0, len(members), top):
                 chunk = members[lo:lo + top]
                 rung = _rung_for(len(chunk), self.pad_ladder)
+                mine, per = self._lane_block(len(chunk))
                 self._online[(skey, lo)] = {
                     "members": chunk, "rung": rung,
                     "pad": rung - len(chunk),
-                    "lanes": [normalized[i] for i in chunk],
+                    "per": per,
+                    "lanes": [normalized[chunk[i]] for i in mine],
                     "mstate": im(),
-                    "tstates": [it() for _ in chunk],
+                    "tstates": [it() for _ in mine],
                     "batched": batched,
                     "key": ("online", self.names, skey, rung, stats_tail,
                             str(self.device), self._entry_key(skey, rung)),
@@ -436,6 +538,8 @@ class TenantServer:
                              session["rung"],
                              wall_s=time.perf_counter() - t0)
             session["mstate"], session["tstates"] = mstate2, tstates2
+            if self._lanes_split():
+                outs = self._gather_outputs(outs, session)
             self._stats["dispatch_executions"] += 1
             self._stats["logical_dispatches"] += 1
             self._stats["configs_served"] += len(session["members"])
@@ -454,6 +558,23 @@ class TenantServer:
                           occupancy=sum(occ) / len(occ), shed_rate=0.0)
         return results
 
+    def _gather_outputs(self, outs, session) -> list:
+        """Every member's advance row from each rank's own lanes: the rows
+        are stacked, gathered over the config axis and split again (the
+        date's ``ready``/``day`` are the market's, equal on every rank)."""
+        own = list(outs)
+        stacked = _stack(own, self.device)
+        gathered = self._gather_lanes(stacked, session["per"])
+        return [tree_lane(gathered, i)._replace(ready=own[0].ready,
+                                                day=own[0].day)
+                for i in range(len(session["members"]))]
+
+    def _mesh_shape(self):
+        if self.mesh is None:
+            return None
+        return {n: int(s) for n, s in zip(self.mesh.mesh_dim_names,
+                                          self.mesh.shape)}
+
     def _fence(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -466,11 +587,11 @@ class TenantServer:
         ``dispatch_executions`` / ``logical_dispatches`` pair (executions
         exceed logical dispatches by the queue's poisoned attempts, which
         reached the step; ``dispatch_error`` attempts reach neither), the
-        config and pad counts, the ladder, ``mesh_shape`` (None: no mesh
-        yet) and the shared LRU's counters."""
+        config and pad counts, the ladder, ``mesh_shape`` (None without a
+        mesh) and the shared LRU's counters."""
         return {"bucket_count": len(self._buckets_seen),
                 "executables": len(self._executables_seen),
                 **self._stats,
                 "pad_ladder": self.pad_ladder,
-                "mesh_shape": None,
+                "mesh_shape": self._mesh_shape(),
                 "kernel_cache": _streaming.streaming_cache_stats()}

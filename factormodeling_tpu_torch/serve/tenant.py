@@ -25,7 +25,7 @@ from typing import Any
 import numpy as np
 import torch
 
-__all__ = ["TenantConfig", "config_leaves", "stack_configs"]
+__all__ = ["TenantConfig", "config_leaves", "mesh_key", "stack_configs"]
 
 #: weight schemes a tenant may request (SimulationSettings.method)
 _METHODS = ("equal", "linear", "mvo", "mvo_turnover")
@@ -266,6 +266,21 @@ class TenantConfig:
             turnover_penalty=f(self.turnover_penalty),
             return_weight=f(self.return_weight),
             tcost_scale=f(self.tcost_scale))
+
+
+def mesh_key(mesh) -> tuple:
+    """Hashable placement descriptor of a mesh, for the cache keys of
+    built steps: the axis names, the per-axis sizes, the rank grid (one
+    rank a device, flattened) and the device type. The same config on
+    another mesh runs other collectives on other groups, so the mesh joins
+    :meth:`TenantConfig.static_key` wherever steps are cached (the
+    server's ``_entry_key``). ``None`` (the unsharded server) keys as
+    ``()``, so unsharded keys are unchanged."""
+    if mesh is None:
+        return ()
+    return (tuple(mesh.mesh_dim_names), tuple(int(s) for s in mesh.shape),
+            tuple(int(r) for r in mesh.mesh.flatten().tolist()),
+            str(mesh.device_type))
 
 
 def stack_configs(configs) -> TenantConfig:

@@ -19,9 +19,9 @@ float64 with seeded numpy inputs (F=5, D=30, N=8, window 6).
 - ``advance_all`` lanes against the JAX package's at the step
   tolerances, and bitwise the port's single-tenant ``online_step_parts``
   rows.
-- ``mesh=`` raises ``NotImplementedError``, the obs hooks run;
-  ``TenantServer()`` without ``device="cpu"`` raises on a machine without
-  a card.
+- ``mesh=`` serves (a world of one; the multi-rank server is in
+  ``test_torch_distributed.py``), the obs hooks run; ``TenantServer()``
+  without ``device="cpu"`` raises on a machine without a card.
 """
 
 import dataclasses
@@ -454,12 +454,35 @@ def _series():
     return HealthSeries()
 
 
-# the serving hooks are ported: only the mesh raises; each other hook runs
+def _meshed_serve(server):
+    """One config served over a ``("configs", "assets")`` world of one,
+    beside the unsharded server's lane."""
+    from factormodeling_tpu_torch.parallel import make_mesh, release_world
+
+    try:
+        meshed = TenantServer(names=NAMES, pad_ladder=LADDER,
+                              mesh=make_mesh(("configs", "assets"),
+                                             device="cpu"), **server._market)
+        return (meshed.serve([cfg(top_k=1)]), server.serve([cfg(top_k=1)]),
+                meshed.serving_stats()["mesh_shape"])
+    finally:
+        release_world()
+
+
+def _same_lane(got, want) -> bool:
+    return all(torch.equal(torch.nan_to_num(x, 7.0), torch.nan_to_num(y, 7.0))
+               for a, b in zip(got, want)
+               for x, y in ((a.output.signal, b.output.signal),
+                            (a.output.sim.weights, b.output.sim.weights)))
+
+
+# the serving hooks are ported: the mesh serves and each other hook runs
 # and records (its differential against the JAX package is in the
-# test_torch_obs_* files)
+# test_torch_obs_* files; the multi-rank mesh in test_torch_distributed.py)
 @pytest.mark.parametrize("call,check", [
-    (lambda s: TenantServer(names=NAMES, device="cpu", mesh=object(),
-                            **s._market), None),
+    (_meshed_serve,
+     lambda r: (len(r[0]) == 1 and _same_lane(r[0], r[1])
+                and r[2] == {"configs": 1, "assets": 1})),
     (lambda s: s.serve([cfg(top_k=1)], lineage=True),
      lambda r: len(r) == 1),
     (lambda s: s.serve_queued([], flight=True),
@@ -477,11 +500,7 @@ def _series():
 def test_unported_hooks_raise(market, call, check):
     server = TenantServer(names=NAMES, device="cpu", **market)
     server._market = market
-    if check is None:
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-            call(server)
-    else:
-        assert check(call(server))
+    assert check(call(server))
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="needs a machine "

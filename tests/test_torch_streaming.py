@@ -15,7 +15,7 @@ fused rank-IC route), with seeded numpy inputs.
 - The LRU's counters equal the JAX package's over the same call sequence.
 - The checkpoint: a run killed after its first chunks resumes bitwise,
   with a lineage ledger byte-equal to straight through.
-- ``mesh=``/``sharding=`` raise "not ported".
+- ``mesh=``/``sharding=`` in a world of one, bitwise the unsharded runs.
 
 The pinned copy-stream path runs on the card only:
 ``tests/test_torch_streaming_card.py``.
@@ -313,20 +313,46 @@ def test_checkpointed_stats_resume_bitwise_with_the_ledger(tmp_path):
 
 
 def test_mesh_and_sharding_are_not_ported(tmp_path):
+    """The mesh and sharding options, ported: in a ``("date",)`` world of
+    one each streamed function gives bitwise its unsharded result, from
+    whole chunks and from date-block sources (the multi-rank runs are in
+    ``test_torch_distributed.py``)."""
+    from factormodeling_tpu_torch.parallel import make_mesh, release_world
+
     stack, ret, _ = MARKET
     src, sl = st.host_array_source(stack, 4)
-    for fn, args in ((st.streamed_factor_stats, (src, 1, _t(ret))),
-                     (st.streamed_linear_research, (src, 1, _t(ret)))):
-        kw = {"chunk_weight_fn": momentum_weights} \
-            if fn is st.streamed_linear_research else {}
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-            fn(*args, mesh=object(), device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        st.streamed_weighted_composite(src, [np.ones((4, D))],
-                                       mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        st.host_array_source(stack, 4, sharding=object())
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        st.chunk_sharding(object())
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        tio.disk_chunk_source(tmp_path, sharding=object())
+    try:
+        mesh = make_mesh(("date",), device="cpu")
+        sharding = st.chunk_sharding(mesh)
+        assert sharding.dims == (None, "date", None)
+        bsrc, bsl = st.host_array_source(stack, 4, sharding=sharding)
+        assert bsl == sl
+        tio.save_factor_stack_chunks(tmp_path, [stack[s] for s in sl],
+                                     factor_names=[f"f{i}" for i in
+                                                   range(stack.shape[0])])
+        dsrc, dsl, _ = tio.disk_chunk_source(tmp_path, sharding=sharding)
+        plain_disk, _, _ = tio.disk_chunk_source(tmp_path)
+        kw = dict(shift_periods=2)
+        for source, plain in ((src, src), (bsrc, src), (dsrc, plain_disk)):
+            got = st.streamed_factor_stats(source, len(sl), _t(ret),
+                                           mesh=mesh, **kw)
+            want = st.streamed_factor_stats(plain, len(sl), _t(ret),
+                                            device="cpu", **kw)
+            for k, v in want.items():
+                assert torch.equal(torch.nan_to_num(got[k], 7.0),
+                                   torch.nan_to_num(v, 7.0)), k
+        got = st.streamed_linear_research(
+            bsrc, len(sl), _t(ret), chunk_weight_fn=momentum_weights,
+            mesh=mesh)
+        want = st.streamed_linear_research(
+            src, len(sl), _t(ret), chunk_weight_fn=momentum_weights,
+            device="cpu")
+        for k, v in want.items():
+            assert torch.equal(torch.nan_to_num(got[k], 7.0),
+                               torch.nan_to_num(v, 7.0)), k
+        w = [np.ones((s.stop - s.start, D)) for s in sl]
+        assert torch.equal(
+            st.streamed_weighted_composite(bsrc, w, mesh=mesh),
+            st.streamed_weighted_composite(src, w, device="cpu"))
+    finally:
+        release_world()
