@@ -199,7 +199,23 @@ Phases, in order (any failure exits non-zero before the last line):
    turnover tenants over 16 dates; (13e) ``streamed_factor_stats(mesh=)``
    from 12e's host stack through a date-block source, bitwise 12e's
    serial run, K1 once a chunk;
-13. one ``kernels`` JSON line; then the last line
+13. path 14, the telemetry: (14a) 13a's run is the sharded step's first
+   call, under a ``RunReport(comms=True)``, so it lands its placement
+   rows: the comms rows (their collectives 13a's ledger's), the memory row
+   measured by ``obs.memory`` (its identity ``peak = argument + output +
+   temp - alias``, its peak at least the arguments) and a clean sharding
+   verdict; (12d takes its peak through ``obs.memory.peak_bytes`` too);
+   (14b) ``RunReport.add_devtime`` of path 1's step on its first
+   ``P14_DATES`` dates after a warm-up: the exported Kineto trace's device
+   time by ``obs.stage``, device tracks present, the stages and the
+   unattributed bucket summing to the device time within ``P14_SUM_TOL``,
+   device time within the wall, and the trace's K1 and K2 kernel events
+   equal to the wrappers' launches for that call; (14d)
+   ``obs.cost_estimate`` of path 8a's equal-weight step at full shape,
+   finite and positive, and the failure form for the parallel turnover
+   step, whose sweeps read the host; (14c) ``obs.compile_stats()`` of every
+   instrumented entry point the script called, none retraced;
+14. one ``kernels`` JSON line; then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs one card and exits non-zero, printing no result, without one or
@@ -212,6 +228,7 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -3814,7 +3831,7 @@ def north_star_path(torch, fmt, seed: int) -> tuple:
         returns=rets, cap_flag=cap,
         investability_flag=torch.ones_like(rets), method="equal", pct=0.1)
 
-    def one_pass():
+    def one_pass(rets, cap, inv):
         res = streaming.streamed_linear_research(
             source, n_chunks, rets, chunk_weight_fn=momentum, **kw)
         return res, fmt.run_simulation(res["composite"], settings)
@@ -3822,11 +3839,17 @@ def north_star_path(torch, fmt, seed: int) -> tuple:
     # a warm-up over two chunks (allocator, the library handles)
     streaming.streamed_linear_research(source, 2, rets,
                                        chunk_weight_fn=momentum, **kw)
-    torch.cuda.reset_peak_memory_stats()
     rk.launches = 0
-    (res, sim), secs = _timed(torch, one_pass)
+    (res, sim), secs = _timed(torch, lambda: one_pass(
+        rets, cap, settings.investability_flag))
     k1 = rk.launches
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    # the device-memory peak of one more pass, measured by obs.memory: the
+    # panels it takes plus what it allocates at its high-water mark; the
+    # allocator's high-water mark of that pass counts every live tensor
+    # (the cuBLAS workspace too)
+    peak = fmt.obs.memory.peak_bytes(one_pass, rets, cap,
+                                     settings.investability_flag) / 2**30
+    high = torch.cuda.max_memory_allocated() / 2**30
     # the two-pass flow: stats, per-date normalized weights, composite
     (two, comp2), secs2 = _timed(torch, lambda: _two_pass(
         torch, streaming, source, n_chunks, rets, momentum, stats))
@@ -3840,7 +3863,8 @@ def north_star_path(torch, fmt, seed: int) -> tuple:
     log(f"path north star (12d): {NS_F} x {NS_D} x {NS_N} float32 in "
         f"{n_chunks} chunks of {NS_CHUNK} from a device source, one pass "
         f"(stats, momentum, z-score blend) + equal backtest: {secs:.3f} s "
-        f"wall, peak {peak:.2f} GiB; K1 {k1} launches; two-pass flow "
+        f"wall, peak {peak:.2f} GiB (obs.memory; the allocator's "
+        f"high-water mark {high:.2f} GiB); K1 {k1} launches; two-pass flow "
         f"{secs2:.3f} s; composite one-pass vs two-pass max |d| {d_comp:.3e} "
         f"(tol {NS_COMPOSITE_TOL}); first 2 chunks bitwise one-shot "
         f"{bitwise}; total log return {total:.6f}")
@@ -4029,9 +4053,13 @@ def mesh_step_path(torch, fmt, seed: int) -> dict:
     step, shard = make_sharded_research_step(mesh, **kw)
     blocks = shard(*inputs)
     rk.launches = ak.launches = ak.lane_launches = 0
-    with comms.recording(mesh) as ledger:
+    # 14a: the step's first call "compiles" (obs.compile_log), so under a
+    # RunReport(comms=True) this same run lands its placement rows
+    rep = fmt.obs.RunReport("path 14a", comms=True)
+    with rep.activate(), comms.recording(mesh) as ledger:
         out, secs = _timed(torch, lambda: step(*blocks))
     launches = segment_counts(rk, ak)
+    placement_rows(rep, step.name, blocks, len(ledger.ops))
     want = segment_launches(fmt, PATHS["turnover"], d=d)
     fields = {"selection": (out.selection, ref.selection),
               "signal": (out.signal, ref.signal),
@@ -4274,6 +4302,193 @@ def mesh_paths(torch, fmt, seed: int, ns_host: dict) -> dict:
     return out
 
 
+# path 14: the telemetry (obs.memory, obs.devtime, obs.compile_log and the
+# cost rows). 14b profiles path 1's step on its first P14_DATES dates, the
+# fewest over which it reaches the rank-IC (K1) with its 60-date window:
+# the exported trace holds ~2,270 kernel events and ~17,000 events in all
+# a date (267 MiB at 64 dates), and the profiler's first start on the card
+# takes ~12 s
+P14_DATES = 64
+P14_SUM_TOL = 1e-6   # the stages and the unattributed bucket sum to
+#                      device_s (each rounded to the nanosecond)
+#: the kernels' symbols in the trace's kernel events
+P14_SYMBOLS = {"rank_ic_postsort": "rank_ic_postsort_kernel",
+               "admm_segment": "admm_cluster_kernel"}
+
+
+def placement_rows(rep, name: str, blocks, n_ops: int) -> None:
+    """14a: the placement rows 13a's run landed under ``name``: the comms
+    rows (their collectives the ``n_ops`` of 13a's own ledger), the memory
+    row (its identity ``peak = argument + output + temp - alias``, its peak
+    at least the arguments) and the sharding verdict."""
+    rows = [r for r in rep.rows if r["name"] == name]
+    comms = {r["stage"]: r for r in rows if r["kind"] == "comms"}
+    mem = [r for r in rows if r["kind"] == "memory"]
+    lint = [r for r in rows if r["kind"] == "sharding"]
+    if "total" not in comms or len(mem) != 1 or len(lint) != 1 or any(
+            "error" in r for r in rows):
+        raise AssertionError(f"path 14a: placement rows {rows}")
+    total, mem, lint = comms["total"], mem[0], lint[0]
+    kinds = {k: v["count"] for k, v in total["collectives"].items()}
+    args = sum(b.numel() * b.element_size() for b in blocks
+               if b is not None)
+    log(f"path 14a placement of 13a's run: comms rows "
+        f"{json.dumps({s: {k: v['count'] for k, v in r['collectives'].items()} for s, r in comms.items() if s != 'total'})}, "
+        f"total {json.dumps(kinds)}, {total['bytes_moved']} bytes, mesh "
+        f"{json.dumps(total['mesh_shape'])}; memory ({mem['source']}) "
+        f"argument {mem['argument_bytes']} B, output {mem['output_bytes']} "
+        f"B, temp {mem['temp_bytes']} B, alias {mem['alias_bytes']} B, peak "
+        f"{mem['peak_bytes'] / 2**30:.3f} GiB, device_stats "
+        f"{json.dumps(mem['device_stats'])}; sharding clean {lint['clean']} "
+        f"({lint['checked_inputs']} inputs, flags {lint['flags']}, notes "
+        f"{lint['notes']})")
+    if mem["source"] != "measured" or mem["peak_bytes"] != (
+            mem["argument_bytes"] + mem["output_bytes"] + mem["temp_bytes"]
+            - mem["alias_bytes"]) or mem["argument_bytes"] != args \
+            or not mem["peak_bytes"] >= args:
+        raise AssertionError(f"path 14a: memory row {mem} (arguments "
+                             f"{args} B)")
+    if not lint["clean"] or sum(kinds.values()) != n_ops:
+        raise AssertionError(f"path 14a: sharding verdict {lint}, "
+                             f"collectives {kinds} against 13a's {n_ops}")
+
+
+def devtime_path(torch, fmt, seed: int) -> dict:
+    """14b: ``RunReport.add_devtime`` of path 1's step on its first
+    P14_DATES dates after a warm-up: per-stage device seconds from the
+    exported Kineto trace. Gates: device tracks; the stages plus the
+    unattributed bucket equal device_s within P14_SUM_TOL; device_s <=
+    wall_s; the trace's K1 and K2 kernel events equal the launches the
+    wrappers counted for the profiled call. Returns those launches."""
+    import shutil
+    import tempfile
+
+    from factormodeling_tpu_torch.metrics import _cuda_rank_ic as rk
+    from factormodeling_tpu_torch.ops import _cuda_admm as ak
+
+    d = P14_DATES
+    arrays = tuple(a[:, :d] if a.ndim == 3 else a[:d]
+                   for a in make_inputs(F, D, N, seed))
+    sim = dict(PATHS["turnover"], max_weight=MAX_WEIGHT,
+               solver_kernel="fused")
+    inputs, cfg = fmt.convert(*arrays, names=factor_names(F), window=WINDOW,
+                              select_method="icir_top", blend_method="zscore",
+                              sim_kwargs=sim, device="cuda")
+    step = fmt.build_research_step(**cfg.as_kwargs())
+    _, warm = _timed(torch, lambda: step(*inputs))
+    tdir = tempfile.mkdtemp(prefix="fm_path14b_")
+    try:
+        rk.launches = ak.launches = ak.lane_launches = 0
+        rep = fmt.obs.RunReport("path 14b")
+        t0 = time.perf_counter()
+        total = rep.add_devtime("research_step", step, *inputs,
+                                trace_dir=tdir)
+        phase = time.perf_counter() - t0
+        launches = segment_counts(rk, ak)
+        if "skipped" in total:
+            raise AssertionError(f"path 14b: device time skipped: "
+                                 f"{total['skipped']}")
+        # the kernel events by name, read off the exported text (a JSON
+        # parse of it takes as long again as the capture's own)
+        t0 = time.perf_counter()
+        with open(total["trace_path"]) as fh:
+            text = fh.read()
+        size = len(text)
+        kernels = re.findall(r'"cat":\s*"kernel",\s*"name":\s*"([^"]*)"',
+                             text)
+        del text
+        seen = {k: sum(sym in n for n in kernels)
+                for k, sym in P14_SYMBOLS.items()}
+        parse = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tdir, ignore_errors=True)
+    stages = {r["stage"]: r["device_s"] for r in rep.rows
+              if r["kind"] == "devtime" and r["stage"] != "total"}
+    ranked = sorted(stages.items(), key=lambda kv: -kv[1])
+    dev = total["device_s"]
+    log(f"path 14b device time of path 1's step, F={F} D={d} N={N} "
+        f"(warm-up {warm:.3f} s): profiled wall {total['wall_s']:.3f} s, "
+        f"device {dev:.6f} s, host_overhead_frac "
+        f"{total['host_overhead_frac']:.4f}, {total['device_tracks']} "
+        f"device track(s); by stage (s, share of device) "
+        + json.dumps({k: [v, round(v / dev, 4)] for k, v in ranked})
+        + f", unattributed {total['unattributed_s']:.6f} s; "
+        f"{len(kernels)} kernel events, K1 {seen['rank_ic_postsort']} / "
+        f"launches {launches['rank_ic_postsort']}, K2 "
+        f"{seen['admm_segment']} / launches "
+        f"{launches['admm_segment'] + launches['admm_segment_lanes']}; "
+        f"trace {size / 2**20:.1f} MiB, capture {phase:.1f} s, kernel "
+        f"count {parse:.1f} s")
+    if total["device_tracks"] < 1:
+        raise AssertionError("path 14b: the trace has no device track")
+    if abs(sum(stages.values()) + total["unattributed_s"] - dev) \
+            > P14_SUM_TOL:
+        raise AssertionError(f"path 14b: stages {stages} + unattributed "
+                             f"{total['unattributed_s']} != {dev}")
+    if not dev <= total["wall_s"]:
+        raise AssertionError(f"path 14b: device {dev} s > wall "
+                             f"{total['wall_s']} s")
+    want = {"rank_ic_postsort": launches["rank_ic_postsort"],
+            "admm_segment": (launches["admm_segment"]
+                             + launches["admm_segment_lanes"])}
+    if seen != want or want["rank_ic_postsort"] < 1 \
+            or want["admm_segment"] < 1:
+        raise AssertionError(f"path 14b: kernel events {seen}, the "
+                             f"wrappers' launches {want}")
+    return launches
+
+
+def cost_path(torch, fmt, seed: int) -> None:
+    """14d: ``obs.cost_estimate`` of path 8a's equal-weight step at its full
+    shape (finite and positive) and of the turnover step in the parallel
+    scheme (path 6's) on P14_DATES dates, whose sweeps read max |dw| on the
+    host: the failure form."""
+    arrays = make_inputs(F, D, N, seed)
+
+    def built(sim, arrs):
+        inputs, cfg = fmt.convert(
+            *arrs, names=factor_names(F), window=WINDOW,
+            select_method="icir_top", blend_method="zscore",
+            sim_kwargs=sim, device="cuda")
+        return fmt.build_research_step(**cfg.as_kwargs()), inputs
+
+    t0 = time.perf_counter()
+    step, inputs = built(dict(method="equal", pct=P8_PCT), arrays)
+    eq = fmt.obs.cost_estimate(step, *inputs)
+    eq_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    step, inputs = built(dict(PARALLEL_PATHS["turnover_parallel"],
+                              max_weight=MAX_WEIGHT, solver_kernel="fused"),
+                         tuple(a[:, :P14_DATES] if a.ndim == 3
+                               else a[:P14_DATES] for a in arrays))
+    par = fmt.obs.cost_estimate(step, *inputs)
+    par_s = time.perf_counter() - t0
+    log(f"path 14d cost: the equal-weight step at F={F} D={D} N={N} "
+        f"{json.dumps(eq)} ({eq_s:.1f} s); the parallel turnover step on "
+        f"{P14_DATES} dates {json.dumps(par)} ({par_s:.1f} s)")
+    if "error" in eq or not all(np.isfinite(v) and v > 0
+                                for v in eq.values()):
+        raise AssertionError(f"path 14d: equal-weight cost {eq}")
+    if not (np.isnan(par["flops"]) and "host" in par.get("error", "")):
+        raise AssertionError(f"path 14d: the turnover step's cost {par} is "
+                             "not the failure form")
+
+
+def compile_stats_path() -> None:
+    """14c: ``compile_stats()`` of every instrumented entry point the script
+    called; none may be retraced."""
+    from factormodeling_tpu_torch.obs import compile_stats
+
+    stats = compile_stats()
+    log("path 14c entry points (calls, compiles, compile_s, retraced): "
+        + json.dumps({k: [v["calls"], v["compiles"], v["compile_s"],
+                          v["retraced"]] for k, v in sorted(stats.items())}))
+    bad = {k: v for k, v in stats.items() if v["retraced"]}
+    if not stats or bad:
+        raise AssertionError(f"path 14c: entry points {sorted(stats)}, "
+                             f"retraced {bad}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4438,31 +4653,42 @@ def main() -> int:
     launches.update(mesh_paths(torch, fmt, args.seed, ns_host))
     del ns_host
     log(f"path 13: {time.perf_counter() - t0:.1f} s wall")
+    t14 = time.perf_counter()
+    launches["devtime"] = devtime_path(torch, fmt, args.seed)
+    log(f"path 14b phase (warm-up, profiled run, export, parses, checks): "
+        f"{time.perf_counter() - t14:.1f} s wall")
+    t0 = time.perf_counter()
+    cost_path(torch, fmt, args.seed)
+    log(f"path 14d phase: {time.perf_counter() - t0:.1f} s wall")
+    compile_stats_path()
+    log(f"path 14 (14a within 13a): {time.perf_counter() - t14:.1f} s wall")
     # each kernel's launches on the paths that run its form: K1 once in each
     # of paths 1-3, in path 8a's icir_top selection and in path 9a's clean
     # step, once a date in path 9b's online advance, once a dispatch in
     # paths 10a and 10b, once a date in path 10d's session, once a dispatch
     # in paths 12a-12c, once a chunk in 12d-12e, once in 13a, once a plan
-    # in 13c, once a dispatch and a date in 13d and once a chunk in 13e
+    # in 13c, once a dispatch and a date in 13d, once a chunk in 13e and
+    # once in 14b's profiled run
     k1 = {p: launches[p]["rank_ic_postsort"] for p in
           (*PATHS, "multimanager", "resil", "online", "serve",
            "serve_turnover", "advance_all", "scenarios", "scenarios_resume",
            "scenarios_turnover", "north_star", "north_star_host",
-           "mesh_step", "mesh_asset", "mesh_serve", "mesh_stream")}
+           "mesh_step", "mesh_asset", "mesh_serve", "mesh_stream",
+           "devtime")}
     kernels["rank_ic_postsort"]["launches"] = sum(k1.values())
     kernels["rank_ic_postsort"]["launches_by_path"] = k1
     kernels["rank_ic_postsort"].update(k1_north)
     # the segment's single-lane launches: path 1, the sequential suffixes
     # of paths 6-7, path 9a's clean step, path 9b's advance, paths 10b
     # and 10d (a real tenant's days, never a pad lane's), path 12c (two
-    # regime paths' days) and paths 13a and 13d; its collect=1
+    # regime paths' days), paths 13a and 13d and 14b; its collect=1
     # form: path 9a's probed inert and chaos steps and path 11a's probed
     # tally run; its lane launches: path 2's chunks, and the seed and sweep
     # chunks of paths 6-7 (each as the wrapper counted it)
     single = {p: launches[p]["admm_segment"] for p in
               ("turnover", "turnover_parallel", "turnover_parallel_decoupled",
                "resil", "online", "serve_turnover", "advance_all",
-               "scenarios_turnover", "mesh_step", "mesh_serve")}
+               "scenarios_turnover", "mesh_step", "mesh_serve", "devtime")}
     lanes = {p: launches[p]["admm_segment_lanes"] for p in
              ("mvo", "turnover_parallel", "turnover_parallel_decoupled")}
     kernels["admm_segment"]["launches"] = sum(single.values())

@@ -26,6 +26,7 @@ from factormodeling_tpu_torch.backtest.pnl import (DailyResult,
 from factormodeling_tpu_torch.backtest.settings import SimulationSettings
 from factormodeling_tpu_torch.backtest.weights import (equal_weights,
                                                        linear_weights)
+from factormodeling_tpu_torch.obs.trace import stage as obs_stage
 from factormodeling_tpu_torch.ops._window import masked_shift, shift
 from factormodeling_tpu_torch.resil.policy import HoldStats, hold_weights
 
@@ -57,29 +58,34 @@ def _trade_list_and_degrade(signal: torch.Tensor, s: SimulationSettings):
     without a policy)."""
     d = signal.shape[0]
     dev = signal.device
-    if s.method in ("equal", "linear"):
-        if s.method == "equal":
-            w, lc, sc = equal_weights(signal, s.pct)
+    with obs_stage(f"backtest/trade_list/{s.method}"):
+        if s.method in ("equal", "linear"):
+            if s.method == "equal":
+                w, lc, sc = equal_weights(signal, s.pct)
+            else:
+                w, lc, sc = linear_weights(signal, s.max_weight)
+            nan_d = torch.full((d,), float("nan"), dtype=signal.dtype,
+                               device=dev)
+            zero_i = torch.zeros((d,), dtype=torch.int32, device=dev)
+            resid, ok = nan_d, torch.ones((d,), dtype=torch.bool, device=dev)
+            tele = (torch.zeros((d,), dtype=torch.bool, device=dev), nan_d,
+                    nan_d, zero_i, zero_i, zero_i)
+            stats = SchemeStats(*(torch.zeros((), dtype=torch.int32,
+                                              device=dev)
+                                  for _ in range(4)))
+        elif s.method == "mvo":
+            w, lc, sc, resid, ok, tele, stats = mvo_weights(signal, s)
         else:
-            w, lc, sc = linear_weights(signal, s.max_weight)
-        nan_d = torch.full((d,), float("nan"), dtype=signal.dtype, device=dev)
-        zero_i = torch.zeros((d,), dtype=torch.int32, device=dev)
-        resid, ok = nan_d, torch.ones((d,), dtype=torch.bool, device=dev)
-        tele = (torch.zeros((d,), dtype=torch.bool, device=dev), nan_d, nan_d,
-                zero_i, zero_i, zero_i)
-        stats = SchemeStats(*(torch.zeros((), dtype=torch.int32, device=dev)
-                              for _ in range(4)))
-    elif s.method == "mvo":
-        w, lc, sc, resid, ok, tele, stats = mvo_weights(signal, s)
-    else:
-        w, lc, sc, resid, ok, tele, stats = mvo_turnover_weights(signal, s)
+            w, lc, sc, resid, ok, tele, stats = mvo_turnover_weights(signal,
+                                                                     s)
 
     hold_stats = None
     if s.degrade is not None:
         uni_count = (s.universe.sum(-1) if s.universe is not None
                      else torch.full((d,), signal.shape[-1], device=dev))
-        w, lc, sc, hold_stats = hold_weights(w, lc, sc, ok, uni_count,
-                                             s.degrade)
+        with obs_stage("resil/hold"):
+            w, lc, sc, hold_stats = hold_weights(w, lc, sc, ok, uni_count,
+                                                 s.degrade)
 
     diag = SolverDiagnostics(
         primal_residual=resid, solver_ok=ok,
@@ -104,7 +110,8 @@ def run_simulation(signal: torch.Tensor, s: SimulationSettings) -> SimulationOut
     """Full backtest of a signal panel under the settings."""
     masked = signal * s.investability_flag
     weights, lc, sc, diag, hold_stats = _trade_list_and_degrade(masked, s)
-    result = daily_portfolio_returns(weights, s)
+    with obs_stage("backtest/pnl"):
+        result = daily_portfolio_returns(weights, s)
     return SimulationOutput(weights=weights, long_count=lc, short_count=sc,
                             result=result, diagnostics=diag,
                             degrade=hold_stats)

@@ -115,6 +115,29 @@ def _record_sim(name: str, method: str, diag: SolverDiagnostics,
         rep.record(f"compat/sim/{name}", kind="cost", **cost)
 
 
+#: cost estimates of the fused run, cached by the settings' structure
+#: (every static knob; a tensor field by its presence) and the signal's
+#: shape and dtype, as the JAX package's ``_COST_ROWS`` caches by jit's
+#: dispatch signature: many Simulations over identical shapes and methods
+#: pay the tally once
+_COST_ROWS: dict[tuple, dict] = {}
+
+
+def _structure(s: _DenseSettings) -> tuple:
+    return tuple((f.name, "tensor" if isinstance(v, torch.Tensor) else
+                  "none" if v is None else repr(v))
+                 for f in dataclasses.fields(s)
+                 for v in (getattr(s, f.name),))
+
+
+def _fused_cost(sig, uni, s: _DenseSettings, s_full: _DenseSettings) -> dict:
+    key = (_structure(s), _structure(s_full), tuple(sig.shape),
+           str(sig.dtype))
+    if key not in _COST_ROWS:
+        _COST_ROWS[key] = cost_estimate(_fused_run, sig, uni, s, s_full)
+    return _COST_ROWS[key]
+
+
 def _fused_run(sig, uni, s: _DenseSettings, s_full: _DenseSettings):
     """run()'s whole pass as the two-stage compat composition: the trade
     list on the signal's universe, then the P&L on the universe-masked
@@ -358,7 +381,8 @@ class Simulation:
         cols, lc, sc, diag = _unpack(packed.cpu().numpy())
         msgs = check_anomalies(diag, name=self.name)
         _record_sim(self.name, self.method, diag, len(msgs),
-                    cost_estimate(_fused_run) if rep is not None else None)
+                    _fused_cost(sig_dev, s.universe, s, s_full)
+                    if rep is not None else None)
         dates = pd.Index(vocab.dates, name="date")
         counts = pd.DataFrame({"long_count": lc.astype(int),
                                "short_count": sc.astype(int)}, index=dates)

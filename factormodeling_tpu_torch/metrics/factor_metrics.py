@@ -23,6 +23,7 @@ from factormodeling_tpu_torch.metrics._cuda_rank_sort import (MAX_WIDTH,
                                                               MIN_WIDTH,
                                                               rank_ic_fused)
 from factormodeling_tpu_torch.metrics._special import betainc
+from factormodeling_tpu_torch.obs.trace import stage as obs_stage
 from factormodeling_tpu_torch.ops._window import masked_shift, rolling_sum, shift
 
 __all__ = ["METRIC_COLUMNS", "aggregate_metrics", "daily_factor_stats",
@@ -118,16 +119,21 @@ def daily_factor_stats(factors: torch.Tensor, returns: torch.Tensor,
 
     out = dict(n_pairs=cnt)
     if "ic" in stats:
-        out["ic"] = torch.where(enough, _masked_pearson(f, r, valid), float("nan"))
+        with obs_stage("metrics/ic"):
+            out["ic"] = torch.where(enough, _masked_pearson(f, r, valid),
+                                    float("nan"))
     if "rank_ic" in stats:
-        out["rank_ic"] = torch.where(enough, _rank_ic(f, r, valid), float("nan"))
+        with obs_stage("metrics/rank_ic"):
+            out["rank_ic"] = torch.where(enough, _rank_ic(f, r, valid),
+                                         float("nan"))
     if "factor_return" in stats:
-        f0 = torch.where(valid, f, 0.0)
-        r0 = torch.where(valid, r, 0.0)
-        num = (f0 * r0).sum(_ASSET_AXIS)
-        den = (f0 * f0).sum(_ASSET_AXIS)
-        beta = torch.where(den > 0, num / den, float("nan"))
-        out["factor_return"] = torch.where(enough, beta, float("nan"))
+        with obs_stage("metrics/factor_return"):
+            f0 = torch.where(valid, f, 0.0)
+            r0 = torch.where(valid, r, 0.0)
+            num = (f0 * r0).sum(_ASSET_AXIS)
+            den = (f0 * f0).sum(_ASSET_AXIS)
+            beta = torch.where(den > 0, num / den, float("nan"))
+            out["factor_return"] = torch.where(enough, beta, float("nan"))
     return out
 
 

@@ -9,8 +9,10 @@ each call records one :class:`CollectiveOp` here while a ledger is open
 (:func:`recording`):
 
 - ``kind``: ``all-gather``, ``all-reduce`` or ``all-to-all``;
-- ``stage``: the innermost open ``obs.trace.stage`` that is one of
-  :data:`STAGE_SCOPES` (``"unattributed"`` when none is);
+- ``stage``: the stage the JAX package's rule gives for the open
+  ``obs.trace.stage`` names joined into an ``op_name`` path: the
+  outermost (earliest) known scope of :data:`STAGE_SCOPES`, the longest
+  on a tie (``"unattributed"`` when none is);
 - ``axis``: the mesh axis the call ran over;
 - ``operand_bytes``: this rank's operand (the local block);
 - ``bytes_moved``: the JAX package's byte model, unchanged: for a group of
@@ -150,11 +152,19 @@ _RECORD_ONLY: list = []  # one flag per open ledger
 
 
 def _stage_of(open_stages, stages) -> str:
-    """The innermost open stage that is a known scope."""
-    for name in reversed(open_stages):
-        if name in stages:
-            return name
-    return "unattributed"
+    """The OUTERMOST known scope of the open stages (outermost first),
+    by the JAX package's rule on their ``"/"``-joined ``op_name`` path:
+    the earliest position wins, and at one position the longest scope
+    (``selection/rolling_metrics`` is not shadowed by its prefix
+    ``selection/rolling``). ``obs/devtime.py`` charges device time by the
+    same rule, so the two per-stage buckets of one step agree."""
+    op_name = "/".join(open_stages)
+    best, best_key = "unattributed", (len(op_name) + 1, 0)
+    for scope in stages:
+        pos = op_name.find(scope)
+        if pos >= 0 and (pos, -len(scope)) < best_key:
+            best, best_key = scope, (pos, -len(scope))
+    return best
 
 
 def record(kind: str, axis: str, operand_bytes: int, group_size: int,
@@ -236,8 +246,12 @@ def sharding_lint(step, inputs) -> dict:
     the mesh's device type.
 
     ``inputs`` is ``(full_inputs, handed)``: the full host arrays and what
-    was handed to the step. Returns the JAX package's JSON-ready dict:
-    ``clean``, ``flags``, ``notes``, ``checked_inputs``,
+    was handed to the step. ``full_inputs`` None (``RunReport.
+    add_placement``, which sees only the call's arguments) checks what a
+    rank can see of its blocks alone: each handed tensor's rank against
+    its declared placement and its device type against the mesh's, with
+    a note that the block sizes went unchecked. Returns the JAX package's
+    JSON-ready dict: ``clean``, ``flags``, ``notes``, ``checked_inputs``,
     ``checked_outputs`` (0: outputs are replicated by the contract) and
     ``n_devices``."""
     from factormodeling_tpu_torch.parallel.mesh import axis_size
@@ -248,6 +262,22 @@ def sharding_lint(step, inputs) -> dict:
     flags: list[str] = []
     notes: list[str] = []
     checked = 0
+    if full is None:
+        for i, (p, h) in enumerate(zip(declared, handed)):
+            if not hasattr(h, "shape") or not hasattr(h, "device"):
+                notes.append(f"input {i}: not a tensor, not checked")
+                continue
+            checked += 1
+            if len(p.dims) > h.ndim:
+                flags.append(f"input {i}: declared {tuple(p.dims)} on a "
+                             f"{h.ndim}-d tensor")
+            if h.device.type != mesh.device_type:
+                flags.append(f"input {i}: on {h.device.type}, the mesh is "
+                             f"{mesh.device_type}")
+        notes.append("full shapes not given: block sizes not checked")
+        return {"clean": not flags, "flags": flags, "notes": notes,
+                "checked_inputs": checked, "checked_outputs": 0,
+                "n_devices": int(np.prod(mesh.shape))}
     for i, (p, f, h) in enumerate(zip(declared, full, handed)):
         if h is None or f is None:
             notes.append(f"input {i}: absent, not checked")

@@ -1,36 +1,39 @@
-"""Host-side run report: span timers, counter summaries, numerics probes
-and cost rows merged into one JSONL/dict artifact (port of
-``factormodeling_tpu/obs/report.py``, the part the library layers call).
+"""Host-side run report: span timers, counter summaries, numerics probes,
+entry-point call rows, placement-ledger rows (comms, memory, sharding),
+device-time rows and cost rows merged into one JSONL/dict artifact (port
+of ``factormodeling_tpu/obs/report.py``), in the JAX package's row schema.
 
-The library's layers (``parallel/sweep.py``, the compat ``Simulation``)
-record into the *active* report when one is installed, and are no-ops when
-none is (the default).
+The library's layers (``parallel/sweep.py``, the compat ``Simulation``,
+the instrumented entry points of ``obs/compile_log.py``) record into the
+*active* report when one is installed, and are no-ops when none is (the
+default).
 
 Span timing: CUDA launches are asynchronous, so a wall-clock window that
 does not wait for its outputs measures the enqueue. ``span(...)`` builds the
 fence in: tensors registered on the handle have their devices synchronized
 inside the measured window. Device-memory gauges come from
-``torch.cuda.memory_stats()``; without a card the span rows carry none, as
-the JAX package's carry none on the CPU. PyTorch has no ahead-of-time cost analysis (the JAX package
-reads XLA's), so :func:`cost_estimate` returns the JAX package's failure
-form: NaN fields and an ``error`` string.
+``obs.memory.live_watermark`` (the caching allocator's); without a card
+the span rows carry none, as the JAX package's carry none on the CPU.
+:func:`cost_estimate` tallies the ATen operations of one call
+(``obs/_cost.py``), where the JAX package reads XLA's cost analysis.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import hashlib
 import json
 import sys
 import time
 from contextlib import contextmanager
 from pathlib import Path
+from types import SimpleNamespace
 
 import torch
 
 from factormodeling_tpu_torch.obs.counters import (StageCounters,
                                                    summarize_counters)
 from factormodeling_tpu_torch.obs.latency import LatencyRecorder
+from factormodeling_tpu_torch.obs.memory import _tensors, live_watermark
 
 __all__ = ["RunReport", "SCHEMA_VERSION", "SpanHandle", "active_report",
            "code_fingerprint", "cost_estimate", "live_watermark",
@@ -39,9 +42,6 @@ __all__ = ["RunReport", "SCHEMA_VERSION", "SpanHandle", "active_report",
 #: the JAX package's report row-schema version: the rows this module writes
 #: are a subset of its kinds, with the same fields
 SCHEMA_VERSION = 5
-
-_COST_ERROR = ("PyTorch has no ahead-of-time cost analysis; no FLOP or "
-               "byte estimate is made")
 
 _ACTIVE: "RunReport | None" = None
 
@@ -74,21 +74,6 @@ def code_fingerprint() -> "str | None":
     return _CODE_FP or None
 
 
-def live_watermark() -> "dict | None":
-    """Current device-memory gauges of the card, or None without one:
-    ``{"bytes_in_use", "peak_bytes_in_use", "devices"}`` over the visible
-    cards (``torch.cuda.memory_stats``: the caching allocator's allocated
-    bytes, now and at their peak)."""
-    if not torch.cuda.is_available():
-        return None
-    in_use, peak, n = 0, 0, torch.cuda.device_count()
-    for i in range(n):
-        stats = torch.cuda.memory_stats(i)
-        in_use += int(stats.get("allocated_bytes.all.current", 0))
-        peak = max(peak, int(stats.get("allocated_bytes.all.peak", 0)))
-    return {"bytes_in_use": in_use, "peak_bytes_in_use": peak, "devices": n}
-
-
 def record_stage(name: str, **fields) -> None:
     """Record one stage row into the active report; no-op without one."""
     if _ACTIVE is not None:
@@ -98,18 +83,7 @@ def record_stage(name: str, **fields) -> None:
 def _cuda_devices(obj, out: set) -> set:
     """The CUDA devices of every tensor in a nest of tuples, lists, dicts,
     named tuples and dataclasses."""
-    if isinstance(obj, torch.Tensor):
-        if obj.is_cuda:
-            out.add(obj.device)
-    elif isinstance(obj, dict):
-        for v in obj.values():
-            _cuda_devices(v, out)
-    elif isinstance(obj, (tuple, list)):
-        for v in obj:
-            _cuda_devices(v, out)
-    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        for f in dataclasses.fields(obj):
-            _cuda_devices(getattr(obj, f.name), out)
+    out.update(t.device for t in _tensors(obj, []) if t.is_cuda)
     return out
 
 
@@ -145,14 +119,22 @@ class RunReport:
     ``latency=True`` (or a :class:`LatencyRecorder`) folds every fenced span
     exit into the scope's quantile sketch; repeated same-name spans roll up
     into it instead of appending one row each, and ``slos`` judge the
-    ``kind="latency"`` rows.
+    ``kind="latency"`` rows. Instrumented entry points
+    (``obs.instrument_jit``) then record each steady-state call's fenced
+    wall too.
+
+    ``comms=True``: every instrumented entry point's call that "compiled"
+    (the first call of a signature) contributes its placement rows
+    (:meth:`add_placement`) from that same call. False (the default) runs
+    none of it.
     """
 
     def __init__(self, label: str | None = None, meta: dict | None = None,
-                 *, latency=False, slos=()):
+                 *, comms: bool = False, latency=False, slos=()):
         self.label = label
         self.meta = dict(meta or {})
         self.rows: list[dict] = []
+        self.comms = bool(comms)
         self.slos = tuple(slos)
         if latency or self.slos:
             if isinstance(latency, bool):
@@ -261,14 +243,123 @@ class RunReport:
         verdict = _probes.watchdog(summaries, baseline=baseline, tol=tol)
         return self.record(name, kind="watchdog", **verdict)
 
-    def add_cost_analysis(self, name: str, fn=None, *args, **kwargs) -> dict:
-        """A ``kind="cost"`` row in the JAX package's failure form: PyTorch
-        has no ahead-of-time cost analysis, and running ``fn`` again under a
-        FLOP counter would double the reported work. ``fn`` and its
-        arguments are accepted for the JAX package's signature and not
-        called."""
-        del fn, args, kwargs
-        return self.record(name, kind="cost", error=_COST_ERROR)
+    def add_cost_analysis(self, name: str, fn, *args, **kwargs) -> dict:
+        """A ``kind="cost"`` row, ``{"flops", "bytes_accessed"}``, from the
+        ATen operations of one call of ``fn(*args, **kwargs)``
+        (``obs/_cost.py``: on ``meta`` stand-ins where ``fn`` runs on them,
+        else on the given arguments, which runs ``fn`` once more). A call
+        that reads host values, or fails, records the JAX package's
+        failure form, NaN fields and an ``error``; nothing raises."""
+        from factormodeling_tpu_torch.obs import _cost
+
+        return self.record(name, kind="cost",
+                           **_cost.estimate(fn, *args, **kwargs))
+
+    def _placement(self, name: str, target, args, kwargs, *,
+                   declared_in_shardings=None, mesh=None, stages=None,
+                   reraise: bool = False) -> tuple:
+        """Run ``target(*args, **kwargs)`` once under the comms ledger and
+        the memory measurement, and return ``(output, rows)`` with the
+        placement rows (:meth:`add_placement`) not yet recorded. A failure
+        gives a ``kind="comms"`` error row; with ``reraise`` the target's
+        own exception propagates after it (an instrumented entry point's
+        call must fail as it would without the report)."""
+        from factormodeling_tpu_torch.obs import comms as _comms
+        from factormodeling_tpu_torch.obs import memory as _memory
+
+        if mesh is None:
+            mesh = getattr(target, "mesh", None)
+        if declared_in_shardings is None:
+            declared_in_shardings = getattr(target, "declared_in_shardings",
+                                            None)
+        out, rows = None, []
+        try:
+            with _comms.recording(mesh) as ledger:
+                out, mem = _memory.measure(target, *args, **kwargs)
+            if stages is not None:
+                ledger.ops = [op._replace(stage=_comms._stage_of(
+                    [op.op_name], stages)) for op in ledger.ops]
+            if ledger.mesh_shape:
+                self.meta.setdefault("mesh_shape", ledger.mesh_shape)
+            rows.extend(ledger.rows(name))
+            gauges = _memory.live_watermark()
+            if gauges is None:
+                gauges = ("skipped: "
+                          f"{_memory.watermark_unavailable_reason()}")
+            rows.append({"kind": "memory", "name": name, **mem,
+                         "device_stats": gauges})
+            if declared_in_shardings is not None and mesh is not None:
+                lint = _comms.sharding_lint(SimpleNamespace(
+                    declared_in_shardings=declared_in_shardings, mesh=mesh),
+                    (None, args))
+            else:
+                lint = {"clean": True, "flags": [],
+                        "notes": ["no declared placements: nothing to "
+                                  "lint"],
+                        "checked_inputs": 0, "checked_outputs": 0,
+                        "n_devices": 1}
+            rows.append({"kind": "sharding", "name": name, **lint})
+        except Exception as e:
+            rows.append({"kind": "comms", "name": name, "error": str(e)})
+            if reraise:
+                self.rows.extend(rows)
+                raise
+        return out, rows
+
+    def add_placement(self, name: str, target, *args,
+                      declared_in_shardings=None, mesh=None, stages=None,
+                      **kwargs) -> "dict | None":
+        """The placement ledger of one call of ``target(*args, **kwargs)``
+        (a callable; the port has no compiled artifact to read): run once
+        under ``obs.comms.recording(mesh)``, it gives the
+        ``kind="comms"`` rows (per-stage collective counts and byte
+        estimates and a per-mesh-axis total, :mod:`.comms`), one
+        ``kind="memory"`` row measured in the same call (:mod:`.memory`,
+        with ``device_stats`` the live watermark or the ``"skipped:
+        <reason>"`` string) and one ``kind="sharding"`` verdict of the
+        handed tensors against the declared placements
+        (:func:`.comms.sharding_lint`). ``mesh`` and
+        ``declared_in_shardings`` default to the target's attributes;
+        ``stages`` re-charges the collectives over another scope list.
+        Failures record a ``kind="comms"`` error row rather than raising.
+        Returns the lint verdict (or the error row)."""
+        _, rows = self._placement(
+            name, target, args, kwargs,
+            declared_in_shardings=declared_in_shardings, mesh=mesh,
+            stages=stages)
+        self.rows.extend(rows)
+        return rows[-1] if rows else None
+
+    def add_devtime(self, name: str, fn, *args, stages=None,
+                    trace_dir=None, **kwargs) -> dict:
+        """Profiler device-time attribution of ONE extra fenced execution
+        of ``fn(*args, **kwargs)`` (:mod:`.devtime`): per-stage
+        ``kind="devtime"`` rows plus a ``stage="total"`` row carrying the
+        host wall and ``host_overhead_frac``. A trace with no device tracks
+        (the CPU) records ONE skip row with the reason. Profiler trouble
+        never raises; ``fn``'s own exceptions propagate. Returns the
+        total/skip row."""
+        from factormodeling_tpu_torch.obs import devtime as _devtime
+
+        kw = {"trace_dir": trace_dir, **kwargs}
+        if stages is not None:
+            kw["stages"] = stages
+        summary = _devtime.capture(fn, *args, **kw)
+        if "skipped" in summary:
+            return self.record(name, kind="devtime", stage="total",
+                               skipped=summary["skipped"],
+                               wall_s=summary.get("wall_s"))
+        for stage, secs in summary["per_stage"].items():
+            self.record(name, kind="devtime", stage=stage, device_s=secs)
+        return self.record(
+            name, kind="devtime", stage="total",
+            device_s=summary["device_s"],
+            unattributed_s=summary["unattributed_s"],
+            wall_s=summary["wall_s"],
+            host_overhead_frac=summary["host_overhead_frac"],
+            device_tracks=summary["device_tracks"],
+            **({"trace_path": summary["trace_path"]}
+               if summary.get("trace_path") else {}))
 
     def latency_rows(self) -> list:
         """The recorder's ``kind="latency"`` rows (one per scope, sorted,
@@ -366,8 +457,11 @@ def span(name: str, **fields):
 
 
 def cost_estimate(fn, *args, **kwargs) -> dict:
-    """``{"flops", "bytes_accessed", "error"}`` in the JAX package's failure
-    form (NaN fields; see :meth:`RunReport.add_cost_analysis`)."""
-    del fn, args, kwargs
-    return {"flops": float("nan"), "bytes_accessed": float("nan"),
-            "error": _COST_ERROR}
+    """Standalone ``{"flops": ..., "bytes_accessed": ...}`` estimate of one
+    call of ``fn`` at the given args (:meth:`RunReport.add_cost_analysis`;
+    NaN fields and an ``error`` where it reads host values or fails)."""
+    rep = RunReport()
+    row = rep.add_cost_analysis("estimate", fn, *args, **kwargs)
+    return {k: row.get(k, float("nan"))
+            for k in ("flops", "bytes_accessed")} | (
+        {"error": row["error"]} if "error" in row else {})

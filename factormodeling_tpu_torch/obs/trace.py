@@ -6,8 +6,9 @@
 launches under ``name``; outside a profiler the marker only records a
 range and the block's results are unchanged. ``annotate(name)`` is the
 decorator form. The names of the stages open on this thread are kept in
-order (:func:`active_stages`): the comms ledger charges a collective to the
-innermost of them that it knows (``obs/comms.py``).
+order (:func:`active_stages`): the comms ledger and the device-time
+attribution charge a collective or a kernel to the outermost of them that
+they know (``obs/comms.py``, ``obs/devtime.py``).
 """
 
 from __future__ import annotations

@@ -54,7 +54,8 @@ import numpy as np
 import torch
 
 from factormodeling_tpu_torch._device import host_array, resolve_device
-from factormodeling_tpu_torch.obs.compile_log import entry_point_tag
+from factormodeling_tpu_torch.obs.compile_log import (entry_point_tag,
+                                                      instrument_jit)
 from factormodeling_tpu_torch.obs.report import record_stage
 from factormodeling_tpu_torch.online.advance import make_online_step
 from factormodeling_tpu_torch.online.state import DateSlice
@@ -227,13 +228,18 @@ class OnlineEngine:
         self.template = template.normalized(len(self.names), len(prefixes),
                                             dtype=np.float64)
         self._has_universe = bool(has_universe)
-        init_fn, self._advance = make_online_step(
+        init_fn, advance_fn = make_online_step(
             names=self.names, template=self.template, n_assets=self.n_assets,
             dtype=dtype, has_universe=has_universe, stats_tail=stats_tail,
             device=self.device)
         self._config_tag = entry_point_tag(
             self.names, self.n_assets, str(self.template.static_key()),
             has_universe, stats_tail, str(dtype).replace("torch.", ""))
+        # one advance serves the whole stream: a second signature is what
+        # the retrace detector flags (obs.compile_log)
+        self._advance = instrument_jit(
+            advance_fn, f"online/engine/{self._config_tag}",
+            expected_signatures=1)
         self._init_fn = init_fn
         self._state = init_fn()
         self._template_state = self._state

@@ -13,7 +13,8 @@ runs, on the same seeded float64 inputs:
   the rank's own unsharded step at 1e-10 (Sharpe 1e-8), then prints
   ``DIST_OK <rank>``;
 - the asset-sharded step on a ``("date", "assets")`` mesh and on a flat
-  ``("assets",)`` mesh in each layout mode, held the same way, then prints
+  ``("assets",)`` mesh in each layout mode, held the same way, its first
+  call under a ``RunReport(comms=True)`` (the placement rows), then prints
   ``DIST_ASSET_OK <rank>``;
 - then the comms ledgers, an ``all_reduce``, the layout chooser, the
   sharded sweep, date-sharded streaming, the sharded ``TenantServer`` and
@@ -163,7 +164,7 @@ def _step_leg(raw, res: dict) -> None:
 def _asset_leg(raw, res: dict) -> None:
     import torch
 
-    from factormodeling_tpu_torch.obs import comms
+    from factormodeling_tpu_torch.obs import RunReport, comms
     from factormodeling_tpu_torch.parallel import (
         AssetSpecPlan, build_research_step, make_asset_mesh, make_hybrid_mesh,
         make_asset_sharded_research_step)
@@ -178,9 +179,14 @@ def _asset_leg(raw, res: dict) -> None:
         for mode in MODES:
             step, shard = make_asset_sharded_research_step(
                 mesh, **cfg, plan=AssetSpecPlan(mesh, default=mode))
-            with comms.recording(mesh) as ledger:
+            # the step's first call "compiles" (obs.compile_log): under a
+            # RunReport(comms=True) it lands its placement rows from the
+            # same call
+            rep = RunReport("placement", comms=True)
+            with rep.activate(), comms.recording(mesh) as ledger:
                 out = _out_arrays(step(*shard(*raw)))
             res[f"asset/{label}/{mode}"] = out
+            res[f"asset/{label}/{mode}/placement"] = rep.rows
             res[f"asset/{label}/{mode}/err"] = _held(out, local,
                                                      f"{label} {mode}")
             res[f"asset/{label}/{mode}/ledger"] = _ops(ledger)

@@ -29,10 +29,17 @@ ledger-driven layout chooser (port of
   backtest is left out: it moves nothing in any mode. :func:`record_spec_choices` lands the
   verdicts as ``kind="spec_choice"`` rows in the JAX package's schema.
 
-Each plan stage's collectives are charged to the stage's own name (the
-plan opens it), so no two stages share a ledger scope; a stage that issued
-nothing in every mode (its sites never ran) is judged by the candidates'
-totals, and its row says ``"attribution": "total"``.
+The ledger charges a collective to the OUTERMOST known scope open around
+it (``obs/comms.py``, the JAX package's rule): the scoring's collectives
+run inside ``selection/rolling`` (the step opens it around the selection,
+whose ``selection/daily_stats`` opens the plan's ``metrics/rank_ic``), so
+they land there, beside the shift's date gather.
+:data:`_STAGE_LEDGER_SCOPES` maps each plan stage to the ledger scopes its
+collectives land under (the JAX package's mapping, restricted to the
+port's two plan stages), and the chooser reads a stage's bytes over them;
+the shift's gather is the same in every mode, so it moves no ranking. A
+stage that issued nothing in every mode (its sites never ran) is judged
+by the candidates' totals, and its row says ``"attribution": "total"``.
 """
 
 from __future__ import annotations
@@ -46,6 +53,8 @@ from factormodeling_tpu_torch.metrics.factor_metrics import \
 from factormodeling_tpu_torch.obs import comms as obs_comms
 from factormodeling_tpu_torch.obs import counters as obs_counters
 from factormodeling_tpu_torch.obs import probes as obs_probes
+from factormodeling_tpu_torch.obs.compile_log import (entry_point_tag,
+                                                      instrument_jit)
 from factormodeling_tpu_torch.obs.report import record_stage
 from factormodeling_tpu_torch.obs.trace import stage as obs_stage
 from factormodeling_tpu_torch.ops._assetspec import (
@@ -76,6 +85,16 @@ __all__ = [
     "make_asset_sharded_research_step",
     "record_spec_choices",
 ]
+
+
+#: the ledger scopes each plan stage's collectives land under (module
+#: docs): the rank-IC rows are formed inside rolling_selection, so its
+#: collectives attribute to the OUTERMOST scope, selection/rolling
+_STAGE_LEDGER_SCOPES = {
+    "metrics/rank_ic": ("metrics/rank_ic", "selection/daily_stats",
+                        "selection/rolling"),
+    "composite/blend": ("composite/blend",),
+}
 
 
 def _names(mesh) -> tuple:
@@ -289,10 +308,18 @@ def make_asset_sharded_research_step(mesh, *, names, window: int,
         return tuple(None if a is None else p.shard(a)
                      for a, p in zip(args, in_shardings))
 
-    step.mesh = mesh
-    step.declared_in_shardings = in_shardings
-    step.plan = plan
-    return step, shard_inputs
+    spec_table = plan.spec_table()
+    jitted = instrument_jit(
+        step, "parallel/asset_research_step/" + entry_point_tag(
+            tuple(names), window, select_method,
+            tuple(sorted((select_kwargs or {}).items())),
+            blend_method, tuple(sorted((sim_kwargs or {}).items())),
+            tuple(_shape(mesh).items()), date_axis, asset_axis,
+            tuple(sorted(spec_table.items()))))
+    jitted.mesh = mesh
+    jitted.declared_in_shardings = in_shardings
+    jitted.plan = plan
+    return jitted, shard_inputs
 
 
 # ---------------------------------------------------------------- chooser
@@ -314,7 +341,8 @@ def _meta_blocks(in_shardings, shapes, dtype):
 
 
 def _stage_ops(ledger, stage: str):
-    return [op for op in ledger.ops if op.stage == stage]
+    scopes = _STAGE_LEDGER_SCOPES.get(stage, (stage,))
+    return [op for op in ledger.ops if op.stage in scopes]
 
 
 def choose_asset_specs(mesh, *, names, window: int, shapes,
@@ -356,10 +384,12 @@ def choose_asset_specs(mesh, *, names, window: int, shapes,
             # the selection's shift (its count moves no byte); the blend
             # takes a [D, F] selection, factor_ret's shape
             if needs:
-                layout.stats(factors, returns, shift_periods=1,
-                             universe=universe, stats=needs)
-            layout.blend(factors, names, factor_ret, method=blend_method,
-                         universe=universe)
+                with obs_stage("selection/rolling"):
+                    layout.stats(factors, returns, shift_periods=1,
+                                 universe=universe, stats=needs)
+            with obs_stage("composite/blend"):
+                layout.blend(factors, names, factor_ret,
+                             method=blend_method, universe=universe)
         ledgers[mode] = ledger
 
     totals = {mode: ledgers[mode].totals() for mode in modes}

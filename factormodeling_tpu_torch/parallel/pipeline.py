@@ -35,6 +35,8 @@ from factormodeling_tpu_torch.metrics.factor_metrics import (
     daily_factor_stats_dates, nan_mean_std)
 from factormodeling_tpu_torch.obs import counters as obs_counters
 from factormodeling_tpu_torch.obs import probes as obs_probes
+from factormodeling_tpu_torch.obs.compile_log import (entry_point_tag,
+                                                      instrument_jit)
 from factormodeling_tpu_torch.obs.report import record_stage
 from factormodeling_tpu_torch.obs.trace import stage as obs_stage
 from factormodeling_tpu_torch.parallel.mesh import (Placement, _block,
@@ -204,9 +206,11 @@ def _make_run(*, names, window, select_method, select_kwargs, blend_method,
         canary = (fault_spec is not None if probe_canary is None
                   else bool(probe_canary))
         if fault_spec is not None:
-            factors = resil_faults.inject("ops/factors_raw", factors,
-                                          fault_spec, date_axis=1)
-            universe = resil_faults.inject_universe(universe, fault_spec)
+            with obs_stage("resil/faults"):
+                factors = resil_faults.inject("ops/factors_raw", factors,
+                                              fault_spec, date_axis=1)
+                universe = resil_faults.inject_universe(universe,
+                                                        fault_spec)
         if collect_probes:
             # raw panels legitimately carry NaN: only a baseline judges them
             obs_probes.probe("ops/factors_raw", factors, expect_finite=None)
@@ -219,33 +223,41 @@ def _make_run(*, names, window, select_method, select_kwargs, blend_method,
         qday = None
         sel_factors, sel_fr = factors, factor_ret
         if policy is not None:
-            qday = resil_policy.quarantine_days(factors, universe, policy)
-            sel_factors, sel_fr = resil_policy.quarantine_inputs(
-                factors, factor_ret, qday)
-        selection = rolling_selection(
-            sel_factors, returns, sel_fr, window, method=select_method,
-            method_kwargs=select_kwargs, universe=universe,
-            stats_fn=stats_fn)
+            with obs_stage("resil/quarantine"):
+                qday = resil_policy.quarantine_days(factors, universe,
+                                                    policy)
+                sel_factors, sel_fr = resil_policy.quarantine_inputs(
+                    factors, factor_ret, qday)
+        with obs_stage("selection/rolling"):
+            selection = rolling_selection(
+                sel_factors, returns, sel_fr, window, method=select_method,
+                method_kwargs=select_kwargs, universe=universe,
+                stats_fn=stats_fn)
         if fault_spec is not None:
-            selection = resil_faults.inject("selection/rolling", selection,
-                                            fault_spec, date_axis=0)
+            with obs_stage("resil/faults"):
+                selection = resil_faults.inject("selection/rolling",
+                                                selection, fault_spec,
+                                                date_axis=0)
         if collect_probes:
             obs_probes.probe("selection/rolling", selection)
         # the blend takes the ORIGINAL factors: the quarantine protects the
         # rolling windows, not the day's own cross-section
-        signal = blend_fn(factors, names, selection, method=blend_method,
-                          universe=universe)
+        with obs_stage("composite/blend"):
+            signal = blend_fn(factors, names, selection,
+                              method=blend_method, universe=universe)
         if fault_spec is not None:
-            signal = resil_faults.inject("composite/blend", signal,
-                                         fault_spec, date_axis=0)
+            with obs_stage("resil/faults"):
+                signal = resil_faults.inject("composite/blend", signal,
+                                             fault_spec, date_axis=0)
         if collect_probes:
             # out-of-universe cells are NaN by design: the healthy finite
             # fraction is the universe coverage, not 1
             obs_probes.probe("composite/blend", signal, expect_finite=None)
         clamped_cells = clamped_days = 0
         if policy is not None:
-            signal, clamped_cells, clamped_days = resil_policy.clamp_signal(
-                signal, policy)
+            with obs_stage("resil/clamp"):
+                signal, clamped_cells, clamped_days = \
+                    resil_policy.clamp_signal(signal, policy)
         settings = SimulationSettings(
             returns=returns, cap_flag=cap_flag,
             investability_flag=investability, universe=universe,
@@ -261,19 +273,21 @@ def _make_run(*, names, window, select_method, select_kwargs, blend_method,
                              expect_finite=None)
             obs_probes.probe("backtest/pnl", sim.result.log_return,
                              expect_finite=None)
+        with obs_stage("pipeline/summary"):
+            summary = result_summary(sim.result)
         counters = None
         if collect_counters:
-            degrade = None
-            if policy is not None:
-                degrade = resil_policy.merge_stats(
-                    qday, clamped_cells, clamped_days, sim.degrade,
-                    device=factors.device)
-            counters = obs_counters.stage_counters(factors, universe,
-                                                   selection, sim,
-                                                   degrade=degrade)
+            with obs_stage("obs/stage_counters"):
+                degrade = None
+                if policy is not None:
+                    degrade = resil_policy.merge_stats(
+                        qday, clamped_cells, clamped_days, sim.degrade,
+                        device=factors.device)
+                counters = obs_counters.stage_counters(factors, universe,
+                                                       selection, sim,
+                                                       degrade=degrade)
         return ResearchOutput(selection=selection, signal=signal, sim=sim,
-                              summary=result_summary(sim.result),
-                              counters=counters)
+                              summary=summary, counters=counters)
 
     run.collect_counters = collect_counters
     run.collect_probes = collect_probes
@@ -440,6 +454,16 @@ def make_sharded_research_step(mesh, *, names, window: int,
         return tuple(None if a is None else p.shard(a)
                      for a, p in zip(args, in_shardings))
 
-    step.mesh = mesh
-    step.declared_in_shardings = in_shardings
-    return step, shard_inputs
+    # call statistics (obs.compile_log) under the JAX package's name: a
+    # stable tag of the build's configuration and the mesh layout, so two
+    # different builds never pool their counts
+    jitted = instrument_jit(
+        step, "parallel/research_step/" + entry_point_tag(
+            names, window, select_method,
+            tuple(sorted((select_kwargs or {}).items())),
+            blend_method, tuple(sorted((sim_kwargs or {}).items())),
+            tuple(zip(mesh.mesh_dim_names, mesh.shape)), factor_axis,
+            date_axis, collect_counters, collect_probes))
+    jitted.mesh = mesh
+    jitted.declared_in_shardings = in_shardings
+    return jitted, shard_inputs

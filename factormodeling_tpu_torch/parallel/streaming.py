@@ -63,6 +63,8 @@ from factormodeling_tpu_torch import ops
 from factormodeling_tpu_torch._device import resolve_device
 from factormodeling_tpu_torch.metrics.factor_metrics import (
     daily_factor_stats, daily_factor_stats_dates)
+from factormodeling_tpu_torch.obs.compile_log import (entry_point_tag,
+                                                      instrument_jit)
 from factormodeling_tpu_torch.obs.report import record_stage
 from factormodeling_tpu_torch.obs.trace import stage as obs_stage
 from factormodeling_tpu_torch.parallel.mesh import (Placement, _block,
@@ -118,14 +120,22 @@ def _evict_to_cap() -> None:
         _cache_stats["evictions"] += 1
 
 
-def _cached_kernel(source, config, build):
+def _cached_kernel(source, config, build, *, name=None,
+                   expected_signatures=None):
     """``build()``'s callable for ``(source, config)``, LRU-bounded;
     ``source`` (None for the serving layer) takes part in the key by
-    identity, ``config`` by value."""
+    identity, ``config`` by value. Entries carry call statistics
+    (``obs.compile_log.instrument_jit``) under
+    ``streaming/<kind>/kernel/<tag of the config>``, or ``name`` (the
+    serving layer's ``serve/bucket/...`` and ``online/bucket/...``
+    entries, with their pinned ``expected_signatures``)."""
     key = (source, config)
     fn = _kernel_cache.pop(key, None)
     if fn is None:
-        fn = build()
+        fn = instrument_jit(build(),
+                            name or f"streaming/{config[0]}/kernel/"
+                                    f"{entry_point_tag(config)}",
+                            expected_signatures=expected_signatures)
         _cache_stats["misses"] += 1
     else:
         _cache_stats["hits"] += 1

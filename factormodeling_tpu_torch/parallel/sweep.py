@@ -27,6 +27,8 @@ from factormodeling_tpu_torch._device import check_device
 from factormodeling_tpu_torch.backtest.pnl import daily_portfolio_returns
 from factormodeling_tpu_torch.backtest.settings import SimulationSettings
 from factormodeling_tpu_torch.multimanager import compute_manager_weights
+from factormodeling_tpu_torch.obs.compile_log import (entry_point_tag,
+                                                      instrument_jit)
 from factormodeling_tpu_torch.obs.report import record_stage
 from factormodeling_tpu_torch.obs.trace import stage as obs_stage
 from factormodeling_tpu_torch.parallel.mesh import (all_gather, axis_index,
@@ -298,5 +300,10 @@ def make_sharded_manager_sweep(mesh, *, combo_axis: str = "combo",
             return SweepOutput(*(all_gather(t, mesh, combo_axis, dim=0)
                                  for t in out))
 
-    sweep.mesh = mesh
-    return sweep
+    # call statistics (obs.compile_log), under the JAX package's name
+    wrapped = instrument_jit(
+        sweep, "parallel/manager_sweep/" + entry_point_tag(
+            tuple(zip(mesh.mesh_dim_names, mesh.shape)), combo_axis,
+            combo_batch))
+    wrapped.mesh = mesh
+    return wrapped

@@ -14,9 +14,9 @@
 - :mod:`.retry`: the bounded-backoff retry combinator under the snapshot
   IO.
 
-The serving queue (``serve/queue.py``) checkpoints through
-:mod:`.checkpoint` too. Checkpointing of the streaming chunk loop has no
-counterpart here: that loop is not ported.
+The serving queue (``serve/queue.py``) and the streaming chunk loop
+(``parallel/streaming.py``'s ``checkpoint=``) checkpoint through
+:mod:`.checkpoint` too.
 """
 
 from factormodeling_tpu_torch.resil.checkpoint import (  # noqa: F401

@@ -52,7 +52,8 @@ import torch
 
 from factormodeling_tpu_torch._device import check_device
 from factormodeling_tpu_torch.metrics import daily_factor_stats, rolling_metrics
-from factormodeling_tpu_torch.obs.compile_log import entry_point_tag
+from factormodeling_tpu_torch.obs.compile_log import (entry_point_tag,
+                                                      instrument_jit)
 from factormodeling_tpu_torch.obs.trace import stage as obs_stage
 from factormodeling_tpu_torch.ops._window import shift
 from factormodeling_tpu_torch.scenarios.risk import (DEFAULT_LEVELS,
@@ -285,11 +286,14 @@ class _Runner:
     ``entry_point_tag``."""
 
     def __init__(self, step, family: str, return_books: bool, map_chunk):
-        self._step = step
+        self.name = f"scenarios/step/{family}"
+        # call statistics (obs.compile_log) under the JAX package's name;
+        # a runner takes one signature a path-batch width and policy
+        # presence, so none is pinned
+        self._step = instrument_jit(step, self.name)
         self.scenario_build = {"family": family,
                                "return_books": bool(return_books),
                                "map_chunk": map_chunk}
-        self.name = f"scenarios/step/{family}"
         self.entry_point_tag = entry_point_tag(self.name, bool(return_books),
                                                map_chunk)
 

@@ -15,6 +15,7 @@ import torch
 
 from factormodeling_tpu_torch.metrics.factor_metrics import (daily_factor_stats,
                                                              rolling_metrics)
+from factormodeling_tpu_torch.obs.trace import stage as obs_stage
 from factormodeling_tpu_torch.ops._window import rolling_sum, shift
 from factormodeling_tpu_torch.selection.selectors import (
     FACTOR_SELECTION_METHODS,
@@ -59,9 +60,10 @@ def build_selection_context(factors: torch.Tensor, returns: torch.Tensor,
     ``[F, D]`` tables back): the sharded step scores its blocks there."""
     metrics_win = {}
     if stats:
-        daily = (stats_fn or daily_factor_stats)(
-            factors, returns, shift_periods=shift_periods,
-            universe=universe, stats=stats)
+        with obs_stage("selection/daily_stats"):
+            daily = (stats_fn or daily_factor_stats)(
+                factors, returns, shift_periods=shift_periods,
+                universe=universe, stats=stats)
         rm = rolling_metrics(daily, max(window - 1, 1))
         metrics_win = {k: shift(v, 1, axis=-1) for k, v in rm.items()}
     return finish_selection_context(metrics_win, factor_ret, window)

@@ -245,7 +245,9 @@ class TenantServer:
     def _entry_key(self, skey, rung: int) -> tuple:
         shapes = tuple(None if a is None else
                        (tuple(a.shape), str(a.dtype)) for a in self._panels)
-        key = ("serve", self.names, skey, rung, shapes)
+        # the device too: a server on the card and one on the CPU over
+        # equal panels are two entry points (two call signatures)
+        key = ("serve", self.names, skey, rung, shapes, str(self.device))
         if self.mesh is not None:
             # another mesh runs other collectives on other groups: never
             # one cache entry for two meshes
@@ -268,8 +270,10 @@ class TenantServer:
             return make_batched_research_step(names=self.names,
                                               template=template)
 
-        return (f"serve/bucket/{entry_point_tag(config)}",
-                _streaming._cached_kernel(None, config, build))
+        name = f"serve/bucket/{entry_point_tag(config)}"
+        return name, _streaming._cached_kernel(None, config, build,
+                                               name=name,
+                                               expected_signatures=1)
 
     # ------------------------------------------------------------ serving
 
@@ -491,9 +495,10 @@ class TenantServer:
 
     def _online_executable(self, session):
         config = session["key"]
-        return (f"online/bucket/{entry_point_tag(config)}",
-                _streaming._cached_kernel(None, config,
-                                          lambda: session["batched"]))
+        name = f"online/bucket/{entry_point_tag(config)}"
+        return name, _streaming._cached_kernel(
+            None, config, lambda: session["batched"], name=name,
+            expected_signatures=1)
 
     def advance_all(self, date_slice, *, date=None, meter=None,
                     series=None) -> "list[TenantAdvance]":

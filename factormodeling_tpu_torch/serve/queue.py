@@ -353,6 +353,12 @@ class FlightKit:
         self.meter = CostMeter()
         self.series = HealthSeries(cap=_SERIES_CAP)
         self.wait_sids: dict = {}  # rid -> open queue/wait span id
+        # entry name -> {comms_bytes, mem_bytes}: an entry point's ledger
+        # rows are written once (on its "compile", before its first
+        # metered dispatch), and rescanning the report a dispatch would
+        # make metered drains quadratic. Not snapshotted: a resumed run
+        # rebuilds it from its own report.
+        self.ledger_memo: dict = {}
 
     def rows(self, queue_name: str) -> list:
         """Every flight row of the kit: the ``kind="reqtrace"`` rows (named
@@ -863,11 +869,14 @@ def run_queued(server, requests, *, admission=None, service_model=None,
             for _ in attempt_log[:-1]:
                 kit.meter.overhead("overhead/retry", wall_s=service)
             qp = _qp_per_lane(out, rung)
+            if name not in kit.ledger_memo:
+                kit.ledger_memo[name] = _ledger_costs(name)
             kit.meter.charge(
                 [req_by_rid[p.rid].label for p in chunk], rung,
                 wall_s=service,
                 per_lane=None if qp is None else {"qp_solves": qp},
-                **({"qp_solves": 0.0} if qp is not None else {}))
+                **({"qp_solves": 0.0} if qp is not None else {}),
+                **kit.ledger_memo[name])
         stale_enabled = SERVE_STALE in admission.ladder
         host_books = None
         if ledger is not None:
@@ -1111,6 +1120,29 @@ def _qp_per_lane(out, rung: int):
     if not isinstance(qp, torch.Tensor) or tuple(qp.shape) != (rung,):
         return None
     return [float(v) for v in host_array(qp)]
+
+
+def _ledger_costs(entry_name: str) -> dict:
+    """Comms and memory bytes of one entry point from the placement rows
+    the active report collected (``RunReport(comms=True)``): per-dispatch
+    costs the meter splits like the wall. Empty without them."""
+    rep = active_report()
+    if rep is None:
+        return {}
+    comms = mem = None
+    for r in rep.rows:
+        if r.get("name") != entry_name:
+            continue
+        if r.get("kind") == "comms" and r.get("stage") == "total":
+            comms = r.get("bytes_moved")
+        elif r.get("kind") == "memory":
+            mem = r.get("peak_bytes")
+    out = {}
+    if isinstance(comms, (int, float)):
+        out["comms_bytes"] = float(comms)
+    if isinstance(mem, (int, float)):
+        out["mem_bytes"] = float(mem)
+    return out
 
 
 # ----------------------------------------------------------- tree helpers

@@ -26,7 +26,9 @@ shapes.
 - The sharded sweep against ``manager_sweep`` and the JAX package's
   sharded sweep at 1e-10.
 - The asset-sharded step in every layout mode against the unsharded step
-  and the JAX package's asset-sharded step at 1e-10.
+  and the JAX package's asset-sharded step at 1e-10; its placement rows
+  (``RunReport(comms=True)``) against the shape model and the JAX
+  package's stage rule.
 - Date-sharded streaming bitwise its unsharded run (whole chunks, block
   chunks, a disk source); the linear research and the composite.
 - ``TenantServer(mesh=...)``: ``serve`` and ``advance_all`` against the
@@ -164,7 +166,7 @@ def test_turnover_day_loop_issues_no_collective(world):
         assert "backtest/" not in op["op_name"], op
         assert "solver/" not in op["op_name"], op
     stages = {op["stage"] for op in ledger}
-    assert stages == {"parallel/inputs", "selection/daily_stats",
+    assert stages == {"parallel/inputs", "selection/rolling",
                       "composite/blend"}
 
 
@@ -244,33 +246,44 @@ def _model_bytes(ledger):
 def _layout_ops(mode, d, s):
     """The ``(kind, axis, operand bytes)`` each layout stage issues under
     ``mode`` on a ``(d, s)`` ``("date", "assets")`` mesh
-    (``ops/_assetspec.py``): the scoring forms rows of the shifted stack
-    (every date of this rank's asset block) and gathers its ``[2, F,
-    rows]`` tables (icir_top reads rank_ic, which comes with its pair
-    count); the blend forms
-    rows of the ``[F, D/d, N/s]`` block and gathers the ``[rows, N]``
-    signal."""
+    (``ops/_assetspec.py``), keyed by the ledger stage the outermost-scope
+    rule charges them to: the scoring runs inside ``selection/rolling``,
+    where the shift first gathers the stack block over the dates (the
+    same in every mode), then forms rows of the shifted stack (every date
+    of this rank's asset block) and gathers its ``[2, F, rows]`` tables
+    (icir_top reads rank_ic, which comes with its pair count); the blend
+    forms rows of the ``[F, D/d, N/s]`` block and gathers the ``[rows,
+    N]`` signal."""
     assert selection_metric_needs("icir_top") == ("rank_ic",)
     f, db, nn = dc.F, dc.D // d, dc.N
     blk = f * db * (nn // s) * 8
     table, sig = 2 * f * db * 8, db * nn * 8
+    shift = [("all-gather", "date", blk)]
     if mode == "reshard" and db % s:
         mode = "auto"
     if mode == "auto":
-        return {"metrics/rank_ic": [("all-gather", "assets", blk),
-                                    ("all-gather", "date", table)],
+        return {"selection/rolling": shift + [("all-gather", "assets", blk),
+                                              ("all-gather", "date", table)],
                 "composite/blend": [("all-gather", "assets", blk),
                                     ("all-gather", "date", sig)]}
     if mode == "reshard":
-        return {"metrics/rank_ic": [("all-to-all", "assets", blk),
-                                    ("all-gather", "assets", table // s),
-                                    ("all-gather", "date", table)],
+        return {"selection/rolling": shift + [
+                    ("all-to-all", "assets", blk),
+                    ("all-gather", "assets", table // s),
+                    ("all-gather", "date", table)],
                 "composite/blend": [("all-to-all", "assets", blk),
                                     ("all-gather", "assets", sig // s),
                                     ("all-gather", "date", sig)]}
-    return {"metrics/rank_ic": [("all-gather", "assets", blk * d)],
+    return {"selection/rolling": shift + [("all-gather", "assets",
+                                           blk * d)],
             "composite/blend": [("all-gather", "assets", blk),
                                 ("all-gather", "date", blk * s)]}
+
+
+#: the ledger stage each plan stage's collectives land under (the
+#: outermost-scope rule; ``asset_shard._STAGE_LEDGER_SCOPES``)
+_LEDGER_STAGE = {"metrics/rank_ic": "selection/rolling",
+                 "composite/blend": "composite/blend"}
 
 
 def _bytes_of(ops, sizes, n):
@@ -303,13 +316,54 @@ def test_asset_ledger_bytes_follow_the_shapes(world):
             assert by_stage.get(stage, 0.0) == pytest.approx(
                 _bytes_of(want, sizes, n))
         # the shift's one gather of the stack block over the dates, the
-        # same in every mode; the backtest moves nothing
+        # same in every mode, opens the scoring; the backtest moves nothing
         stats = [(op["kind"], op["axis"], op["operand_bytes"])
-                 for op in ledger if op["stage"] == "selection/daily_stats"]
+                 for op in ledger if op["stage"] == "selection/rolling"][:1]
         assert stats == [("all-gather", "date",
                           dc.F * (dc.D // d) * (dc.N // s) * 8)]
-        assert set(by_stage) == {"parallel/inputs", "selection/daily_stats",
-                                 "metrics/rank_ic", "composite/blend"}
+        assert set(by_stage) == {"parallel/inputs", "selection/rolling",
+                                 "composite/blend"}
+
+
+def test_placement_rows_follow_the_shapes_and_the_jax_rule(world):
+    """The asset step's first call under ``RunReport(comms=True)`` lands
+    its compile row and its placement rows from that same call: the
+    ``kind="comms"`` rows' per-stage bytes are the shape model's, every
+    collective's stage is the JAX package's ``_stage_of`` of its
+    ``op_name`` path, the memory row is the CPU's failure form and the
+    sharding verdict is clean."""
+    from factormodeling_tpu.obs import comms as jax_comms
+    from factormodeling_tpu_torch.obs import comms
+
+    sizes = dict(zip(("date", "assets"),
+                     world[0]["asset/date_assets/mesh_shape"]))
+    d, s = sizes["date"], sizes["assets"]
+    n = len(world)
+    for mode in dc.MODES:
+        rows = world[0][f"asset/date_assets/{mode}/placement"]
+        assert [r["kind"] for r in rows[:1]] == ["compile"]
+        assert rows[0]["compiles"] == 1 and not rows[0]["retraced"]
+        by_stage = {r["stage"]: r["bytes_moved"] for r in rows
+                    if r["kind"] == "comms"}
+        assert set(by_stage) == {"parallel/inputs", "selection/rolling",
+                                 "composite/blend", "total"}
+        for stage, want in _layout_ops(mode, d, s).items():
+            assert by_stage[stage] == pytest.approx(
+                _bytes_of(want, sizes, n)), (mode, stage)
+        ledger = world[0][f"asset/date_assets/{mode}/ledger"]
+        assert by_stage["total"] == pytest.approx(
+            sum(op["bytes_moved"] for op in ledger))
+        for op in ledger:
+            assert op["stage"] == jax_comms._stage_of(op["op_name"],
+                                                      comms.STAGE_SCOPES)
+        mem = [r for r in rows if r["kind"] == "memory"]
+        assert len(mem) == 1 and mem[0]["source"] is None
+        assert set(mem[0]) == {"kind", "name", "source", "reason",
+                               "device_stats"}
+        assert mem[0]["device_stats"].startswith("skipped: ")
+        lint = [r for r in rows if r["kind"] == "sharding"]
+        assert len(lint) == 1 and lint[0]["clean"]
+        assert lint[0]["checked_inputs"] == 6
 
 
 def test_chooser_ranks_by_the_ledger_bytes(world):
@@ -328,10 +382,12 @@ def test_chooser_ranks_by_the_ledger_bytes(world):
         # real run's ledger shows
         for mode, got in ranked:
             want = _bytes_of(_layout_ops(mode, sizes["date"],
-                                         sizes["assets"])[stage], sizes, n)
+                                         sizes["assets"])[_LEDGER_STAGE[stage]],
+                             sizes, n)
             assert got == pytest.approx(want), (stage, mode)
             real = world[0][f"asset/date_assets/{mode}/ledger"]
-            assert got == pytest.approx(_model_bytes(real).get(stage, 0.0))
+            assert got == pytest.approx(_model_bytes(real).get(
+                _LEDGER_STAGE[stage], 0.0))
     # the answer follows the mesh: on (2, 2) resharding moves least in
     # both stages; on (2, 1) the scoring's gather moves no byte (the
     # shifted stack already holds every date) and the blend keeps auto

@@ -225,7 +225,7 @@ def test_byte_model_and_scopes_are_the_jax_package():
             assert comms._BYTE_FACTOR[kind](s) == jax_comms._BYTE_FACTOR[
                 kind](s)
     assert set(jax_comms.STAGE_SCOPES) <= set(comms.STAGE_SCOPES)
-    # the innermost open known stage takes the charge
+    # the outermost open known stage takes the charge
     with comms.recording() as ledger, fmt.obs.stage("composite/blend"), \
             fmt.obs.stage("not/a/scope"):
         comms.record("all-gather", "date", 100, 4, 2)

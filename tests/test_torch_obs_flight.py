@@ -34,6 +34,7 @@ from factormodeling_tpu_torch.obs import metering as pmet
 from factormodeling_tpu_torch.obs import reqtrace as prt
 from factormodeling_tpu_torch.online import DateSlice
 from factormodeling_tpu_torch.serve import TenantConfig, TenantServer
+from tests.torch_isolation import reset_process_telemetry  # noqa: F401
 from tests.torch_threads import torch_one_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent

@@ -42,6 +42,7 @@ from factormodeling_tpu_torch.obs import lineage as plin
 from factormodeling_tpu_torch.obs import sentry as psn
 from factormodeling_tpu_torch.serve import TenantConfig, TenantServer
 from tests import torch_obs_streams as st
+from tests.torch_isolation import reset_process_telemetry  # noqa: F401
 from tests.torch_threads import torch_one_thread  # noqa: F401
 
 T = torch.from_numpy

@@ -44,6 +44,7 @@ from factormodeling_tpu_torch.serve.admission import AdmissionPolicy
 from factormodeling_tpu_torch.serve.queue import (bursty_arrivals,
                                                   make_requests)
 from tests import torch_obs_streams as st
+from tests.torch_isolation import reset_process_telemetry  # noqa: F401
 from tests.torch_threads import torch_one_thread  # noqa: F401
 
 

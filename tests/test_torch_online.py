@@ -34,6 +34,7 @@ from factormodeling_tpu.serve.batched import make_tenant_research_step
 from factormodeling_tpu_torch.backtest.pnl import daily_portfolio_returns
 from factormodeling_tpu_torch.online import DateSlice, make_online_step
 from factormodeling_tpu_torch.serve import TenantConfig
+from tests.torch_isolation import reset_process_telemetry  # noqa: F401
 from tests.torch_threads import torch_one_thread  # noqa: F401
 
 T = torch.from_numpy

@@ -43,6 +43,7 @@ from factormodeling_tpu_torch.resil.checkpoint import tree_leaves
 from factormodeling_tpu_torch.resil import faults
 from factormodeling_tpu_torch.resil import policy
 from factormodeling_tpu_torch.serve import TenantConfig
+from tests.torch_isolation import reset_process_telemetry  # noqa: F401
 from tests.torch_threads import torch_one_thread  # noqa: F401
 
 T = torch.from_numpy

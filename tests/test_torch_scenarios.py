@@ -54,6 +54,7 @@ from factormodeling_tpu_torch.resil import DegradePolicy
 from factormodeling_tpu_torch.scenarios import engine, risk
 from factormodeling_tpu_torch.serve import TenantConfig
 from factormodeling_tpu_torch.serve.batched import make_tenant_research_step
+from tests.torch_isolation import reset_process_telemetry  # noqa: F401
 from tests.torch_threads import torch_one_thread  # noqa: F401
 
 NAMES = ("mom_eq", "val_flx", "qual_long", "size_short", "rev_flx", "mom_flx")

@@ -43,6 +43,7 @@ from factormodeling_tpu_torch.serve import (TenantConfig, TenantServer,
                                             make_tenant_research_step,
                                             stack_configs)
 from factormodeling_tpu_torch.serve import batched as batched_mod
+from tests.torch_isolation import reset_process_telemetry  # noqa: F401
 from tests.torch_threads import torch_one_thread  # noqa: F401
 
 F, D, N, WINDOW = 5, 30, 8, 6

@@ -55,6 +55,7 @@ from factormodeling_tpu_torch.serve.queue import (
     poisson_arrivals,
     replay_traffic,
 )
+from tests.torch_isolation import reset_process_telemetry  # noqa: F401
 from tests.torch_threads import torch_one_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
