@@ -116,15 +116,19 @@ Phases, in order (any failure exits non-zero before the last line):
    window 60, icir_top, zscore): (10a) ``TenantServer.serve`` of 64
    equal-weight tenants (``bench.py``'s ``bench_tenant_sweep`` knob draw)
    at D=1332, one rung-64 dispatch cold and warm, then 5 of them (rung 8,
-   3 pad lanes), one K1 launch a dispatch, 4 lanes bitwise the
-   single-tenant step and held to the same configs on the host CPU at
-   path 5's icir_top gate, ``serving_stats()`` against the host's count
-   and one cache entry a (bucket, rung); (10b) an ``mvo_turnover`` bucket
-   of 3 tenants (path 1's own first) on path 9's 333 dates, rung 8 with
-   5 pad lanes not computed: K1
-   once, K2 two segments a date a real tenant, each tenant's invariants,
-   tenant 0 held to 9a's clean step on those dates (selection
-   bitwise, weights at path 1's gate); (10c) ``serve_queued`` on 10a's
+   3 pad lanes), one K1 launch and one simulation of all the real lanes
+   a dispatch (the tenant body runs once on the lanes), 4 lanes bitwise
+   the single-tenant step (the leaves that part are named) and held to
+   the same configs on the host CPU at path 5's icir_top gate,
+   ``serving_stats()`` against the host's count and one cache entry a
+   (bucket, rung); (10b) an ``mvo_turnover`` bucket of 3 tenants (path
+   1's own first) on path 9's 333 dates, rung 8 with 5 pad lanes not
+   computed: K1 once, one simulation, K2 one lane launch of the 3 tenants
+   a segment a date (one day loop for the bucket), each tenant's
+   invariants, tenant 0 held to 9a's clean step on those dates
+   (selection bitwise, weights at path 1's gate), tenants 1 and 2 to
+   their own single-tenant steps on the first 16 traded dates (the same
+   gates), the bucket's wall against 9a's clean step; (10c) ``serve_queued`` on 10a's
    bucket (``bench.py``'s ``bench_serving_under_load`` recipe: 48
    requests, ladder 1/4/8, the service time of a warm rung-8 dispatch, a
    Poisson trace at twice its capacity, deadlines 40 service times,
@@ -132,8 +136,9 @@ Phases, in order (any failure exits non-zero before the last line):
    a request, the delivered outputs bitwise ``serve()``'s, shed verdicts
    with their reason, executions = delivered dispatches + poisoned
    attempts; (10d) ``online_begin`` + ``advance_all`` for 10b's tenants 0
-   and 2 over path 9b's first 166 dates: K1 once a date, K2 as 9b a
-   tenant, tenant 0's rows held to 9b's at 9b's gates, the wall a date
+   and 2 over path 9b's first 166 dates: K1 once a date, K2 one lane
+   launch of the session's 2 tenants a segment a date, tenant 0's rows
+   held to 9b's at 9b's gates, the wall a date
    p50/p99 and the synchronizing reads of a date by calling line;
 10. path 11, the obs layer at the same widths: (11a) path 9a's inert and
    chaos runs built with ``collect_probes=True`` (the chaos run with the
@@ -165,7 +170,8 @@ Phases, in order (any failure exits non-zero before the last line):
    regime (``bench.py``'s knobs), bootstrap (blocks of D // 12) and
    adversarial (window 20, NaN, Inf, outlier, stale, drop and collapse
    draws, the default ``DegradePolicy``) families, 32 paths each in chunks
-   of 16: K1 once a dispatch (the hoist), the ``off()`` specs' paths
+   of 16, a chunk's paths the lanes of one simulation: K1 once a
+   dispatch (the hoist), the ``off()`` specs' paths
    bitwise the plain tenant step, bootstrap indices in range, adversarial
    draws inside their windows, every path finite, paths/s and one path
    against one tenant step, 2 adversarial paths against the host CPU on
@@ -173,7 +179,8 @@ Phases, in order (any failure exits non-zero before the last line):
    family killed after 2 of 4 chunks through ``_FMT_SCEN_STOP_AFTER_CHUNK``
    and resumed, rows and ``lineage=`` ledger byte-equal to straight
    through; (12c) 10b's ``mvo_turnover`` tenant under the regime family, 2
-   paths over the first 166 dates, K2 as the schedule; (12d) ``bench.py``'s
+   paths over the first 166 dates as lanes, K2 one lane launch a segment
+   a date; (12d) ``bench.py``'s
    north star, 200 x 5040 x 5000 float32 in chunks of 10 from a device
    source, ``streamed_linear_research`` and the equal backtest: K1 20
    times, the first 2 chunks' stats bitwise the one-shot stats, the
@@ -196,7 +203,8 @@ Phases, in order (any failure exits non-zero before the last line):
    ``choose_asset_specs``' plan (its layout stages run on ``meta``
    tensors), K1 once a run; (13d) ``TenantServer(mesh=...)`` on a (1, 1) ``("configs",
    "assets")`` mesh: 10a's rung-8 dispatch of 5 tenants and 10d's two
-   turnover tenants over 16 dates; (13e) ``streamed_factor_stats(mesh=)``
+   turnover tenants over 16 dates (K2 a lane launch a segment a date);
+   (13e) ``streamed_factor_stats(mesh=)``
    from 12e's host stack through a date-block source, bitwise 12e's
    serial run, K1 once a chunk;
 13. path 14, the telemetry: (14a) 13a's run is the sharded step's first
@@ -2992,8 +3000,9 @@ S_REQUESTS, S_LADDER, S_LOAD, S_DEADLINE_X, S_DEPTH = 48, (1, 4, 8), 2.0, 40, 8
 S_FAULTS = dict(seed=36, error_rate=0.05, poison_rate=0.05)
 # 10d: advance_all over path 9b's first S_ONLINE_DATES dates
 S_ONLINE_DATES = 166
-# 10b: the first P10B_DATES of path 9's dates
-P10B_DATES = 333
+# 10b: the first P10B_DATES of path 9's dates; tenants 1 and 2 held to
+# their single-tenant steps on the first P10B_HELD traded dates
+P10B_DATES, P10B_HELD = 333, 16
 
 
 def serving_configs(fmt, n: int):
@@ -3034,6 +3043,27 @@ def _panels(arrays) -> dict:
                      "investability", "universe"), arrays))
 
 
+class _SimCount:
+    """Counts the tenant body's ``run_simulation`` calls (one a dispatch,
+    chunk or date for every lane at once) while it is entered."""
+
+    def __enter__(self):
+        from factormodeling_tpu_torch.serve import batched
+
+        self.calls, self._mod = [], batched
+        self._real = batched.run_simulation
+
+        def counted(signal, settings):
+            self.calls.append(tuple(signal.shape[:-2]))
+            return self._real(signal, settings)
+
+        batched.run_simulation = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.run_simulation = self._real
+
+
 def _timed(torch, fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3053,6 +3083,23 @@ def _tree_equal(fmt, a, b) -> bool:
         host_array(x).shape == host_array(y).shape
         and host_array(x).tobytes() == host_array(y).tobytes()
         for x, y in zip(la, lb))
+
+
+def _tree_parted(a, b, path: str = "") -> list:
+    """The dotted names of the tensor leaves of two output trees that are
+    not equal to the bit."""
+    import torch
+
+    if a is None or not isinstance(a, (tuple, list, torch.Tensor)):
+        return []
+    if isinstance(a, torch.Tensor):
+        x, y = a.detach().cpu().numpy(), b.detach().cpu().numpy()
+        same = (x.shape == y.shape and x.dtype == y.dtype
+                and x.tobytes() == y.tobytes())
+        return [] if same else [path]
+    names = getattr(a, "_fields", range(len(a)))
+    return sum((_tree_parted(x, y, f"{path}.{k}" if path else str(k))
+                for k, x, y in zip(names, a, b)), [])
 
 
 def serve_path(torch, fmt, seed: int) -> dict:
@@ -3076,11 +3123,12 @@ def serve_path(torch, fmt, seed: int) -> dict:
                                     device="cuda")
     rk.launches = ak.launches = ak.lane_launches = 0
     k1, walls = [], []
-    for batch in (configs, configs, configs[:S_PROBE]):
-        before = rk.launches
-        res, secs = _timed(torch, lambda b=batch: server.serve(b))
-        k1.append(rk.launches - before)
-        walls.append(secs)
+    with _SimCount() as sims:
+        for batch in (configs, configs, configs[:S_PROBE]):
+            before = rk.launches
+            res, secs = _timed(torch, lambda b=batch: server.serve(b))
+            k1.append(rk.launches - before)
+            walls.append(secs)
     launches = segment_counts(rk, ak)
     stats = server.serving_stats()
     cache = streaming.streaming_cache_stats()
@@ -3089,7 +3137,8 @@ def serve_path(torch, fmt, seed: int) -> dict:
         f"rung-{rung} dispatch {walls[0]:.3f} s cold (the bucket's "
         f"step built), {walls[1]:.3f} s warm, {S_TENANTS / walls[1]:.2f} "
         f"configs/s; {S_PROBE} tenants (rung 8, 3 pad lanes) "
-        f"{walls[2]:.3f} s; K1 launches a dispatch {k1}; launches "
+        f"{walls[2]:.3f} s; K1 launches a dispatch {k1}; simulations a "
+        f"dispatch (their lanes) {sims.calls}; launches "
         f"{json.dumps(launches)}; serving_stats "
         f"{json.dumps({k: v for k, v in stats.items() if k != 'kernel_cache'})}"
         f"; kernel cache {json.dumps(cache)}")
@@ -3097,6 +3146,9 @@ def serve_path(torch, fmt, seed: int) -> dict:
             launches["admm_segment_lanes"]:
         raise AssertionError(f"serve: K1 launches a dispatch {k1}, not one; "
                              f"launches {launches}")
+    if sims.calls != [(S_TENANTS,), (S_TENANTS,), (S_PROBE,)]:
+        raise AssertionError(f"serve: simulations {sims.calls}, not one a "
+                             "dispatch on its real lanes")
     want = {"bucket_count": 1, "executables": 2, "dispatch_executions": 3,
             "logical_dispatches": 3, "configs_served": 2 * S_TENANTS + S_PROBE,
             "padded_lanes": 2 * (rung - S_TENANTS) + 8 - S_PROBE,
@@ -3120,16 +3172,18 @@ def serve_path(torch, fmt, seed: int) -> dict:
     step = fmt.serve.make_tenant_research_step(names=names,
                                                template=configs[0])
     card_panels = [torch.as_tensor(a, device="cuda") for a in arrays]
-    bitwise = [_tree_equal(fmt, res[i].output, step(
+    parted = [_tree_parted(res[i].output, step(
         configs[i].normalized(F, server.n_groups, dtype=np.float32),
         *card_panels)) for i in range(S_CHECKED)]
+    bitwise = [not p for p in parted]
     host = fmt.serve.TenantServer(names=names, **_panels(arrays),
                                   device="cpu")
     t0 = time.perf_counter()
     res_h = host.serve(configs[:S_CHECKED])
     secs_h = time.perf_counter() - t0
     log(f"path serve (10a): lanes 0-{S_CHECKED - 1} of the rung-8 dispatch "
-        f"bitwise the single-tenant step on the card: {bitwise}; the same "
+        f"bitwise the single-tenant step on the card: {bitwise} (leaves "
+        f"parted: {parted}); the same "
         f"{S_CHECKED} configs on the host CPU: {secs_h:.1f} s")
     if not all(bitwise):
         raise AssertionError("serve: a lane parts from the single-tenant "
@@ -3179,11 +3233,14 @@ def serve_path(torch, fmt, seed: int) -> dict:
 def turnover_serve_path(torch, fmt, seed: int, clean, clean_secs: float):
     """Path 10b: an mvo_turnover bucket of 3 tenants (turnover_configs) on
     the first P10B_DATES dates of path 1's inputs, default ladder (rung 8,
-    5 pad lanes, not computed): K1 once, K2 two segments a date a real
-    tenant; the invariants of every tenant; tenant 0 held to path 9a's
-    clean step on those dates (causal; selection bitwise but for the cut
-    run's last row, which the processed range zeroes; weights at
-    DW_TOL/DW_SHARE). Returns the launches and the configs."""
+    5 pad lanes, not computed): K1 once, one simulation of the 3 lanes,
+    K2 one lane launch of the 3 tenants a segment a date; the invariants
+    of every tenant; tenant 0 held to path 9a's clean step on those dates
+    (causal; selection bitwise but for the cut run's last row, which the
+    processed range zeroes; weights at DW_TOL/DW_SHARE), tenants 1 and 2
+    to their own single-tenant steps on the first P10B_HELD traded dates;
+    the bucket's wall against 9a's clean step. Returns the launches and
+    the configs."""
     from factormodeling_tpu_torch.metrics import _cuda_rank_ic as rk
     from factormodeling_tpu_torch.ops import _cuda_admm as ak
 
@@ -3194,23 +3251,27 @@ def turnover_serve_path(torch, fmt, seed: int, clean, clean_secs: float):
     server = fmt.serve.TenantServer(names=factor_names(F),
                                     **_panels(arrays), device="cuda")
     rk.launches = ak.launches = ak.lane_launches = 0
-    res, secs = _timed(torch, lambda: server.serve(configs))
+    with _SimCount() as sims:
+        res, secs = _timed(torch, lambda: server.serve(configs))
     launches = segment_counts(rk, ak)
     segs = segment_launches(fmt, PATHS["turnover"], d=1)[0]
-    want = {"rank_ic_postsort": 1,
-            "admm_segment": len(configs) * d * segs,
-            "admm_segment_lanes": 0}
+    # one day loop for the bucket: a lane launch of its 3 tenants a segment
+    # a date
+    want = {"rank_ic_postsort": 1, "admm_segment": 0,
+            "admm_segment_lanes": d * segs}
     stats = server.serving_stats()
-    per_date = clean_secs / R_DATES
     log(f"path serve_turnover (10b): {len(configs)} mvo_turnover tenants, "
         f"F={F} D={d} N={N}, rung 8 ({stats['padded_lanes']} pad "
-        f"lanes): {secs:.3f} s wall, {secs / len(configs):.3f} s a tenant "
-        f"({secs / len(configs) / d / per_date:.3f}x path 9a's clean step "
-        f"a date, {clean_secs:.3f} s for {R_DATES} dates, in this call); "
-        f"launches {json.dumps(launches)} (schedule {json.dumps(want)})")
-    if launches != want or stats["padded_lanes"] != 5:
+        f"lanes): {secs:.3f} s wall = {secs / clean_secs:.3f}x one "
+        f"tenant's step (path 9a's clean step, {clean_secs:.3f} s for "
+        f"{R_DATES} dates, in this call); simulations (their lanes) "
+        f"{sims.calls}; launches {json.dumps(launches)} (schedule "
+        f"{json.dumps(want)})")
+    if launches != want or stats["padded_lanes"] != 5 \
+            or sims.calls != [(len(configs),)]:
         raise AssertionError(f"serve_turnover: launches {launches}, the "
-                             f"schedule implies {want}")
+                             f"schedule implies {want}; simulations "
+                             f"{sims.calls}")
     for i, (c, r) in enumerate(zip(configs, res)):
         out = r.output
         check_invariants(torch, f"serve_turnover[{i}]", out,
@@ -3238,6 +3299,32 @@ def turnover_serve_path(torch, fmt, seed: int, clean, clean_secs: float):
     if not (sel_equal and share <= DW_SHARE):
         raise AssertionError("serve_turnover: tenant 0 parts from path 9a's "
                              "clean step")
+    # tenants 1 and 2 against their own single-tenant steps on the first
+    # P10B_HELD traded dates (the causal cut: the window's dates, the held
+    # ones and the cut run's last, which its processed range zeroes)
+    cut_d = WINDOW + P10B_HELD + 1
+    cut = [torch.as_tensor(a[:, :cut_d] if a.ndim == 3 else a[:cut_d],
+                           device="cuda") for a in arrays]
+    step = fmt.serve.make_tenant_research_step(names=factor_names(F),
+                                               template=configs[0])
+    for i in (1, 2):
+        one = step(configs[i].normalized(F, server.n_groups,
+                                         dtype=np.float32), *cut)
+        held = cut_d - 1
+        dw_i = (res[i].output.sim.weights[:held].nan_to_num()
+                - one.sim.weights[:held].nan_to_num()).abs().max(-1).values
+        share_i = float((dw_i > DW_TOL).double().mean())
+        sel_i = bool(torch.equal(res[i].output.selection[:held],
+                                 one.selection[:held]))
+        log(f"path serve_turnover (10b) tenant {i} vs its single-tenant "
+            f"step on the first {held} dates ({P10B_HELD} traded): "
+            f"selection bitwise {sel_i}; weights max |dw| "
+            f"{float(dw_i.max()):.3e}, share of days > {DW_TOL}: "
+            f"{share_i:.4f} (limit {DW_SHARE}), days bitwise "
+            f"{int((dw_i == 0).sum())} of {held}")
+        if not (sel_i and share_i <= DW_SHARE):
+            raise AssertionError(f"serve_turnover: tenant {i} parts from "
+                                 "its single-tenant step")
     return launches, configs
 
 
@@ -3356,7 +3443,8 @@ def queue_path(torch, fmt, served) -> None:
 def advance_all_path(torch, fmt, seed: int, configs, rows9b) -> dict:
     """Path 10d: ``online_begin`` for 10b's tenants 0 and 2 (one session,
     rung 8) and ``advance_all`` over the first S_ONLINE_DATES dates of path
-    9b's inputs, one at a time: K1 once a date, K2 as 9b per tenant;
+    9b's inputs, one at a time: K1 once a date, K2 one lane launch of
+    the two tenants a segment a date;
     tenant 0's rows held to 9b's engine rows at 9b's gates (the server
     normalizes the knobs to the panels' float32, the engine to float64).
     Prints the wall a date (each date fenced) and the synchronizing reads
@@ -3390,9 +3478,9 @@ def advance_all_path(torch, fmt, seed: int, configs, rows9b) -> dict:
         rows.append(adv)
     launches = segment_counts(rk, ak)
     segs = segment_launches(fmt, PATHS["turnover"], d=1)[0]
-    want = {"rank_ic_postsort": S_ONLINE_DATES,
-            "admm_segment": 2 * (S_ONLINE_DATES - 1) * segs,
-            "admm_segment_lanes": 0}
+    # the session's two tenants in one lane launch a segment a date
+    want = {"rank_ic_postsort": S_ONLINE_DATES, "admm_segment": 0,
+            "admm_segment_lanes": (S_ONLINE_DATES - 1) * segs}
     ms = np.asarray(walls[1:]) * 1e3
     stats = server.serving_stats()
     log(f"path advance_all (10d): tenants 0 and 2 of 10b, one session "
@@ -3611,12 +3699,17 @@ def scenario_path(torch, fmt, seed: int) -> dict:
     for family, (spec, policy) in families.items():
         runner = scenarios.make_scenario_runner(names=names, template=tpl,
                                                 family=family)
-        res, secs = run(spec, SC_PATHS, SC_CHUNK, policy=policy,
-                        runner=runner)
+        with _SimCount() as sims:
+            res, secs = run(spec, SC_PATHS, SC_CHUNK, policy=policy,
+                            runner=runner)
+        if sims.calls != [(SC_CHUNK,)] * (SC_PATHS // SC_CHUNK):
+            raise AssertionError(f"scenarios: {family} simulations "
+                                 f"{sims.calls}, not one a chunk of paths")
         pnl = next(r for r in res.rows if r["metric"] == "pnl_total")
         log(f"path scenarios (12a) {family}: {SC_PATHS} paths in "
             f"{-(-SC_PATHS // SC_CHUNK)} dispatches, {secs:.3f} s, "
-            f"{SC_PATHS / secs:.2f} paths/s, one path {secs / SC_PATHS:.4f} s "
+            f"{SC_PATHS / secs:.2f} paths/s (a simulation of {SC_CHUNK} path "
+            f"lanes a chunk), one path {secs / SC_PATHS:.4f} s "
             f"= {secs / SC_PATHS / step_secs:.3f}x one tenant step "
             f"({step_secs:.4f} s); pnl VaR {pnl['var']} ES {pnl['es']} "
             f"p50 {pnl['p50']}; nonfinite paths {res.nonfinite_path_count}; "
@@ -3732,8 +3825,8 @@ def scenario_resume_path(torch, fmt, seed: int) -> dict:
 def scenario_turnover_path(torch, fmt, seed: int) -> dict:
     """Path 12c: 10b's first tenant (``mvo_turnover``, path 1's knobs) under
     the regime family, SC_TURNOVER_PATHS paths over the first
-    SC_TURNOVER_DATES dates: K1 once, K2 as the schedule (two segments a
-    date a path), finite metrics."""
+    SC_TURNOVER_DATES dates as lanes: K1 once, K2 one lane launch of the
+    paths a segment a date (two a date), finite metrics."""
     from factormodeling_tpu_torch import scenarios
     from factormodeling_tpu_torch.metrics import _cuda_rank_ic as rk
     from factormodeling_tpu_torch.ops import _cuda_admm as ak
@@ -3748,9 +3841,9 @@ def scenario_turnover_path(torch, fmt, seed: int) -> dict:
         **{k: torch.from_numpy(v).cuda() for k, v in _panels(cut).items()}))
     launches = segment_counts(rk, ak)
     segs = segment_launches(fmt, PATHS["turnover"], d=1)[0]
-    want = {"rank_ic_postsort": 1,
-            "admm_segment": SC_TURNOVER_PATHS * SC_TURNOVER_DATES * segs,
-            "admm_segment_lanes": 0}
+    # the paths as lanes: one lane launch a segment a date
+    want = {"rank_ic_postsort": 1, "admm_segment": 0,
+            "admm_segment_lanes": SC_TURNOVER_DATES * segs}
     log(f"path scenarios (12c): mvo_turnover under the regime family, "
         f"{SC_TURNOVER_PATHS} paths x {SC_TURNOVER_DATES} dates, {secs:.3f} "
         f"s ({secs / SC_TURNOVER_PATHS:.3f} s a path); launches "
@@ -4220,9 +4313,8 @@ def mesh_serve_path(torch, fmt, seed: int) -> dict:
                   for ra, rb in zip(got["mesh"][1], got["plain"][1])
                   for a, b in zip(ra, rb))
     segs = segment_launches(fmt, PATHS["turnover"], d=1)[0]
-    want = {"rank_ic_postsort": 1 + P13_ONLINE_DATES,
-            "admm_segment": 2 * (P13_ONLINE_DATES - 1) * segs,
-            "admm_segment_lanes": 0}
+    want = {"rank_ic_postsort": 1 + P13_ONLINE_DATES, "admm_segment": 0,
+            "admm_segment_lanes": (P13_ONLINE_DATES - 1) * segs}
     log(f"path 13d sharded server: (1, 1) ('configs', 'assets') mesh: "
         f"{S_PROBE} equal tenants (rung 8) and 2 turnover tenants over "
         f"{P13_ONLINE_DATES} dates; walls "
@@ -4679,18 +4771,20 @@ def main() -> int:
     kernels["rank_ic_postsort"]["launches_by_path"] = k1
     kernels["rank_ic_postsort"].update(k1_north)
     # the segment's single-lane launches: path 1, the sequential suffixes
-    # of paths 6-7, path 9a's clean step, path 9b's advance, paths 10b
-    # and 10d (a real tenant's days, never a pad lane's), path 12c (two
-    # regime paths' days), paths 13a and 13d and 14b; its collect=1
-    # form: path 9a's probed inert and chaos steps and path 11a's probed
-    # tally run; its lane launches: path 2's chunks, and the seed and sweep
-    # chunks of paths 6-7 (each as the wrapper counted it)
+    # of paths 6-7, path 9a's clean step, path 9b's advance, paths 13a and
+    # 14b; its collect=1 form: path 9a's probed inert and chaos steps and
+    # path 11a's probed tally run; its lane launches: path 2's chunks, the
+    # seed and sweep chunks of paths 6-7, and the lane-batched day loops:
+    # path 10b's bucket (its real tenants, never a pad lane), the sessions
+    # of 10d and 13d and 12c's regime paths (each as the wrapper counted
+    # it)
     single = {p: launches[p]["admm_segment"] for p in
               ("turnover", "turnover_parallel", "turnover_parallel_decoupled",
-               "resil", "online", "serve_turnover", "advance_all",
-               "scenarios_turnover", "mesh_step", "mesh_serve", "devtime")}
+               "resil", "online", "mesh_step", "devtime")}
     lanes = {p: launches[p]["admm_segment_lanes"] for p in
-             ("mvo", "turnover_parallel", "turnover_parallel_decoupled")}
+             ("mvo", "turnover_parallel", "turnover_parallel_decoupled",
+              "serve_turnover", "advance_all", "scenarios_turnover",
+              "mesh_serve")}
     kernels["admm_segment"]["launches"] = sum(single.values())
     kernels["admm_segment"]["launches_by_path"] = single
     kernels["admm_segment_lanes"]["launches"] = sum(lanes.values())

@@ -13,10 +13,12 @@ from factormodeling_tpu_torch.backtest.pnl import (DailyResult,
                                                    daily_portfolio_returns,
                                                    signal_metrics)
 from factormodeling_tpu_torch.backtest.settings import (TCOST_RATES,
-                                                        SimulationSettings)
+                                                        SimulationSettings,
+                                                        lane_knobs)
 
 __all__ = ["DailyResult", "SchemeStats", "SimulationOutput",
            "SimulationSettings", "SolverDiagnostics", "TCOST_RATES",
            "anderson_stats", "check_anomalies", "daily_portfolio_returns",
-           "daily_trade_list", "polish_stats", "run_simulation",
+           "daily_trade_list", "lane_knobs", "polish_stats",
+           "run_simulation",
            "signal_metrics", "sweep_stats"]

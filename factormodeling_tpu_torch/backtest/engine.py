@@ -9,6 +9,14 @@ of ``factormodeling_tpu/backtest/engine.py``).
      through its hold pass (min-universe hold, solver-fallback carry);
   4. trade on yesterday's signal: weights shift 1 day per symbol;
   5. P&L with tiered costs.
+
+Lanes: a ``[C, D, N]`` signal under settings whose tenant knobs are ``[C]``
+tensors (``settings.lane_knobs``) and whose panels are ``[D, N]`` (shared)
+or ``[C, D, N]`` (one a lane) is ``C`` backtests in one call, what
+``jax.vmap(run_simulation)`` computes: every output leaf carries the
+leading ``C``. Each step acts on every lane at once (the turnover scan's
+day loop solves all lanes of a date in one lane-batched solve), and a lane
+computes the bits of its own unbatched call.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ __all__ = ["SimulationOutput", "daily_trade_list", "run_simulation"]
 
 
 class SimulationOutput(NamedTuple):
+    # leaves carry a leading C under lanes
     weights: torch.Tensor       # [D, N] shifted trade weights (NaN pre-history)
     long_count: torch.Tensor    # [D]
     short_count: torch.Tensor   # [D]
@@ -56,7 +65,7 @@ def _trade_list_and_degrade(signal: torch.Tensor, s: SimulationSettings):
     settings the pre-shift weights go through ``resil.policy.hold_weights``
     before the shift, and the fifth return is its ``HoldStats`` (None
     without a policy)."""
-    d = signal.shape[0]
+    dates = signal.shape[:-1]          # [D], or [C, D] under lanes
     dev = signal.device
     with obs_stage(f"backtest/trade_list/{s.method}"):
         if s.method in ("equal", "linear"):
@@ -64,13 +73,13 @@ def _trade_list_and_degrade(signal: torch.Tensor, s: SimulationSettings):
                 w, lc, sc = equal_weights(signal, s.pct)
             else:
                 w, lc, sc = linear_weights(signal, s.max_weight)
-            nan_d = torch.full((d,), float("nan"), dtype=signal.dtype,
+            nan_d = torch.full(dates, float("nan"), dtype=signal.dtype,
                                device=dev)
-            zero_i = torch.zeros((d,), dtype=torch.int32, device=dev)
-            resid, ok = nan_d, torch.ones((d,), dtype=torch.bool, device=dev)
-            tele = (torch.zeros((d,), dtype=torch.bool, device=dev), nan_d,
+            zero_i = torch.zeros(dates, dtype=torch.int32, device=dev)
+            resid, ok = nan_d, torch.ones(dates, dtype=torch.bool, device=dev)
+            tele = (torch.zeros(dates, dtype=torch.bool, device=dev), nan_d,
                     nan_d, zero_i, zero_i, zero_i)
-            stats = SchemeStats(*(torch.zeros((), dtype=torch.int32,
+            stats = SchemeStats(*(torch.zeros(dates[:-1], dtype=torch.int32,
                                               device=dev)
                                   for _ in range(4)))
         elif s.method == "mvo":
@@ -82,7 +91,7 @@ def _trade_list_and_degrade(signal: torch.Tensor, s: SimulationSettings):
     hold_stats = None
     if s.degrade is not None:
         uni_count = (s.universe.sum(-1) if s.universe is not None
-                     else torch.full((d,), signal.shape[-1], device=dev))
+                     else torch.full(dates, signal.shape[-1], device=dev))
         with obs_stage("resil/hold"):
             w, lc, sc, hold_stats = hold_weights(w, lc, sc, ok, uni_count,
                                                  s.degrade)
@@ -100,14 +109,15 @@ def _trade_list_and_degrade(signal: torch.Tensor, s: SimulationSettings):
         iters_to_converge=tele[5])
 
     if s.universe is not None:
-        shifted = masked_shift(w, s.universe, 1, axis=0)
+        shifted = masked_shift(w, s.universe, 1, axis=-2)
     else:
-        shifted = shift(w, 1, axis=0)
+        shifted = shift(w, 1, axis=-2)
     return shifted, lc, sc, diag, hold_stats
 
 
 def run_simulation(signal: torch.Tensor, s: SimulationSettings) -> SimulationOutput:
-    """Full backtest of a signal panel under the settings."""
+    """Full backtest of a signal panel under the settings: ``[D, N]``, or
+    ``[C, D, N]`` lanes (module docs)."""
     masked = signal * s.investability_flag
     weights, lc, sc, diag, hold_stats = _trade_list_and_degrade(masked, s)
     with obs_stage("backtest/pnl"):

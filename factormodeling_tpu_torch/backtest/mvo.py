@@ -29,6 +29,14 @@ history (no prior date; the first refit block under the risk model) ->
 equal-scheme weights; one prior date, a NaN signal on a present name
 (turnover only), solver failure or infeasible caps -> equal weight per leg.
 
+Lanes (``backtest.engine``): a ``[C, D, N]`` signal under ``[C]`` knobs
+solves every lane's dates in the same solves: a plain-MVO chunk is ``C *
+mvo_batch`` solve lanes, each lane's chunk warm-starting from its own
+chunk before, and the turnover scan is one day loop whose each date is one
+solve of ``C`` lanes (one segment-kernel launch a segment for the bucket,
+the host's day loop once). ``turnover_mode="parallel"`` runs its lanes one
+after another.
+
 The QP and the risk-model fits run in float64 whatever the panels' dtype
 (:data:`QP_DTYPE`), for both schemes and both covariances; the weights come
 back in the panels' dtype. With the reference's numbers (turnover penalty
@@ -68,7 +76,8 @@ import torch
 
 from factormodeling_tpu_torch import risk as _risk
 from factormodeling_tpu_torch.backtest.diagnostics import SchemeStats
-from factormodeling_tpu_torch.backtest.settings import SimulationSettings
+from factormodeling_tpu_torch.backtest.settings import (SimulationSettings,
+                                                        knob)
 from factormodeling_tpu_torch.backtest.weights import equal_weights, leg_masks
 from factormodeling_tpu_torch.solvers.admm_qp import (ADMMWarmState,
                                                       BoxQPProblem,
@@ -89,28 +98,36 @@ QP_DTYPE = torch.float64
 
 
 def _window_factors(returns0: torch.Tensor, todays: torch.Tensor,
-                    lookback: int):
+                    lookback: int, lane_ix: torch.Tensor | None = None):
     """(C [B, L, N], t_used [B]) of the factored covariance for the dates
     ``todays`` (``[B]``, on the device): the centered zero-filled window of
     (at most ``lookback``) return rows strictly before each date —
-    ``returns0`` is the NaN-zeroed panel — and the usable-row count."""
-    d, n = returns0.shape
+    ``returns0`` is the NaN-zeroed panel, ``[D, N]`` shared by every solve
+    lane or ``[C, D, N]`` one a lane, and then ``lane_ix [B]`` names each
+    solve lane's — and the usable-row count."""
+    d, n = returns0.shape[-2:]
     lookback = min(lookback, d)
     start = torch.clamp(todays - lookback, min=0)
     t_used = todays - start
     offs = torch.arange(lookback, device=returns0.device)
     used = (offs[None, :] < t_used[:, None])[..., None]        # [B, L, 1]
-    rows = returns0[torch.clamp(start[:, None] + offs[None, :], max=d - 1)]
+    idx = torch.clamp(start[:, None] + offs[None, :], max=d - 1)
+    rows = (returns0[idx] if returns0.ndim == 2
+            else returns0[lane_ix[:, None], idx])
     rows = torch.where(used, rows, 0.0)
     mean = rows.sum(1, keepdim=True) / torch.clamp(t_used, min=1)[:, None, None]
     return torch.where(used, rows - mean, 0.0), t_used
 
 
-def _shrunk_terms(c: torch.Tensor, t_used: torch.Tensor, lam: float):
+def _shrunk_terms(c: torch.Tensor, t_used: torch.Tensor, lam):
     """alpha and per-row scale of Sigma_shrunk = alpha I + s C'C, per lane
-    (``[B]`` each)."""
+    (``[B]`` each); ``lam`` a number or one intensity a lane (``[B]``)."""
+    lam = knob(lam, t_used, c.dtype)
     denom = torch.clamp(t_used - 1, min=1).to(c.dtype)
-    s_row = (1.0 - lam) / denom
+    # what the number's ``(1 - lam) / denom`` computes (a number over a
+    # tensor is torch's reciprocal times the number), so a lane's tensor
+    # intensity gives its bits
+    s_row = (1.0 - lam) * torch.reciprocal(denom)
     avg_var = (c * c).sum((-2, -1)) / denom / c.shape[-1] + _JITTER
     alpha = (1.0 - lam) * _JITTER + lam * avg_var
     return alpha, s_row
@@ -119,13 +136,17 @@ def _shrunk_terms(c: torch.Tensor, t_used: torch.Tensor, lam: float):
 def _risk_model_stack(returns: torch.Tensor, s: SimulationSettings):
     """Rolling refits of the statistical risk model, stacked along a refit
     axis ``R = ceil(D / risk_refit_every)``: ``(loadings [R, N, k],
-    factor_var [R, k], idio [R, N])``.
+    factor_var [R, k], idio [R, N])``; ``[C, D, N]`` returns (one panel a
+    lane) give one stack a lane, ``[C, R, ...]``.
 
     Model ``j`` is fit on the (at most ``risk_lookback``) rows of
     ``returns`` (with NaN) strictly before day ``j * risk_refit_every``,
     NaN-padded to ``risk_lookback`` rows, so no estimate sees its own block;
     block 0's model is fit on no rows and its days take the no-history
     ladder."""
+    if returns.ndim == 3:
+        return tuple(torch.stack(col) for col in
+                     zip(*(_risk_model_stack(r, s) for r in returns)))
     d, n = returns.shape
     lb = min(s.risk_lookback, d)
     out = []
@@ -143,15 +164,20 @@ def _risk_model_stack(returns: torch.Tensor, s: SimulationSettings):
     return tuple(torch.stack(col) for col in zip(*out))
 
 
-def _risk_model_for_day(stacks, todays: torch.Tensor, s: SimulationSettings):
+def _risk_model_for_day(stacks, todays: torch.Tensor, s: SimulationSettings,
+                        lane_ix: torch.Tensor | None = None):
     """The dates' ``(loadings [B, N, k], factor_var [B, k], idio [B, N],
-    history [B])`` from the refit stack; ``history`` is the row count behind
-    each block's fit, which drives the ladder like the sample window's
+    history [B])`` from the refit stack (a lane stack reads each solve
+    lane's own, ``lane_ix [B]``); ``history`` is the row count behind each
+    block's fit, which drives the ladder like the sample window's
     ``t_used``."""
     loadings_s, fvar_s, idio_s = stacks
     j = torch.div(todays, s.risk_refit_every, rounding_mode="floor")
     hist = torch.clamp(j * s.risk_refit_every,
-                       max=min(s.risk_lookback, s.returns.shape[0]))
+                       max=min(s.risk_lookback, s.returns.shape[-2]))
+    if loadings_s.ndim == 4:
+        return (loadings_s[lane_ix, j], fvar_s[lane_ix, j],
+                idio_s[lane_ix, j], hist)
     return loadings_s[j], fvar_s[j], idio_s[j], hist
 
 
@@ -170,10 +196,14 @@ def _solve_day(signal_rows: torch.Tensor, returns0: torch.Tensor,
                risk_model=None, warm: ADMMWarmState | None = None,
                force_fallback: torch.Tensor | None = None,
                may_lack_history: bool = True, iters: int | None = None,
-               polish: bool | None = None, polish_passes: int | None = None):
+               polish: bool | None = None, polish_passes: int | None = None,
+               lane_ix: torch.Tensor | None = None):
     """One lane-batched solve of the dates ``todays`` with the full fallback
     ladder. ``signal_rows``/``w_prev`` are ``[B, N]`` in the QP dtype;
-    ``risk_model`` is ``None`` (the sample covariance) or the dates'
+    the knobs of ``s`` are numbers or one value a solve lane (``[B]``,
+    :meth:`SimulationSettings.lane_view`); ``lane_ix`` names each solve
+    lane's panel when ``returns0`` is ``[C, D, N]``; ``risk_model`` is
+    ``None`` (the sample covariance) or the dates'
     ``(loadings, factor_var, idio, history)``. Returns ``(w [B, N],
     primal_residual [B], solver_ok [B], warm_state, telemetry)`` with
     ``telemetry = (polished, pre_residual, post_residual, aa_accepted,
@@ -189,7 +219,8 @@ def _solve_day(signal_rows: torch.Tensor, returns0: torch.Tensor,
     pos = signal_rows > 0
     neg = signal_rows < 0
     if risk_model is None:
-        c, t_used = _window_factors(returns0, todays, s.lookback_period)
+        c, t_used = _window_factors(returns0, todays, s.lookback_period,
+                                    lane_ix)
         alpha, s_row = _shrunk_terms(c, t_used, s.shrinkage_intensity)
         s_vec = torch.where(
             torch.arange(c.shape[1], device=c.device)[None, :] < t_used[:, None],
@@ -200,7 +231,7 @@ def _solve_day(signal_rows: torch.Tensor, returns0: torch.Tensor,
 
     lo, hi, E, b = leg_constraints(signal_rows, s.max_weight, dtype, b=b)
     if turnover:
-        q = (-s.return_weight) * torch.nan_to_num(signal_rows)
+        q = -knob(s.return_weight, signal_rows) * torch.nan_to_num(signal_rows)
         l1, center = s.turnover_penalty, w_prev
     else:
         q = torch.zeros_like(lo)
@@ -270,103 +301,160 @@ def _nan_signal_days(signal: torch.Tensor, s: SimulationSettings):
 
 
 class _Panels:
-    """What every solve of one run shares: the QP-dtype panels, the risk
-    model's refit stack, and the leg equality right-hand side."""
+    """What every solve of one run shares: the QP-dtype ``[C, D, N]``
+    signal lanes, the NaN-zeroed returns (``[D, N]`` shared or one a lane),
+    the risk model's refit stack, and the leg equality right-hand side. A
+    solve of ``count`` dates runs ``C * count`` solve lanes, lane-major
+    (solve lane ``b`` is lane ``b // count``, date ``first + b % count``)."""
 
     def __init__(self, signal: torch.Tensor, s: SimulationSettings):
         dev = signal.device
         self.signal = signal.to(QP_DTYPE)
+        self.lanes = signal.shape[0]
         self.returns0 = torch.nan_to_num(s.returns).to(QP_DTYPE)
         self.stacks = (_risk_model_stack(s.returns.to(QP_DTYPE), s)
                        if s.covariance == "risk_model" else None)
         self.b = torch.tensor([1.0, -1.0], dtype=QP_DTYPE, device=dev)
-        self.days = torch.arange(signal.shape[0], device=dev)
+        self.days = torch.arange(signal.shape[1], device=dev)
+        self._by_count: dict = {}
+
+    def rows(self, x: torch.Tensor, first: int, count: int) -> torch.Tensor:
+        """``x [C, D, ...]`` at the dates ``first .. first + count - 1`` as
+        solve lanes ``[C * count, ...]``."""
+        return x[:, first:first + count].reshape((-1,) + x.shape[2:])
+
+    def _lanes_of(self, count: int, s: SimulationSettings):
+        """The solve lanes' lane index and settings for ``count`` dates (a
+        run has at most two widths: its chunks and a ragged tail)."""
+        if count not in self._by_count:
+            lane_ix = torch.arange(self.lanes, device=self.days.device) \
+                .repeat_interleave(count)
+            self._by_count[count] = (
+                lane_ix, s.lane_view(lane_ix) if s.lanes() else s)
+        return self._by_count[count]
 
     def solve(self, first: int, count: int, w_prev, s: SimulationSettings,
               turnover: bool, warm, force_fallback=None, **overrides):
-        """:func:`_solve_day` of the dates ``first .. first + count - 1``;
-        ``overrides`` are its ``iters``/``polish``/``polish_passes``."""
+        """:func:`_solve_day` of the dates ``first .. first + count - 1`` of
+        every lane; ``force_fallback`` is a ``[C, D]`` mask; ``overrides``
+        are its ``iters``/``polish``/``polish_passes``."""
+        lane_ix, s_lanes = self._lanes_of(count, s)
         todays = self.days[first:first + count]
+        if self.lanes > 1:
+            todays = todays.repeat(self.lanes)
         rm = (None if self.stacks is None
-              else _risk_model_for_day(self.stacks, todays, s))
+              else _risk_model_for_day(self.stacks, todays, s, lane_ix))
         # the dates without history: day 0, or the first refit block
         no_hist = s.risk_refit_every if self.stacks is not None else 1
-        return _solve_day(self.signal[first:first + count], self.returns0,
-                          todays, w_prev, s, self.b, turnover, risk_model=rm,
-                          warm=warm if s.qp_warm_start else None,
-                          force_fallback=force_fallback,
-                          may_lack_history=first < no_hist, **overrides)
+        return _solve_day(
+            self.rows(self.signal, first, count), self.returns0, todays,
+            w_prev, s_lanes, self.b, turnover, risk_model=rm,
+            warm=warm if s.qp_warm_start else None,
+            force_fallback=(None if force_fallback is None
+                            else self.rows(force_fallback, first, count)),
+            may_lack_history=first < no_hist, lane_ix=lane_ix, **overrides)
 
 
-def _cat(rows):
+def _tree(fn, *trees):
+    """``fn`` over the tensors of equal-structured tuples / NamedTuples."""
+    t = trees[0]
+    if isinstance(t, torch.Tensor):
+        return fn(*trees)
+    fields = [_tree(fn, *col) for col in zip(*trees)]
+    return type(t)(*fields) if hasattr(t, "_fields") else tuple(fields)
+
+
+def _cat(rows, lanes: int | None = None):
     """Per-solve outputs (tuples of tensors, nested tuples such as the warm
     state and the telemetry) concatenated along the date axis, field by
-    field."""
-    if isinstance(rows[0], torch.Tensor):
-        return torch.cat(rows)
-    fields = [_cat(col) for col in zip(*rows)]
-    return (type(rows[0])(*fields) if hasattr(rows[0], "_fields")
-            else tuple(fields))
+    field: dim 0, or with ``lanes`` each ``[C * count, ...]`` solve-lane
+    row as ``[C, count, ...]`` along dim 1."""
+    if lanes is None:
+        return _tree(lambda *xs: torch.cat(xs), *rows)
+    return _tree(lambda *xs: torch.cat(
+        [x.reshape((lanes, -1) + x.shape[1:]) for x in xs], 1), *rows)
 
 
-def _stack_rows(rows, out_dtype):
-    """Concatenate per-solve outputs ``(w, resid, ok, telemetry)`` along
-    the date axis; float outputs go back to the panels' dtype."""
-    w, resid, ok, (polished, pre, post, acc, rej, itc) = _cat(rows)
+def _stack_rows(rows, out_dtype, lanes: int):
+    """Concatenate per-solve outputs ``(w, resid, ok, telemetry)`` into
+    ``[C, D, ...]`` lanes; float outputs go back to the panels' dtype."""
+    w, resid, ok, (polished, pre, post, acc, rej, itc) = _cat(rows, lanes)
     return (w.to(out_dtype), resid.to(out_dtype), ok,
             (polished, pre.to(out_dtype), post.to(out_dtype), acc, rej, itc))
 
 
+def _scheme_stats(values, lanes: int, device) -> SchemeStats:
+    return SchemeStats(*(torch.full((lanes,), v, dtype=torch.int32,
+                                    device=device) for v in values))
+
+
+def _lanes_in(signal: torch.Tensor):
+    """``(signal [C, D, N], unbatched)``: an unbatched ``[D, N]`` call runs
+    as one lane and its outputs drop the axis again."""
+    if signal.ndim == 3:
+        return signal, False
+    return signal[None], True
+
+
+def _lane_out(out, unbatched: bool):
+    return _tree(lambda a: a[0], out) if unbatched else out
+
+
 def mvo_weights(signal: torch.Tensor, s: SimulationSettings):
     """Per-date minimum-variance weights: chunks of ``mvo_batch`` dates
-    solve as one lane batch; lane ``i`` warm-starts from lane ``i`` of the
-    chunk before (disable with ``qp_warm_start=False``), and the ragged
-    tail is a narrower chunk on the first lanes' chains. Returns
-    ``(weights [D, N], long_count [D], short_count [D], resid, ok,
-    telemetry, stats)``; ``stats.qp_solves == D``."""
-    d, n = signal.shape
+    solve as one lane batch (every lane's, for ``[C, D, N]`` lanes); lane
+    ``i`` of a chunk warm-starts from lane ``i`` of the chunk before
+    (disable with ``qp_warm_start=False``), and the ragged tail is a
+    narrower chunk on the first lanes' chains. Returns ``(weights [D, N],
+    long_count [D], short_count [D], resid, ok, telemetry, stats)``, with
+    the leading ``C`` under lanes; ``stats.qp_solves == D``."""
+    signal, unbatched = _lanes_in(signal)
+    c, d, n = signal.shape
     pos, neg, flat = leg_masks(signal)
     panels = _Panels(signal, s)
     batch = min(s.mvo_batch, d)
-    warm = _cold_state(n, batch, QP_DTYPE, signal.device)
-    zeros = torch.zeros((batch, n), dtype=QP_DTYPE, device=signal.device)
+    warm = _cold_state(n, c * batch, QP_DTYPE, signal.device)
+    zeros = torch.zeros((c * batch, n), dtype=QP_DTYPE, device=signal.device)
     rows = []
     for first in range(0, d, batch):
         count = min(batch, d - first)
-        lane_warm = ADMMWarmState(*(a[:count] for a in warm))
-        w, resid, ok, state, tele = panels.solve(first, count, zeros[:count],
-                                                 s, False, lane_warm)
+        lane_warm = ADMMWarmState(*(
+            a.reshape((c, batch) + a.shape[1:])[:, :count]
+            .reshape((c * count,) + a.shape[1:]) for a in warm))
+        w, resid, ok, state, tele = panels.solve(first, count,
+                                                 zeros[:c * count], s, False,
+                                                 lane_warm)
         rows.append((w, resid, ok, tele))
         if count == batch:
             warm = state
-    w, resid, ok, tele = _stack_rows(rows, s.returns.dtype)
-    stats = SchemeStats(*(torch.tensor(v, dtype=torch.int32,
-                                       device=signal.device)
-                          for v in (d, 0, 0, 0)))
-    return _finalize(w, signal, s, pos, neg, flat, resid, ok, tele, stats)
+    w, resid, ok, tele = _stack_rows(rows, s.returns.dtype, c)
+    stats = _scheme_stats((d, 0, 0, 0), c, signal.device)
+    return _lane_out(_finalize(w, signal, s, pos, neg, flat, resid, ok, tele,
+                               stats), unbatched)
 
 
 def _turnover_day_solve(panels: _Panels, s: SimulationSettings, zero_day,
                         nan_sig_day, first: int, count: int, w_prev, warm,
                         **overrides):
-    """THE turnover day step, for the dates ``first .. first + count - 1``:
-    the solve with the NaN-signal rejection, then zero days zeroed. The
-    scan, the parallel sweeps and the parallel suffix all run it, so they
-    cannot drift apart; ``overrides`` as in :meth:`_Panels.solve`."""
+    """THE turnover day step, for the dates ``first .. first + count - 1``
+    of every lane: the solve with the NaN-signal rejection, then zero days
+    zeroed. The scan, the parallel sweeps and the parallel suffix all run
+    it, so they cannot drift apart; ``overrides`` as in
+    :meth:`_Panels.solve`."""
     w, resid, ok, state, tele = panels.solve(
-        first, count, w_prev, s, True, warm,
-        nan_sig_day[first:first + count], **overrides)
+        first, count, w_prev, s, True, warm, nan_sig_day, **overrides)
     # the reference reads the last stored row as yesterday's weights, which
     # is the zero row on flat days
-    w = torch.where(zero_day[first:first + count, None], 0.0, w)
+    w = torch.where(panels.rows(zero_day, first, count)[:, None], 0.0, w)
     return w, resid, ok, state, tele
 
 
 def _sequential_days(panels: _Panels, s: SimulationSettings, zero_day,
                      nan_sig_day, start: int, w_prev, warm) -> list:
     """The days ``start .. D-1`` one after another at the settings'
-    budgets, each on the day before's weights and solver exit state;
-    ``(w, resid, ok, telemetry)`` rows, one a day."""
+    budgets, each on the day before's weights and solver exit state, every
+    lane in one solve a day; ``(w, resid, ok, telemetry)`` rows, one a
+    day."""
     rows = []
     for today in range(start, panels.days.shape[0]):
         w, resid, ok, warm, tele = _turnover_day_solve(
@@ -383,30 +471,39 @@ def mvo_turnover_weights(signal: torch.Tensor, s: SimulationSettings):
     ``s.turnover_mode`` picks the scheme: ``"scan"``, the days in order, or
     ``"parallel"``, the fixed-point sweeps with the scan for the days they
     do not certify (module docstring). Returns ``(weights [D, N],
-    long_count [D], short_count [D], resid, ok, telemetry, stats)``."""
-    d, n = signal.shape
+    long_count [D], short_count [D], resid, ok, telemetry, stats)``, with
+    the leading ``C`` under ``[C, D, N]`` lanes: the scan runs one day loop
+    for every lane, one solve of ``C`` lanes a date; the parallel scheme
+    runs its lanes one after another."""
+    if s.turnover_mode == "parallel" and signal.ndim == 3:
+        c = signal.shape[0]
+        outs = [mvo_turnover_weights(signal[i], s.lane(i, c))
+                for i in range(c)]
+        return _tree(lambda *xs: torch.stack(xs), *outs)
+    signal, unbatched = _lanes_in(signal)
+    c, d, n = signal.shape
     pos, neg, flat = leg_masks(signal)
     zero_day = flat | (_universe_count(signal, s) < 2)
-    nan_sig_day = _nan_signal_days(signal, s)
+    nan_sig_day = _nan_signal_days(signal, s).expand(c, d)
     panels = _Panels(signal, s)
     days = (_turnover_parallel if s.turnover_mode == "parallel"
             else _turnover_scan)
     rows, stats = days(panels, s, zero_day, nan_sig_day)
-    w, resid, ok, tele = _stack_rows(rows, s.returns.dtype)
-    stats = SchemeStats(*(torch.tensor(v, dtype=torch.int32,
-                                       device=signal.device) for v in stats))
-    return _finalize(w, signal, s, pos, neg, flat, resid, ok, tele, stats)
+    w, resid, ok, tele = _stack_rows(rows, s.returns.dtype, c)
+    stats = _scheme_stats(stats, c, signal.device)
+    return _lane_out(_finalize(w, signal, s, pos, neg, flat, resid, ok, tele,
+                               stats), unbatched)
 
 
 def _turnover_scan(panels: _Panels, s: SimulationSettings, zero_day,
                    nan_sig_day):
-    """Every day in order: ``(rows, (qp_solves, sweeps, converged_days,
-    suffix_len))``."""
-    d, n = panels.signal.shape
+    """Every day in order, every lane in one solve a day: ``(rows,
+    (qp_solves, sweeps, converged_days, suffix_len))``."""
+    c, d, n = panels.signal.shape
     dev = panels.signal.device
     rows = _sequential_days(panels, s, zero_day, nan_sig_day, 0,
-                            torch.zeros((1, n), dtype=QP_DTYPE, device=dev),
-                            _cold_state(n, 1, QP_DTYPE, dev))
+                            torch.zeros((c, n), dtype=QP_DTYPE, device=dev),
+                            _cold_state(n, c, QP_DTYPE, dev))
     return rows, (d, 0, 0, d)
 
 
@@ -419,8 +516,8 @@ _STALL_RATIO = 0.5
 
 def _turnover_parallel(panels: _Panels, s: SimulationSettings, zero_day,
                        nan_sig_day):
-    """The fixed-point scheme (module docstring): ``(rows, (qp_solves,
-    sweeps, converged_days, suffix_len))``.
+    """The fixed-point scheme (module docstring) on one lane: ``(rows,
+    (qp_solves, sweeps, converged_days, suffix_len))``.
 
     1. seed: plain MVO of every day in chunks of ``mvo_batch`` cold lanes
        at ``resolved_seed_iters()``, polish off; zero days zeroed;
@@ -437,8 +534,9 @@ def _turnover_parallel(panels: _Panels, s: SimulationSettings, zero_day,
 
     The sequential days are the scan's own loop, so a run with no
     certified day is the scan bit for bit."""
-    d, n = panels.signal.shape
+    _, d, n = panels.signal.shape
     dev = panels.signal.device
+    zero_day = zero_day[0]
     batch = min(s.mvo_batch, d)
     chunks = [(first, min(batch, d - first)) for first in range(0, d, batch)]
     zeros = torch.zeros((batch, n), dtype=QP_DTYPE, device=dev)
@@ -457,7 +555,7 @@ def _turnover_parallel(panels: _Panels, s: SimulationSettings, zero_day,
     for _ in range(s.turnover_sweeps):
         w_prev = torch.cat([zeros[:1], traj[:-1]])
         last = _cat([_turnover_day_solve(
-            panels, s, zero_day, nan_sig_day, first, count,
+            panels, s, zero_day[None], nan_sig_day, first, count,
             w_prev[first:first + count],
             ADMMWarmState(*(a[first:first + count] for a in state)),
             iters=s.resolved_sweep_iters(),
@@ -483,8 +581,8 @@ def _turnover_parallel(panels: _Panels, s: SimulationSettings, zero_day,
         warm = ADMMWarmState(*(a[start - 1:start] for a in state))
     else:
         w_prev, warm = zeros[:1], _cold_state(n, 1, QP_DTYPE, dev)
-    rows += _sequential_days(panels, s, zero_day, nan_sig_day, start, w_prev,
-                             warm)
+    rows += _sequential_days(panels, s, zero_day[None], nan_sig_day, start,
+                             w_prev, warm)
     return rows, (d + sweeps * d + (d - start), sweeps, start, d - start)
 
 
@@ -504,9 +602,10 @@ def _finalize(w, signal, s, pos, neg, flat, resid, ok, tele, stats):
     lc = pos.sum(-1)
     sc = neg.sum(-1)
     # no-history days fall back to the equal scheme: its k counts
-    no_hist = _no_hist_days(signal.shape[0], s, signal.device)
-    k_long = torch.clamp(torch.floor(lc * s.pct), min=1.0).to(lc.dtype)
-    k_short = torch.clamp(torch.floor(sc * s.pct), min=1.0).to(sc.dtype)
+    no_hist = _no_hist_days(signal.shape[-2], s, signal.device)
+    pct = knob(s.pct, lc, torch.get_default_dtype())
+    k_long = torch.clamp(torch.floor(lc * pct), min=1.0).to(lc.dtype)
+    k_short = torch.clamp(torch.floor(sc * pct), min=1.0).to(sc.dtype)
     lc = torch.where(no_hist, k_long, lc)
     sc = torch.where(no_hist, k_short, sc)
     ok = ok | zero_day | no_hist

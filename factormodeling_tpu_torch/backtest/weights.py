@@ -1,11 +1,14 @@
 """Daily weight schemes: equal and linear (port of
 ``factormodeling_tpu/backtest/weights.py``). Both are per-date
 cross-sectional transforms of the signal row, batched over the whole
-``[D, N]`` panel."""
+``[D, N]`` panel, or ``[C, D, N]`` lanes whose ``pct`` / ``max_weight``
+are ``[C]`` tensors (``settings.knob``)."""
 
 from __future__ import annotations
 
 import torch
+
+from factormodeling_tpu_torch.backtest.settings import knob
 
 __all__ = ["leg_masks", "equal_weights", "linear_weights", "normalize_legs",
            "cap_and_redistribute"]
@@ -50,10 +53,12 @@ def _desc_rank(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 def equal_weights(signal: torch.Tensor, pct: float):
     """Top-``pct`` of each leg at +-1, legs normalized: k = max(floor(count *
-    pct), 1). Returns (weights [D, N], long_count [D], short_count [D])."""
+    pct), 1). Returns (weights [D, N], long_count [D], short_count [D]);
+    ``pct`` may be a ``[C]`` tensor over ``[C, ..., N]`` lanes."""
     pos, neg, flat = leg_masks(signal)
     cp = pos.sum(_N_AXIS)
     cn = neg.sum(_N_AXIS)
+    pct = knob(pct, cp, torch.get_default_dtype())
     k_long = torch.clamp(torch.floor(cp * pct), min=1.0).to(torch.int32)
     k_short = torch.clamp(torch.floor(cn * pct), min=1.0).to(torch.int32)
     sel_long = pos & (_desc_rank(signal, pos) < k_long[..., None])
@@ -69,7 +74,9 @@ def cap_and_redistribute(w: torch.Tensor, max_weight: float,
                          max_iter: int = 10, tol: float = 1e-6) -> torch.Tensor:
     """Per-name cap with iterative pro-rata redistribution of the excess, as
     a fixed ``max_iter`` masked loop: converged dates freeze where the
-    reference's ``break`` leaves them."""
+    reference's ``break`` leaves them. ``max_weight`` may be a ``[C]``
+    tensor over ``[C, ..., N]`` lanes."""
+    max_weight = knob(max_weight, w)
     frozen = torch.zeros(w.shape[:-1] + (1,), dtype=torch.bool, device=w.device)
     for _ in range(max_iter):
         capped = torch.clamp(w, -max_weight, max_weight)
@@ -99,7 +106,8 @@ def cap_and_redistribute(w: torch.Tensor, max_weight: float,
 
 def linear_weights(signal: torch.Tensor, max_weight: float):
     """Weights proportional to the signal, legs normalized, then capped with
-    redistribution. Returns (weights [D, N], long_count [D], short_count [D])."""
+    redistribution. Returns (weights [D, N], long_count [D], short_count [D]);
+    ``max_weight`` may be a ``[C]`` tensor over ``[C, ..., N]`` lanes."""
     pos, neg, flat = leg_masks(signal)
     w = torch.where(pos | neg, torch.nan_to_num(signal), 0.0)
     w = normalize_legs(w)

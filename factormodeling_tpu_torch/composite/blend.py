@@ -10,6 +10,13 @@ static blend averages the proxies' per-row z-scores (``"zscore"``) or sums
 their scipy-style propagate-NaN ranks (``"rank"``), NaN preserved; the
 weighted blend weighs them by the day's renormalized group weights, NaN in
 an active proxy propagates and the final panel is zero-filled.
+
+The weighted blend also takes lanes (one tenant or path each): a ``[C, D,
+F]`` selection over shared ``[F, D, N]`` factors or ``[C, F, D, N]`` ones,
+with ``[C, G]`` tilts. Its group sums add each group's members in order,
+slot by slot, elementwise (no contraction over F or G that a batch's
+shape could tile), so a lane is the bits of its unbatched call; lanes
+past a memory budget run in chunks of lanes.
 """
 
 from __future__ import annotations
@@ -64,13 +71,9 @@ def _apply_suffix(vals, sfx: str, lo, hi, degenerate):
     return torch.where(degenerate, 0.0, out)
 
 
-def _preprocess(vals: torch.Tensor, names, *, pooled: bool,
-                active: torch.Tensor | None = None) -> torch.Tensor:
-    """Suffix preprocessing over a ``[F, D, N]`` stack: per-column
-    percentiles (``pooled=False``, the static blend) or per-suffix
-    percentiles pooled over the day's active columns (``pooled=True``, the
-    weighted blend; ``active [D, F]``)."""
-    f, d, n = vals.shape
+def _preprocess(vals: torch.Tensor, names) -> torch.Tensor:
+    """Suffix preprocessing over a ``[F, D, N]`` stack with per-column
+    percentiles (the static blend)."""
     codes = [suffix_code(nm) for nm in names]
     out = vals.clone()
     for sfx in SUFFIXES:
@@ -79,37 +82,43 @@ def _preprocess(vals: torch.Tensor, names, *, pooled: bool,
             continue
         qlo, qhi = _SUFFIX_QS[sfx]
         sub = vals[idx]                                      # [K, D, N]
-        if pooled:
-            pool = sub.transpose(0, 1).reshape(d, len(idx) * n)  # [D, K*N]
-            if active is not None:
-                mask = active[:, idx].repeat_interleave(n, dim=1)
-                pool = torch.where(mask, pool, float("nan"))
-            qs = masked_quantile(pool, [qlo, qhi])           # [D, 2]
-            lo = qs[:, 0][None, :, None]
-            hi = qs[:, 1][None, :, None]
-        else:
-            qs = masked_quantile(sub, [qlo, qhi])            # [K, D, 2]
-            lo = qs[..., 0:1]
-            hi = qs[..., 1:2]
+        qs = masked_quantile(sub, [qlo, qhi])                # [K, D, 2]
+        lo = qs[..., 0:1]
+        hi = qs[..., 1:2]
         degenerate = torch.isnan(lo) | torch.isnan(hi) | (hi == lo)
         out[idx] = _apply_suffix(sub, sfx, lo, hi, degenerate)
     return out
 
 
-def _group_proxies(adj: torch.Tensor, onehot: torch.Tensor,
-                   member_weight: torch.Tensor | None = None) -> torch.Tensor:
+def _pooled_bounds(vals: torch.Tensor, codes, active: torch.Tensor) -> dict:
+    """The weighted blend's per-suffix percentiles, pooled over the day's
+    active same-suffix columns: ``{suffix: (lo, hi, degenerate)}``, each
+    ``[..., D, 1]``, from ``vals [..., F, D, N]`` and ``active [..., D,
+    F]``."""
+    d, n = vals.shape[-2:]
+    out = {}
+    for sfx in SUFFIXES:
+        idx = [i for i, c in enumerate(codes) if c == sfx]
+        if not idx:
+            continue
+        qlo, qhi = _SUFFIX_QS[sfx]
+        sub = vals[..., idx, :, :]                           # [..., K, D, N]
+        pool = sub.transpose(-3, -2).reshape(sub.shape[:-3]
+                                             + (d, len(idx) * n))
+        mask = active[..., idx].repeat_interleave(n, dim=-1)
+        pool = torch.where(mask, pool, float("nan"))         # [..., D, K*N]
+        qs = masked_quantile(pool, [qlo, qhi])               # [..., D, 2]
+        lo, hi = qs[..., 0:1], qs[..., 1:2]
+        out[sfx] = (lo, hi, torch.isnan(lo) | torch.isnan(hi) | (hi == lo))
+    return out
+
+
+def _group_proxies(adj: torch.Tensor, onehot: torch.Tensor) -> torch.Tensor:
     """NaN-skipping mean over each prefix group's member factors:
-    ``[F, D, N] -> [G, D, N]``; ``member_weight [D, F]`` (0/1) restricts it
-    to the day's active factors."""
+    ``[F, D, N] -> [G, D, N]``."""
     valid = ~torch.isnan(adj)
-    filled = torch.where(valid, adj, 0.0)
-    v = valid.to(adj.dtype)
-    if member_weight is not None:
-        mw = member_weight.T[:, :, None]  # [F, D, 1]
-        filled = filled * mw
-        v = v * mw
-    sums = torch.einsum("gf,fdn->gdn", onehot, filled)
-    cnts = torch.einsum("gf,fdn->gdn", onehot, v)
+    sums = torch.einsum("gf,fdn->gdn", onehot, torch.where(valid, adj, 0.0))
+    cnts = torch.einsum("gf,fdn->gdn", onehot, valid.to(adj.dtype))
     return sums / torch.where(cnts > 0, cnts, float("nan"))
 
 
@@ -168,7 +177,7 @@ def composite_static(factors: torch.Tensor, names, method: str = "zscore",
     gids, prefixes = prefix_group_ids(names)
     if universe is not None:
         factors = torch.where(universe, factors, float("nan"))
-    adj = _preprocess(factors, names, pooled=False)
+    adj = _preprocess(factors, names)
     proxies = _group_proxies(adj, _onehot(gids, len(prefixes), factors.dtype,
                                           factors.device))  # [G, D, N]
     if method == "zscore":
@@ -185,6 +194,60 @@ def composite_static(factors: torch.Tensor, names, method: str = "zscore",
     if universe is not None:
         comp = torch.where(universe, comp, float("nan"))
     return comp
+
+
+#: elements of one ``[lanes, F, D, N]`` intermediate the weighted blend
+#: holds at once (0.5 GB in float32); a larger batch of lanes runs in
+#: chunks of lanes, each lane's arithmetic the same in any chunk
+_BLEND_CHUNK_ELEMS = 1 << 27
+
+
+def _lane_slice(x, lanes: int, lo: int, hi: int, lane_ndim: int):
+    """Lanes ``lo:hi`` of an argument that carries the lane axis (rank
+    ``lane_ndim``), else the shared argument itself."""
+    if x is None or np.ndim(x) < lane_ndim or np.shape(x)[0] != lanes:
+        return x
+    return x[lo:hi]
+
+
+def _member_slots(members, device):
+    """The groups' members as slots: slot ``m`` is ``(take [G], has [G])``,
+    each group's ``m``-th member (its first where it has fewer) and whether
+    it has one."""
+    out = []
+    for m in range(max(len(g) for g in members)):
+        out.append((torch.as_tensor([g[min(m, len(g) - 1)] for g in members],
+                                    device=device),
+                    None if all(len(g) > m for g in members) else
+                    torch.as_tensor([len(g) > m for g in members],
+                                    device=device)))
+    return out
+
+
+def _group_sums(x, slots, axis: int, poison=None):
+    """Each group's members of ``x`` summed in member order along
+    ``axis`` (the factor axis becomes the group axis). The one-hot
+    contraction over every factor turns another group's non-finite value
+    into NaN (its zero coefficient times it): with ``poison`` (the
+    non-finite flags of ``x``) a group takes NaN where a factor outside it
+    holds one."""
+    total = bad = None
+    shape = [1] * x.ndim
+    for take, has in slots:
+        part = x.index_select(axis, take)
+        if has is not None:
+            shape[axis] = -1
+            part = torch.where(has.reshape(shape), part, 0)
+        total = part if total is None else total + part
+        if poison is not None:
+            b = poison.index_select(axis, take)
+            if has is not None:
+                b = torch.where(has.reshape(shape), b, 0)
+            bad = b if bad is None else bad + b
+    if poison is None:
+        return total
+    outside = poison.sum(axis, keepdim=True) > bad
+    return torch.where(outside, float("nan"), total)
 
 
 def composite_weighted(factors: torch.Tensor, names, selection: torch.Tensor,
@@ -204,25 +267,43 @@ def composite_weighted(factors: torch.Tensor, names, selection: torch.Tensor,
     fallback is suppressed, since restoring weight to a group the caller
     excluded would invert the preference on exactly the days it binds.
     Without a tilt the fallback is unreachable (any active factor makes the
-    weight total positive), so untilted outputs are unchanged."""
+    weight total positive), so untilted outputs are unchanged.
+
+    Lanes (module docs): ``selection [C, D, F]``, ``factors`` shared or
+    ``[C, F, D, N]``, ``universe`` shared or ``[C, D, N]``, ``group_tilt``
+    ``[G]`` or ``[C, G]``; the composite is ``[C, D, N]``."""
     if method not in ("zscore", "rank"):
         raise ValueError("method must be 'zscore' or 'rank'")
+    f, d, n = factors.shape[-3:]
+    if selection.ndim == 3:
+        c = selection.shape[0]
+        per = max(1, _BLEND_CHUNK_ELEMS // (f * d * n))
+        if c > per:
+            return torch.cat([composite_weighted(
+                _lane_slice(factors, c, lo, lo + per, 4), names,
+                selection[lo:lo + per], method=method,
+                universe=_lane_slice(universe, c, lo, lo + per, 3),
+                group_tilt=_lane_slice(group_tilt, c, lo, lo + per, 2))
+                for lo in range(0, c, per)])
     gids, prefixes = prefix_group_ids(names)
-    g = len(prefixes)
+    members = [np.flatnonzero(gids == j).tolist()
+               for j in range(len(prefixes))]
+    codes = [suffix_code(nm) for nm in names]
     dtype, dev = factors.dtype, factors.device
+    slots = _member_slots(members, dev)
     if universe is not None:
-        factors = torch.where(universe, factors, float("nan"))
+        factors = torch.where(universe[..., None, :, :], factors,
+                              float("nan"))
 
-    active = selection > 0.0  # [D, F]
-    adj = _preprocess(factors, names, pooled=True, active=active)
+    active = selection > 0.0                                 # [..., D, F]
     member = active.to(dtype)
-    onehot = _onehot(gids, g, dtype, dev)
-    proxies = _group_proxies(adj, onehot, member)  # [G, D, N]
-
-    gw = torch.einsum("gf,df->dg", onehot, torch.where(active, selection, 0.0))
+    chosen = torch.where(active, selection, 0.0)
+    gw = _group_sums(chosen, slots, -1,
+                     poison=(~torch.isfinite(chosen)).to(torch.int32))
     if group_tilt is not None:
-        gw = gw * torch.as_tensor(group_tilt, dtype=dtype, device=dev)[None, :]
-    g_active = torch.einsum("gf,df->dg", onehot, member) > 0  # [D, G]
+        gw = gw * torch.as_tensor(group_tilt, dtype=dtype, device=dev)[
+            ..., None, :]
+    g_active = _group_sums(member, slots, -1) > 0            # [..., D, G]
     total = gw.sum(-1, keepdim=True)
     n_active = g_active.sum(-1, keepdim=True).to(dtype)
     equal = torch.where(g_active, 1.0 / torch.where(n_active > 0, n_active,
@@ -233,17 +314,37 @@ def composite_weighted(factors: torch.Tensor, names, selection: torch.Tensor,
     gw = torch.where(total > 0, gw / torch.where(total > 0, total, 1.0),
                      fallback)
 
+    # the suffix rules with the day's pooled percentiles, every factor
+    lead = torch.broadcast_shapes(factors.shape[:-3], selection.shape[:-2])
+    adj = torch.empty(lead + (f, d, n), dtype=dtype, device=dev)
+    for sfx, (lo, hi, degenerate) in _pooled_bounds(factors, codes,
+                                                    active).items():
+        idx = [i for i, c in enumerate(codes) if c == sfx]
+        adj[..., idx, :, :] = _apply_suffix(
+            factors[..., idx, :, :], sfx, lo[..., None, :, :],
+            hi[..., None, :, :], degenerate[..., None, :, :])
+    raw = [i for i, c in enumerate(codes) if c is None]
+    if raw:
+        adj[..., raw, :, :] = factors[..., raw, :, :]
+    valid = ~torch.isnan(adj)
+    mw = member.mT[..., None]                                # [..., F, D, 1]
+    # a masked cell is non-finite where it is +-Inf (NaN is filled)
+    sums = _group_sums(torch.where(valid, adj, 0.0) * mw, slots, -3,
+                       poison=torch.isinf(adj).to(torch.int32))
+    cnts = _group_sums(valid.to(dtype) * mw, slots, -3)
+    proxies = sums / torch.where(cnts > 0, cnts, float("nan"))  # [..., G, D, N]
+    uni = None if universe is None else universe[..., None, :, :]
     if method == "zscore":
-        normed = _safe_zscore_rows(proxies, universe)
+        normed = _safe_zscore_rows(proxies, uni)
     else:
-        normed = _rank_propagate(proxies, universe)
-    ga = g_active.T[:, :, None]
-    contrib = torch.where(ga, normed * gw.T[:, :, None], 0.0)
-    nan_hit = (ga & torch.isnan(normed)).any(0)
-    comp = torch.where(nan_hit, float("nan"), contrib.sum(0))
+        normed = _rank_propagate(proxies, uni)
+    ga = g_active.mT[..., None]                              # [..., G, D, 1]
+    contrib = torch.where(ga, normed * gw.mT[..., None], 0.0)
+    nan_hit = (ga & torch.isnan(normed)).any(-3)
+    comp = torch.where(nan_hit, float("nan"), contrib.sum(-3))
 
-    has_day = active.any(-1)  # [D]
-    comp = torch.where(has_day[:, None], comp, float("nan"))
+    has_day = active.any(-1)                                 # [..., D]
+    comp = torch.where(has_day[..., None], comp, float("nan"))
     comp = _demean_rows(comp, universe)
     comp = torch.where(torch.isnan(comp), 0.0, comp)
     if universe is not None:

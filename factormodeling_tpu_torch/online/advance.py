@@ -11,9 +11,14 @@
   ``covariance="risk_model"`` refit the risk model on its refit grid;
 - ``advance_tenant(tenant, tstate, octx)``: selector -> manager mix ->
   finalize -> single-date blend -> the day's weight solve (the full step's
-  own ``backtest.mvo._solve_day`` on one lane, so the segment kernel runs
-  once a date for the QP schemes) -> per-symbol masked weight shift ->
-  single-date P&L.
+  own ``backtest.mvo._solve_day``, so the segment kernel runs once a
+  segment a date for the QP schemes) -> per-symbol masked weight shift ->
+  single-date P&L. ``advance_tenant.lanes(tenants, tstates, octx)`` is the
+  same half for a session's ``C`` tenants at once (a stacked config batch
+  and stacked states, ``state.stack_tenant_states``): one lane-batched
+  solve of ``C`` lanes a date, what the JAX package's vmap of the tenant
+  half computes; ``advance_tenant`` is it on one lane, so a session's
+  lane and a single tenant's advance run the same lines.
 
 The contract: feeding dates 0..D-1 one at a time gives the full research
 step's rows 0..D-2. The mechanism is structural: every windowed aggregate
@@ -40,11 +45,11 @@ seeds without such pools; the history must reach ``lookback_period``
 ``mvo_turnover`` advances with the sequential scan's semantics.
 
 The window solve: the full step's ``_solve_day`` is lane-batched over
-``returns0`` and the dates' indices. Here it gets one lane, the NaN-zeroed
-lookback ring as ``returns0`` and ``today = min(p, lookback)``: its window
-of at most ``lookback`` rows strictly before ``today`` is then the ring's
-first ``min(p, lookback)`` rows, the rows the full panel's window holds at
-date ``p``.
+``returns0`` and the dates' indices. Here it gets one lane a tenant, the
+NaN-zeroed lookback ring as ``returns0`` and ``today = min(p, lookback)``:
+its window of at most ``lookback`` rows strictly before ``today`` is then
+the ring's first ``min(p, lookback)`` rows, the rows the full panel's
+window holds at date ``p``.
 """
 
 from __future__ import annotations
@@ -58,7 +63,9 @@ import torch
 from factormodeling_tpu_torch import risk as _risk
 from factormodeling_tpu_torch._device import resolve_device
 from factormodeling_tpu_torch.backtest.mvo import QP_DTYPE, _solve_day
-from factormodeling_tpu_torch.backtest.settings import SimulationSettings
+from factormodeling_tpu_torch.backtest.settings import (LANE_KNOBS,
+                                                        SimulationSettings,
+                                                        knob, lane_knobs)
 from factormodeling_tpu_torch.backtest.weights import (equal_weights,
                                                        leg_masks,
                                                        linear_weights)
@@ -68,16 +75,20 @@ from factormodeling_tpu_torch.metrics.factor_metrics import (
 from factormodeling_tpu_torch.online.state import (AdvanceOutputs, DateSlice,
                                                    MarketState, TenantState,
                                                    init_market_state,
-                                                   init_tenant_state)
+                                                   init_tenant_state,
+                                                   stack_tenant_states,
+                                                   tenant_state_lane)
 from factormodeling_tpu_torch.ops._window import shift
 from factormodeling_tpu_torch.selection.driver import (
     finish_selection_context, selection_metric_needs)
 from factormodeling_tpu_torch.selection.selectors import (
     FACTOR_SELECTION_METHODS, SelectionContext)
+from factormodeling_tpu_torch.serve.batched import _host, lane_count, one_lane
 from factormodeling_tpu_torch.serve.tenant import TenantConfig
 from factormodeling_tpu_torch.solvers.admm_qp import ADMMWarmState
 
-__all__ = ["OnlineCtx", "make_online_step", "online_step_parts"]
+__all__ = ["OnlineCtx", "lane_outputs", "make_online_step",
+           "online_step_parts"]
 
 #: exposure lag of the selection path (the reference shifts twice)
 _SHIFT = 2
@@ -120,14 +131,6 @@ def _push_left(ring: torch.Tensor, row: torch.Tensor,
     return out
 
 
-def _num(v):
-    """A value leaf as a Python number (a 0-d tensor on the card is read
-    once here)."""
-    if isinstance(v, torch.Tensor):
-        return v.item()
-    return np.asarray(v).item()
-
-
 def _probe_settings(template: TenantConfig) -> SimulationSettings:
     """Settings resolving the template's static simulation residue
     (mvo_batch, covariance and risk knobs, qp flags) as the full step
@@ -144,8 +147,9 @@ def online_step_parts(*, names, template: TenantConfig, n_assets: int,
                       stats_tail: int = 8, device=None):
     """``(init_market, init_tenant, advance_market, advance_tenant)`` for
     the ``template``'s configuration on ``device`` (None is the card; the
-    CPU only when asked for). ``stats_tail`` bounds the ragged-universe
-    shift horizon of the daily-stats tail ring."""
+    CPU only when asked for); ``advance_tenant.lanes`` advances a
+    session's stacked lanes (module docs). ``stats_tail`` bounds the
+    ragged-universe shift horizon of the daily-stats tail ring."""
     dev = resolve_device(device)
     names = tuple(names)
     f = len(names)
@@ -266,47 +270,48 @@ def online_step_parts(*, names, template: TenantConfig, n_assets: int,
     # --------------------------------------------------- tenant half
 
     def _day_settings(t: TenantConfig, octx: OnlineCtx) -> SimulationSettings:
+        knobs = lane_knobs({name: _host(getattr(t, name), np.float64)
+                            for name in LANE_KNOBS}, dev)
         return dataclasses.replace(
             probe,
             returns=octx.returns_p[None], cap_flag=octx.cap_p[None],
             investability_flag=octx.invest_p[None],
             universe=(octx.universe_p[None] if has_universe else None),
-            max_weight=_num(t.max_weight), pct=_num(t.pct),
-            shrinkage_intensity=_num(t.shrinkage_intensity),
-            turnover_penalty=_num(t.turnover_penalty),
-            return_weight=_num(t.return_weight),
-            tcost_scale=_num(t.tcost_scale))
+            **knobs)
 
     def _day_weights(tstate: TenantState, octx: OnlineCtx, masked, s):
-        """One date's pre-shift weight row through the scheme's per-day
-        semantics: equal/linear are the engine's per-date calls; the QP
-        schemes run ``_solve_day`` on one lane with the carried warm state,
-        then the per-day slice of ``mvo._finalize``. Returns ``(w, lc, sc,
-        resid, ok, w_prev, warm, warm_ring)``; ``w_prev`` in
-        ``QP_DTYPE``."""
+        """One date's pre-shift weight rows ``[C, N]`` through the scheme's
+        per-day semantics: equal/linear are the engine's per-date calls;
+        the QP schemes run ``_solve_day`` once on the ``C`` lanes with
+        their carried warm states, then the per-day slice of
+        ``mvo._finalize``. Returns ``(w, lc, sc, resid, ok, w_prev, warm,
+        warm_ring)``; ``w_prev`` in ``QP_DTYPE``."""
+        lanes = masked.shape[0]
         p_idx = max(octx.p, 0)
         pos, neg, flat = leg_masks(masked)
-        nan_d = torch.full((), float("nan"), dtype=dtype, device=dev)
-        true_d = torch.ones((), dtype=torch.bool, device=dev)
+        nan_d = torch.full((lanes,), float("nan"), dtype=dtype, device=dev)
+        true_d = torch.ones((lanes,), dtype=torch.bool, device=dev)
         if method in ("equal", "linear"):
             if method == "equal":
-                w, lc, sc = equal_weights(masked[None], s.pct)
+                w, lc, sc = equal_weights(masked[:, None], s.pct)
             else:
-                w, lc, sc = linear_weights(masked[None], s.max_weight)
-            return (w[0], lc[0], sc[0], nan_d, true_d, tstate.w_prev,
-                    tstate.warm, tstate.warm_ring)
+                w, lc, sc = linear_weights(masked[:, None], s.max_weight)
+            return (w[:, 0], lc[:, 0], sc[:, 0], nan_d, true_d,
+                    tstate.w_prev, tstate.warm, tstate.warm_ring)
 
         ucount = (octx.universe_p.sum() if has_universe
                   else torch.tensor(n, device=dev))
         zero_day = flat | (ucount < 2)
-        todays = torch.tensor([min(p_idx, lb)], device=dev)
+        todays = torch.full((lanes,), min(p_idx, lb), dtype=torch.int64,
+                            device=dev)
         returns0 = torch.nan_to_num(octx.lb_ring)
         rm = None
         if octx.risk_model is not None:
             loadings, fvar, idio, hist = octx.risk_model
-            rm = (loadings[None], fvar[None], idio[None],
-                  torch.tensor([hist], device=dev))
-        sig = masked[None].to(QP_DTYPE)
+            rm = (loadings.repeat(lanes, 1, 1), fvar.repeat(lanes, 1),
+                  idio.repeat(lanes, 1),
+                  torch.full((lanes,), hist, dtype=torch.int64, device=dev))
+        sig = masked.to(QP_DTYPE)
         may_lack = p_idx < no_hist_days
         warm, warm_ring = tstate.warm, tstate.warm_ring
         if method == "mvo":
@@ -314,59 +319,70 @@ def online_step_parts(*, names, template: TenantConfig, n_assets: int,
             # (lane i from lane i of the chunk before): the slot ring
             slot = p_idx % mvo_batch
             warm_in = (None if warm_ring is None else ADMMWarmState(
-                *(a[slot:slot + 1] for a in warm_ring)))
+                *(a[:, slot] for a in warm_ring)))
             w, resid, okc, state, _ = _solve_day(
                 sig, returns0, todays, torch.zeros_like(sig), s, b_eq, False,
                 risk_model=rm, warm=warm_in, may_lack_history=may_lack)
             if warm_ring is not None:
                 warm_ring = ADMMWarmState(*(
-                    torch.cat([a[:slot], v, a[slot + 1:]])
+                    torch.cat([a[:, :slot], v[:, None], a[:, slot + 1:]], 1)
                     for a, v in zip(warm_ring, state)))
         else:   # mvo_turnover, the sequential scan's day step
-            nan_sig = ((torch.isnan(masked) & octx.universe_p).any()[None]
+            nan_sig = ((torch.isnan(masked) & octx.universe_p).any(-1)
                        if has_universe
-                       else torch.zeros((1,), dtype=torch.bool, device=dev))
+                       else torch.zeros((lanes,), dtype=torch.bool,
+                                        device=dev))
             w, resid, okc, state, _ = _solve_day(
-                sig, returns0, todays, tstate.w_prev[None], s, b_eq, True,
+                sig, returns0, todays, tstate.w_prev, s, b_eq, True,
                 risk_model=rm, warm=warm if warm_start else None,
                 force_fallback=nan_sig, may_lack_history=may_lack)
-            w = torch.where(zero_day, 0.0, w)
+            w = torch.where(zero_day[:, None], 0.0, w)
             if warm is not None:
                 warm = state
-        w_prev = w[0]
+        w_prev = w
         # the per-day slice of mvo._finalize: zero days, no-history k
         # counts, acceptance masking
-        w = torch.where(zero_day, 0.0, w[0].to(dtype))
-        lc, sc = pos.sum(), neg.sum()
+        w = torch.where(zero_day[:, None], 0.0, w.to(dtype))
+        lc, sc = pos.sum(-1), neg.sum(-1)
         if p_idx < no_hist_days:
-            lc = torch.clamp(torch.floor(lc * s.pct), min=1.0).to(lc.dtype)
-            sc = torch.clamp(torch.floor(sc * s.pct), min=1.0).to(sc.dtype)
+            pct = knob(s.pct, lc, torch.get_default_dtype())
+            lc = torch.clamp(torch.floor(lc * pct), min=1.0).to(lc.dtype)
+            sc = torch.clamp(torch.floor(sc * pct), min=1.0).to(sc.dtype)
             okc = torch.ones_like(okc)
-        okc = okc[0] | zero_day
+        okc = okc | zero_day
         lc = torch.where(zero_day, 0, lc)
         sc = torch.where(zero_day, 0, sc)
-        return (w, lc, sc, resid[0].to(dtype), okc, w_prev, warm, warm_ring)
+        return (w, lc, sc, resid.to(dtype), okc, w_prev, warm, warm_ring)
 
-    def _not_ready(tstate: TenantState, octx: OnlineCtx):
-        nan = torch.full((), float("nan"), dtype=dtype, device=dev)
-        zero_i = torch.zeros((), dtype=torch.int64, device=dev)
+    def _not_ready(tstate: TenantState, octx: OnlineCtx, lanes: int):
+        nan = torch.full((lanes,), float("nan"), dtype=dtype, device=dev)
+        zero_i = torch.zeros((lanes,), dtype=torch.int64, device=dev)
         return tstate, AdvanceOutputs(
             ready=False, day=octx.p,
-            selection=torch.zeros((f,), dtype=dtype, device=dev),
-            signal=torch.full((n,), float("nan"), dtype=dtype, device=dev),
-            weights=torch.full((n,), float("nan"), dtype=dtype, device=dev),
+            selection=torch.zeros((lanes, f), dtype=dtype, device=dev),
+            signal=torch.full((lanes, n), float("nan"), dtype=dtype,
+                              device=dev),
+            weights=torch.full((lanes, n), float("nan"), dtype=dtype,
+                               device=dev),
             long_count=zero_i, short_count=zero_i, log_return=nan,
             long_return=nan, short_return=nan, long_turnover=nan,
             short_turnover=nan, turnover=nan, resid=nan,
-            solver_ok=torch.ones((), dtype=torch.bool, device=dev))
+            solver_ok=torch.ones((lanes,), dtype=torch.bool, device=dev))
 
-    def advance_tenant(t: TenantConfig, tstate: TenantState,
-                       octx: OnlineCtx):
+    def advance_lanes(tenants: TenantConfig, tstate: TenantState,
+                      octx: OnlineCtx):
+        """The tenant half for a session's ``C`` lanes at once:
+        ``tenants`` a :func:`~factormodeling_tpu_torch.serve.stack_configs`
+        batch, ``tstate`` their stacked state
+        (:func:`~.state.stack_tenant_states`); the outputs' tensors carry
+        the leading ``C``. The day's solve is one ``_solve_day`` of ``C``
+        lanes (one segment-kernel launch a segment for the session)."""
+        lanes = lane_count(tenants)
         p = octx.p
         if not octx.ready:
             # the very first ingested date finalizes nothing: every carry
             # holds, so the stream's day 0 stays the recompute's day 0
-            return _not_ready(tstate, octx)
+            return _not_ready(tstate, octx, lanes)
         # 1. selection: the selector over the ring context, then
         # finalize_selection's row masking and normalization over the
         # whole ring (the full step's layout, so the row sums reduce in its
@@ -375,30 +391,36 @@ def online_step_parts(*, names, template: TenantConfig, n_assets: int,
         # arrived)
         kwargs = dict(select_static)
         if select_method == "icir_top":
-            kwargs.update(top_x=int(_num(t.top_k)),
-                          icir_threshold=_num(t.icir_threshold))
+            kwargs.update(
+                top_x=torch.as_tensor(_host(tenants.top_k, np.int64),
+                                      device=dev),
+                icir_threshold=torch.as_tensor(
+                    _host(tenants.icir_threshold, np.float64), device=dev))
         if p >= window:
-            raw = selector(octx.ctx, **kwargs)               # [R, F]
-            if t.manager_mix is not None:
-                raw = raw * torch.as_tensor(t.manager_mix, dtype=raw.dtype,
-                                            device=dev)
+            raw = selector(octx.ctx, **kwargs)            # [C, R, F]
+            if raw.ndim == 2:
+                raw = raw.expand(lanes, *raw.shape)
+            if tenants.manager_mix is not None:
+                raw = raw * torch.as_tensor(_host(tenants.manager_mix, None),
+                                            dtype=raw.dtype,
+                                            device=dev)[:, None, :]
             keep = torch.arange(ring, device=dev) == q_p
             raw = torch.where(keep[:, None], raw, 0.0)
             raw = torch.where(torch.isnan(raw), 0.0, raw)
-            rowsum = raw.sum(1, keepdim=True)
+            rowsum = raw.sum(-1, keepdim=True)
             sel = torch.where(rowsum > 0, raw / torch.where(rowsum > 0,
                                                             rowsum, 1.0),
-                              0.0)[q_p]
+                              0.0)[:, q_p]
         else:
-            sel = torch.zeros((f,), dtype=dtype, device=dev)
+            sel = torch.zeros((lanes, f), dtype=dtype, device=dev)
         # 2. single-date blend (every op inside is per date)
         signal = composite_weighted(
-            octx.factors_p[:, None, :], names, sel[None, :],
+            octx.factors_p[:, None, :], names, sel[:, None, :],
             method=template.blend_method,
             universe=(octx.universe_p[None] if has_universe else None),
-            group_tilt=t.blend_tilt)[0]
+            group_tilt=tenants.blend_tilt)[:, 0]
         # 3. the day's weight solve
-        s = _day_settings(t, octx)
+        s = _day_settings(tenants, octx)
         masked = signal * octx.invest_p
         w, lc, sc, resid, okc, w_prev, warm, warm_ring = _day_weights(
             tstate, octx, masked, s)
@@ -416,8 +438,8 @@ def online_step_parts(*, names, template: TenantConfig, n_assets: int,
         r = torch.nan_to_num(octx.returns_p)
         longs = torch.clamp(wt, min=0.0)
         shorts = torch.abs(torch.clamp(wt, max=0.0))
-        long_ret_raw = (longs * r).sum()
-        short_ret_raw = -(shorts * r).sum()
+        long_ret_raw = (longs * r).sum(-1)
+        short_ret_raw = -(shorts * r).sum(-1)
         if p > 0:
             prev = torch.nan_to_num(tstate.traded_prev)
             dlong = torch.abs(longs - torch.clamp(prev, min=0.0))
@@ -425,10 +447,10 @@ def online_step_parts(*, names, template: TenantConfig, n_assets: int,
                                                               max=0.0)))
         else:
             dlong = dshort = torch.zeros_like(longs)
-        rates = s.cost_rates()[0]
+        rates = s.cost_rates()[..., 0, :]                 # [C, N]
         if probe.transaction_cost:
-            long_ret = long_ret_raw - (dlong * rates).sum()
-            short_ret = short_ret_raw - (dshort * rates).sum()
+            long_ret = long_ret_raw - (dlong * rates).sum(-1)
+            short_ret = short_ret_raw - (dshort * rates).sum(-1)
         else:
             long_ret, short_ret = long_ret_raw, short_ret_raw
         new = TenantState(
@@ -438,7 +460,7 @@ def online_step_parts(*, names, template: TenantConfig, n_assets: int,
                               - dlong * rates),
             short_pnl_by_name=(tstate.short_pnl_by_name - shorts * r
                                - dshort * rates))
-        lt, st = dlong.sum(), dshort.sum()
+        lt, st = dlong.sum(-1), dshort.sum(-1)
         out = AdvanceOutputs(
             ready=True, day=p, selection=sel, signal=signal, weights=traded,
             long_count=lc, short_count=sc, log_return=long_ret + short_ret,
@@ -446,7 +468,24 @@ def online_step_parts(*, names, template: TenantConfig, n_assets: int,
             short_turnover=st, turnover=lt + st, resid=resid, solver_ok=okc)
         return new, out
 
+    def advance_tenant(t: TenantConfig, tstate: TenantState,
+                       octx: OnlineCtx):
+        """The tenant half for one tenant: :func:`advance_lanes` on one
+        lane, so a session's lane and this advance run the same lines."""
+        new, out = advance_lanes(one_lane(t), stack_tenant_states([tstate]),
+                                 octx)
+        return tenant_state_lane(new, 0), lane_outputs(out, 0)
+
+    advance_tenant.lanes = advance_lanes
     return init_market, init_tenant, advance_market, advance_tenant
+
+
+def lane_outputs(out: AdvanceOutputs, lane: int) -> AdvanceOutputs:
+    """Lane ``lane`` of a session's advance row (``ready`` and ``day`` are
+    the market's)."""
+    return AdvanceOutputs(out.ready, out.day,
+                          *(getattr(out, k)[lane]
+                            for k in AdvanceOutputs._fields[2:]))
 
 
 def make_online_step(*, names, template: TenantConfig | None = None,

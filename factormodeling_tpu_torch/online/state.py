@@ -19,6 +19,11 @@ carries this state instead, split in two:
   ``t`` warm-starts from day ``t - mvo_batch``, as the full step's chunks
   of lanes do), and the running per-name P&L.
 
+A session of ``C`` tenants advances their states stacked along a leading
+lane axis (:func:`stack_tenant_states`; :func:`tenant_state_lane` takes one
+back): every tensor gains the axis, the turnover scan's one-lane warm state
+becomes ``C`` lanes and plain MVO's ring ``[C, mvo_batch, ...]``.
+
 Every tensor lives on the engine's device. The date counters ``day`` and
 ``version`` are host integers: the host decides which date it advances, so
 every choice that depends on the date alone (is a date ready, processed,
@@ -40,7 +45,8 @@ from factormodeling_tpu_torch.backtest.mvo import QP_DTYPE
 from factormodeling_tpu_torch.solvers.admm_qp import ADMMWarmState
 
 __all__ = ["AdvanceOutputs", "DateSlice", "MarketState", "TenantState",
-           "init_market_state", "init_tenant_state"]
+           "init_market_state", "init_tenant_state", "stack_tenant_states",
+           "tenant_state_lane"]
 
 
 class DateSlice(NamedTuple):
@@ -169,3 +175,42 @@ def init_tenant_state(*, n_assets: int, dtype, method: str,
         warm=warm, warm_ring=warm_ring,
         long_pnl_by_name=torch.zeros((n,), dtype=dtype, device=device),
         short_pnl_by_name=torch.zeros((n,), dtype=dtype, device=device))
+
+
+def stack_tenant_states(states) -> TenantState:
+    """Per-tenant states stacked into one state of ``C`` lanes."""
+    states = list(states)
+    first = states[0]
+
+    def pick(field, sub=None):
+        vals = [getattr(t, field) for t in states]
+        return vals if sub is None else [getattr(v, sub) for v in vals]
+
+    def warm(field, join):
+        if getattr(first, field) is None:
+            return None
+        return ADMMWarmState(*(join(pick(field, k))
+                               for k in ADMMWarmState._fields))
+
+    return TenantState(
+        w_prev=torch.stack(pick("w_prev")),
+        book_carry=torch.stack(pick("book_carry")),
+        traded_prev=torch.stack(pick("traded_prev")),
+        warm=warm("warm", torch.cat), warm_ring=warm("warm_ring", torch.stack),
+        long_pnl_by_name=torch.stack(pick("long_pnl_by_name")),
+        short_pnl_by_name=torch.stack(pick("short_pnl_by_name")))
+
+
+def tenant_state_lane(ts: TenantState, lane: int) -> TenantState:
+    """Lane ``lane`` of a stacked state, as one tenant's state (the
+    turnover warm state keeps its lane axis of one)."""
+    def warm(x, pick):
+        return None if x is None else ADMMWarmState(*(pick(a) for a in x))
+
+    return TenantState(
+        w_prev=ts.w_prev[lane], book_carry=ts.book_carry[lane],
+        traded_prev=ts.traded_prev[lane],
+        warm=warm(ts.warm, lambda a: a[lane:lane + 1]),
+        warm_ring=warm(ts.warm_ring, lambda a: a[lane]),
+        long_pnl_by_name=ts.long_pnl_by_name[lane],
+        short_pnl_by_name=ts.short_pnl_by_name[lane])

@@ -78,23 +78,39 @@ class ResearchOutput(NamedTuple):
     probes: dict | None = None
 
 
+#: a row reduction on the card takes its block shape from the row count
+#: below this many rows, so the summary reduces at least this many rows
+#: (zero rows padded on): a lane's sums are then the same alone as in a
+#: batch of lanes
+_MIN_ROWS = 16
+
+
 def result_summary(result: DailyResult) -> ResearchSummary:
     """Summary scalars of a [D]-shaped daily result (simple-return Sharpe via
-    exp(log_return) - 1); a ``[..., D]`` result (the sweep's combos) gives
-    one summary per leading index."""
-    simple = torch.expm1(result.log_return)
+    exp(log_return) - 1); a ``[..., D]`` result (the sweep's combos, the
+    serving lanes) gives one summary per leading index."""
+    lead = result.log_return.shape[:-1]
+    rows = math.prod(lead)
+
+    def padded(x):
+        x = x.reshape(rows, x.shape[-1])
+        if rows >= _MIN_ROWS:
+            return x
+        return torch.cat([x, x.new_zeros((_MIN_ROWS - rows, x.shape[-1]))])
+
+    log_return, turnover = padded(result.log_return), padded(result.turnover)
+    simple = torch.expm1(log_return)
     mean, std, n = nan_mean_std(simple, -1)
     ok = ~torch.isnan(simple)
-    t_mean, _, _ = nan_mean_std(result.turnover, -1)
+    t_mean, _, _ = nan_mean_std(turnover, -1)
     hits = (torch.where(ok, simple, 0.0) > 0).sum(-1).to(simple.dtype)
     root = math.sqrt(_ANNUALIZE)
-    return ResearchSummary(
-        total_log_return=torch.where(ok, result.log_return, 0.0).sum(-1),
-        sharpe=mean / std * root,
-        ann_volatility=std * root,
-        mean_turnover=t_mean,
-        hit_rate=hits / torch.where(n > 0, n, float("nan")),
-    )
+    return ResearchSummary(*(v[:rows].reshape(lead) for v in (
+        torch.where(ok, log_return, 0.0).sum(-1),
+        mean / std * root,
+        std * root,
+        t_mean,
+        hits / torch.where(n > 0, n, float("nan")))))
 
 
 def build_research_step(*, names, window: int,

@@ -96,15 +96,17 @@ class HoldStats(NamedTuple):
 def quarantine_days(factors: torch.Tensor, universe,
                     policy: DegradePolicy) -> torch.Tensor:
     """``bool[D]``: dates whose in-universe factor NaN share exceeds the
-    quarantine threshold. With no universe, every cell counts."""
-    f, d, n = factors.shape
+    quarantine threshold. With no universe, every cell counts. A ``[C, F,
+    D, N]`` stack (one a lane, universe ``[D, N]`` or ``[C, D, N]``) gives
+    ``[C, D]``."""
+    f, d, n = factors.shape[-3:]
     nan = torch.isnan(factors)
     if universe is not None:
-        nan = nan & universe
+        nan = nan & universe[..., None, :, :]
         denom = torch.clamp(universe.sum(-1) * f, min=1)
     else:
         denom = torch.full((d,), n * f, device=factors.device)
-    frac = nan.sum((0, -1)) / denom.to(factors.dtype)
+    frac = nan.sum((-3, -1)) / denom.to(factors.dtype)
     return frac > policy.quarantine_nan_frac
 
 
@@ -118,13 +120,14 @@ def quarantine_inputs(factors: torch.Tensor, factor_ret: torch.Tensor, qday):
 
 def clamp_signal(signal: torch.Tensor, policy: DegradePolicy):
     """Clamp the composite to ``+-clamp_absmax`` (Inf clamps too; NaN
-    passes through). Returns ``(clamped, clamped_cells, clamped_days)``;
-    with the default ``inf`` threshold the clamp is a bitwise identity."""
+    passes through). Returns ``(clamped, clamped_cells, clamped_days)``,
+    the tallies one a lane for a ``[C, D, N]`` composite; with the default
+    ``inf`` threshold the clamp is a bitwise identity."""
     c = policy.clamp_absmax
     over = torch.abs(signal) > c          # False for NaN; True for Inf
     clamped = torch.clamp(signal, -c, c)
-    return (clamped, over.sum().to(torch.int32),
-            over.any(-1).sum().to(torch.int32))
+    return (clamped, over.flatten(-2).sum(-1).to(torch.int32),
+            over.any(-1).sum(-1).to(torch.int32))
 
 
 def hold_weights(w: torch.Tensor, lc, sc, solver_ok, universe_count,
@@ -139,18 +142,21 @@ def hold_weights(w: torch.Tensor, lc, sc, solver_ok, universe_count,
     it takes zeros. The gather only selects rows, so it is bitwise the
     scan. Leg counts on held dates are recounted from the held book.
     Returns ``(w, lc, sc, HoldStats)``; with the default policy the outputs
-    are bitwise the inputs."""
-    held_mu = universe_count < policy.min_universe
+    are bitwise the inputs. ``[C, D, N]`` lanes hold each its own book and
+    tally one a lane (``universe_count`` ``[D]`` shared or ``[C, D]``)."""
+    held_mu = (universe_count < policy.min_universe).expand(lc.shape)
     carried = ~solver_ok & ~held_mu if policy.carry_fallback \
         else torch.zeros_like(held_mu)
     hold = held_mu | carried
-    days = torch.arange(w.shape[0], device=w.device)
-    last = torch.cummax(torch.where(hold, -1, days), dim=0).values
-    w2 = torch.where((last >= 0)[:, None], w[torch.clamp(last, min=0)], 0.0)
+    days = torch.arange(w.shape[-2], device=w.device)
+    last = torch.cummax(torch.where(hold, -1, days), dim=-1).values
+    book = torch.take_along_dim(w, torch.clamp(last, min=0)[..., None],
+                                dim=-2)
+    w2 = torch.where((last >= 0)[..., None], book, 0.0)
     lc2 = torch.where(hold, (w2 > 0).sum(-1).to(lc.dtype), lc)
     sc2 = torch.where(hold, (w2 < 0).sum(-1).to(sc.dtype), sc)
-    stats = HoldStats(held_days=held_mu.sum().to(torch.int32),
-                      carry_days=carried.sum().to(torch.int32))
+    stats = HoldStats(held_days=held_mu.sum(-1).to(torch.int32),
+                      carry_days=carried.sum(-1).to(torch.int32))
     return w2, lc2, sc2, stats
 
 

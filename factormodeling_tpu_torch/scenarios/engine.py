@@ -23,16 +23,20 @@ by gather or mask, so no sort touches a per-path stack:
   hoisted stats are exact, and with the factors and the universe the base
   market's, the selection context, the selection and the blend are the
   same on every path. They run once a dispatch (``tenant_body.prefix``)
-  and each path runs the simulation alone (``tenant_body.simulate``), as
-  the JAX package's vmap leaves that prefix unbatched;
+  and the simulation runs once on the ``[P, D, N]`` stack of return views
+  (``tenant_body.simulate``), as the JAX package's vmap leaves that prefix
+  unbatched;
 - **adversarial** day classes act on the stats by gather (stale) and NaN
   mask (drop); cell classes corrupt the ``[D, N]`` market surface the blend
   and the backtest consume (the per-path factor view and return panel).
 
-The JAX package vmaps the paths; the port's backtest is a Python loop over
-dates that no vmap reaches, so the paths loop as the serving layer loops
-its real tenant lanes, each against its own view. The draws are made on
-the host (:mod:`.spec`); only masks and indices move to the device.
+The JAX package vmaps the paths; the port runs them as the lanes of the
+serving layer's tenant body: each sub-batch of at most ``map_chunk`` paths
+stacks its market views and per-path selection contexts along a path axis
+and runs the tenant body once (the bootstrap and adversarial families),
+so the backtest's day loop and its solves run once for all of them. The
+draws are made on the host (:mod:`.spec`); only masks and indices move to
+the device.
 
 **Chunking and resume**: paths dispatch in host-loop chunks; the per-chunk
 path metrics fold into
@@ -62,8 +66,11 @@ from factormodeling_tpu_torch.scenarios.spec import (family_of, leaves,
                                                      path_key)
 from factormodeling_tpu_torch.selection import (finish_selection_context,
                                                 selection_metric_needs)
-from factormodeling_tpu_torch.serve.batched import (_stack, tenant_step_parts,
+from factormodeling_tpu_torch.selection.selectors import SelectionContext
+from factormodeling_tpu_torch.serve.batched import (one_lane,
+                                                    tenant_step_parts,
                                                     tree_lane)
+from factormodeling_tpu_torch.serve.tenant import _VALUE_LEAVES
 
 __all__ = ["ScenarioResult", "make_scenario_runner", "make_scenario_step",
            "run_scenarios"]
@@ -75,19 +82,38 @@ _STOP_ENV = "_FMT_SCEN_STOP_AFTER_CHUNK"
 
 
 def _path_metrics(out) -> dict:
-    """Per-path risk scalars off one ResearchOutput (0-d tensors on the
-    device; the names are
+    """Per-path risk scalars off a ResearchOutput of ``P`` path lanes
+    (``[P]`` tensors on the device; the names are
     :data:`~factormodeling_tpu_torch.scenarios.risk.RISK_METRICS`)."""
-    lr = out.sim.result.log_return                       # [D]
+    lr = out.sim.result.log_return                       # [P, D]
     lr0 = torch.where(torch.isnan(lr), 0.0, lr)
-    cum = torch.cumsum(lr0, 0)
-    running_peak = torch.cummax(torch.clamp(cum, min=0.0), 0).values
+    cum = torch.cumsum(lr0, -1)
+    running_peak = torch.cummax(torch.clamp(cum, min=0.0), -1).values
     return {
         "pnl_total": out.summary.total_log_return,
-        "max_drawdown": torch.max(running_peak - cum),
+        "max_drawdown": (running_peak - cum).amax(-1),
         "mean_turnover": out.summary.mean_turnover,
-        "worst_day_loss": -torch.min(lr0),
+        "worst_day_loss": -lr0.amin(-1),
     }
+
+
+def _lanes_of(tenant, p: int):
+    """One normalized config as a batch of ``p`` identical lanes."""
+    one = one_lane(tenant)
+    return dataclasses.replace(one, **{
+        name: np.repeat(getattr(one, name), p, axis=0)
+        for name in _VALUE_LEAVES if getattr(one, name) is not None})
+
+
+def _stack_contexts(ctxs) -> SelectionContext:
+    """Per-path selection contexts stacked along a leading path axis."""
+    first = ctxs[0]
+    return SelectionContext(
+        metrics_win={k: torch.stack([c.metrics_win[k] for c in ctxs])
+                     for k in first.metrics_win},
+        factor_ret=torch.stack([c.factor_ret for c in ctxs]),
+        ret_win_sum=torch.stack([c.ret_win_sum for c in ctxs]),
+        window=first.window)
 
 
 def _policy_leaves(policy) -> list:
@@ -115,10 +141,10 @@ def make_scenario_step(*, names, template, family: str,
     dict (+ degrade tallies with a policy, + the stacked ResearchOutput
     when ``return_books``).
 
-    ``map_chunk``: the JAX package's bound on the paths resident at once
-    (it maps vmapped sub-batches of that width). The port builds one
-    path's view at a time, so any width gives the same outputs; it is
-    validated and kept for the runner's build identity.
+    ``map_chunk``: the bound on the paths resident at once: each
+    sub-batch of at most that many paths (None: all of a call's) is one
+    tenant-body call on their stacked views, as the JAX package maps
+    vmapped sub-batches of that width; any width gives the same outputs.
     """
     if family not in ("bootstrap", "regime", "adversarial"):
         raise ValueError(f"unknown scenario family {family!r}")
@@ -156,7 +182,7 @@ def make_scenario_step(*, names, template, family: str,
     def finish(out, tallies, policy):
         if policy is not None:
             hold = out.sim.degrade
-            zero = torch.zeros((), dtype=torch.int32,
+            zero = torch.zeros(out.signal.shape[:1], dtype=torch.int32,
                                device=out.signal.device)
             tallies = dict(tallies,
                            held_days=(zero if hold is None
@@ -230,51 +256,72 @@ def make_scenario_step(*, names, template, family: str,
                 raw = daily_factor_stats(factors, returns, shift_periods=2,
                                          universe=universe, stats=needs)
                 daily = {k: raw[k] for k in needs}          # [F, D] each
+        path_ix = [int(p) for p in path_ix]
+        width = len(path_ix) if map_chunk is None else int(map_chunk)
+        batches = [path_ix[lo:lo + width]
+                   for lo in range(0, len(path_ix), width)]
         outs, tallies = [], []
         with obs_stage("scenarios/paths"):
             if family == "regime":
                 ctx, tal = context(daily, factor_ret, factors, universe,
                                    policy)
-                sel, signal = tenant_body.prefix(tenant, ctx, factors,
-                                                 universe, policy=policy)
-                for p in path_ix:
-                    r_view = spec.transform_returns(path_key(spec, p),
-                                                    returns)
-                    out = tenant_body.simulate(tenant, sel, signal, r_view,
-                                               cap_flag, investability,
-                                               universe, policy=policy)
-                    out, t = finish(out, tal, policy)
+                sel, signal = tenant_body.prefix(one_lane(tenant), ctx,
+                                                 factors, universe,
+                                                 policy=policy)
+                for ps in batches:
+                    p = len(ps)
+                    r_views = torch.stack([spec.transform_returns(
+                        path_key(spec, i), returns) for i in ps])
+                    out = tenant_body.simulate(
+                        _lanes_of(tenant, p), sel.expand(p, *sel.shape[1:]),
+                        signal.expand(p, *signal.shape[1:]), r_views,
+                        cap_flag, investability, universe, policy=policy)
+                    out, t = finish(out, None if tal is None else {
+                        k: v.expand(p) for k, v in tal.items()}, policy)
                     outs.append(out)
                     tallies.append(t)
             else:
-                for p in path_ix:
-                    (idx, stat_nan, f_view, r_view, fr_view, cap_view,
-                     inv_view, uni_view) = view(spec, p, factors, returns,
-                                                factor_ret, cap_flag,
-                                                investability, universe)
-                    daily_p = {k: (v if idx is None
-                                   else v.index_select(1, idx))
-                               for k, v in daily.items()}
-                    if stat_nan is not None:
-                        daily_p = {k: torch.where(stat_nan[None, :],
-                                                  float("nan"), v)
-                                   for k, v in daily_p.items()}
-                    ctx, tal = context(daily_p, fr_view, f_view, uni_view,
-                                       policy)
-                    out = tenant_body(tenant, ctx, f_view, r_view, cap_view,
-                                      inv_view, uni_view, policy=policy)
-                    out, t = finish(out, tal, policy)
+                for ps in batches:
+                    views, ctxs, tals = [], [], []
+                    for i in ps:
+                        (idx, stat_nan, f_view, r_view, fr_view, cap_view,
+                         inv_view, uni_view) = view(spec, i, factors, returns,
+                                                    factor_ret, cap_flag,
+                                                    investability, universe)
+                        daily_p = {k: (v if idx is None
+                                       else v.index_select(1, idx))
+                                   for k, v in daily.items()}
+                        if stat_nan is not None:
+                            daily_p = {k: torch.where(stat_nan[None, :],
+                                                      float("nan"), v)
+                                       for k, v in daily_p.items()}
+                        ctx, tal = context(daily_p, fr_view, f_view,
+                                           uni_view, policy)
+                        views.append((f_view, r_view, cap_view, inv_view,
+                                      uni_view))
+                        ctxs.append(ctx)
+                        tals.append(tal)
+                    f_v, r_v, cap_v, inv_v, uni_v = (
+                        None if col[0] is None else torch.stack(col)
+                        for col in zip(*views))
+                    out = tenant_body(_lanes_of(tenant, len(ps)),
+                                      _stack_contexts(ctxs), f_v, r_v, cap_v,
+                                      inv_v, uni_v, policy=policy)
+                    out, t = finish(out, None if policy is None else {
+                        k: torch.stack([t[k] for t in tals])
+                        for k in tals[0]}, policy)
                     outs.append(out)
                     tallies.append(t)
-        mets = {k: torch.stack([_path_metrics(o)[k] for o in outs])
+        per_batch = [_path_metrics(o) for o in outs]
+        mets = {k: torch.cat([m[k] for m in per_batch])
                 for k in ("pnl_total", "max_drawdown", "mean_turnover",
                           "worst_day_loss")}
         res = (mets,)
         if policy is not None:
-            res += ({k: torch.stack([t[k] for t in tallies])
+            res += ({k: torch.cat([t[k] for t in tallies])
                      for k in tallies[0]},)
         if return_books:
-            res += (_stack(outs, factors.device),)
+            res += (_cat_trees(outs),)
         return res[0] if len(res) == 1 else res
 
     return step

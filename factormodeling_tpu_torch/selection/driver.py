@@ -94,13 +94,14 @@ def selection_metric_needs(method: str, method_kwargs: dict | None = None):
 
 def finalize_selection(raw: torch.Tensor, window: int) -> torch.Tensor:
     """Zero outside the processed range ``dates[window:-1]``, NaN -> 0, rows
-    normalized to sum 1 with all-zero rows left at 0."""
-    d = raw.shape[0]
+    normalized to sum 1 with all-zero rows left at 0; ``raw`` is ``[D, F]``
+    or ``[C, D, F]`` lanes."""
+    d = raw.shape[-2]
     i = torch.arange(d, device=raw.device)
     processed = (i >= window) & (i <= d - 2)
     raw = torch.where(processed[:, None], raw, 0.0)
     raw = torch.where(torch.isnan(raw), 0.0, raw)
-    rowsum = raw.sum(1, keepdim=True)
+    rowsum = raw.sum(-1, keepdim=True)
     return torch.where(rowsum > 0, raw / torch.where(rowsum > 0, rowsum, 1.0), 0.0)
 
 

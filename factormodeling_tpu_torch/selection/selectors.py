@@ -18,6 +18,7 @@ from typing import Callable
 
 import torch
 
+from factormodeling_tpu_torch.backtest.settings import knob
 from factormodeling_tpu_torch.selection.shrinkage import (
     ledoit_wolf_shrinkage, masked_pairwise_cov)
 from factormodeling_tpu_torch.solvers.admm_qp import (BoxQPProblem,
@@ -47,14 +48,23 @@ def icir_top_selector(ctx: SelectionContext, *, icir_threshold: float = 0.03,
                       top_x: int = 5, use_rank_icir: bool = True,
                       **_ignored) -> torch.Tensor:
     """Equal-weight the top ``top_x`` factors whose (rank-)ICIR exceeds the
-    threshold; ties keep first-factor order like pandas ``nlargest``."""
+    threshold; ties keep first-factor order like pandas ``nlargest``.
+
+    Lanes, the JAX package's traced form: ``top_x`` / ``icir_threshold``
+    may be ``[C]`` tensors (the mask ``rank_of < k`` a lane) and the
+    context's metrics ``[C, F, D]`` (one context a lane); either gives
+    ``[C, D, F]``."""
     score = ctx.metrics_win["rank_IC_IR" if use_rank_icir else "IC_IR"]  # [F, D]
-    eligible = score > icir_threshold  # NaN -> False
+    lanes = next((v.shape[0] for v in (top_x, icir_threshold)
+                  if isinstance(v, torch.Tensor)), None)
+    if lanes is not None and score.ndim == 2:
+        score = score.expand(lanes, *score.shape)
+    eligible = score > knob(icir_threshold, score)  # NaN -> False
     keyed = torch.where(eligible, score, float("-inf"))
-    order = torch.argsort(-keyed, dim=0, stable=True)
-    rank_of = torch.argsort(order, dim=0, stable=True)
-    chosen = eligible & (rank_of < top_x)
-    return chosen.to(score.dtype).T  # [D, F]
+    order = torch.argsort(-keyed, dim=-2, stable=True)
+    rank_of = torch.argsort(order, dim=-2, stable=True)
+    chosen = eligible & (rank_of < knob(top_x, rank_of))
+    return chosen.to(score.dtype).mT  # [D, F]
 
 
 def factor_momentum_selector(ctx: SelectionContext, *, max_weight: float = 1.0,

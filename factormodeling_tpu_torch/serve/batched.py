@@ -7,12 +7,14 @@
   :func:`~factormodeling_tpu_torch.selection.build_selection_context` runs
   once however many tenants the batch holds, as the JAX package hoists it
   out of its vmap.
-- The tenant body runs once per lane: the top-k mask over the ICIR
-  scores, the manager-mix split, the group-tilted blend, the simulation
-  under the tenant's settings, the summary. The JAX package vmaps it; the
-  port's backtest is a Python loop over dates, which no vmap reaches, so
-  the body loops over the lanes (for ``mvo_turnover``, K2 launches once a
-  segment a date a tenant).
+- The tenant body runs once per dispatch on every lane at once, what the
+  JAX package's vmap computes: the traced top-k mask ``rank_of < k`` over
+  the ICIR scores (``[C]`` knobs), the manager-mix split, the group-tilted
+  blend (``[C, D, F]`` selections), the simulation under ``[C]`` settings
+  knobs (``backtest.engine``'s lanes; for ``mvo_turnover`` one day loop
+  for the bucket, K2 launched once a segment a date for all its lanes),
+  the summary. Every lane computes the bits of its own single-tenant
+  step, which is the same code on one lane.
 
 The batched step returns a
 :class:`~factormodeling_tpu_torch.parallel.ResearchOutput` whose leaves
@@ -30,7 +32,9 @@ import numpy as np
 import torch
 
 from factormodeling_tpu_torch.backtest.engine import run_simulation
-from factormodeling_tpu_torch.backtest.settings import SimulationSettings
+from factormodeling_tpu_torch.backtest.settings import (LANE_KNOBS,
+                                                        SimulationSettings,
+                                                        lane_knobs)
 from factormodeling_tpu_torch.composite import composite_weighted
 from factormodeling_tpu_torch.obs.trace import stage as obs_stage
 from factormodeling_tpu_torch.parallel.pipeline import (ResearchOutput,
@@ -45,11 +49,16 @@ __all__ = ["make_tenant_research_step", "make_batched_research_step",
            "tenant_step_parts"]
 
 
+def _host(v, dtype) -> np.ndarray:
+    """A value leaf as a host array of ``dtype``."""
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().numpy()
+    return np.asarray(v, dtype=dtype)
+
+
 def _num(v):
     """A value leaf as a Python number."""
-    if isinstance(v, torch.Tensor):
-        return v.item()
-    return np.asarray(v).item()
+    return _host(v, None).item()
 
 
 def _tree_map(fn, *trees):
@@ -81,20 +90,45 @@ def _stack(outs, device):
     return _tree_map(stack, *outs)
 
 
-def _config_lane(stacked: TenantConfig, lane: int) -> TenantConfig:
-    """Lane ``lane`` of a :func:`~.tenant.stack_configs` batch."""
+def _config_lanes(stacked: TenantConfig, lanes) -> TenantConfig:
+    """The lanes ``lanes`` (an index or a slice) of a
+    :func:`~.tenant.stack_configs` batch."""
     return dataclasses.replace(stacked, **{
-        name: getattr(stacked, name)[lane] for name in _VALUE_LEAVES
+        name: getattr(stacked, name)[lanes] for name in _VALUE_LEAVES
         if getattr(stacked, name) is not None})
+
+
+def one_lane(tenant: TenantConfig) -> TenantConfig:
+    """A single config as a batch of one lane (every value leaf gains the
+    leading axis)."""
+    return dataclasses.replace(tenant, **{
+        name: _host(getattr(tenant, name), None)[None]
+        for name in _VALUE_LEAVES if getattr(tenant, name) is not None})
+
+
+def lane_count(tenants: TenantConfig) -> int:
+    """The lanes of a stacked batch."""
+    return int(np.shape(tenants.top_k)[0])
+
+
+def _context_lane(ctx, lane: int):
+    """Lane ``lane`` of a context whose tensors carry a lane axis."""
+    return dataclasses.replace(
+        ctx, metrics_win={k: v[lane] for k, v in ctx.metrics_win.items()},
+        factor_ret=ctx.factor_ret[lane], ret_win_sum=ctx.ret_win_sum[lane])
 
 
 def tenant_step_parts(names, template: TenantConfig):
     """The tenant step's two halves: ``(build_ctx, tenant_body)``, where
     ``build_ctx(factors, returns, factor_ret, universe)`` builds the
     selection metric context from the market panels and
-    ``tenant_body(tenant, ctx, factors, returns, cap_flag, investability,
+    ``tenant_body(tenants, ctx, factors, returns, cap_flag, investability,
     universe, policy=None)`` runs selector -> mix -> blend -> simulation ->
-    summary for one tenant against it.
+    summary against it for a :func:`~.tenant.stack_configs` batch of ``C``
+    lanes (:func:`one_lane` makes one config a batch), every lane at once:
+    the outputs carry the leading ``C``. The context and the panels are
+    shared (unbatched) or carry the lane axis too (``[C, ...]``: one
+    market view a lane, the scenario engine's paths).
 
     With ``policy`` (a
     :class:`~factormodeling_tpu_torch.resil.policy.DegradePolicy`) the
@@ -144,17 +178,29 @@ def _make_parts(names, template: TenantConfig):
                                            stats=needs)
 
     def prefix(t: TenantConfig, ctx, factors, universe, policy=None):
+        c = lane_count(t)
+        dev = factors.device
         kwargs = dict(select_static)
         if select_method == "icir_top":
-            kwargs.update(top_x=int(_num(t.top_k)),
-                          icir_threshold=_num(t.icir_threshold))
+            kwargs.update(
+                top_x=torch.as_tensor(_host(t.top_k, np.int64), device=dev),
+                icir_threshold=torch.as_tensor(_host(t.icir_threshold,
+                                                     np.float64),
+                                               device=dev))
         with obs_stage("serve/selection"):
-            raw = selector(ctx, **kwargs)  # [D, F]
+            if select_method == "icir_top" or ctx.factor_ret.ndim == 2:
+                raw = selector(ctx, **kwargs)  # [C, D, F] or shared [D, F]
+            else:   # a selector over one context a lane
+                raw = torch.stack([selector(_context_lane(ctx, i), **kwargs)
+                                   for i in range(c)])
+            if raw.ndim == 2:
+                raw = raw.expand(c, *raw.shape)
             if t.manager_mix is not None:
                 # capital splits among the day's selected factors by the
                 # tenant's mix; finalize_selection renormalizes the rows
-                raw = raw * torch.as_tensor(t.manager_mix, dtype=raw.dtype,
-                                            device=raw.device)[None, :]
+                raw = raw * torch.as_tensor(_host(t.manager_mix, None),
+                                            dtype=raw.dtype,
+                                            device=dev)[:, None, :]
             sel = finalize_selection(raw, window)
         with obs_stage("serve/blend"):
             signal = composite_weighted(factors, names, sel,
@@ -170,15 +216,13 @@ def _make_parts(names, template: TenantConfig):
 
     def simulate(t: TenantConfig, sel, signal, returns, cap_flag,
                  investability, universe, policy=None) -> ResearchOutput:
+        knobs = lane_knobs({name: _host(getattr(t, name), np.float64)
+                            for name in LANE_KNOBS}, signal.device)
         settings = SimulationSettings(
             returns=returns, cap_flag=cap_flag,
             investability_flag=investability, universe=universe,
             method=template.method, lookback_period=template.lookback_period,
-            max_weight=_num(t.max_weight), pct=_num(t.pct),
-            shrinkage_intensity=_num(t.shrinkage_intensity),
-            turnover_penalty=_num(t.turnover_penalty),
-            return_weight=_num(t.return_weight),
-            tcost_scale=_num(t.tcost_scale), degrade=policy, **sim_static)
+            degrade=policy, **knobs, **sim_static)
         sim = run_simulation(signal, settings)
         with obs_stage("pipeline/summary"):
             summary = result_summary(sim.result)
@@ -199,14 +243,16 @@ def make_tenant_research_step(*, names, template: TenantConfig):
     """Single-config counterpart of the batched step:
     ``step(tenant, factors, returns, factor_ret, cap_flag, investability,
     universe=None)`` for any config of the template's signature bucket,
-    the tenant's knobs read from its value leaves."""
+    the tenant's knobs read from its value leaves: the tenant body on one
+    lane, so a lane of the batched step and this step run the same
+    lines."""
     build_ctx, tenant_body = _make_parts(names, template)
 
     def step(tenant, factors, returns, factor_ret, cap_flag, investability,
              universe=None) -> ResearchOutput:
         ctx = build_ctx(factors, returns, factor_ret, universe)
-        return tenant_body(tenant, ctx, factors, returns, cap_flag,
-                           investability, universe)
+        return tree_lane(tenant_body(one_lane(tenant), ctx, factors, returns,
+                                     cap_flag, investability, universe), 0)
 
     return step
 
@@ -221,22 +267,26 @@ def make_batched_research_step(*, names, template: TenantConfig):
     carry the config axis: ``selection [C, D, F]``, ``signal [C, D, N]``,
     the stacked simulation outputs and summaries.
 
-    The selection metric context is built once per call, outside the
-    lane loop (module docs). ``lanes``: compute the first ``lanes`` lanes
-    only; the rest repeat lane ``lanes - 1``'s output."""
+    The selection metric context is built once per call and the tenant
+    body runs once on the computed lanes (module docs). ``lanes``: compute
+    the first ``lanes`` lanes only; the rest repeat lane ``lanes - 1``'s
+    output."""
     build_ctx, tenant_body = _make_parts(names, template)
 
     def step(tenants, factors, returns, factor_ret, cap_flag, investability,
              universe=None, *, lanes=None) -> ResearchOutput:
-        c = int(np.shape(tenants.top_k)[0])
+        c = lane_count(tenants)
         k = c if lanes is None else int(lanes)
         if not 1 <= k <= c:
             raise ValueError(f"lanes must be in [1, {c}], got {lanes}")
         ctx = build_ctx(factors, returns, factor_ret, universe)
         with obs_stage("serve/tenants"):
-            outs = [tenant_body(_config_lane(tenants, i), ctx, factors,
-                                returns, cap_flag, investability, universe)
-                    for i in range(k)]
-        return _stack(outs + [outs[-1]] * (c - k), factors.device)
+            out = tenant_body(_config_lanes(tenants, slice(0, k)), ctx,
+                              factors, returns, cap_flag, investability,
+                              universe)
+        if k == c:
+            return out
+        return _tree_map(lambda a: torch.cat(
+            [a, a[k - 1:k].expand((c - k,) + a.shape[1:])]), out)
 
     return step

@@ -14,13 +14,14 @@ callables and per-tenant demux (port of
    (default ``1/8/64/512``), chunks of the top rung when it holds more, so
    the set of (bucket, rung) entries stays finite as traffic moves. Pad
    lanes repeat the chunk's last config. The JAX package computes them in
-   its vmap and drops them at demux; the port's lane loop does not compute
-   them (their slots hold the last real lane's output), and they are still
-   tallied as ``padded_lanes``.
+   its vmap and drops them at demux; the port's tenant body runs on the
+   real lanes only (the pad slots hold the last real lane's output), and
+   they are still tallied as ``padded_lanes``.
 4. **dispatch**: one callable per (bucket, rung), built on first use and
    kept in the bounded LRU of ``parallel/streaming.py``, so a 1000-tenant
    sweep holds one cache entry per bucket. The callable runs the batched
-   step: the selection context once, then the tenant body per real lane.
+   step: the selection context once, then the tenant body once on the
+   real lanes.
 5. **demux**: one :class:`TenantResult` per submitted config, in
    submission order.
 
@@ -29,7 +30,8 @@ under the traffic layer (``serve/queue.py``), imported on first use, so a
 server that never queues never loads it. :meth:`TenantServer.online_begin`
 and :meth:`TenantServer.advance_all` advance many tenants a date at a time
 over ``online/advance.py``: one market advance a session and date (K1 once
-a date), then the tenant half per real lane.
+a date), then the tenant half once on the session's stacked lanes (one
+lane-batched solve a date for the QP schemes).
 
 ``serve(lineage=...)`` records one provenance edge a served lane, and
 ``advance_all(meter=..., series=...)`` bills each session's fenced wall to
@@ -67,6 +69,7 @@ from factormodeling_tpu_torch.parallel.mesh import (all_gather, axis_index,
                                                     axis_size, mesh_device)
 from factormodeling_tpu_torch.parallel.pipeline import ResearchOutput
 from factormodeling_tpu_torch.serve.batched import (_stack, _tree_map,
+                                                    lane_count,
                                                     make_batched_research_step,
                                                     tree_lane)
 from factormodeling_tpu_torch.serve.tenant import (TenantConfig,
@@ -440,7 +443,9 @@ class TenantServer:
         imported here, on first use.
 
         Returns ``{"buckets": ..., "tenants": ...}``."""
-        from factormodeling_tpu_torch.online.advance import online_step_parts
+        from factormodeling_tpu_torch.online.advance import (lane_outputs,
+                                                             online_step_parts)
+        from factormodeling_tpu_torch.online.state import stack_tenant_states
 
         configs = list(configs)
         if not configs:
@@ -464,12 +469,14 @@ class TenantServer:
                 dtype=dtype, has_universe=has_universe,
                 stats_tail=stats_tail, device=self.device)
 
-            def batched(lanes, mstate, tstates, date_slice, _am=am, _at=at):
-                # the market half once, the tenant half per real lane
+            def batched(lanes, mstate, tstates, date_slice, _am=am,
+                        _at=at.lanes):
+                # the market half once, the tenant half once on the
+                # session's real lanes
                 mstate2, octx = _am(mstate, date_slice)
-                steps = [_at(c, ts, octx) for c, ts in zip(lanes, tstates)]
-                return (mstate2, [s[0] for s in steps],
-                        [s[1] for s in steps])
+                tstates2, out = _at(lanes, tstates, octx)
+                return mstate2, tstates2, [
+                    lane_outputs(out, i) for i in range(lane_count(lanes))]
 
             # a bucket wider than the top rung becomes several sessions,
             # each advancing its own MarketState copy; over a config axis
@@ -482,9 +489,10 @@ class TenantServer:
                     "members": chunk, "rung": rung,
                     "pad": rung - len(chunk),
                     "per": per,
-                    "lanes": [normalized[chunk[i]] for i in mine],
+                    "lanes": stack_configs([normalized[chunk[i]]
+                                            for i in mine]),
                     "mstate": im(),
-                    "tstates": [it() for _ in mine],
+                    "tstates": stack_tenant_states([it() for _ in mine]),
                     "batched": batched,
                     "key": ("online", self.names, skey, rung, stats_tail,
                             str(self.device), self._entry_key(skey, rung)),
@@ -504,7 +512,8 @@ class TenantServer:
                     series=None) -> "list[TenantAdvance]":
         """Advance every tenant of every session by one arriving date
         (:class:`~factormodeling_tpu_torch.online.state.DateSlice`): one
-        market advance a session, then the tenant half per real lane.
+        market advance a session, then the tenant half once on the
+        session's lanes.
         Returns one :class:`TenantAdvance` per config given to
         :meth:`online_begin`, in its order; ``output.ready`` is False on
         the very first date.

@@ -121,9 +121,17 @@ _POLISH_BLAST = 10.0       # box-violation factor marking a wrong L1 side
 def _apply(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``a @ x`` per lane: ``a [B, m, n]`` on ``x [B, n]`` or ``[B, n, k]``
     (``bmm`` itself: ``matmul``'s broadcasting costs host time per call in
-    a launch-bound day loop)."""
+    a launch-bound day loop). On the CPU a vector ``x`` is a product and a
+    sum over the last axis: there ``bmm`` of one lane takes the BLAS
+    matrix-vector routine and of more lanes the matrix-matrix one, whose
+    sums part in the last bit, and a lane computes its unbatched call's
+    bits. On the card ``bmm`` stays: one launch, where the day loop pays
+    for each, and the card's lanes are held to their single-lane solves at
+    a tolerance."""
     if x.ndim == 2:
-        return torch.bmm(a, x.unsqueeze(-1)).squeeze(-1)
+        if x.is_cuda:
+            return torch.bmm(a, x.unsqueeze(-1)).squeeze(-1)
+        return (a * x[:, None, :]).sum(-1)
     return torch.bmm(a, x)
 
 

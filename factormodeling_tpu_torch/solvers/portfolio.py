@@ -2,11 +2,14 @@
 ``factormodeling_tpu/solvers/portfolio.py``): long leg sums to +1, short to
 -1, sign-consistent boxes, zero-signal names pinned to 0, and the
 equal-weight-per-leg fallback on solver failure. Each helper takes one
-day's signal row ``[N]`` or a stack of rows ``[B, N]``."""
+day's signal row ``[N]`` or a stack of rows ``[B, N]``; ``max_weight`` is a
+number or, over rows, a ``[B]`` tensor (one cap a row)."""
 
 from __future__ import annotations
 
 import torch
+
+from factormodeling_tpu_torch.backtest.settings import knob
 
 __all__ = ["leg_constraints", "equal_leg_fallback", "legs_feasible"]
 
@@ -19,8 +22,13 @@ def leg_constraints(signal_row: torch.Tensor, max_weight: float, dtype,
     pos = signal_row > 0
     neg = signal_row < 0
     zero = torch.zeros(signal_row.shape, dtype=dtype, device=signal_row.device)
-    lo = zero.masked_fill(neg, -max_weight)
-    hi = zero.masked_fill(pos, max_weight)
+    if isinstance(max_weight, torch.Tensor):
+        cap = knob(max_weight, zero)
+        lo = torch.where(neg, -cap, zero)
+        hi = torch.where(pos, cap, zero)
+    else:
+        lo = zero.masked_fill(neg, -max_weight)
+        hi = zero.masked_fill(pos, max_weight)
     E = torch.stack([pos.to(dtype), neg.to(dtype)], dim=-2)
     if b is None:
         b = torch.tensor([1.0, -1.0], dtype=dtype, device=signal_row.device)
@@ -40,5 +48,6 @@ def legs_feasible(signal_row: torch.Tensor, max_weight: float) -> torch.Tensor:
     """Whether each leg can reach +-1 under the per-name cap."""
     pos = signal_row > 0
     neg = signal_row < 0
-    return ((pos.sum(-1) * max_weight >= 1.0)
-            & (neg.sum(-1) * max_weight >= 1.0))
+    cp, cn = pos.sum(-1), neg.sum(-1)
+    cap = knob(max_weight, cp, torch.get_default_dtype())
+    return (cp * cap >= 1.0) & (cn * cap >= 1.0)

@@ -1,14 +1,19 @@
 """The port in float32 on the CPU against the JAX package in its production
-precision (x64 off), for the two modules whose kernels were redesigned for
-Hopper: the fused normalization chain ``cs_zscore_group_neutralize`` (K5's
-function) and ``daily_factor_stats``'s IC and rank-IC (K1's).
+precision (x64 off): the two modules whose kernels were redesigned for
+Hopper, the fused normalization chain ``cs_zscore_group_neutralize`` (K5's
+function) and ``daily_factor_stats``'s IC and rank-IC (K1's); and the
+modules the serving lanes run, ``composite_weighted`` under a group tilt,
+``icir_top`` with ``finalize_selection``, the ``equal`` and ``linear``
+backtests, and a lane-batched ``equal`` bucket (``[C]`` knobs) against
+``jax.vmap`` of the JAX backtest.
 
 The test suite runs JAX in x64 (conftest), so the JAX side runs in a child
 interpreter with x64 never enabled, the idiom of ``tests/test_compat_f32.py``,
-and hands its outputs back as an ``.npz``. Both sides get the same seeded
-float32 inputs. The outputs are held to the smooth-statistics tier of
-``tools/device_goldens.py::check`` (``TOL_SMOOTH``, 3e-4), with NaN at the
-same cells and the pair counts exact.
+and hands its outputs back as an ``.npz`` (one child for every case). Both
+sides get the same seeded float32 inputs. The outputs are held to the
+smooth-statistics tier of ``tools/device_goldens.py::check``
+(``TOL_SMOOTH``, 3e-4), with NaN at the same cells and the pair and leg
+counts exact.
 """
 
 import os
@@ -20,7 +25,14 @@ import numpy as np
 import torch
 
 from factormodeling_tpu_torch import ops
+from factormodeling_tpu_torch.backtest import (SimulationSettings,
+                                               run_simulation)
+from factormodeling_tpu_torch.backtest.settings import lane_knobs
+from factormodeling_tpu_torch.composite import composite_weighted
 from factormodeling_tpu_torch.metrics import daily_factor_stats
+from factormodeling_tpu_torch.selection import (finalize_selection,
+                                                icir_top_selector)
+from factormodeling_tpu_torch.selection.selectors import SelectionContext
 from factormodeling_tpu_torch.ops import _cuda_fused as cf
 from tests.torch_threads import torch_one_thread  # noqa: F401
 
@@ -29,6 +41,12 @@ sys.path.insert(0, str(REPO))
 from tools.device_goldens import TOL_SMOOTH  # noqa: E402
 
 G = 5
+#: the blend's factors (three prefix groups, every suffix rule) and the
+#: selection window
+NAMES = ("mom_eq", "mom_flx", "val_long", "val_short", "qual_flx")
+WINDOW = 6
+#: the lane-batched equal bucket's knobs, one a lane
+LANES = dict(pct=[0.15, 0.25, 0.35], tcost_scale=[1.0, 0.5, 2.0])
 
 _CHILD = r"""
 import os, sys
@@ -51,6 +69,43 @@ st = daily_factor_stats(jnp.asarray(d["fac"]), jnp.asarray(d["ret"]),
                         stats=("ic", "rank_ic"))
 out = dict(z=np.asarray(z), ic=np.asarray(st["ic"]),
            rank_ic=np.asarray(st["rank_ic"]), n_pairs=np.asarray(st["n_pairs"]))
+
+from factormodeling_tpu.backtest import SimulationSettings, run_simulation
+from factormodeling_tpu.composite import composite_weighted
+from factormodeling_tpu.selection import finalize_selection, icir_top_selector
+from factormodeling_tpu.selection.selectors import SelectionContext
+
+uni = jnp.asarray(d["uni"])
+out["blend"] = np.asarray(jax.jit(lambda f, s, u, g: composite_weighted(
+    f, {names!r}, s, universe=u, group_tilt=g))(
+    jnp.asarray(d["bf"]), jnp.asarray(d["bsel"]), uni,
+    jnp.asarray(d["tilt"])))
+ctx = SelectionContext(metrics_win={{"rank_IC_IR": jnp.asarray(d["score"])}},
+                       factor_ret=jnp.asarray(d["fr"]),
+                       ret_win_sum=jnp.asarray(d["fr"]), window={window})
+out["sel"] = np.asarray(finalize_selection(
+    icir_top_selector(ctx, icir_threshold=0.1, top_x=2), {window}))
+
+
+def sim(sig, **kw):
+    s = SimulationSettings(returns=jnp.asarray(d["ret"]),
+                           cap_flag=jnp.asarray(d["cap"]),
+                           investability_flag=jnp.asarray(d["inv"]),
+                           universe=uni, **kw)
+    o = run_simulation(sig, s)
+    return o.weights, o.result.log_return, o.long_count
+
+
+for name, kw in (("eq", dict(method="equal", pct=0.2)),
+                 ("lin", dict(method="linear", max_weight=0.05))):
+    w, r, lc = jax.jit(lambda g, kw=kw: sim(g, **kw))(
+        jnp.asarray(d["sig"][0]))
+    out[name + "_w"], out[name + "_r"], out[name + "_lc"] = map(np.asarray,
+                                                              (w, r, lc))
+w, r, lc = jax.jit(jax.vmap(lambda g, p, c: sim(g, method="equal", pct=p,
+                                                tcost_scale=c)))(
+    jnp.asarray(d["sig"]), jnp.asarray(d["pct"]), jnp.asarray(d["tc"]))
+out["lanes_w"], out["lanes_r"], out["lanes_lc"] = map(np.asarray, (w, r, lc))
 assert all(v.dtype != np.float64 for v in out.values())
 np.savez({outputs!r}, **out)
 """
@@ -72,7 +127,24 @@ def _inputs(seed=20261017, f=3, d=40, n=300):
     ret = rng.normal(scale=0.02, size=(d, n)).astype(np.float32)
     ret[rng.uniform(size=ret.shape) < 0.03] = np.nan
     uni = rng.uniform(size=(d, n)) > 0.1
-    return dict(x=x, gid=gid, fac=fac, ret=ret, uni=uni)
+    f_b = len(NAMES)
+    bf = rng.normal(size=(f_b, d, n)).astype(np.float32)
+    bf[rng.uniform(size=bf.shape) < 0.05] = np.nan
+    bsel = rng.uniform(size=(d, f_b)).astype(np.float32)
+    bsel[bsel < 0.4] = 0.0
+    bsel[:2] = 0.0                    # days with no active factor
+    score = rng.normal(scale=0.3, size=(f_b, d)).astype(np.float32)
+    score[rng.uniform(size=score.shape) < 0.1] = np.nan
+    sig = rng.normal(size=(len(LANES["pct"]), d, n)).astype(np.float32)
+    sig[:, ~uni] = np.nan
+    return dict(x=x, gid=gid, fac=fac, ret=ret, uni=uni, bf=bf, bsel=bsel,
+                tilt=np.array([2.0, 0.5, 1.0], np.float32), score=score,
+                fr=rng.normal(scale=0.01, size=(d, f_b)).astype(np.float32),
+                sig=sig, cap=rng.integers(1, 4, size=(d, n)).astype(
+                    np.float32),
+                inv=np.ones((d, n), np.float32),
+                pct=np.asarray(LANES["pct"], np.float32),
+                tc=np.asarray(LANES["tcost_scale"], np.float32))
 
 
 def _held(got, want, name):
@@ -91,6 +163,7 @@ def test_float32_port_matches_jax_x64_off(tmp_path):
     env["JAX_PLATFORMS"] = "cpu"
     proc = subprocess.run(
         [sys.executable, "-c", _CHILD.format(repo=str(REPO), g=G,
+                                             names=NAMES, window=WINDOW,
                                              inputs=str(inputs),
                                              outputs=str(outputs))],
         capture_output=True, text=True, env=env, timeout=300)
@@ -112,3 +185,35 @@ def test_float32_port_matches_jax_x64_off(tmp_path):
     np.testing.assert_array_equal(st["n_pairs"].numpy(), want["n_pairs"])
     _held(st["ic"].numpy(), want["ic"], "ic")
     _held(st["rank_ic"].numpy(), want["rank_ic"], "rank_ic")
+
+    # the modules the serving lanes run
+    blend = composite_weighted(t["bf"], NAMES, t["bsel"], universe=t["uni"],
+                               group_tilt=t["tilt"])
+    assert blend.dtype == torch.float32
+    _held(blend.numpy(), want["blend"], "composite_weighted")
+    ctx = SelectionContext(metrics_win={"rank_IC_IR": t["score"]},
+                           factor_ret=t["fr"], ret_win_sum=t["fr"],
+                           window=WINDOW)
+    sel = finalize_selection(icir_top_selector(ctx, icir_threshold=0.1,
+                                               top_x=2), WINDOW)
+    _held(sel.numpy(), want["sel"], "icir_top + finalize_selection")
+
+    def sim(sig, **kw):
+        s = SimulationSettings(returns=t["ret"], cap_flag=t["cap"],
+                               investability_flag=t["inv"],
+                               universe=t["uni"], **kw)
+        o = run_simulation(sig, s)
+        return o.weights, o.result.log_return, o.long_count
+
+    for name, kw in (("eq", dict(method="equal", pct=0.2)),
+                     ("lin", dict(method="linear", max_weight=0.05))):
+        w, r, lc = sim(t["sig"][0], **kw)
+        assert w.dtype == torch.float32
+        _held(w.numpy(), want[name + "_w"], name + " weights")
+        _held(r.numpy(), want[name + "_r"], name + " log_return")
+        np.testing.assert_array_equal(lc.numpy(), want[name + "_lc"])
+    w, r, lc = sim(t["sig"], method="equal", **lane_knobs(LANES, "cpu"))
+    assert w.shape == t["sig"].shape and w.dtype == torch.float32
+    _held(w.numpy(), want["lanes_w"], "equal lanes weights")
+    _held(r.numpy(), want["lanes_r"], "equal lanes log_return")
+    np.testing.assert_array_equal(lc.numpy(), want["lanes_lc"])

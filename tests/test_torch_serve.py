@@ -277,7 +277,8 @@ def test_pad_lanes_are_invisible_and_demux_preserves_order(market,
                                                            monkeypatch):
     """A config's result does not depend on its co-submissions, demux
     reorders across buckets, and the pad lanes are never computed (the
-    tenant body runs once a real lane) but are tallied."""
+    tenant body runs once a dispatch, on its real lanes) but are
+    tallied."""
     server = TenantServer(names=NAMES, pad_ladder=LADDER, device="cpu",
                           **market)
     trio = [cfg(top_k=1 + i, pct=0.1 + 0.05 * i) for i in range(3)]
@@ -291,7 +292,7 @@ def test_pad_lanes_are_invisible_and_demux_preserves_order(market,
         build_ctx, body = real(names, template)
 
         def counted(*a, **kw):
-            bodies.append(1)
+            bodies.append(batched_mod.lane_count(a[0]))
             return body(*a, **kw)
 
         return build_ctx, counted
@@ -300,7 +301,9 @@ def test_pad_lanes_are_invisible_and_demux_preserves_order(market,
     streaming.clear_streaming_cache()   # rebuild through the counting parts
     mixed = server.serve([filler[0], trio[0], filler[1], trio[1],
                           filler[2], trio[2], filler[3], filler[4]])
-    assert len(bodies) == 8             # rungs 4 and 8: 4 pad lanes skipped
+    # one body a dispatch (rungs 4 and 8) on its 3 and 5 real lanes: the 1
+    # and 3 pad lanes are skipped
+    assert sorted(bodies) == [3, 5]
     for j, pos in enumerate((1, 3, 5)):
         assert mixed[pos].index == pos and mixed[pos].config is trio[j]
         _leaves_equal(alone[j].output, mixed[pos].output)
