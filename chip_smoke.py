@@ -122,13 +122,19 @@ Phases, in order (any failure exits non-zero before the last line):
    the same configs on the host CPU at path 5's icir_top gate,
    ``serving_stats()`` against the host's count and one cache entry a
    (bucket, rung); (10b) an ``mvo_turnover`` bucket of 3 tenants (path
-   1's own first) on path 9's 333 dates, rung 8 with 5 pad lanes not
-   computed: K1 once, one simulation, K2 one lane launch of the 3 tenants
-   a segment a date (one day loop for the bucket), each tenant's
+   1's own first) on path 9's first 166 dates, rung 8 with 5 pad lanes
+   not computed: K1 once, one simulation, K2 one lane launch of the 3
+   tenants a segment a date (one day loop for the bucket), each tenant's
    invariants, tenant 0 held to 9a's clean step on those dates
    (selection bitwise, weights at path 1's gate), tenants 1 and 2 to
    their own single-tenant steps on the first 16 traded dates (the same
-   gates), the bucket's wall against 9a's clean step; (10c) ``serve_queued`` on 10a's
+   gates), the bucket's wall against 9a's clean step; (10e) 10b's
+   tenants with ``turnover_mode="parallel"`` on 166 dates: one
+   simulation, K1 once, K2's single-lane and lane launches those the
+   lanes' own sweep counts and starts imply, each lane's ``sweep_stats``
+   its single-tenant run's, its selection bitwise and its weights at
+   path 1's gate, the bucket's wall against the three single runs';
+   (10c) ``serve_queued`` on 10a's
    bucket (``bench.py``'s ``bench_serving_under_load`` recipe: 48
    requests, ladder 1/4/8, the service time of a warm rung-8 dispatch, a
    Poisson trace at twice its capacity, deadlines 40 service times,
@@ -200,10 +206,14 @@ Phases, in order (any failure exits non-zero before the last line):
    (none in the backtest); (13b) ``make_sharded_manager_sweep`` on a
    ``("combo",)`` mesh at 8b's 1000 combos; (13c) the asset-sharded step
    (icir_top / equal, 1332 x 1000) under each layout mode and under
-   ``choose_asset_specs``' plan (its layout stages run on ``meta``
-   tensors), K1 once a run; (13d) ``TenantServer(mesh=...)`` on a (1, 1) ``("configs",
-   "assets")`` mesh: 10a's rung-8 dispatch of 5 tenants and 10d's two
-   turnover tenants over 16 dates (K2 a lane launch a segment a date);
+   ``choose_asset_specs``' plan (its five stages, the JAX package's, run
+   on ``meta`` tensors), then plain mvo (1332 dates) and the turnover
+   scan (166) under each mode, every run bitwise or within ``P13_TOL``
+   of the unsharded step, K1 once a run and K2 as the unsharded runs;
+   (13d) ``TenantServer(mesh=...)`` on a (1, 1) ``("configs",
+   "assets")`` mesh: 10a's rung-8 dispatch of 5 tenants on the stored
+   blocks (no whole-panel gather) and 10d's two turnover tenants over 16
+   dates (K2 a lane launch a segment a date);
    (13e) ``streamed_factor_stats(mesh=)``
    from 12e's host stack through a date-block source, bitwise 12e's
    serial run, K1 once a chunk;
@@ -3000,9 +3010,10 @@ S_REQUESTS, S_LADDER, S_LOAD, S_DEADLINE_X, S_DEPTH = 48, (1, 4, 8), 2.0, 40, 8
 S_FAULTS = dict(seed=36, error_rate=0.05, poison_rate=0.05)
 # 10d: advance_all over path 9b's first S_ONLINE_DATES dates
 S_ONLINE_DATES = 166
-# 10b: the first P10B_DATES of path 9's dates; tenants 1 and 2 held to
-# their single-tenant steps on the first P10B_HELD traded dates
-P10B_DATES, P10B_HELD = 333, 16
+# 10b: the first P10B_DATES of path 9's dates (333 until 10e came: a
+# depth cut, PERF.md section 4); tenants 1 and 2 held to their
+# single-tenant steps on the first P10B_HELD traded dates
+P10B_DATES, P10B_HELD = 166, 16
 
 
 def serving_configs(fmt, n: int):
@@ -3326,6 +3337,116 @@ def turnover_serve_path(torch, fmt, seed: int, clean, clean_secs: float):
             raise AssertionError(f"serve_turnover: tenant {i} parts from "
                                  "its single-tenant step")
     return launches, configs
+
+
+# 10e: 10b's three tenants in turnover_mode="parallel" on the first
+# P10E_DATES of path 1's dates
+P10E_DATES = 166
+
+
+def parallel_configs(fmt):
+    """Path 10e's bucket: 10b's three tenants in the fixed-point scheme."""
+    import dataclasses
+
+    return [dataclasses.replace(c, sim_static=dict(
+        c.sim_static, turnover_mode="parallel"))
+        for c in turnover_configs(fmt)]
+
+
+def lane_schedule(fmt, sim: dict, lanes: list, d: int) -> tuple:
+    """K2's ``(single-lane, lane-batch)`` launches of a parallel bucket
+    from its lanes' own ``sweep_stats``: the seed's chunks of every lane,
+    each sweep's chunks of the lanes still sweeping, then a solve a date of
+    the lanes at or past their own start; one launch a segment of a solve,
+    a solve of one lane a single-lane launch."""
+    from factormodeling_tpu_torch.solvers.admm_qp import _ADAPT_EVERY
+
+    s = fmt.SimulationSettings(returns=None, cap_flag=None,
+                               investability_flag=None, **sim)
+    batch = min(s.mvo_batch, d)
+    counts = [min(batch, d - first) for first in range(0, d, batch)]
+    out = [0, 0]
+
+    def solve(width: int, iters: int):
+        if width:
+            out[width > 1] += -(-iters // _ADAPT_EVERY)
+
+    for count in counts:
+        solve(len(lanes) * count, s.resolved_seed_iters())
+    for k in range(1, max(st["sweeps"] for st in lanes) + 1):
+        running = sum(st["sweeps"] >= k for st in lanes)
+        for count in counts:
+            solve(running * count, s.resolved_sweep_iters())
+    for t in range(d):
+        solve(sum(st["converged_days"] <= t for st in lanes),
+              s.resolved_qp_iters(True))
+    return tuple(out)
+
+
+def parallel_serve_path(torch, fmt, seed: int) -> dict:
+    """Path 10e: 10b's three tenants with ``turnover_mode="parallel"``
+    (one bucket) on the first P10E_DATES dates of path 1's inputs: one
+    simulation of the 3 lanes; K1 once; K2's single-lane and lane-batch
+    launches those the lanes' own sweep counts and starts imply
+    (``lane_schedule``); each lane's ``sweep_stats`` its own single-tenant
+    parallel run's, its selection bitwise and its weights within
+    ``DW_TOL``/``DW_SHARE`` of that run's; the bucket's wall against the
+    three single runs'."""
+    from factormodeling_tpu_torch.metrics import _cuda_rank_ic as rk
+    from factormodeling_tpu_torch.ops import _cuda_admm as ak
+
+    d = P10E_DATES
+    arrays = tuple(a[:, :d] if a.ndim == 3 else a[:d]
+                   for a in make_inputs(F, D, N, seed))
+    configs = parallel_configs(fmt)
+    server = fmt.serve.TenantServer(names=factor_names(F),
+                                    **_panels(arrays), device="cuda")
+    rk.launches = ak.launches = ak.lane_launches = 0
+    with _SimCount() as sims:
+        res, secs = _timed(torch, lambda: server.serve(configs))
+    launches = segment_counts(rk, ak)
+    stats = [fmt.backtest.sweep_stats(r.output.sim.diagnostics) for r in res]
+    single, multi = lane_schedule(fmt, PARALLEL_PATHS["turnover_parallel"],
+                                  stats, d)
+    want = {"rank_ic_postsort": 1, "admm_segment": single,
+            "admm_segment_lanes": multi}
+    log(f"path serve_parallel (10e): {len(configs)} mvo_turnover tenants in "
+        f"the parallel scheme, F={F} D={d} N={N}: {secs:.3f} s wall; "
+        f"simulations (their lanes) {sims.calls}; sweep_stats by lane "
+        f"{json.dumps(stats)}; launches {json.dumps(launches)} (schedule "
+        f"{json.dumps(want)})")
+    if launches != want or sims.calls != [(len(configs),)]:
+        raise AssertionError(f"serve_parallel: launches {launches}, the "
+                             f"lanes' schedule implies {want}; simulations "
+                             f"{sims.calls}")
+    cut = [torch.as_tensor(a, device="cuda") for a in arrays]
+    step = fmt.serve.make_tenant_research_step(names=factor_names(F),
+                                               template=configs[0])
+    walls = []
+    for i, (c, r) in enumerate(zip(configs, res)):
+        one, t = _timed(torch, lambda c=c: step(
+            c.normalized(F, server.n_groups, dtype=np.float32), *cut))
+        walls.append(t)
+        check_invariants(torch, f"serve_parallel[{i}]", r.output,
+                         max_weight=float(c.max_weight))
+        own = fmt.backtest.sweep_stats(one.sim.diagnostics)
+        dw = (r.output.sim.weights.nan_to_num()
+              - one.sim.weights.nan_to_num()).abs().max(-1).values
+        share = float((dw > DW_TOL).double().mean())
+        sel = bool(torch.equal(r.output.selection, one.selection))
+        log(f"path serve_parallel (10e) tenant {i} vs its single-tenant "
+            f"parallel run ({t:.3f} s): sweep_stats {json.dumps(own)}; "
+            f"selection bitwise {sel}; weights max |dw| "
+            f"{float(dw.max()):.3e}, share of days > {DW_TOL}: {share:.4f} "
+            f"(limit {DW_SHARE}), days bitwise {int((dw == 0).sum())} of "
+            f"{d}")
+        if own != stats[i] or not sel or not share <= DW_SHARE:
+            raise AssertionError(f"serve_parallel: tenant {i} parts from "
+                                 f"its single-tenant run")
+    log(f"path serve_parallel (10e): the bucket {secs:.3f} s against the "
+        f"three single runs' {sum(walls):.3f} s "
+        f"({secs / sum(walls):.3f}x)")
+    return launches
 
 
 def queue_path(torch, fmt, served) -> None:
@@ -4119,7 +4240,7 @@ def _held13(what: str, err: float) -> None:
                              f"(tol {P13_TOL})")
 
 
-def mesh_step_path(torch, fmt, seed: int) -> dict:
+def mesh_step_path(torch, fmt, seed: int, refs: dict) -> dict:
     """13a: ``make_sharded_research_step`` on a (1, 1) ``("factor",
     "date")`` mesh at path 1's width on its first P13_DATES dates, held
     against the unsharded step: K1 once, K2 two segments a date; the
@@ -4142,6 +4263,7 @@ def mesh_step_path(torch, fmt, seed: int) -> dict:
     kw.pop("device")
     ref, ref_secs = _timed(torch, lambda: fmt.build_research_step(
         **kw, device="cuda")(*inputs))
+    refs["turnover"] = (ref, ref_secs)     # 13c's scan holds to it too
     mesh = make_mesh(("factor", "date"), device="cuda")
     step, shard = make_sharded_research_step(mesh, **kw)
     blocks = shard(*inputs)
@@ -4210,70 +4332,125 @@ def mesh_sweep_path(torch, fmt) -> dict:
     return launches
 
 
-def mesh_asset_path(torch, fmt, seed: int) -> dict:
-    """13c: the asset-sharded step, icir_top / equal at path 1's full
-    1332 x 1000, on a (1, 1) ``("date", "assets")`` mesh under each layout
-    mode and under ``choose_asset_specs``' plan (its layout stages run
-    on ``meta`` tensors), each held against the unsharded step; K1 once a
-    run."""
-    from factormodeling_tpu_torch.metrics import _cuda_rank_ic as rk
-    from factormodeling_tpu_torch.obs import comms
-    from factormodeling_tpu_torch.ops import _cuda_admm as ak
-    from factormodeling_tpu_torch.parallel import (
-        AssetSpecPlan, choose_asset_specs, make_asset_mesh,
-        make_asset_sharded_research_step)
+#: the JAX package's five asset-layout plan stages
+#: (``factormodeling_tpu/ops/_assetspec.py``), the port's too
+P13_STAGES = ("metrics/rank_ic", "ops/rank", "ops/quantile",
+              "backtest/weights", "solver/iterates")
 
-    arrays = make_inputs(F, D, N, seed)
+
+def _asset_runs(torch, fmt, mesh, arrays, sim: dict, plans: dict,
+                ref=None) -> tuple:
+    """The asset-sharded step under each plan on ``arrays`` with ``sim``,
+    each run held against the unsharded step at ``P13_TOL`` (its gathered
+    outputs; bitwise or not printed): ``(rows by plan, the unsharded
+    wall)``. ``ref``: the unsharded step's ``(output, wall)`` from an
+    earlier path on the same inputs (else it runs here)."""
+    from factormodeling_tpu_torch.obs import comms
+    from factormodeling_tpu_torch.parallel import \
+        make_asset_sharded_research_step
+
     inputs, cfg = fmt.convert(*arrays, names=factor_names(F), window=WINDOW,
                               select_method="icir_top", blend_method="zscore",
-                              sim_kwargs=dict(method="equal", pct=P8_PCT),
-                              device="cuda")
+                              sim_kwargs=sim, device="cuda")
     kw = cfg.as_kwargs()
     kw.pop("device")
-    ref, ref_secs = _timed(torch, lambda: fmt.build_research_step(
+    ref, ref_secs = ref or _timed(torch, lambda: fmt.build_research_step(
         **kw, device="cuda")(*inputs))
-    mesh = make_asset_mesh(("date", "assets"), device="cuda")
-    t0 = time.perf_counter()
-    chosen, ranking = choose_asset_specs(mesh, shapes=(F, D, N),
-                                         dtype=torch.float32, **kw)
-    choose_secs = time.perf_counter() - t0
-    plans = {m: AssetSpecPlan(mesh, default=m) for m in ("auto", "reshard",
-                                                         "gather")}
-    plans["chosen"] = chosen
-    rk.launches = ak.launches = ak.lane_launches = 0
     rows = {}
     for label, plan in plans.items():
         step, shard = make_asset_sharded_research_step(mesh, **kw, plan=plan)
         blocks = shard(*inputs)
         with comms.recording(mesh) as ledger:
             out, secs = _timed(torch, lambda: step(*blocks))
-        err = max(_max_diff(torch, a, b) for a, b in (
-            (out.selection, ref.selection), (out.signal, ref.signal),
-            (out.sim.weights, ref.sim.weights),
-            (out.sim.result.log_return, ref.sim.result.log_return)))
+        out = step.gather_outputs(out)
+        pairs = ((out.selection, ref.selection), (out.signal, ref.signal),
+                 (out.sim.weights, ref.sim.weights),
+                 (out.sim.result.log_return, ref.sim.result.log_return))
+        err = max(_max_diff(torch, a, b) for a, b in pairs)
         rows[label] = {"secs": round(secs, 3), "max_abs_err": err,
+                       "bitwise": all(_bytes_equal(a, b) for a, b in pairs),
                        "collectives": ledger.totals()["collectives"]}
-        _held13(f"13c {label}", err)
+        _held13(f"13c {sim['method']} {label}", err)
+    return rows, ref_secs
+
+
+def mesh_asset_path(torch, fmt, seed: int, refs: dict) -> dict:
+    """13c: the asset-sharded step on a (1, 1) ``("date", "assets")`` mesh
+    at path 1's width: icir_top / equal at full depth under each layout
+    mode and under ``choose_asset_specs``' plan (its stages, the
+    backtest's included, run on ``meta`` tensors; its plan lists the five
+    JAX stages); then the QP schemes (fused) under each mode, plain mvo
+    at full depth held against path 2's own run and the mvo_turnover scan
+    on path 1's first P13_DATES dates held against 13a's unsharded step;
+    each run held against the unsharded step. K1 once a run; K2 as the
+    unsharded runs of the two schemes launch it."""
+    from factormodeling_tpu_torch.metrics import _cuda_rank_ic as rk
+    from factormodeling_tpu_torch.ops import _cuda_admm as ak
+    from factormodeling_tpu_torch.ops._assetspec import ASSET_SORT_STAGES
+    from factormodeling_tpu_torch.parallel import (AssetSpecPlan,
+                                                   choose_asset_specs,
+                                                   make_asset_mesh)
+
+    arrays = make_inputs(F, D, N, seed)
+    equal = dict(method="equal", pct=P8_PCT)
+    mesh = make_asset_mesh(("date", "assets"), device="cuda")
+    kw = dict(names=factor_names(F), window=WINDOW, select_method="icir_top",
+              blend_method="zscore")
+    t0 = time.perf_counter()
+    chosen, ranking = choose_asset_specs(mesh, shapes=(F, D, N),
+                                         dtype=torch.float32,
+                                         sim_kwargs=equal, **kw)
+    choose_secs = time.perf_counter() - t0
+    if (tuple(ASSET_SORT_STAGES) != P13_STAGES
+            or tuple(chosen.spec_table()) != P13_STAGES
+            or set(ranking) != set(P13_STAGES) | {"__total__"}):
+        raise AssertionError(f"path 13c: plan stages "
+                             f"{list(chosen.spec_table())}, not the JAX "
+                             f"package's {list(P13_STAGES)}")
+    modes = {m: AssetSpecPlan(mesh, default=m) for m in ("auto", "reshard",
+                                                        "gather")}
+    rk.launches = ak.launches = ak.lane_launches = 0
+    rows, ref_secs = _asset_runs(torch, fmt, mesh, arrays, equal,
+                                 dict(modes, chosen=chosen))
+    qp = {}
+    for path, d in (("mvo", D), ("turnover", P13_DATES)):
+        cut = tuple(a[:, :d] if a.ndim == 3 else a[:d] for a in arrays)
+        sim = dict(PATHS[path], max_weight=MAX_WEIGHT, solver_kernel="fused")
+        qp[path] = _asset_runs(torch, fmt, mesh, cut, sim, modes,
+                               ref=refs.get(path))
     launches = segment_counts(rk, ak)
     log(f"path 13c asset-sharded step: (1, 1) ('date', 'assets') mesh, "
         f"icir_top / equal, F={F} D={D} N={N}: the unsharded step "
         f"{ref_secs:.3f} s; by plan {json.dumps(rows)} (tol {P13_TOL}); the "
         f"chooser {choose_secs:.3f} s on meta tensors, plan "
         f"{json.dumps(chosen.spec_table())}, total bytes by mode "
-        f"{json.dumps(ranking['__total__']['ranked'])}; launches "
-        f"{json.dumps(launches)}")
-    if launches["rank_ic_postsort"] != len(plans):
-        raise AssertionError(f"path 13c: K1 launched "
-                             f"{launches['rank_ic_postsort']} times, not once "
-                             f"a run")
+        f"{json.dumps(ranking['__total__']['ranked'])}")
+    for path, (r, secs) in qp.items():
+        log(f"path 13c {path} ({PATHS[path]['method']}, "
+            f"{D if path == 'mvo' else P13_DATES} dates): the unsharded "
+            f"step {secs:.3f} s; by mode {json.dumps(r)}")
+    runs = len(modes) * 3 + 2 + sum(refs.get(p) is None for p in qp)
+    s_mvo = segment_launches(fmt, PATHS["mvo"])
+    s_turn = segment_launches(fmt, PATHS["turnover"], d=P13_DATES)
+    r_mvo = len(modes) + (refs.get("mvo") is None)
+    r_turn = len(modes) + (refs.get("turnover") is None)
+    want = {"rank_ic_postsort": runs,
+            "admm_segment": r_mvo * s_mvo[0] + r_turn * s_turn[0],
+            "admm_segment_lanes": r_mvo * s_mvo[1] + r_turn * s_turn[1]}
+    log(f"path 13c launches {json.dumps(launches)} (schedule "
+        f"{json.dumps(want)})")
+    if launches != want:
+        raise AssertionError(f"path 13c: launches {launches}, the runs "
+                             f"imply {want}")
     return launches
 
 
 def mesh_serve_path(torch, fmt, seed: int) -> dict:
     """13d: ``TenantServer(mesh=...)`` on a (1, 1) ``("configs",
-    "assets")`` mesh: 10a's rung-8 dispatch of 5 tenants, and 10d's two
-    turnover tenants advanced over P13_ONLINE_DATES dates, held against
-    the unsharded server; K1 once a dispatch and once a date."""
+    "assets")`` mesh: 10a's rung-8 dispatch of 5 tenants (on the stored
+    asset blocks: no call of ``_market_panels``), and 10d's two turnover
+    tenants advanced over P13_ONLINE_DATES dates, held against the
+    unsharded server; K1 once a dispatch and once a date."""
     from factormodeling_tpu_torch.metrics import _cuda_rank_ic as rk
     from factormodeling_tpu_torch.online import DateSlice
     from factormodeling_tpu_torch.ops import _cuda_admm as ak
@@ -4290,9 +4467,13 @@ def mesh_serve_path(torch, fmt, seed: int) -> dict:
         "mesh": fmt.serve.TenantServer(
             names=factor_names(F), **_panels(arrays), mesh=mesh)}
     got, walls = {}, {}
+    whole = []
     for label, server in servers.items():
         if label == "mesh":
             rk.launches = ak.launches = ak.lane_launches = 0
+            # a dispatch runs on the stored blocks: count whole gathers
+            gather = server._market_panels
+            server._market_panels = lambda: whole.append(1) or gather()
         served, walls[f"{label} serve"] = _timed(
             torch, lambda s=server: s.serve(configs))
         server.online_begin(t_cfgs)
@@ -4322,9 +4503,13 @@ def mesh_serve_path(torch, fmt, seed: int) -> dict:
         f"|diff| serve {serve_err:.3e}, advance {adv_err:.3e} (tol "
         f"{P13_TOL}); mesh_shape "
         f"{json.dumps(servers['mesh'].serving_stats()['mesh_shape'])}; "
-        f"launches {json.dumps(launches)} (schedule {json.dumps(want)})")
+        f"whole-panel gathers {len(whole)}; launches {json.dumps(launches)} "
+        f"(schedule {json.dumps(want)})")
     _held13("13d serve", serve_err)
     _held13("13d advance_all", adv_err)
+    if whole:
+        raise AssertionError(f"path 13d: {len(whole)} whole-panel gathers "
+                             f"(_market_panels) in a dispatch")
     if launches != want:
         raise AssertionError(f"path 13d: launches {launches}, schedule "
                              f"{want}")
@@ -4364,20 +4549,22 @@ def mesh_stream_path(torch, fmt, ns_host: dict) -> dict:
     return launches
 
 
-def mesh_paths(torch, fmt, seed: int, ns_host: dict) -> dict:
+def mesh_paths(torch, fmt, seed: int, ns_host: dict,
+               refs: dict | None = None) -> dict:
     """Path 13 in a world of one over NCCL (an in-process store), formed
     by the first mesh and destroyed at the end; a world that fails to
     form or a collective that fails fails the run. Returns each part's
     launches."""
     from factormodeling_tpu_torch.parallel import release_world
 
-    out = {}
+    out, refs = {}, dict(refs or {})
     try:
         for key, label, fn in (
-                ("mesh_step", "13a", lambda: mesh_step_path(torch, fmt, seed)),
+                ("mesh_step", "13a", lambda: mesh_step_path(torch, fmt, seed,
+                                                            refs)),
                 ("mesh_sweep", "13b", lambda: mesh_sweep_path(torch, fmt)),
                 ("mesh_asset", "13c", lambda: mesh_asset_path(torch, fmt,
-                                                              seed)),
+                                                              seed, refs)),
                 ("mesh_serve", "13d", lambda: mesh_serve_path(torch, fmt,
                                                               seed)),
                 ("mesh_stream", "13e", lambda: mesh_stream_path(
@@ -4646,6 +4833,8 @@ def main() -> int:
                                                warm_up=path == "turnover")
         if path == "turnover":   # path 6 is held against it
             scan_out, scan_secs = out, secs
+        if path == "mvo":        # 13c's plain-MVO runs are held to it
+            mvo_ref = (out, secs)
         del out
     t0 = time.perf_counter()
     launches["turnover_parallel"] = turnover_parallel_path(
@@ -4708,6 +4897,10 @@ def main() -> int:
     log(f"path 10b phase (run, checks): {time.perf_counter() - t0:.1f} s "
         "wall")
     t0 = time.perf_counter()
+    launches["serve_parallel"] = parallel_serve_path(torch, fmt, args.seed)
+    log(f"path 10e phase (bucket, three single runs, checks): "
+        f"{time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
     queue_path(torch, fmt, served)
     del served
     log(f"path 10c phase (service time, queue, re-serve, checks): "
@@ -4742,8 +4935,9 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s wall")
     log(f"path 12: {time.perf_counter() - t12:.1f} s wall")
     t0 = time.perf_counter()
-    launches.update(mesh_paths(torch, fmt, args.seed, ns_host))
-    del ns_host
+    launches.update(mesh_paths(torch, fmt, args.seed, ns_host,
+                               {"mvo": mvo_ref}))
+    del ns_host, mvo_ref
     log(f"path 13: {time.perf_counter() - t0:.1f} s wall")
     t14 = time.perf_counter()
     launches["devtime"] = devtime_path(torch, fmt, args.seed)
@@ -4757,13 +4951,14 @@ def main() -> int:
     # each kernel's launches on the paths that run its form: K1 once in each
     # of paths 1-3, in path 8a's icir_top selection and in path 9a's clean
     # step, once a date in path 9b's online advance, once a dispatch in
-    # paths 10a and 10b, once a date in path 10d's session, once a dispatch
-    # in paths 12a-12c, once a chunk in 12d-12e, once in 13a, once a plan
-    # in 13c, once a dispatch and a date in 13d, once a chunk in 13e and
-    # once in 14b's profiled run
+    # paths 10a, 10b and 10e, once a date in path 10d's session, once a
+    # dispatch in paths 12a-12c, once a chunk in 12d-12e, once in 13a, once
+    # a run in 13c, once a dispatch and a date in 13d, once a chunk in 13e
+    # and once in 14b's profiled run
     k1 = {p: launches[p]["rank_ic_postsort"] for p in
           (*PATHS, "multimanager", "resil", "online", "serve",
-           "serve_turnover", "advance_all", "scenarios", "scenarios_resume",
+           "serve_turnover", "serve_parallel", "advance_all", "scenarios",
+           "scenarios_resume",
            "scenarios_turnover", "north_star", "north_star_host",
            "mesh_step", "mesh_asset", "mesh_serve", "mesh_stream",
            "devtime")}
@@ -4771,20 +4966,22 @@ def main() -> int:
     kernels["rank_ic_postsort"]["launches_by_path"] = k1
     kernels["rank_ic_postsort"].update(k1_north)
     # the segment's single-lane launches: path 1, the sequential suffixes
-    # of paths 6-7, path 9a's clean step, path 9b's advance, paths 13a and
+    # of paths 6-7 and 10e (a date with one lane past its start), path 9a's
+    # clean step, path 9b's advance, paths 13a, 13c (the scan's runs) and
     # 14b; its collect=1 form: path 9a's probed inert and chaos steps and
-    # path 11a's probed tally run; its lane launches: path 2's chunks, the
-    # seed and sweep chunks of paths 6-7, and the lane-batched day loops:
-    # path 10b's bucket (its real tenants, never a pad lane), the sessions
-    # of 10d and 13d and 12c's regime paths (each as the wrapper counted
-    # it)
+    # path 11a's probed tally run; its lane launches: path 2's chunks and
+    # 13c's plain-MVO runs, the seed and sweep chunks of paths 6-7 and 10e,
+    # and the lane-batched day loops: path 10b's bucket (its real tenants,
+    # never a pad lane), 10e's suffix, the sessions of 10d and 13d and
+    # 12c's regime paths (each as the wrapper counted it)
     single = {p: launches[p]["admm_segment"] for p in
               ("turnover", "turnover_parallel", "turnover_parallel_decoupled",
-               "resil", "online", "mesh_step", "devtime")}
+               "serve_parallel", "resil", "online", "mesh_step",
+               "mesh_asset", "devtime")}
     lanes = {p: launches[p]["admm_segment_lanes"] for p in
              ("mvo", "turnover_parallel", "turnover_parallel_decoupled",
-              "serve_turnover", "advance_all", "scenarios_turnover",
-              "mesh_serve")}
+              "serve_turnover", "serve_parallel", "advance_all",
+              "scenarios_turnover", "mesh_asset", "mesh_serve")}
     kernels["admm_segment"]["launches"] = sum(single.values())
     kernels["admm_segment"]["launches_by_path"] = single
     kernels["admm_segment_lanes"]["launches"] = sum(lanes.values())

@@ -253,7 +253,8 @@ def _group_sums(x, slots, axis: int, poison=None):
 def composite_weighted(factors: torch.Tensor, names, selection: torch.Tensor,
                        method: str = "zscore",
                        universe: torch.Tensor | None = None,
-                       group_tilt: torch.Tensor | None = None) -> torch.Tensor:
+                       group_tilt: torch.Tensor | None = None, *,
+                       rank_rows=None) -> torch.Tensor:
     """Per-date weighted blend of ``factors [F, D, N]`` driven by the daily
     selection weights ``selection [D, F]`` (aligned with ``names``); rows
     with no active factor produce 0. Returns the zero-filled ``float[D, N]``
@@ -271,7 +272,13 @@ def composite_weighted(factors: torch.Tensor, names, selection: torch.Tensor,
 
     Lanes (module docs): ``selection [C, D, F]``, ``factors`` shared or
     ``[C, F, D, N]``, ``universe`` shared or ``[C, D, N]``, ``group_tilt``
-    ``[G]`` or ``[C, G]``; the composite is ``[C, D, N]``."""
+    ``[G]`` or ``[C, G]``; the composite is ``[C, D, N]``.
+
+    ``rank_rows`` is the asset-sharded step's seam (``ops/_assetspec.py``:
+    the pooled percentiles form rows under ``ops/quantile``, the rank
+    transform under ``ops/rank``): ``rank_rows(proxies, universe,
+    selection)`` returns the three on the rows the rank transform forms,
+    and the blend finishes there."""
     if method not in ("zscore", "rank"):
         raise ValueError("method must be 'zscore' or 'rank'")
     f, d, n = factors.shape[-3:]
@@ -283,7 +290,8 @@ def composite_weighted(factors: torch.Tensor, names, selection: torch.Tensor,
                 _lane_slice(factors, c, lo, lo + per, 4), names,
                 selection[lo:lo + per], method=method,
                 universe=_lane_slice(universe, c, lo, lo + per, 3),
-                group_tilt=_lane_slice(group_tilt, c, lo, lo + per, 2))
+                group_tilt=_lane_slice(group_tilt, c, lo, lo + per, 2),
+                rank_rows=rank_rows)
                 for lo in range(0, c, per)])
     gids, prefixes = prefix_group_ids(names)
     members = [np.flatnonzero(gids == j).tolist()
@@ -297,22 +305,6 @@ def composite_weighted(factors: torch.Tensor, names, selection: torch.Tensor,
 
     active = selection > 0.0                                 # [..., D, F]
     member = active.to(dtype)
-    chosen = torch.where(active, selection, 0.0)
-    gw = _group_sums(chosen, slots, -1,
-                     poison=(~torch.isfinite(chosen)).to(torch.int32))
-    if group_tilt is not None:
-        gw = gw * torch.as_tensor(group_tilt, dtype=dtype, device=dev)[
-            ..., None, :]
-    g_active = _group_sums(member, slots, -1) > 0            # [..., D, G]
-    total = gw.sum(-1, keepdim=True)
-    n_active = g_active.sum(-1, keepdim=True).to(dtype)
-    equal = torch.where(g_active, 1.0 / torch.where(n_active > 0, n_active,
-                                                    float("nan")), 0.0)
-    # tilted callers get no equal-weight fallback: a tilt-zeroed day stays
-    # zeroed
-    fallback = equal if group_tilt is None else torch.zeros_like(equal)
-    gw = torch.where(total > 0, gw / torch.where(total > 0, total, 1.0),
-                     fallback)
 
     # the suffix rules with the day's pooled percentiles, every factor
     lead = torch.broadcast_shapes(factors.shape[:-3], selection.shape[:-2])
@@ -333,6 +325,28 @@ def composite_weighted(factors: torch.Tensor, names, selection: torch.Tensor,
                        poison=torch.isinf(adj).to(torch.int32))
     cnts = _group_sums(valid.to(dtype) * mw, slots, -3)
     proxies = sums / torch.where(cnts > 0, cnts, float("nan"))  # [..., G, D, N]
+    if rank_rows is not None:
+        proxies, universe, selection = rank_rows(proxies, universe,
+                                                 selection)
+        active = selection > 0.0
+        member = active.to(dtype)
+
+    chosen = torch.where(active, selection, 0.0)
+    gw = _group_sums(chosen, slots, -1,
+                     poison=(~torch.isfinite(chosen)).to(torch.int32))
+    if group_tilt is not None:
+        gw = gw * torch.as_tensor(group_tilt, dtype=dtype, device=dev)[
+            ..., None, :]
+    g_active = _group_sums(member, slots, -1) > 0            # [..., D, G]
+    total = gw.sum(-1, keepdim=True)
+    n_active = g_active.sum(-1, keepdim=True).to(dtype)
+    equal = torch.where(g_active, 1.0 / torch.where(n_active > 0, n_active,
+                                                    float("nan")), 0.0)
+    # tilted callers get no equal-weight fallback: a tilt-zeroed day stays
+    # zeroed
+    fallback = equal if group_tilt is None else torch.zeros_like(equal)
+    gw = torch.where(total > 0, gw / torch.where(total > 0, total, 1.0),
+                     fallback)
     uni = None if universe is None else universe[..., None, :, :]
     if method == "zscore":
         normed = _safe_zscore_rows(proxies, uni)

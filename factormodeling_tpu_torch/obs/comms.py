@@ -8,7 +8,9 @@ HLO: every collective is written out through the three wrappers of
 each call records one :class:`CollectiveOp` here while a ledger is open
 (:func:`recording`):
 
-- ``kind``: ``all-gather``, ``all-reduce`` or ``all-to-all``;
+- ``kind``: ``all-gather``, ``all-reduce``, ``all-to-all`` or
+  ``collective-permute`` (a hand-off between neighbouring row blocks,
+  charged one operand a sending rank);
 - ``stage``: the stage the JAX package's rule gives for the open
   ``obs.trace.stage`` names joined into an ``op_name`` path: the
   outermost (earliest) known scope of :data:`STAGE_SCOPES`, the longest
@@ -82,7 +84,8 @@ _NO_HLO = ("the port issues its collectives through parallel/mesh.py's "
 class CollectiveOp(NamedTuple):
     """One collective a wrapper issued."""
 
-    kind: str            # "all-gather", "all-reduce" or "all-to-all"
+    kind: str            # "all-gather", "all-reduce", "all-to-all" or
+    #                      "collective-permute"
     stage: str           # the charged STAGE_SCOPES entry, or "unattributed"
     axis: str            # the mesh axis the call ran over
     operand_bytes: int   # this rank's operand
@@ -91,6 +94,9 @@ class CollectiveOp(NamedTuple):
     group_size: int
     n_groups: int
     op_name: str         # the open stages, outermost first, "/"-joined
+    # the shape this rank holds after the call (the port's addition: what
+    # a stage's rows are)
+    out_shape: tuple = ()
 
 
 class CommsLedger:
@@ -168,7 +174,7 @@ def _stage_of(open_stages, stages) -> str:
 
 
 def record(kind: str, axis: str, operand_bytes: int, group_size: int,
-           n_groups: int) -> None:
+           n_groups: int, out_shape: tuple = ()) -> None:
     """Charge one collective to every open ledger (a no-op with none
     open); the wrappers of ``parallel/mesh.py`` call it once a call."""
     if not _LEDGERS:
@@ -181,7 +187,8 @@ def record(kind: str, axis: str, operand_bytes: int, group_size: int,
                       axis=axis, operand_bytes=int(operand_bytes),
                       bytes_moved=per_device * n_groups * group_size,
                       group_size=int(group_size), n_groups=int(n_groups),
-                      op_name="/".join(open_stages))
+                      op_name="/".join(open_stages),
+                      out_shape=tuple(int(d) for d in out_shape))
     for ledger in _LEDGERS:
         ledger.ops.append(op)
 

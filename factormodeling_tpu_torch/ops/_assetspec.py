@@ -34,16 +34,30 @@ so the outputs agree across modes; the comms ledger (``obs/comms.py``)
 charges each mode's collectives to the stage's name. With no plan
 installed (the default) :func:`hint` is the identity and issues nothing.
 
-The plan binds by STAGE NAME: the port's stages that form whole rows are
-the scoring (its sort site is the rank-IC sort, ``metrics/rank_ic``) and
-the blend (its sort sites are the rank transform and the pooled
-percentiles, ``composite/blend``). The backtest runs on the gathered
-signal on every rank, as in ``parallel/pipeline.py``'s sharded step (its
-turnover day loop and its outputs need every row), so the JAX package's
-``backtest/weights`` and ``solver/iterates`` sites hold whole rows already
-and are no plan stage here. The chooser
-(``parallel/asset_shard.choose_asset_specs``) ranks each stage's modes by
-the ledger's bytes.
+The plan binds by STAGE NAME, the JAX package's five
+(:data:`ASSET_SORT_STAGES`):
+
+- ``metrics/rank_ic``: the scoring's rank-IC rows;
+- ``ops/rank``: the blend's rank transform (``blend_method="rank"``);
+- ``ops/quantile``: the blend's pooled percentiles and its suffix rules;
+  the blend forms its rows here, and a rank transform whose mode gives
+  the rank other rows moves the group proxies from these rows to its own
+  (:meth:`AssetSpecPlan.relayout`), so where the two modes give a rank
+  the same rows they are formed once;
+- ``backtest/weights``: the leg-selection ranks of the equal and linear
+  schemes, the one-day masked shift and the P&L, on the rows with their
+  returns, cap, investability and universe rows;
+- ``solver/iterates``: the QP schemes' solves (plain ``mvo``, the
+  ``mvo_turnover`` scan), on the rows with their returns rows and a halo
+  of the covariance window's rows before them.
+
+Under a mode that splits the dates over ranks, the rows of a stage are
+row blocks in date order along :meth:`AssetSpecPlan.row_axes`
+(``parallel/mesh.block_index``); a stage that reads earlier rows (the
+shift, the turnover, the covariance window, the turnover scan's carry)
+takes them from the block before through ``parallel/mesh.permute``. The
+chooser (``parallel/asset_shard.choose_asset_specs``) ranks each stage's
+modes by the ledger's bytes.
 """
 
 from __future__ import annotations
@@ -53,8 +67,14 @@ from contextlib import contextmanager
 __all__ = ["ASSET_SORT_STAGES", "AssetSpecPlan", "active_plan", "hint",
            "plan"]
 
-#: the stages the asset-sharded step forms whole rows in (module docs)
-ASSET_SORT_STAGES = ("metrics/rank_ic", "composite/blend")
+#: the stages the asset-sharded step forms whole rows in (module docs):
+#: the JAX package's plan stages, in its order
+ASSET_SORT_STAGES = ("metrics/rank_ic", "ops/rank", "ops/quantile",
+                     "backtest/weights", "solver/iterates")
+
+#: the modes' rows on one rank, nested: reshard's within auto's within
+#: gather's
+_NEST = {"reshard": 0, "auto": 1, "gather": 2}
 
 _MODES = ("auto", "reshard", "gather")
 
@@ -104,38 +124,26 @@ class AssetSpecPlan:
         return mode
 
     def rows(self, x, stage: str, *, sort_dim: int = -1,
-             batch_dim: int = -2, batch_axis: str | None = None,
-             batch_whole: bool = False):
+             batch_dim: int = -2, batch_axis: str | None = None):
         """This rank's rows of an operand, whole along ``sort_dim``.
 
         ``x`` is this rank's block: its ``sort_dim`` is the asset block of
         the plan's axis, its ``batch_dim`` (the dates) this rank's block
-        along ``batch_axis`` (None: no such axis), or every date when
-        ``batch_whole``. Returns the rows :meth:`row_span` names."""
+        along ``batch_axis`` (None: no such axis). Returns the rows
+        :meth:`row_span` names."""
         from factormodeling_tpu_torch.obs.trace import stage as obs_stage
-        from factormodeling_tpu_torch.parallel.mesh import (_block,
-                                                            all_gather,
-                                                            all_to_all,
-                                                            axis_index,
-                                                            axis_size)
+        from factormodeling_tpu_torch.parallel.mesh import (all_gather,
+                                                            all_to_all)
 
         m, a = self.mesh, self.axis
         sort_dim, batch_dim = sort_dim % x.ndim, batch_dim % x.ndim
-        if batch_whole and batch_axis is not None:
-            n = x.shape[batch_dim]
-        else:
-            n = x.shape[batch_dim] * axis_size(m, batch_axis)
-        layout = self._layout(stage, n // axis_size(m, batch_axis))
+        layout = self._layout(stage, x.shape[batch_dim])
         with obs_stage(stage):
             if layout == "gather":
                 x = all_gather(x, m, a, dim=sort_dim)
-                if batch_axis is not None and not batch_whole:
+                if batch_axis is not None:
                     x = all_gather(x, m, batch_axis, dim=batch_dim)
                 return x
-            if batch_whole and batch_axis is not None:
-                blk = _block(n, axis_size(m, batch_axis),
-                             axis_index(m, batch_axis))
-                x = x.narrow(batch_dim, blk.start, blk.stop - blk.start)
             if layout == "reshard":
                 return all_to_all(x, m, a, split_dim=batch_dim,
                                   concat_dim=sort_dim)
@@ -177,6 +185,67 @@ class AssetSpecPlan:
                 y = all_gather(y, self.mesh, batch_axis, dim=dim)
         return y
 
+    def row_axes(self, stage: str, n: int,
+                 batch_axis: str | None = None) -> tuple:
+        """The mesh axes along which the rows :meth:`rows` leaves the
+        ranks are blocks in date order (the first major; ``()``: every
+        rank holds every row of ``n``)."""
+        from factormodeling_tpu_torch.parallel.mesh import axis_size
+
+        layout = self._layout(stage, n // axis_size(self.mesh, batch_axis))
+        axes = () if batch_axis is None or layout == "gather" else (
+            batch_axis,)
+        return axes + ((self.axis,) if layout == "reshard" else ())
+
+    def relayout(self, y, src: str, dst: str, n: int, *, dim: int = -2,
+                 batch_axis: str | None = None):
+        """Stage ``src``'s rows of ``y`` (whole along the assets, this
+        rank's :meth:`row_span` of ``n`` along ``dim``) as stage ``dst``'s:
+        a narrower layout slices them, a wider one gathers them (reshard's
+        rows over the plan's axis, auto's over ``batch_axis``)."""
+        from factormodeling_tpu_torch.obs.trace import stage as obs_stage
+        from factormodeling_tpu_torch.parallel.mesh import (all_gather,
+                                                            axis_size)
+
+        d = axis_size(self.mesh, batch_axis)
+        a, b = self._layout(src, n // d), self._layout(dst, n // d)
+        if _NEST[b] > _NEST[a]:
+            with obs_stage(dst):
+                if a == "reshard":
+                    y = all_gather(y, self.mesh, self.axis, dim=dim)
+                if b == "gather" and batch_axis is not None:
+                    y = all_gather(y, self.mesh, batch_axis, dim=dim)
+            return y
+        have = self.row_span(src, n, batch_axis)
+        want = self.row_span(dst, n, batch_axis)
+        return y.narrow(dim, want.start - have.start, want.stop - want.start)
+
+    def to_block(self, y, stage: str, n: int, *, dim: int = -2,
+                 batch_axis: str | None = None):
+        """Stage ``stage``'s rows of ``y`` (whole along the last, asset,
+        dim) as this rank's input block: its date block along
+        ``batch_axis`` and its asset block of the plan's axis (an
+        ``all_to_all`` under reshard, a slice otherwise)."""
+        from factormodeling_tpu_torch.obs.trace import stage as obs_stage
+        from factormodeling_tpu_torch.parallel.mesh import (_block,
+                                                            all_to_all,
+                                                            axis_index,
+                                                            axis_size)
+
+        m = self.mesh
+        d = axis_size(m, batch_axis)
+        if self._layout(stage, n // d) == "reshard":
+            with obs_stage(stage):
+                return all_to_all(y, m, self.axis, split_dim=-1,
+                                  concat_dim=dim)
+        have = self.row_span(stage, n, batch_axis)
+        blk = _block(n, d, axis_index(m, batch_axis))
+        cols = _block(y.shape[-1], axis_size(m, self.axis),
+                      axis_index(m, self.axis))
+        return y.narrow(dim, blk.start - have.start,
+                        blk.stop - blk.start).narrow(
+                            -1, cols.start, cols.stop - cols.start)
+
     def spec_table(self) -> dict:
         """``{stage: mode}`` over :data:`ASSET_SORT_STAGES` (what the
         spec_choice rows record)."""
@@ -200,11 +269,11 @@ def plan(p: AssetSpecPlan | None):
 
 
 def hint(x, stage: str, *, sort_dim: int = -1, batch_dim: int = -2,
-         batch_axis: str | None = None, batch_whole: bool = False):
+         batch_axis: str | None = None):
     """This rank's whole rows of the operand block ``x`` under the active
     plan's layout for ``stage`` (:meth:`AssetSpecPlan.rows`); the identity
     when no plan is active (nothing issued)."""
     if _PLAN is None:
         return x
     return _PLAN.rows(x, stage, sort_dim=sort_dim, batch_dim=batch_dim,
-                      batch_axis=batch_axis, batch_whole=batch_whole)
+                      batch_axis=batch_axis)

@@ -9,9 +9,12 @@ order, as the JAX package's sort does; the tie tests compare neighbours with
 ``!=``, so each NaN is its own run and -0.0 ties with +0.0. A multi-key sort
 is a chain of stable single-key sorts from the least significant key up,
 and order-dependent results go back to the original order by a scatter.
-The JAX package's sharding hints at these sorts (``_assetspec.hint``)
-have no counterpart here: the port's sorts always see whole rows, and its
-asset-sharded step forms them once a stage (``ops/_assetspec.py``).
+The JAX package's sharding hints at these sorts (``_assetspec.hint``
+under ``ops/rank`` and ``ops/quantile``) have no counterpart here: the
+port's sorts always see whole rows, which its asset-sharded step forms
+once a stage before it calls them (``ops/_assetspec.py``: the blend's
+percentiles under ``ops/quantile``, its rank transform under
+``ops/rank``).
 """
 
 from __future__ import annotations

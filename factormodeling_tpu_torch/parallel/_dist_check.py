@@ -13,11 +13,15 @@ runs, on the same seeded float64 inputs:
   the rank's own unsharded step at 1e-10 (Sharpe 1e-8), then prints
   ``DIST_OK <rank>``;
 - the asset-sharded step on a ``("date", "assets")`` mesh and on a flat
-  ``("assets",)`` mesh in each layout mode, held the same way, its first
-  call under a ``RunReport(comms=True)`` (the placement rows), then prints
-  ``DIST_ASSET_OK <rank>``;
+  ``("assets",)`` mesh, for the ``equal``, ``linear``, ``mvo`` and
+  ``mvo_turnover`` (scan and parallel) backtests, in each layout mode and
+  under the JAX package's mixed plan (:data:`MIXED`), its outputs gathered
+  (``step.gather_outputs``) and held the same way, each call's ledger
+  kept, the equal step's first call under a ``RunReport(comms=True)``
+  (the placement rows), then prints ``DIST_ASSET_OK <rank>``;
 - then the comms ledgers, an ``all_reduce``, the layout chooser, the
-  sharded sweep, date-sharded streaming, the sharded ``TenantServer`` and
+  sharded sweep, date-sharded streaming, the sharded ``TenantServer``
+  (its dispatches on the stored blocks, counting whole-panel gathers) and
   the divisibility errors.
 
 Each rank writes what it computed to ``<out_dir>/rank<r>.pt`` (numpy
@@ -60,8 +64,26 @@ STEP_CASES = (
     ("icir_top_mvo_turnover", "icir_top",
      dict(method="mvo_turnover", lookback_period=8, qp_iters=40)),
 )
-ASSET_SIM = dict(method="equal", pct=0.3)
+#: the asset step's backtests: (label, sim_kwargs); the first is the one
+#: the placement rows, the chooser and the sharded server cases run
+ASSET_SIMS = (
+    ("equal", dict(method="equal", pct=0.3)),
+    ("linear", dict(method="linear", max_weight=0.3)),
+    ("mvo", dict(method="mvo", lookback_period=8, mvo_batch=4,
+                 qp_iters=60, max_weight=0.5)),
+    ("mvo_turnover", dict(method="mvo_turnover", lookback_period=8,
+                          qp_iters=40, max_weight=0.5)),
+    ("mvo_turnover_parallel", dict(method="mvo_turnover",
+                                   turnover_mode="parallel",
+                                   lookback_period=8, qp_iters=40,
+                                   mvo_batch=4, max_weight=0.5)),
+)
+ASSET_SIM = ASSET_SIMS[0][1]
 MODES = ("auto", "reshard", "gather")
+#: the JAX package's mixed plan (``tests/test_asset_sharding.py``)
+MIXED = {"metrics/rank_ic": "gather", "ops/rank": "gather",
+         "backtest/weights": "reshard"}
+PLANS = MODES + ("mixed",)
 
 
 class DistributedUnsupported(RuntimeError):
@@ -102,17 +124,19 @@ def _out_arrays(out) -> dict:
             "sharpe": float(out.summary.sharpe)}
 
 
-def _held(got: dict, want: dict, label: str) -> float:
+def _held(got: dict, want: dict, label: str, tol: float | None = None
+          ) -> float:
     """Largest gap of ``got`` from ``want`` (NaN where both are NaN); raises
-    past 1e-10 (Sharpe 1e-8)."""
+    past 1e-10 (Sharpe and weights 1e-8 unless ``tol`` is given)."""
     worst = 0.0
     for k, w in want.items():
         g = got[k]
-        tol = 1e-8 if k in ("sharpe", "weights") else 1e-10
+        bound = tol if tol is not None else (
+            1e-8 if k in ("sharpe", "weights") else 1e-10)
         gap = float(np.nanmax(np.abs(np.asarray(g) - np.asarray(w)),
                               initial=0.0))
-        if (np.isnan(g) != np.isnan(w)).any() or not gap <= tol:
-            raise AssertionError(f"{label} {k}: gap {gap} (tol {tol})")
+        if (np.isnan(g) != np.isnan(w)).any() or not gap <= bound:
+            raise AssertionError(f"{label} {k}: gap {gap} (tol {bound})")
         worst = max(worst, gap)
     return worst
 
@@ -169,27 +193,35 @@ def _asset_leg(raw, res: dict) -> None:
         AssetSpecPlan, build_research_step, make_asset_mesh, make_hybrid_mesh,
         make_asset_sharded_research_step)
 
-    cfg = dict(names=NAMES, window=WINDOW, sim_kwargs=ASSET_SIM)
-    local = _out_arrays(build_research_step(**cfg, device="cpu")(
-        *[torch.as_tensor(a) for a in raw]))
-    for label, mesh in (("date_assets", make_hybrid_mesh(("date", "assets"),
-                                                         device="cpu")),
-                        ("assets", make_asset_mesh(device="cpu"))):
-        res[f"asset/{label}/mesh_shape"] = tuple(mesh.shape)
-        for mode in MODES:
-            step, shard = make_asset_sharded_research_step(
-                mesh, **cfg, plan=AssetSpecPlan(mesh, default=mode))
-            # the step's first call "compiles" (obs.compile_log): under a
-            # RunReport(comms=True) it lands its placement rows from the
-            # same call
-            rep = RunReport("placement", comms=True)
-            with rep.activate(), comms.recording(mesh) as ledger:
-                out = _out_arrays(step(*shard(*raw)))
-            res[f"asset/{label}/{mode}"] = out
-            res[f"asset/{label}/{mode}/placement"] = rep.rows
-            res[f"asset/{label}/{mode}/err"] = _held(out, local,
-                                                     f"{label} {mode}")
-            res[f"asset/{label}/{mode}/ledger"] = _ops(ledger)
+    meshes = (("date_assets", make_hybrid_mesh(("date", "assets"),
+                                               device="cpu")),
+              ("assets", make_asset_mesh(device="cpu")))
+    for sim_label, sim in ASSET_SIMS:
+        cfg = dict(names=NAMES, window=WINDOW, sim_kwargs=sim)
+        local = _out_arrays(build_research_step(**cfg, device="cpu")(
+            *[torch.as_tensor(a) for a in raw]))
+        res[f"asset/{sim_label}/local"] = local
+        for label, mesh in meshes:
+            res[f"asset/{label}/mesh_shape"] = tuple(mesh.shape)
+            for mode in PLANS:
+                plan = (AssetSpecPlan(mesh, modes=MIXED) if mode == "mixed"
+                        else AssetSpecPlan(mesh, default=mode))
+                step, shard = make_asset_sharded_research_step(
+                    mesh, **cfg, plan=plan)
+                # the step's first call "compiles" (obs.compile_log): under
+                # a RunReport(comms=True) it lands its placement rows from
+                # the same call
+                rep = RunReport("placement", comms=True)
+                with rep.activate(), comms.recording(mesh) as ledger:
+                    got = step(*shard(*raw))
+                out = _out_arrays(step.gather_outputs(got))
+                key = (f"asset/{label}/{mode}" if sim_label == "equal"
+                       else f"asset/{label}/{sim_label}/{mode}")
+                res[key] = out
+                if sim_label == "equal":
+                    res[f"{key}/placement"] = rep.rows
+                res[f"{key}/err"] = _held(out, local, f"{key}", tol=1e-10)
+                res[f"{key}/ledger"] = _ops(ledger)
 
 
 def _rest(raw, res: dict, tmp: str) -> None:
@@ -224,7 +256,13 @@ def _rest(raw, res: dict, tmp: str) -> None:
     res["chooser/plan"] = plan.spec_table()
     res["chooser/ranking"] = ranking
     step, shard = make_asset_sharded_research_step(amesh, **cfg, plan=plan)
-    res["chooser/run"] = _out_arrays(step(*shard(*raw)))
+    res["chooser/run"] = _out_arrays(step.gather_outputs(step(*shard(*raw))))
+    # the turnover scan's and the parallel scheme's backtest stages, whose
+    # modes move other bytes
+    for label, sim in ASSET_SIMS[3:]:
+        _, res[f"chooser/ranking/{label}"] = choose_asset_specs(
+            amesh, shapes=(F, D, N), names=NAMES, window=WINDOW,
+            sim_kwargs=sim)
 
     # the sharded sweep
     cmesh = make_mesh(("combo",), device="cpu")
@@ -296,7 +334,14 @@ def _rest(raw, res: dict, tmp: str) -> None:
                "plain": TenantServer(names=NAMES, pad_ladder=(1, 4, 8),
                                      device="cpu", **panels)}
     for label, server in servers.items():
+        # a dispatch runs on the stored blocks: count whole-panel gathers
+        calls = []
+        whole = server._market_panels
+        server._market_panels = lambda: calls.append(1) or whole()
         served = server.serve(configs)
+        res[f"serve/{label}/market_panels_calls"] = len(calls)
+        server._market_panels = whole
+        res[f"serve/{label}/fingerprint"] = server.panels_fingerprint()
         res[f"serve/{label}"] = [_out_arrays(r.output) for r in served]
         res[f"serve/{label}/stats"] = server.serving_stats()["mesh_shape"]
         server.online_begin(configs[:4])

@@ -7,39 +7,45 @@ ledger-driven layout chooser (port of
   "assets")``; ``cluster.make_hybrid_mesh`` gives the multi-host form).
 - :func:`make_asset_sharded_research_step` is the
   ``make_sharded_research_step`` sibling with the asset axis on every
-  ``[..., N]`` operand. The factor stack stays this rank's
-  ``[F, D/d, N/s]`` block until a cross-sectional stage needs whole rows:
-  the scoring and the blend each form them under the plan's mode for
-  their stage (``ops/_assetspec.py``: ``auto``, ``reshard``, ``gather``),
-  compute on the rows this rank holds (under ``reshard`` every rank scores
-  and blends its own ``1/(d s)`` of the dates) and gather the row results,
-  the ``[D, F]`` tables and the ``[D, N]`` signal, to every rank. The four
-  ``[D, N]`` panels and ``factor_ret`` are gathered whole at the inputs:
-  the backtest runs on every rank on the gathered signal, as the factor x
-  date step's does, since its turnover day loop and its outputs need every
-  row. With counters or probes on the step gathers the stack as well
-  (they read it whole) and runs the unsharded stages.
+  ``[..., N]`` operand. The factor stack and the four ``[D, N]`` panels
+  stay this rank's ``[.., D/d, N/s]`` blocks until a stage needs whole
+  rows; only ``factor_ret [D, F]`` is gathered at the inputs. Each stage
+  forms the rows its mode gives this rank (``ops/_assetspec.py``:
+  ``auto``, ``reshard``, ``gather``), the panel rows it reads with them,
+  and computes on them: the scoring (``metrics/rank_ic``) gathers its
+  ``[D, F]`` tables to every rank; the blend forms rows under
+  ``ops/quantile`` (its rank transform under ``ops/rank``) and keeps its
+  signal rows; the backtest's ``solver/iterates`` and
+  ``backtest/weights`` stages take them on (``parallel/_asset_backtest.
+  py``: a halo of earlier rows where a stage reads them, the scan's carry
+  handed from block to block). The step returns the unsharded step's
+  outputs with ``signal`` and ``sim.weights`` as this rank's ``[D/d,
+  N/s]`` blocks; ``step.gather_outputs`` puts them together on every
+  rank. With counters or probes on the step gathers its inputs (they read
+  the stack whole) and runs the unsharded stages.
 - :func:`choose_asset_specs` ranks each stage's modes by the comms
   ledger's bytes (``obs/comms.py``) without running the step on data: for
-  each mode it runs the inputs' gathers and the scoring's and the blend's
-  layouts on ``meta`` tensors with the ledger recording only: the same
-  collectives through the same wrappers, which issue nothing, while the
-  stages' compute is replaced by empty results of its output shapes, so
-  no kernel launches and the bytes come from the shapes alone. The
-  backtest is left out: it moves nothing in any mode. :func:`record_spec_choices` lands the
-  verdicts as ``kind="spec_choice"`` rows in the JAX package's schema.
+  each mode it runs the step's stages on ``meta`` tensors with the ledger
+  recording only, the same collectives through the same wrappers, which
+  issue nothing, while the scoring's, the blend's and the solves' compute
+  is replaced by empty results of their output shapes (the weight schemes
+  and the P&L run on the ``meta`` tensors as they are), so no kernel
+  launches and the bytes come from the shapes alone.
+  :func:`record_spec_choices` lands the verdicts as ``kind="spec_choice"``
+  rows in the JAX package's schema.
 
 The ledger charges a collective to the OUTERMOST known scope open around
 it (``obs/comms.py``, the JAX package's rule): the scoring's collectives
-run inside ``selection/rolling`` (the step opens it around the selection,
-whose ``selection/daily_stats`` opens the plan's ``metrics/rank_ic``), so
-they land there, beside the shift's date gather.
-:data:`_STAGE_LEDGER_SCOPES` maps each plan stage to the ledger scopes its
-collectives land under (the JAX package's mapping, restricted to the
-port's two plan stages), and the chooser reads a stage's bytes over them;
-the shift's gather is the same in every mode, so it moves no ranking. A
-stage that issued nothing in every mode (its sites never ran) is judged
-by the candidates' totals, and its row says ``"attribution": "total"``.
+run inside ``selection/rolling``, the blend's inside ``composite/blend``,
+the solves' inside ``solver/admm`` and the weights' and P&L's inside
+``backtest/weights``. :data:`_STAGE_LEDGER_SCOPES` is the JAX package's
+mapping from each plan stage to the scopes its collectives land under,
+and the chooser reads a stage's bytes over them: ``ops/rank`` and
+``metrics/rank_ic`` share ``selection/rolling``, ``ops/rank`` and
+``ops/quantile`` share ``composite/blend``, so those rank together (the
+JAX package's shared-scope tie). A stage that issued nothing in every mode
+is judged by the candidates' totals, and its row says ``"attribution":
+"total"``.
 """
 
 from __future__ import annotations
@@ -65,10 +71,10 @@ from factormodeling_tpu_torch.ops._assetspec import (
     hint,
     plan as install_plan,
 )
-from factormodeling_tpu_torch.ops._window import masked_shift, shift
+from factormodeling_tpu_torch.parallel._asset_backtest import (
+    block_masked_shift, sharded_simulation)
 from factormodeling_tpu_torch.parallel.mesh import (ASSET_AXIS, Placement,
-                                                    _block, all_gather,
-                                                    axis_index, axis_size,
+                                                    axis_size,
                                                     make_mesh, mesh_device,
                                                     panel_sharding,
                                                     stack_sharding)
@@ -88,12 +94,17 @@ __all__ = [
 
 
 #: the ledger scopes each plan stage's collectives land under (module
-#: docs): the rank-IC rows are formed inside rolling_selection, so its
-#: collectives attribute to the OUTERMOST scope, selection/rolling
+#: docs; the JAX package's mapping): the rank-IC rows are formed inside
+#: rolling_selection, so its collectives attribute to the OUTERMOST scope,
+#: selection/rolling
 _STAGE_LEDGER_SCOPES = {
     "metrics/rank_ic": ("metrics/rank_ic", "selection/daily_stats",
                         "selection/rolling"),
-    "composite/blend": ("composite/blend",),
+    "ops/rank": ("selection/rolling", "selection/rolling_metrics",
+                 "composite/blend"),
+    "ops/quantile": ("composite/blend",),
+    "backtest/weights": ("backtest/weights", "backtest/trade_list"),
+    "solver/iterates": ("solver/admm", "solver/polish"),
 }
 
 
@@ -141,63 +152,102 @@ def _same_grid(a, b) -> bool:
 
 
 class _AssetLayout:
-    """The asset-sharded step's scoring and blend (module docs); the
-    active plan decides the rows each stage forms. ``factors`` is this
-    rank's ``[F, D/d, N/s]`` block, the ``[D, N]`` panels are whole.
-    ``shapes_only``: the chooser's form, on ``meta`` tensors: the same
-    collectives on the same shapes, the stages' compute replaced by empty
-    results of its output shapes."""
+    """The asset-sharded step's stages on this rank's blocks (module
+    docs); the active plan decides the rows each stage forms. The factor
+    stack is this rank's ``[F, D/d, N/s]`` block, the panels its ``[D/d,
+    N/s]`` blocks. ``shapes_only``: the chooser's form, on ``meta``
+    tensors: the same collectives on the same shapes, the compute replaced
+    by empty results of its output shapes."""
 
     def __init__(self, mesh, date_axis, asset_axis, shapes_only=False):
         self.mesh, self.da, self.aa = mesh, date_axis, asset_axis
         self.shapes_only = shapes_only
+        # the stage whose rows the blend's signal lies on
+        self.sig_stage = "ops/quantile"
+
+    def _dates(self, block) -> int:
+        return block.shape[-2] * axis_size(self.mesh, self.da)
 
     def stats(self, factors, returns, *, shift_periods, universe, stats):
-        """:func:`daily_factor_stats` of this rank's rows. The shift reads
-        earlier dates of each asset, so the block is gathered over the
-        date axis and shifted before it forms rows."""
-        n, st = returns.shape[0], "metrics/rank_ic"
+        """:func:`daily_factor_stats` of this rank's rows, the ``[D, F]``
+        tables gathered to every rank. The shift reads earlier dates of
+        each asset: the stack block is shifted along the date blocks
+        (``_asset_backtest.block_masked_shift``: each date block's last
+        ``shift_periods`` present values a name come from the blocks
+        before) before it forms rows."""
+        n, st = self._dates(returns), "metrics/rank_ic"
         with obs_stage("selection/daily_stats"):
             xs = factors
             if shift_periods:
-                if self.da is not None:
-                    xs = all_gather(xs, self.mesh, self.da, dim=1)
-                if self.shapes_only:
-                    pass
-                elif universe is not None:
-                    cols = _block(returns.shape[1],
-                                  axis_size(self.mesh, self.aa),
-                                  axis_index(self.mesh, self.aa))
-                    xs = masked_shift(xs, universe[:, cols], shift_periods,
-                                      axis=1)
-                else:
-                    xs = shift(xs, shift_periods, axis=1)
-            rows = hint(xs, st, batch_dim=1, batch_axis=self.da,
-                        batch_whole=bool(shift_periods))
+                present = (torch.ones_like(returns, dtype=torch.bool)
+                           if universe is None else universe)
+                xs = block_masked_shift(
+                    xs, present, shift_periods, self.mesh,
+                    () if self.da is None else (self.da,))
+            rows = hint(xs, st, batch_dim=1, batch_axis=self.da)
+            panel = (returns[None] if universe is None else
+                     torch.stack([returns, universe.to(returns.dtype)]))
+            prow = hint(panel, st, batch_dim=1, batch_axis=self.da)
             p = active_plan()
-            span = p.row_span(st, n, self.da)
             if self.shapes_only:
                 blk = _stats_like(rows, stats)
             else:
                 blk = daily_factor_stats(
-                    rows, returns[span], shift_periods=0,
-                    universe=None if universe is None else universe[span],
+                    rows, prow[0], shift_periods=0,
+                    universe=None if universe is None else prow[1] > 0,
                     stats=stats)
             return _tables(blk, returns.dtype, lambda t: p.gather_rows(
                 t, st, n, dim=2, batch_axis=self.da))
 
-    def blend(self, factors, names, selection, *, method, universe):
-        """The blend of this rank's rows, then the ``[D, N]`` signal
-        gathered to every rank."""
-        n, st = selection.shape[0], "composite/blend"
-        with obs_stage(st):
-            rows = hint(factors, st, batch_dim=1, batch_axis=self.da)
-            p = active_plan()
-            span = p.row_span(st, n, self.da)
-            sig = rows[0] if self.shapes_only else composite_weighted(
-                rows, names, selection[span], method=method,
-                universe=None if universe is None else universe[span])
-            return p.gather_rows(sig, st, n, dim=0, batch_axis=self.da)
+    def blend(self, factors, names, selection, *, method, universe,
+              group_tilt=None):
+        """The blend of this rank's rows (``selection [..., D, F]``, lanes
+        leading): the stack's (and universe's) rows formed under
+        ``ops/quantile``, the rank transform's under ``ops/rank`` (module
+        docs of ``ops/_assetspec.py``); the signal stays on its rows
+        (:attr:`sig_stage`)."""
+        q, r = "ops/quantile", "ops/rank"
+        n, p = selection.shape[-2], active_plan()
+        stack = (factors if universe is None else
+                 torch.cat([factors, universe[None].to(factors.dtype)]))
+        rows = hint(stack, q, batch_dim=1, batch_axis=self.da)
+        fr, ur = ((rows, None) if universe is None
+                  else (rows[:-1], rows[-1] > 0))
+        span = p.row_span(q, n, self.da)
+        self.sig_stage, hook = q, None
+        if method == "rank":
+            self.sig_stage = r
+
+            def hook(proxies, uni, sel):
+                def move(x):
+                    return p.relayout(x, q, r, n, batch_axis=self.da)
+
+                return (move(proxies),
+                        None if uni is None else move(
+                            uni.to(proxies.dtype)) > 0,
+                        selection[..., p.row_span(r, n, self.da), :])
+        if self.shapes_only:
+            sig = fr[0]
+            if hook is not None:
+                sig = hook(fr, ur, None)[0][0]
+            return sig
+        return composite_weighted(fr, names, selection[..., span, :],
+                                  method=method, universe=ur,
+                                  group_tilt=group_tilt, rank_rows=hook)
+
+    def simulate(self, signal, returns, cap_flag, investability, universe,
+                 sim_kwargs):
+        """The backtest of the blend's rows on the panel blocks
+        (``parallel/_asset_backtest.py``), and the signal as this rank's
+        block."""
+        p = active_plan()
+        sim = sharded_simulation(p, self.da, signal, self.sig_stage,
+                                 returns, cap_flag, investability, universe,
+                                 sim_kwargs, shapes_only=self.shapes_only)
+        with obs_stage("composite/blend"):
+            block = p.to_block(signal, self.sig_stage, self._dates(returns),
+                               batch_axis=self.da)
+        return sim, block
 
 
 def _stats_like(rows, stats) -> dict:
@@ -212,11 +262,11 @@ def _stats_like(rows, stats) -> dict:
 
 
 def _gather_inputs(in_shardings, blocks, full: bool) -> list:
-    """The step's inputs as its stages take them: the panels and
-    ``factor_ret`` whole, the stack this rank's block (whole when
+    """The step's inputs as its stages take them: ``factor_ret`` whole,
+    the stack and the panels this rank's blocks (everything whole when
     ``full``)."""
     with obs_stage("parallel/inputs"):
-        return [b if b is None or (i == 0 and not full) else p.gather(b)
+        return [b if b is None or (i != 2 and not full) else p.gather(b)
                 for i, (b, p) in enumerate(zip(blocks, in_shardings))]
 
 
@@ -244,8 +294,10 @@ def make_asset_sharded_research_step(mesh, *, names, window: int,
     :class:`AssetSpecPlan`, typically :func:`choose_asset_specs`' winner;
     None is every stage ``auto``) installed for each call.
     ``date_axis="auto"`` uses the mesh's ``"date"`` axis when it has one.
-    The step carries ``.mesh``, ``.declared_in_shardings`` and
-    ``.plan``."""
+    The step's ``signal`` and ``sim.weights`` are this rank's ``[D/d,
+    N/s]`` blocks (its other outputs whole); it carries ``.mesh``,
+    ``.declared_in_shardings``, ``.plan`` and ``.gather_outputs(out)``,
+    which gathers those two whole on every rank."""
     date_axis = _resolve_date_axis(mesh, date_axis)
     if plan is None:
         plan = AssetSpecPlan(mesh, axis=asset_axis)
@@ -278,14 +330,25 @@ def make_asset_sharded_research_step(mesh, *, names, window: int,
                     fault_spec=None, policy=None,
                     stats_fn=None if full else layout.stats,
                     blend_fn=None if full else layout.blend,
-                    sim_stage="backtest/weights")
+                    sim_fn=None if full else layout.simulate)
     dev = mesh_device(mesh)
+    panels = in_shardings[1]
 
     def step(*blocks):
         check_device(dev, *blocks)
         inputs = _gather_inputs(in_shardings, blocks, full)
         with install_plan(plan):
-            return run(*inputs)
+            out = run(*inputs)
+        if full:
+            out = out._replace(signal=panels.block(out.signal),
+                               sim=out.sim._replace(
+                                   weights=panels.block(out.sim.weights)))
+        return out
+
+    def gather_outputs(out):
+        return out._replace(signal=panels.gather(out.signal),
+                            sim=out.sim._replace(
+                                weights=panels.gather(out.sim.weights)))
 
     n_size = axis_size(mesh, asset_axis)
     d_size = axis_size(mesh, date_axis)
@@ -319,6 +382,7 @@ def make_asset_sharded_research_step(mesh, *, names, window: int,
     jitted.mesh = mesh
     jitted.declared_in_shardings = in_shardings
     jitted.plan = plan
+    jitted.gather_outputs = gather_outputs
     return jitted, shard_inputs
 
 
@@ -363,11 +427,10 @@ def choose_asset_specs(mesh, *, names, window: int, shapes,
       a ``"__total__"`` entry with each candidate's bytes.
 
     ``shapes`` is ``(F, D, N)``. Each candidate traces the inputs, the
-    scoring and the blend once on ``meta`` tensors with the ledger
-    recording only (module docs): no data moves and no kernel launches.
-    ``sim_kwargs`` is the JAX package's argument and changes nothing here:
-    the backtest moves the same bytes in every mode. Ties rank in
-    ``modes`` order, so ``"auto"`` wins a tie."""
+    scoring, the blend and the backtest of ``sim_kwargs`` once on ``meta``
+    tensors with the ledger recording only (module docs): no data moves
+    and no kernel launches. Ties rank in ``modes`` order, so ``"auto"``
+    wins a tie."""
     date_axis = _resolve_date_axis(mesh, date_axis)
     in_shardings = asset_in_shardings(mesh, date_axis, asset_axis)
     blocks = _meta_blocks(in_shardings, shapes, dtype)
@@ -378,18 +441,20 @@ def choose_asset_specs(mesh, *, names, window: int, shapes,
         candidate = AssetSpecPlan(mesh, axis=asset_axis, default=mode)
         with obs_comms.recording(mesh, record_only=True) as ledger, \
                 install_plan(candidate):
-            factors, returns, factor_ret, _, _, universe = _gather_inputs(
-                in_shardings, blocks, False)
+            factors, returns, factor_ret, cap, inv, universe = \
+                _gather_inputs(in_shardings, blocks, False)
             # the scoring runs only for a selector that reads it, with
-            # the selection's shift (its count moves no byte); the blend
+            # the selection's shift (rolling_selection's two dates); the blend
             # takes a [D, F] selection, factor_ret's shape
             if needs:
                 with obs_stage("selection/rolling"):
-                    layout.stats(factors, returns, shift_periods=1,
+                    layout.stats(factors, returns, shift_periods=2,
                                  universe=universe, stats=needs)
             with obs_stage("composite/blend"):
-                layout.blend(factors, names, factor_ret,
-                             method=blend_method, universe=universe)
+                signal = layout.blend(factors, names, factor_ret,
+                                      method=blend_method, universe=universe)
+            layout.simulate(signal, returns, cap, inv, universe,
+                            dict(sim_kwargs or {}))
         ledgers[mode] = ledger
 
     totals = {mode: ledgers[mode].totals() for mode in modes}

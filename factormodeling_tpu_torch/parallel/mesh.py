@@ -4,9 +4,10 @@ of ``factormodeling_tpu/parallel/mesh.py``).
 The JAX package declares shardings and lets its partitioner insert the
 collectives. The port is multi-process SPMD on ``torch.distributed``: one
 rank a device, every rank running the same Python, and every collective
-written out through the three wrappers here (:func:`all_gather` along a
-mesh axis, :func:`all_reduce`, :func:`all_to_all`), which record each call
-into the comms ledger (:mod:`factormodeling_tpu_torch.obs.comms`).
+written out through the wrappers here (:func:`all_gather` along a mesh
+axis, :func:`all_reduce`, :func:`all_to_all`, and :func:`permute`, the
+hand-off between neighbouring row blocks), which record each call into the
+comms ledger (:mod:`factormodeling_tpu_torch.obs.comms`).
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` carrying the JAX
 package's axis names (``"factor"``, ``"date"``, ``"combo"``, ``"assets"``,
@@ -39,8 +40,9 @@ from factormodeling_tpu_torch.obs import comms as obs_comms
 
 __all__ = ["ASSET_AXIS", "Placement", "all_gather", "all_reduce",
            "all_to_all", "axis_index", "axis_size", "balanced_mesh_shape",
-           "ensure_world", "make_mesh", "mesh_device", "panel_sharding",
-           "release_world", "replicated", "stack_sharding"]
+           "block_index", "block_count", "ensure_world", "make_mesh",
+           "mesh_device", "panel_sharding", "permute", "release_world",
+           "replicated", "stack_sharding"]
 
 #: canonical mesh-axis name for the sharded asset dimension ``N``
 ASSET_AXIS = "assets"
@@ -154,10 +156,11 @@ def _block(n: int, size: int, index: int) -> slice:
 # ----------------------------------------------------------- collectives
 
 
-def _record(kind: str, mesh, axis: str, x: torch.Tensor) -> int:
+def _record(kind: str, mesh, axis: str, x: torch.Tensor,
+            out_shape) -> int:
     size = axis_size(mesh, axis)
     obs_comms.record(kind, axis, x.numel() * x.element_size(), size,
-                     int(np.prod(mesh.shape)) // size)
+                     int(np.prod(mesh.shape)) // size, out_shape)
     return size
 
 
@@ -172,10 +175,10 @@ def all_gather(x: torch.Tensor, mesh, axis: str, dim: int = 0
     ``dim`` in the axis's rank order (every rank's block has ``x``'s
     shape). Issued on a size-1 axis too, so a world of one exercises its
     communicator."""
-    size = _record("all-gather", mesh, axis, x)
+    shape = list(x.shape)
+    shape[dim] *= axis_size(mesh, axis)
+    size = _record("all-gather", mesh, axis, x, shape)
     if obs_comms.record_only():
-        shape = list(x.shape)
-        shape[dim] *= size
         return x.new_empty(shape)
     wire = _wire(x)
     parts = [torch.empty_like(wire) for _ in range(size)]
@@ -188,7 +191,7 @@ def all_reduce(x: torch.Tensor, mesh, axis: str, op: str = "sum"
                ) -> torch.Tensor:
     """``x`` reduced (``"sum"``, ``"max"``, ``"min"``) over mesh ``axis``;
     a new tensor, ``x`` untouched."""
-    _record("all-reduce", mesh, axis, x)
+    _record("all-reduce", mesh, axis, x, x.shape)
     if obs_comms.record_only():
         return x.clone()
     ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
@@ -205,11 +208,12 @@ def all_to_all(x: torch.Tensor, mesh, axis: str, split_dim: int,
     received along ``concat_dim`` in rank order (the reshard: ``[B, N/S]``
     column blocks become ``[B/S, N]`` row blocks with ``split_dim=0``,
     ``concat_dim=1``)."""
-    size = _record("all-to-all", mesh, axis, x)
+    shape = list(x.shape)
+    size = axis_size(mesh, axis)
+    shape[split_dim] //= size
+    shape[concat_dim] *= size
+    _record("all-to-all", mesh, axis, x, shape)
     if obs_comms.record_only():
-        shape = list(x.shape)
-        shape[split_dim] //= size
-        shape[concat_dim] *= size
         return x.new_empty(shape)
     sends = [c.contiguous() for c in torch.chunk(_wire(x), size,
                                                  dim=split_dim)]
@@ -217,6 +221,70 @@ def all_to_all(x: torch.Tensor, mesh, axis: str, split_dim: int,
     dist.all_to_all(recvs, sends, group=mesh.get_group(axis))
     out = torch.cat(recvs, dim=concat_dim)
     return out.to(torch.bool) if x.dtype == torch.bool else out
+
+
+def block_count(mesh, axes) -> int:
+    """Row blocks along ``axes`` (a tuple of mesh axis names, the first
+    major): the product of their sizes."""
+    return int(np.prod([axis_size(mesh, a) for a in axes], dtype=np.int64))
+
+
+def block_index(mesh, axes) -> int:
+    """This rank's row block along ``axes`` (mixed radix, the first axis
+    major): the order :func:`all_gather` over the last axis, then the one
+    before, concatenates blocks in."""
+    b = 0
+    for a in axes:
+        b = b * axis_size(mesh, a) + axis_index(mesh, a)
+    return b
+
+
+def _rank_of_block(mesh, axes, b: int) -> int:
+    """The global rank holding row block ``b`` along ``axes`` whose
+    coordinates on every other axis are this rank's."""
+    names = tuple(mesh.mesh_dim_names or ())
+    coord = [int(c) for c in mesh.get_coordinate()]
+    for a in reversed(axes):
+        size = axis_size(mesh, a)
+        coord[names.index(a)] = b % size
+        b //= size
+    return int(mesh.mesh[tuple(coord)])
+
+
+def permute(x: torch.Tensor, mesh, axes, pairs) -> torch.Tensor | None:
+    """The collective-permute between row blocks along ``axes``: for each
+    ``(src, dst)`` of ``pairs`` (block indices, :func:`block_index`) the
+    rank holding block ``src`` sends ``x`` to the one holding ``dst`` with
+    its other coordinates; returns what this rank received (``x``'s shape
+    and dtype), None when it is no destination. Ranks in no pair issue
+    nothing. The ledger charges one operand a pair and group (kind
+    ``collective-permute``, byte factor 1), what moves."""
+    pairs = [(int(a), int(b)) for a, b in pairs]
+    blocks = block_count(mesh, axes)
+    obs_comms.record("collective-permute", ",".join(axes),
+                     x.numel() * x.element_size(), len(pairs),
+                     int(np.prod(mesh.shape)) // max(blocks, 1), x.shape)
+    if not pairs:
+        return None
+    me = block_index(mesh, axes)
+    dst = [b for a, b in pairs if a == me]
+    src = [a for a, b in pairs if b == me]
+    if obs_comms.record_only():
+        return x.new_empty(x.shape) if src else None
+    ops, out = [], None
+    if dst:
+        ops.append(dist.P2POp(dist.isend, _wire(x),
+                              _rank_of_block(mesh, axes, dst[0])))
+    if src:
+        out = torch.empty_like(_wire(x))
+        ops.append(dist.P2POp(dist.irecv, out,
+                              _rank_of_block(mesh, axes, src[0])))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    if out is not None and x.dtype == torch.bool:
+        out = out.to(torch.bool)
+    return out
 
 
 # ------------------------------------------------------------ placements

@@ -182,13 +182,16 @@ def build_research_step(*, names, window: int,
 def _make_run(*, names, window, select_method, select_kwargs, blend_method,
               sim_kwargs, collect_counters, collect_probes, fault_spec,
               policy, probe_canary, stats_fn=None, blend_fn=None,
-              sim_stage=None):
+              sim_stage=None, sim_fn=None):
     """The step's body, ``run(factors, returns, factor_ret, cap_flag,
     investability, universe, fault_spec, policy)``. ``stats_fn`` (the
-    selection's :func:`daily_factor_stats`) and ``blend_fn`` (the blend,
-    :func:`composite_weighted`'s arguments) are the sharded steps' seams;
-    ``sim_stage`` names an ``obs.stage`` they open around the backtest, so
-    the comms ledger would charge a collective there to it."""
+    selection's :func:`daily_factor_stats`), ``blend_fn`` (the blend,
+    :func:`composite_weighted`'s arguments) and ``sim_fn`` (the backtest:
+    ``sim_fn(signal, returns, cap_flag, investability, universe,
+    sim_kwargs) -> (SimulationOutput, signal)``, the signal as the step
+    returns it) are the sharded steps' seams; ``sim_stage`` names an
+    ``obs.stage`` they open around the backtest, so the comms ledger would
+    charge a collective there to it."""
     names = tuple(names)
     select_kwargs = dict(select_kwargs or {})
     sim_kwargs = dict(sim_kwargs or {})
@@ -274,13 +277,16 @@ def _make_run(*, names, window, select_method, select_kwargs, blend_method,
             with obs_stage("resil/clamp"):
                 signal, clamped_cells, clamped_days = \
                     resil_policy.clamp_signal(signal, policy)
-        settings = SimulationSettings(
-            returns=returns, cap_flag=cap_flag,
-            investability_flag=investability, universe=universe,
-            degrade=policy, **sim_kwargs)
         with (obs_stage(sim_stage) if sim_stage
               else contextlib.nullcontext()):
-            sim = run_simulation(signal, settings)
+            if sim_fn is not None:
+                sim, signal = sim_fn(signal, returns, cap_flag,
+                                     investability, universe, sim_kwargs)
+            else:
+                sim = run_simulation(signal, SimulationSettings(
+                    returns=returns, cap_flag=cap_flag,
+                    investability_flag=investability, universe=universe,
+                    degrade=policy, **sim_kwargs))
         if collect_probes:
             # per-day final ADMM residuals (NaN on days without a solve)
             obs_probes.probe("solver/admm", sim.diagnostics.primal_residual,

@@ -46,7 +46,7 @@ from factormodeling_tpu_torch.selection import (FACTOR_SELECTION_METHODS,
 from factormodeling_tpu_torch.serve.tenant import _VALUE_LEAVES, TenantConfig
 
 __all__ = ["make_tenant_research_step", "make_batched_research_step",
-           "tenant_step_parts"]
+           "make_sharded_batched_step", "tenant_step_parts"]
 
 
 def _host(v, dtype) -> np.ndarray:
@@ -146,7 +146,12 @@ def tenant_step_parts(names, template: TenantConfig):
     return _make_parts(names, template)
 
 
-def _make_parts(names, template: TenantConfig):
+def _make_parts(names, template: TenantConfig, layout=None):
+    """The tenant step's halves (:func:`tenant_step_parts`); ``layout``
+    (``parallel/asset_shard._AssetLayout``) runs the scoring, the blend
+    and the simulation on asset-sharded panel blocks under the active
+    plan, the simulation's signal and weights coming back as this rank's
+    blocks."""
     names = tuple(names)
     window = template.window
     select_method = template.select_method
@@ -173,9 +178,10 @@ def _make_parts(names, template: TenantConfig):
                 f"window {window} >= {factor_ret.shape[0]} dates: the "
                 f"processed range is empty, nothing to serve")
         with obs_stage("serve/context"):
-            return build_selection_context(factors, returns, factor_ret,
-                                           window, universe=universe,
-                                           stats=needs)
+            return build_selection_context(
+                factors, returns, factor_ret, window, universe=universe,
+                stats=needs, stats_fn=None if layout is None else
+                layout.stats)
 
     def prefix(t: TenantConfig, ctx, factors, universe, policy=None):
         c = lane_count(t)
@@ -203,10 +209,9 @@ def _make_parts(names, template: TenantConfig):
                                             device=dev)[:, None, :]
             sel = finalize_selection(raw, window)
         with obs_stage("serve/blend"):
-            signal = composite_weighted(factors, names, sel,
-                                        method=template.blend_method,
-                                        universe=universe,
-                                        group_tilt=t.blend_tilt)
+            blend = composite_weighted if layout is None else layout.blend
+            signal = blend(factors, names, sel, method=template.blend_method,
+                           universe=universe, group_tilt=t.blend_tilt)
         if policy is not None:
             from factormodeling_tpu_torch.resil import policy as resil_policy
 
@@ -218,12 +223,18 @@ def _make_parts(names, template: TenantConfig):
                  investability, universe, policy=None) -> ResearchOutput:
         knobs = lane_knobs({name: _host(getattr(t, name), np.float64)
                             for name in LANE_KNOBS}, signal.device)
-        settings = SimulationSettings(
-            returns=returns, cap_flag=cap_flag,
-            investability_flag=investability, universe=universe,
-            method=template.method, lookback_period=template.lookback_period,
-            degrade=policy, **knobs, **sim_static)
-        sim = run_simulation(signal, settings)
+        sim_kwargs = dict(method=template.method,
+                          lookback_period=template.lookback_period,
+                          degrade=policy, **knobs, **sim_static)
+        if layout is not None:
+            sim, signal = layout.simulate(signal, returns, cap_flag,
+                                          investability, universe,
+                                          sim_kwargs)
+        else:
+            sim = run_simulation(signal, SimulationSettings(
+                returns=returns, cap_flag=cap_flag,
+                investability_flag=investability, universe=universe,
+                **sim_kwargs))
         with obs_stage("pipeline/summary"):
             summary = result_summary(sim.result)
         return ResearchOutput(selection=sel, signal=signal, sim=sim,
@@ -257,6 +268,23 @@ def make_tenant_research_step(*, names, template: TenantConfig):
     return step
 
 
+def _lanes_call(build_ctx, tenant_body, tenants, factors, returns,
+                factor_ret, cap_flag, investability, universe, lanes):
+    c = lane_count(tenants)
+    k = c if lanes is None else int(lanes)
+    if not 1 <= k <= c:
+        raise ValueError(f"lanes must be in [1, {c}], got {lanes}")
+    ctx = build_ctx(factors, returns, factor_ret, universe)
+    with obs_stage("serve/tenants"):
+        out = tenant_body(_config_lanes(tenants, slice(0, k)), ctx,
+                          factors, returns, cap_flag, investability,
+                          universe)
+    if k == c:
+        return out
+    return _tree_map(lambda a: torch.cat(
+        [a, a[k - 1:k].expand((c - k,) + a.shape[1:])]), out)
+
+
 def make_batched_research_step(*, names, template: TenantConfig):
     """The batched step: ``step(tenants, factors, returns, factor_ret,
     cap_flag, investability, universe=None, *, lanes=None)`` where
@@ -275,18 +303,37 @@ def make_batched_research_step(*, names, template: TenantConfig):
 
     def step(tenants, factors, returns, factor_ret, cap_flag, investability,
              universe=None, *, lanes=None) -> ResearchOutput:
-        c = lane_count(tenants)
-        k = c if lanes is None else int(lanes)
-        if not 1 <= k <= c:
-            raise ValueError(f"lanes must be in [1, {c}], got {lanes}")
-        ctx = build_ctx(factors, returns, factor_ret, universe)
-        with obs_stage("serve/tenants"):
-            out = tenant_body(_config_lanes(tenants, slice(0, k)), ctx,
-                              factors, returns, cap_flag, investability,
-                              universe)
-        if k == c:
-            return out
-        return _tree_map(lambda a: torch.cat(
-            [a, a[k - 1:k].expand((c - k,) + a.shape[1:])]), out)
+        return _lanes_call(build_ctx, tenant_body, tenants, factors, returns,
+                           factor_ret, cap_flag, investability, universe,
+                           lanes)
+
+    return step
+
+
+def make_sharded_batched_step(*, names, template: TenantConfig, mesh,
+                              asset_axis: str = "assets"):
+    """The batched step on asset-sharded panels: the same call as
+    :func:`make_batched_research_step`'s, its ``[..., N]`` panels this
+    rank's blocks along ``asset_axis`` of ``mesh`` (``factor_ret`` whole).
+    The scoring, the blend and the simulation run under an
+    ``AssetSpecPlan`` with every stage ``auto`` (``ops/_assetspec.py``:
+    each stage forms its rows from the blocks, the layout the JAX server
+    gets from its partitioner with no plan installed); the outputs'
+    ``signal`` and ``sim.weights`` are this rank's ``[C, D, N/s]``
+    blocks, the rest whole."""
+    from factormodeling_tpu_torch.ops._assetspec import (AssetSpecPlan,
+                                                         plan as install)
+    from factormodeling_tpu_torch.parallel.asset_shard import _AssetLayout
+
+    layout = _AssetLayout(mesh, None, asset_axis)
+    plan = AssetSpecPlan(mesh, axis=asset_axis)
+    build_ctx, tenant_body = _make_parts(names, template, layout)
+
+    def step(tenants, factors, returns, factor_ret, cap_flag, investability,
+             universe=None, *, lanes=None) -> ResearchOutput:
+        with install(plan):
+            return _lanes_call(build_ctx, tenant_body, tenants, factors,
+                               returns, factor_ret, cap_flag, investability,
+                               universe, lanes)
 
     return step

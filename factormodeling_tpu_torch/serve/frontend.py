@@ -41,8 +41,12 @@ only when asked.
 ``TenantServer(mesh=...)`` serves over a ``("configs", "assets")`` mesh,
 one rank a device, every rank holding the same inputs and making the same
 calls: the market panels are stored asset-sharded (each rank its ``N/S``
-columns, ``parallel/asset_shard.asset_in_shardings``) and gathered for a
-dispatch, a bucket's real lanes split over the ``"configs"`` axis (each
+columns, ``parallel/asset_shard.asset_in_shardings``) and stay so through
+a dispatch: the bucket's step runs on the blocks
+(``serve/batched.make_sharded_batched_step``: the scoring, the blend and
+the backtest form their rows under an all-``auto`` layout plan), its
+signal and weights come back as asset blocks and are gathered for the
+demux. A bucket's real lanes split over the ``"configs"`` axis (each
 rank computes its block of lanes) and the lanes' outputs are gathered, so
 every rank returns every tenant's result. An online session's lanes split
 the same way: each rank advances the tenant state of its own lanes, the
@@ -68,10 +72,9 @@ from factormodeling_tpu_torch.parallel import streaming as _streaming
 from factormodeling_tpu_torch.parallel.mesh import (all_gather, axis_index,
                                                     axis_size, mesh_device)
 from factormodeling_tpu_torch.parallel.pipeline import ResearchOutput
-from factormodeling_tpu_torch.serve.batched import (_stack, _tree_map,
-                                                    lane_count,
-                                                    make_batched_research_step,
-                                                    tree_lane)
+from factormodeling_tpu_torch.serve.batched import (
+    _stack, _tree_map, lane_count, make_batched_research_step,
+    make_sharded_batched_step, tree_lane)
 from factormodeling_tpu_torch.serve.tenant import (TenantConfig,
                                                    config_leaves, mesh_key,
                                                    stack_configs)
@@ -204,7 +207,7 @@ class TenantServer:
 
     def _market_panels(self) -> tuple:
         """The whole market panels (an asset-sharded server gathers its
-        blocks)."""
+        blocks; only the fingerprint reads them whole)."""
         if self._placements is None:
             return self._panels
         with obs_stage("parallel/inputs"):
@@ -270,6 +273,10 @@ class TenantServer:
         config = self._entry_key(skey, rung)
 
         def build():
+            if self._placements is not None:
+                return make_sharded_batched_step(
+                    names=self.names, template=template, mesh=self.mesh,
+                    asset_axis=self._asset_axis)
             return make_batched_research_step(names=self.names,
                                               template=template)
 
@@ -321,19 +328,32 @@ class TenantServer:
         if self._lanes_split():
             mine, per = self._lane_block(real)
             stacked = stack_configs([lanes[i] for i in mine])
-            out = self._gather_lanes(step(stacked, *self._market_panels()),
-                                     per)
+            out = self._gather_lanes(self._run(step, stacked), per)
             # the real lanes in order, then the pad lanes as the
             # unsharded step fills them: lane real-1's output
             out = _tree_map(lambda a: torch.cat(
                 [a[:real]] + [a[real - 1:real]] * pad), out)
         else:
             stacked = stack_configs(list(lanes) + [lanes[-1]] * pad)
-            out = step(stacked, *self._market_panels(), lanes=real)
+            out = self._run(step, stacked, lanes=real)
         self._stats["dispatch_executions"] += 1
         self._stats["configs_served"] += real
         self._stats["padded_lanes"] += pad
         return name, out, pad
+
+    def _run(self, step, stacked, **kw):
+        """The bucket's step on the stored panels; an asset-sharded
+        server's signal and weights come back as asset blocks and are
+        gathered whole."""
+        out = step(stacked, *self._panels, **kw)
+        if self._placements is None:
+            return out
+        with obs_stage("serve/tenants"):
+            gather = (lambda a: all_gather(a, self.mesh, self._asset_axis,
+                                           dim=-1))
+            return out._replace(signal=gather(out.signal),
+                                sim=out.sim._replace(
+                                    weights=gather(out.sim.weights)))
 
     def _note_logical_dispatch(self) -> None:
         """One scheduling decision completed (the queue's hook)."""

@@ -22,17 +22,22 @@ shapes.
   layout mode issues its own collectives on the step's shapes (the
   asset-sharded step's stages compute on different rows in each mode),
   and ``choose_asset_specs`` (its stages run on ``meta`` tensors) ranks
-  the modes by those bytes, with a different plan on each mesh shape.
+  the JAX package's five stages by those bytes, with a different plan on
+  each mesh shape; under ``reshard`` no rank is handed a whole ``[D, N]``
+  panel, and the rows a stage holds are ``D/(d s)``.
 - The sharded sweep against ``manager_sweep`` and the JAX package's
   sharded sweep at 1e-10.
-- The asset-sharded step in every layout mode against the unsharded step
-  and the JAX package's asset-sharded step at 1e-10; its placement rows
-  (``RunReport(comms=True)``) against the shape model and the JAX
-  package's stage rule.
+- The asset-sharded step for ``equal``, ``linear``, ``mvo`` and the
+  ``mvo_turnover`` scan, in every layout mode and under the JAX package's
+  mixed plan, on both meshes, against the unsharded step (every rank,
+  1e-10, in fact bitwise) and the JAX package's asset-sharded step at
+  1e-10; its placement rows (``RunReport(comms=True)``) against the shape
+  model and the JAX package's stage rule.
 - Date-sharded streaming bitwise its unsharded run (whole chunks, block
   chunks, a disk source); the linear research and the composite.
-- ``TenantServer(mesh=...)``: ``serve`` and ``advance_all`` against the
-  unsharded server.
+- ``TenantServer(mesh=...)``: ``serve`` (no whole-panel gather on a
+  dispatch) and ``advance_all`` against the unsharded server, the panels'
+  fingerprint equal.
 - The divisibility errors; the ranks' modules hold no JAX.
 """
 
@@ -43,6 +48,8 @@ import pytest
 import torch
 
 from factormodeling_tpu.backtest import SimulationSettings as JaxSettings
+from factormodeling_tpu.ops._assetspec import \
+    ASSET_SORT_STAGES as JAX_STAGES
 from factormodeling_tpu.parallel import (AssetSpecPlan as JaxPlan,
                                          make_asset_mesh as jax_asset_mesh,
                                          make_asset_sharded_research_step
@@ -51,6 +58,8 @@ from factormodeling_tpu.parallel import (AssetSpecPlan as JaxPlan,
                                          make_sharded_research_step
                                          as jax_sharded_step)
 from factormodeling_tpu.parallel import sweep as jsweep
+from factormodeling_tpu.parallel.asset_shard import \
+    _STAGE_LEDGER_SCOPES as JAX_SCOPES
 from factormodeling_tpu_torch.parallel import _dist_check as dc
 from factormodeling_tpu_torch.selection.driver import selection_metric_needs
 from tests.torch_threads import torch_one_thread  # noqa: F401
@@ -215,20 +224,62 @@ def test_sharded_sweep_matches_manager_sweep_and_jax(world):
 # ----------------------------------------------------- the asset step
 
 
-@pytest.mark.parametrize("mode", dc.MODES)
+def _jax_asset(sim, mode, n):
+    """The JAX package's asset-sharded step on the ``("date", "assets")``
+    mesh of ``n`` virtual devices under ``mode`` (or the mixed plan)."""
+    key = ("asset", sim, mode, n)
+    if key not in _jax_cache:
+        mesh = jax_asset_mesh(("date", "assets"), n_devices=n)
+        plan = (JaxPlan(mesh, modes=dc.MIXED) if mode == "mixed"
+                else JaxPlan(mesh, default=mode))
+        step, shard = jax_asset_step(mesh, names=dc.NAMES, window=dc.WINDOW,
+                                     sim_kwargs=dict(dc.ASSET_SIMS)[sim],
+                                     plan=plan)
+        out = step(*shard(*RAW))
+        _jax_cache[key] = {
+            "selection": np.asarray(out.selection),
+            "signal": np.asarray(out.signal),
+            "log_return": np.asarray(out.sim.result.log_return),
+            "weights": np.asarray(out.sim.weights)}
+    return _jax_cache[key]
+
+
+def _asset_key(label, sim, mode):
+    return (f"asset/{label}/{mode}" if sim == "equal"
+            else f"asset/{label}/{sim}/{mode}")
+
+
+@pytest.mark.parametrize("mode", dc.PLANS)
 def test_asset_sharded_step_matches_unsharded_and_jax(world, mode):
-    n = len(world)
     for label in ("date_assets", "assets"):
         assert all(r[f"asset/{label}/{mode}/err"] <= 1e-10 for r in world)
     got = world[0][f"asset/date_assets/{mode}"]
-    mesh = jax_asset_mesh(("date", "assets"), n_devices=n)
-    step, shard = jax_asset_step(mesh, names=dc.NAMES, window=dc.WINDOW,
-                                 sim_kwargs=dc.ASSET_SIM,
-                                 plan=JaxPlan(mesh, default=mode))
-    out = step(*shard(*RAW))
-    for k, want in (("selection", out.selection), ("signal", out.signal),
-                    ("log_return", out.sim.result.log_return)):
-        _close(got[k], np.asarray(want), 1e-10, f"{mode} {k}")
+    want = _jax_asset("equal", mode, len(world))
+    for k in ("selection", "signal", "log_return", "weights"):
+        _close(got[k], want[k], 1e-10, f"{mode} {k}")
+
+
+@pytest.mark.parametrize("sim", [s for s, _ in dc.ASSET_SIMS[1:]])
+def test_asset_sharded_backtests_match_unsharded_and_jax(world, sim):
+    """Every plan on both meshes: each rank's gathered outputs are the
+    unsharded step's (held at 1e-10 on the rank; here bitwise), alike on
+    every rank; the JAX package's asset step under its mixed plan at
+    1e-10 (the parallel scheme is held to the JAX package's through its
+    unsharded run, ``tests/test_torch_turnover_parallel.py``)."""
+    local = world[0][f"asset/{sim}/local"]
+    for label in ("date_assets", "assets"):
+        for mode in dc.PLANS:
+            key = _asset_key(label, sim, mode)
+            for r in world:
+                assert r[f"{key}/err"] <= 1e-10
+                for k, v in local.items():
+                    np.testing.assert_array_equal(r[key][k], v, err_msg=key)
+    if sim == "mvo_turnover_parallel":
+        return
+    got = world[0][_asset_key("date_assets", sim, "mixed")]
+    want = _jax_asset(sim, "mixed", len(world))
+    for k in ("selection", "signal", "log_return", "weights"):
+        _close(got[k], want[k], 1e-10, f"{sim} {k}")
 
 
 def _model_bytes(ledger):
@@ -237,53 +288,57 @@ def _model_bytes(ledger):
     for op in ledger:
         s, b = op["group_size"], op["operand_bytes"]
         factor = {"all-gather": s - 1, "all-to-all": (s - 1) / s,
-                  "all-reduce": 2 * (s - 1) / s}[op["kind"]]
+                  "all-reduce": 2 * (s - 1) / s,
+                  "collective-permute": 1}[op["kind"]]
         out[op["stage"]] = (out.get(op["stage"], 0.0)
                             + factor * b * s * op["n_groups"])
     return out
 
 
 def _layout_ops(mode, d, s):
-    """The ``(kind, axis, operand bytes)`` each layout stage issues under
-    ``mode`` on a ``(d, s)`` ``("date", "assets")`` mesh
+    """The ``(kind, axis, operand bytes)`` the scoring and the blend issue
+    under ``mode`` on a ``(d, s)`` ``("date", "assets")`` mesh
     (``ops/_assetspec.py``), keyed by the ledger stage the outermost-scope
     rule charges them to: the scoring runs inside ``selection/rolling``,
-    where the shift first gathers the stack block over the dates (the
-    same in every mode), then forms rows of the shifted stack (every date
-    of this rank's asset block) and gathers its ``[2, F, rows]`` tables
+    where the shift first gathers each date block's last two present
+    values a name (``[2, F, 2, N/s]``, the same in every mode), then forms
+    rows of the shifted stack block and of the returns and universe, and
+    gathers its ``[2, F, rows]`` tables
     (icir_top reads rank_ic, which comes with its pair count); the blend
-    forms rows of the ``[F, D/d, N/s]`` block and gathers the ``[rows,
-    N]`` signal."""
+    forms rows of the ``[F + 1, D/d, N/s]`` stack and universe block
+    (``ops/quantile``) and keeps its signal rows, which go back to the
+    ``[D/d, N/s]`` block at the end."""
     assert selection_metric_needs("icir_top") == ("rank_ic",)
     f, db, nn = dc.F, dc.D // d, dc.N
     blk = f * db * (nn // s) * 8
-    table, sig = 2 * f * db * 8, db * nn * 8
-    shift = [("all-gather", "date", blk)]
+    panel = 2 * db * (nn // s) * 8
+    fblk = (f + 1) * db * (nn // s) * 8
+    table = 2 * f * db * 8
+    shift = [("all-gather", "date", 2 * f * 2 * (nn // s) * 8)]
     if mode == "reshard" and db % s:
         mode = "auto"
     if mode == "auto":
-        return {"selection/rolling": shift + [("all-gather", "assets", blk),
-                                              ("all-gather", "date", table)],
-                "composite/blend": [("all-gather", "assets", blk),
-                                    ("all-gather", "date", sig)]}
+        return {"selection/rolling": shift + [
+                    ("all-gather", "assets", blk),
+                    ("all-gather", "assets", panel),
+                    ("all-gather", "date", table)],
+                "composite/blend": [("all-gather", "assets", fblk)]}
     if mode == "reshard":
         return {"selection/rolling": shift + [
                     ("all-to-all", "assets", blk),
+                    ("all-to-all", "assets", panel),
                     ("all-gather", "assets", table // s),
                     ("all-gather", "date", table)],
-                "composite/blend": [("all-to-all", "assets", blk),
-                                    ("all-gather", "assets", sig // s),
-                                    ("all-gather", "date", sig)]}
-    return {"selection/rolling": shift + [("all-gather", "assets",
-                                           blk * d)],
-            "composite/blend": [("all-gather", "assets", blk),
-                                ("all-gather", "date", blk * s)]}
-
-
-#: the ledger stage each plan stage's collectives land under (the
-#: outermost-scope rule; ``asset_shard._STAGE_LEDGER_SCOPES``)
-_LEDGER_STAGE = {"metrics/rank_ic": "selection/rolling",
-                 "composite/blend": "composite/blend"}
+                "composite/blend": [("all-to-all", "assets", fblk),
+                                    ("all-to-all", "assets",
+                                     db // s * nn * 8)]}
+    return {"selection/rolling": shift + [
+                ("all-gather", "assets", blk),
+                ("all-gather", "date", blk * s),
+                ("all-gather", "assets", panel),
+                ("all-gather", "date", panel * s)],
+            "composite/blend": [("all-gather", "assets", fblk),
+                                ("all-gather", "date", fblk * s)]}
 
 
 def _bytes_of(ops, sizes, n):
@@ -297,11 +352,15 @@ def _bytes_of(ops, sizes, n):
 def test_asset_ledger_bytes_follow_the_shapes(world):
     """On the 2-D mesh each layout stage issues its mode's collectives on
     the step's shapes, cut into this rank's blocks, and the ledger's
-    per-stage bytes are the byte model's."""
+    per-stage bytes are the byte model's; the equal backtest forms its
+    four panels' rows (``backtest/weights``) and hands each block the
+    shifted row before it (one ``[N]`` row, a collective-permute) unless
+    the mode gives every rank every row."""
     sizes = dict(zip(("date", "assets"),
                      world[0]["asset/date_assets/mesh_shape"]))
     d, s = sizes["date"], sizes["assets"]
     n = len(world)
+    db, ns = dc.D // d, dc.N // s
     for mode in dc.MODES:
         ledger = world[0][f"asset/date_assets/{mode}/ledger"]
         by_stage: dict = {}
@@ -315,14 +374,49 @@ def test_asset_ledger_bytes_follow_the_shapes(world):
             assert got == want, (mode, stage)
             assert by_stage.get(stage, 0.0) == pytest.approx(
                 _bytes_of(want, sizes, n))
-        # the shift's one gather of the stack block over the dates, the
-        # same in every mode, opens the scoring; the backtest moves nothing
+        # the shift's gather of the date blocks' last present values, the
+        # same in every mode, opens the scoring
         stats = [(op["kind"], op["axis"], op["operand_bytes"])
                  for op in ledger if op["stage"] == "selection/rolling"][:1]
-        assert stats == [("all-gather", "date",
-                          dc.F * (dc.D // d) * (dc.N // s) * 8)]
+        assert stats == [("all-gather", "date", 2 * dc.F * 2 * ns * 8)]
+        bt = [op for op in ledger if op["stage"] == "backtest/weights"]
+        rows_kind = "all-to-all" if mode == "reshard" and db % s == 0 \
+            else "all-gather"
+        assert (bt[0]["kind"], bt[0]["axis"], bt[0]["operand_bytes"]) == (
+            rows_kind, "assets", 4 * db * ns * 8)
+        permutes = [op for op in bt if op["kind"] == "collective-permute"]
+        if mode == "gather":
+            assert not permutes
+        else:
+            assert [op["operand_bytes"] for op in permutes] == [dc.N * 8]
         assert set(by_stage) == {"parallel/inputs", "selection/rolling",
-                                 "composite/blend"}
+                                 "composite/blend", "backtest/weights"}
+
+
+def test_reshard_hands_no_rank_a_whole_panel(world):
+    """Under ``reshard`` no collective gives a rank a whole ``[D, N]``
+    panel, and every row block a stage forms whole along the assets is
+    ``D/(d s)`` rows (``D/s`` on the flat mesh); the solver stage adds
+    the covariance window's halo, received a block at a time
+    (``collective-permute``, never more rows than a block)."""
+    for r in world:
+        for label in ("date_assets", "assets"):
+            shape = r[f"asset/{label}/mesh_shape"]
+            d, s = (shape if label == "date_assets" else (1, shape[0]))
+            rows = dc.D // (d * s)
+            for sim, _ in dc.ASSET_SIMS:
+                ledger = r[_asset_key(label, sim, "reshard") + "/ledger"]
+                held = [tuple(op["out_shape"]) for op in ledger]
+                assert all(h[-2:] != (dc.D, dc.N) for h in held), sim
+                whole_n = [h[-2] for h in held if len(h) >= 2
+                           and h[-1] == dc.N]
+                assert whole_n and max(whole_n) == rows, (label, sim)
+                if sim.startswith("mvo"):
+                    halo = [op for op in ledger if op["stage"] ==
+                            "solver/admm" and op["kind"] ==
+                            "collective-permute" and op["out_shape"][-1]
+                            == dc.N]
+                    assert halo or d * s == 1
 
 
 def test_placement_rows_follow_the_shapes_and_the_jax_rule(world):
@@ -346,7 +440,8 @@ def test_placement_rows_follow_the_shapes_and_the_jax_rule(world):
         by_stage = {r["stage"]: r["bytes_moved"] for r in rows
                     if r["kind"] == "comms"}
         assert set(by_stage) == {"parallel/inputs", "selection/rolling",
-                                 "composite/blend", "total"}
+                                 "composite/blend", "backtest/weights",
+                                 "total"}
         for stage, want in _layout_ops(mode, d, s).items():
             assert by_stage[stage] == pytest.approx(
                 _bytes_of(want, sizes, n)), (mode, stage)
@@ -367,33 +462,54 @@ def test_placement_rows_follow_the_shapes_and_the_jax_rule(world):
 
 
 def test_chooser_ranks_by_the_ledger_bytes(world):
-    ranking = world[0]["chooser/ranking"]
+    """The chooser ranks the JAX package's five stages, each by the bytes
+    its ledger scopes (the JAX package's mapping) hold, and pins each
+    stage's winner; its shape-only bytes are those the real run's ledger
+    shows in every mode, for the equal and the turnover backtests, and
+    the backtest's stages rank by bytes that differ by mode."""
     plan = world[0]["chooser/plan"]
     n = len(world)
-    sizes = dict(zip(("date", "assets"),
-                     world[0]["asset/date_assets/mesh_shape"]))
-    for stage, entry in ranking.items():
-        if stage == "__total__":
-            continue
-        ranked = entry["ranked"]
-        assert sorted(b for _, b in ranked) == [b for _, b in ranked]
-        assert plan[stage] == ranked[0][0]
-        # the chooser's shape-only bytes are the model's and those the
-        # real run's ledger shows
-        for mode, got in ranked:
-            want = _bytes_of(_layout_ops(mode, sizes["date"],
-                                         sizes["assets"])[_LEDGER_STAGE[stage]],
-                             sizes, n)
-            assert got == pytest.approx(want), (stage, mode)
-            real = world[0][f"asset/date_assets/{mode}/ledger"]
-            assert got == pytest.approx(_model_bytes(real).get(
-                _LEDGER_STAGE[stage], 0.0))
+    assert set(plan) == set(JAX_STAGES)
+    for sim, key in (("equal", "chooser/ranking"),
+                     ("mvo_turnover", "chooser/ranking/mvo_turnover")):
+        ranking = world[0][key]
+        assert set(ranking) == set(JAX_STAGES) | {"__total__"}
+        for stage, entry in ranking.items():
+            ranked = entry["ranked"]
+            assert sorted(b for _, b in ranked) == [b for _, b in ranked]
+            if sim == "equal" and stage != "__total__":
+                assert plan[stage] == ranked[0][0]
+            for mode, got in ranked:
+                real = world[0][_asset_key("date_assets", sim, mode)
+                                + "/ledger"]
+                if stage == "__total__" or entry["attribution"] == "total":
+                    want = sum(op["bytes_moved"] for op in real)
+                else:
+                    want = sum(op["bytes_moved"] for op in real
+                               if op["stage"] in JAX_SCOPES[stage])
+                assert got == pytest.approx(want), (sim, stage, mode)
+        for stage in ("backtest/weights", "solver/iterates"):
+            if sim == "equal" and stage == "solver/iterates":
+                # the equal scheme solves nothing: judged by the totals
+                assert ranking[stage]["attribution"] == "total"
+                continue
+            assert ranking[stage]["attribution"] == "stage"
+            by_mode = dict(ranking[stage]["ranked"])
+            if n == 4:
+                assert len(set(by_mode.values())) == 3, (sim, stage)
+            else:   # (2, 1): one asset rank, resharding moves no byte
+                assert by_mode["auto"] == by_mode["reshard"] < by_mode[
+                    "gather"]
+    # the parallel scheme's shape-only run charges every sweep it may run
+    # (the real run's ledger holds those it ran): its solver stage ranks
+    # by its own bytes
+    par = world[0]["chooser/ranking/mvo_turnover_parallel"]
+    assert par["solver/iterates"]["attribution"] == "stage"
+    assert par["solver/iterates"]["ranked"][-1][0] == "gather"
     # the answer follows the mesh: on (2, 2) resharding moves least in
-    # both stages; on (2, 1) the scoring's gather moves no byte (the
-    # shifted stack already holds every date) and the blend keeps auto
-    assert plan == ({"metrics/rank_ic": "reshard",
-                     "composite/blend": "reshard"} if n == 4 else
-                    {"metrics/rank_ic": "gather", "composite/blend": "auto"})
+    # every stage; on (2, 1) the asset axis has one rank, reshard ties
+    # auto and auto wins the tie
+    assert plan == {st: "reshard" if n == 4 else "auto" for st in JAX_STAGES}
     # every row is computed as in any other layout: the outputs are the
     # auto plan's bit for bit
     for k, v in world[0]["chooser/run"].items():
@@ -417,9 +533,16 @@ def test_date_sharded_streaming_is_bitwise_unsharded(world):
 
 
 def test_sharded_server_matches_unsharded(world):
+    """``serve`` on the mesh server (its dispatches run the bucket's step
+    on the stored asset blocks, with no whole-panel gather) gives the
+    unsharded server's outputs, and its panels' fingerprint is the
+    unsharded server's."""
     assert world[0]["serve/mesh/stats"] == dict(
         zip(("configs", "assets"), {2: (2, 1), 4: (2, 2)}[len(world)]))
     assert world[0]["serve/plain/stats"] is None
+    for r in world:
+        assert r["serve/mesh/market_panels_calls"] == 0
+        assert r["serve/mesh/fingerprint"] == r["serve/plain/fingerprint"]
     for got, want in zip(world[0]["serve/mesh"], world[0]["serve/plain"]):
         for k, v in want.items():
             _close(got[k], v, 1e-12, k)

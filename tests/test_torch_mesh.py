@@ -128,13 +128,13 @@ def test_plan_modes_move_the_operand_unchanged():
                         ("reshard", ["all-to-all"] + ["all-gather"] * 2)):
         p = AssetSpecPlan(mesh, default=mode)
         with _assetspec.plan(p), comms.recording(mesh) as ledger:
-            y = _assetspec.hint(x, "composite/blend", batch_axis="date")
-            assert p.row_span("composite/blend", 3, "date") == slice(0, 3)
-            z = p.gather_rows(y, "composite/blend", 3, dim=1,
+            y = _assetspec.hint(x, "ops/quantile", batch_axis="date")
+            assert p.row_span("ops/quantile", 3, "date") == slice(0, 3)
+            z = p.gather_rows(y, "ops/quantile", 3, dim=1,
                               batch_axis="date")
         assert torch.equal(y, x) and torch.equal(z, x)
         assert [op.kind for op in ledger.ops] == kinds
-        assert {op.stage for op in ledger.ops} == {"composite/blend"}
+        assert {op.stage for op in ledger.ops} == {"ops/quantile"}
         assert all(op.bytes_moved == 0.0 for op in ledger.ops)
 
 
@@ -254,3 +254,32 @@ def test_sharding_lint_flags_a_replicated_input():
 def test_hlo_readers_raise_with_the_reason(fn):
     with pytest.raises(NotImplementedError, match="compiles no HLO"):
         getattr(comms, fn)("x")
+
+
+def test_plan_stages_are_the_jax_packages_and_rows_move_between_them():
+    """The plan's stages are the JAX package's five, in its order; in a
+    world of one a stage's rows relaid to another's, and back to the
+    input block, are the operand, and a row-block hand-off has no pair."""
+    from factormodeling_tpu.ops._assetspec import \
+        ASSET_SORT_STAGES as JAX_STAGES
+    from factormodeling_tpu_torch.parallel.mesh import (block_count,
+                                                        block_index, permute)
+
+    assert _assetspec.ASSET_SORT_STAGES == JAX_STAGES
+    mesh = make_asset_mesh(("date", "assets"), device="cpu")
+    x = torch.arange(12.0).reshape(3, 4)
+    for a, b in (("reshard", "gather"), ("gather", "reshard"),
+                 ("auto", "auto")):
+        p = AssetSpecPlan(mesh, modes={"ops/quantile": a,
+                                       "backtest/weights": b})
+        assert set(p.spec_table()) == set(JAX_STAGES)
+        with comms.recording(mesh) as ledger:
+            y = p.relayout(x, "ops/quantile", "backtest/weights", 3,
+                           batch_axis="date")
+            z = p.to_block(y, "backtest/weights", 3, batch_axis="date")
+            axes = p.row_axes("backtest/weights", 3, "date")
+            assert block_count(mesh, axes) == 1
+            assert block_index(mesh, axes) == 0
+            assert permute(x, mesh, axes, []) is None
+        assert torch.equal(y, x) and torch.equal(z, x)
+        assert all(op.bytes_moved == 0.0 for op in ledger.ops)
