@@ -181,7 +181,7 @@ Phases, in order (any failure exits non-zero before the last line):
    bitwise the plain tenant step, bootstrap indices in range, adversarial
    draws inside their windows, every path finite, paths/s and one path
    against one tenant step, 2 adversarial paths against the host CPU on
-   the first 333 dates at path 5's gates; (12b) the regime
+   the first 166 dates at path 5's gates; (12b) the regime
    family killed after 2 of 4 chunks through ``_FMT_SCEN_STOP_AFTER_CHUNK``
    and resumed, rows and ``lineage=`` ledger byte-equal to straight
    through; (12c) 10b's ``mvo_turnover`` tenant under the regime family, 2
@@ -213,7 +213,12 @@ Phases, in order (any failure exits non-zero before the last line):
    (13d) ``TenantServer(mesh=...)`` on a (1, 1) ``("configs",
    "assets")`` mesh: 10a's rung-8 dispatch of 5 tenants on the stored
    blocks (no whole-panel gather) and 10d's two turnover tenants over 16
-   dates (K2 a lane launch a segment a date);
+   dates on their state's asset blocks, bitwise the unsharded server (K2
+   a lane launch a segment a date), then 9b's tenant through
+   ``make_online_step(mesh=)`` on an ``("assets",)`` world of one over
+   the same 16 dates, bitwise the unsharded advance with K1 and K2 as its
+   schedule; the held blocks' shapes and the comms ledger by ``online/*``
+   stage (0 bytes in a world of one) printed;
    (13e) ``streamed_factor_stats(mesh=)``
    from 12e's host stack through a date-block source, bitwise 12e's
    serial run, K1 once a chunk;
@@ -3708,8 +3713,9 @@ SC_ADV = dict(seed=11, window_len=20, nan_rate=0.01, inf_rate=0.005,
               collapse_rate=0.1, collapse_keep=50)
 # 2 adversarial paths on the first SC_CPU_DATES dates, card against the
 # host CPU from the same host draws, at path 5's gates
-# (``_scenario_cpu_check``)
-SC_CPU_PATHS, SC_CPU_DATES = 2, 333
+# (``_scenario_cpu_check``); 333 until the sharded online session joined
+# 13d, then 166 to keep the script's time
+SC_CPU_PATHS, SC_CPU_DATES = 2, 166
 # 12b: the regime family, chunks of SC_KILL_CHUNK, killed after 2
 SC_KILL_CHUNK, SC_KILL_AFTER = 8, 2
 # 12c: path 9's turnover tenant under the regime family
@@ -4445,13 +4451,116 @@ def mesh_asset_path(torch, fmt, seed: int, refs: dict) -> dict:
     return launches
 
 
+def _held_shapes(state) -> dict:
+    """``{leaf: shape}`` of an online state's tensors (the blocks a rank
+    holds)."""
+    from factormodeling_tpu_torch.online.state import _map_leaves
+
+    out = {}
+
+    def note(path, leaf, assets, lanes):
+        out[path] = list(leaf.shape)
+        return leaf
+
+    _map_leaves(state, note)
+    return out
+
+
+def _ledger_by_stage(ledger) -> dict:
+    """The comms ledger by stage: ``{stage: [collectives, bytes]}``."""
+    return {st: [sum(c["count"] for c in v["collectives"].values()),
+                 v["bytes_moved"]] for st, v in ledger.by_stage().items()}
+
+
+def mesh_online_path(torch, fmt, arrays, date_slice) -> tuple:
+    """13d's single tenant: 9b's turnover tenant through
+    ``make_online_step(mesh=)`` on an ``("assets",)`` world of one over
+    P13_ONLINE_DATES dates (its state held as asset blocks), held bitwise
+    against the unsharded advance on the same dates, the K1 and K2
+    launches of each run equal to the unsharded schedule. Returns the
+    sharded run's launches and its log line."""
+    from factormodeling_tpu_torch.composite import prefix_group_ids
+    from factormodeling_tpu_torch.metrics import _cuda_rank_ic as rk
+    from factormodeling_tpu_torch.obs import comms
+    from factormodeling_tpu_torch.online import make_online_step
+    from factormodeling_tpu_torch.online.advance import ONLINE_STAGES
+    from factormodeling_tpu_torch.ops import _cuda_admm as ak
+    from factormodeling_tpu_torch.parallel import make_asset_mesh
+
+    names = factor_names(F)
+    tmpl = turnover_configs(fmt)[0].normalized(
+        F, len(prefix_group_ids(names)[1]), dtype=np.float64)
+    mesh = make_asset_mesh(device="cuda")
+    runs, launches, walls = {}, {}, {}
+    ledger = held = None
+    for label, kw in (("plain", dict(device="cuda")), ("mesh",
+                                                        dict(mesh=mesh))):
+        init, adv = make_online_step(names=names, template=tmpl,
+                                     n_assets=N, dtype=torch.float32,
+                                     has_universe=True, **kw)
+        mstate, tstate = init()
+        rows = []
+        torch.cuda.synchronize()
+        rk.launches = ak.launches = ak.lane_launches = 0
+        ops = []
+        t0 = time.perf_counter()
+        for t in range(P13_ONLINE_DATES):
+            ds = date_slice(t)
+            if label == "mesh":
+                ds = adv.shard_date_slice(ds)
+            # the advance's collectives (the rows' gathers are the caller's)
+            with comms.recording(mesh) as lg:
+                (mstate, tstate), out = adv(tmpl, mstate, tstate, ds)
+            ops += lg.ops
+            rows.append(adv.gather_outputs(out) if label == "mesh"
+                        else out)
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+        launches[label] = segment_counts(rk, ak)
+        runs[label] = rows
+        if label == "mesh":
+            ledger = _ledger_by_stage(comms.CommsLedger(ops))
+            held = {"market": _held_shapes(mstate),
+                    "tenant": _held_shapes(tstate)}
+        elif ops:
+            raise AssertionError(f"path 13d: the unsharded advance issued "
+                                 f"{len(ops)} collectives")
+    err = max(_tree_diff(torch, fmt, a, b)
+              for a, b in zip(runs["mesh"], runs["plain"]))
+    segs = segment_launches(fmt, PATHS["turnover"], d=1)[0]
+    want = {"rank_ic_postsort": P13_ONLINE_DATES,
+            "admm_segment": (P13_ONLINE_DATES - 1) * segs,
+            "admm_segment_lanes": 0}
+    line = (f"path 13d single tenant: 9b's turnover tenant through "
+            f"make_online_step(mesh=) on an ('assets',) world of one, "
+            f"{P13_ONLINE_DATES} dates: walls "
+            f"{json.dumps({k: round(v, 3) for k, v in walls.items()})} s; "
+            f"max |diff| from the unsharded advance {err:.3e} (bitwise "
+            f"{err == 0.0}); launches {json.dumps(launches)} (schedule "
+            f"{json.dumps(want)}); held blocks {json.dumps(held)}; comms by "
+            f"stage [collectives, bytes] {json.dumps(ledger)}")
+    if err != 0.0:
+        raise AssertionError(f"path 13d single tenant: {err} from the "
+                             f"unsharded advance (bitwise asked)")
+    if launches["plain"] != want or launches["mesh"] != want:
+        raise AssertionError(f"path 13d single tenant: launches {launches}, "
+                             f"schedule {want}")
+    if set(ledger) - set(ONLINE_STAGES):
+        raise AssertionError(f"path 13d single tenant: collectives outside "
+                             f"the online stages: {ledger}")
+    return launches["mesh"], line
+
+
 def mesh_serve_path(torch, fmt, seed: int) -> dict:
     """13d: ``TenantServer(mesh=...)`` on a (1, 1) ``("configs",
     "assets")`` mesh: 10a's rung-8 dispatch of 5 tenants (on the stored
     asset blocks: no call of ``_market_panels``), and 10d's two turnover
-    tenants advanced over P13_ONLINE_DATES dates, held against the
-    unsharded server; K1 once a dispatch and once a date."""
+    tenants advanced over P13_ONLINE_DATES dates on their state's asset
+    blocks, held bitwise against the unsharded server; K1 once a dispatch
+    and once a date; then 9b's tenant through ``make_online_step(mesh=)``
+    (:func:`mesh_online_path`)."""
     from factormodeling_tpu_torch.metrics import _cuda_rank_ic as rk
+    from factormodeling_tpu_torch.obs import comms
     from factormodeling_tpu_torch.online import DateSlice
     from factormodeling_tpu_torch.ops import _cuda_admm as ak
     from factormodeling_tpu_torch.parallel import make_mesh
@@ -4466,8 +4575,15 @@ def mesh_serve_path(torch, fmt, seed: int) -> dict:
         names=factor_names(F), **_panels(arrays), device="cuda"),
         "mesh": fmt.serve.TenantServer(
             names=factor_names(F), **_panels(arrays), mesh=mesh)}
+
+    def date_slice(t):
+        return DateSlice(factors=factors[:, t], returns=returns[t],
+                         factor_ret=factor_ret[t], cap_flag=cap[t],
+                         investability=invest[t], universe=universe[t])
+
     got, walls = {}, {}
     whole = []
+    ledger = held = None
     for label, server in servers.items():
         if label == "mesh":
             rk.launches = ak.launches = ak.lane_launches = 0
@@ -4479,14 +4595,17 @@ def mesh_serve_path(torch, fmt, seed: int) -> dict:
         server.online_begin(t_cfgs)
         rows = []
         t0 = time.perf_counter()
-        for t in range(P13_ONLINE_DATES):
-            rows.append(server.advance_all(DateSlice(
-                factors=factors[:, t], returns=returns[t],
-                factor_ret=factor_ret[t], cap_flag=cap[t],
-                investability=invest[t], universe=universe[t])))
+        with comms.recording(mesh) as lg:
+            for t in range(P13_ONLINE_DATES):
+                rows.append(server.advance_all(date_slice(t)))
         torch.cuda.synchronize()
         walls[f"{label} advance"] = time.perf_counter() - t0
         got[label] = (served, rows)
+        if label == "mesh":
+            ledger = _ledger_by_stage(lg)
+            sess = next(iter(server._online.values()))
+            held = {"market": _held_shapes(sess["mstate"]),
+                    "tenants": _held_shapes(sess["tstates"])}
     launches = segment_counts(rk, ak)
     serve_err = max(_tree_diff(torch, fmt, a.output, b.output)
                     for a, b in zip(got["mesh"][0], got["plain"][0]))
@@ -4501,19 +4620,30 @@ def mesh_serve_path(torch, fmt, seed: int) -> dict:
         f"{P13_ONLINE_DATES} dates; walls "
         f"{json.dumps({k: round(v, 3) for k, v in walls.items()})} s; max "
         f"|diff| serve {serve_err:.3e}, advance {adv_err:.3e} (tol "
-        f"{P13_TOL}); mesh_shape "
+        f"{P13_TOL}; advance bitwise {adv_err == 0.0}); mesh_shape "
         f"{json.dumps(servers['mesh'].serving_stats()['mesh_shape'])}; "
         f"whole-panel gathers {len(whole)}; launches {json.dumps(launches)} "
-        f"(schedule {json.dumps(want)})")
+        f"(schedule {json.dumps(want)}); the session's held blocks "
+        f"{json.dumps(held)}; advance_all's comms by stage [collectives, "
+        f"bytes] {json.dumps(ledger)}")
     _held13("13d serve", serve_err)
-    _held13("13d advance_all", adv_err)
+    if adv_err != 0.0:
+        raise AssertionError(f"path 13d advance_all: {adv_err} from the "
+                             f"unsharded server (bitwise asked)")
     if whole:
         raise AssertionError(f"path 13d: {len(whole)} whole-panel gathers "
                              f"(_market_panels) in a dispatch")
     if launches != want:
         raise AssertionError(f"path 13d: launches {launches}, schedule "
                              f"{want}")
-    return launches
+    if held["market"]["factors_tail"][-1] != N or any(
+            shape[-1] != N for leaf, shape in held["tenants"].items()
+            if not leaf.endswith("rho")):
+        raise AssertionError(f"path 13d: held blocks {held} on a world of "
+                             f"one")
+    single, line = mesh_online_path(torch, fmt, arrays, date_slice)
+    log(line)
+    return {k: launches[k] + single[k] for k in launches}
 
 
 def mesh_stream_path(torch, fmt, ns_host: dict) -> dict:
@@ -4953,7 +5083,8 @@ def main() -> int:
     # step, once a date in path 9b's online advance, once a dispatch in
     # paths 10a, 10b and 10e, once a date in path 10d's session, once a
     # dispatch in paths 12a-12c, once a chunk in 12d-12e, once in 13a, once
-    # a run in 13c, once a dispatch and a date in 13d, once a chunk in 13e
+    # a run in 13c, once a dispatch and a date in 13d's server and once a
+    # date in its single-tenant sharded advance, once a chunk in 13e
     # and once in 14b's profiled run
     k1 = {p: launches[p]["rank_ic_postsort"] for p in
           (*PATHS, "multimanager", "resil", "online", "serve",
@@ -4967,8 +5098,8 @@ def main() -> int:
     kernels["rank_ic_postsort"].update(k1_north)
     # the segment's single-lane launches: path 1, the sequential suffixes
     # of paths 6-7 and 10e (a date with one lane past its start), path 9a's
-    # clean step, path 9b's advance, paths 13a, 13c (the scan's runs) and
-    # 14b; its collect=1 form: path 9a's probed inert and chaos steps and
+    # clean step, path 9b's advance, paths 13a, 13c (the scan's runs), 13d's
+    # single-tenant sharded advance and 14b; its collect=1 form: path 9a's probed inert and chaos steps and
     # path 11a's probed tally run; its lane launches: path 2's chunks and
     # 13c's plain-MVO runs, the seed and sweep chunks of paths 6-7 and 10e,
     # and the lane-batched day loops: path 10b's bucket (its real tenants,
@@ -4977,7 +5108,7 @@ def main() -> int:
     single = {p: launches[p]["admm_segment"] for p in
               ("turnover", "turnover_parallel", "turnover_parallel_decoupled",
                "serve_parallel", "resil", "online", "mesh_step",
-               "mesh_asset", "devtime")}
+               "mesh_asset", "mesh_serve", "devtime")}
     lanes = {p: launches[p]["admm_segment_lanes"] for p in
              ("mvo", "turnover_parallel", "turnover_parallel_decoupled",
               "serve_turnover", "serve_parallel", "advance_all",

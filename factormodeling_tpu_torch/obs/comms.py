@@ -54,7 +54,9 @@ __all__ = ["CollectiveOp", "CommsLedger", "STAGE_SCOPES", "comms_ledger",
            "record_only", "recording", "resolve", "sharding_lint"]
 
 #: the ``obs.stage`` scopes collectives are charged to: the JAX package's,
-#: plus the port's scope for the sharded steps' input gathers
+#: plus the port's scopes for the sharded steps' input gathers and the
+#: online advance's seven stages (``online/advance.py::ONLINE_STAGES``),
+#: whose collectives run inside the advance's stages
 STAGE_SCOPES = (
     "selection/rolling", "selection/daily_stats", "selection/rolling_metrics",
     "composite/blend", "backtest/trade_list", "backtest/weights",
@@ -64,6 +66,8 @@ STAGE_SCOPES = (
     "sweep/books", "sweep/combo_pnl",
     "parallel/inputs", "ops/rank", "ops/quantile", "solver/iterates",
     "serve/tenants", "resil/faults",
+    "online/ingest", "online/daily_stats", "online/context",
+    "online/selection", "online/blend", "online/solve", "online/shift_pnl",
 )
 
 #: per-participant link-bytes factor as a function of group size S (the

@@ -32,6 +32,18 @@ read. Ring ramp-up is NaN/False padding, whose contribution to every
 NaN-aware reducer is the full step's edge padding. The books and warm
 states of the QP schemes are kept in ``QP_DTYPE`` (float64), the type the
 full step chains them in.
+
+Over a mesh carrying the asset axis (``make_online_step(mesh=...)``,
+``TenantServer(mesh=...)``'s online sessions) each rank holds its blocks
+of the state (:func:`shard_online_state`), placed leaf by leaf by what the
+leaf means (:func:`online_leaf_dims`): the market tails, the covariance
+ring, the risk model's idiosyncratic variances and every per-name tenant
+carry hold this rank's ``N/s`` columns; the stat rings, the factor-return
+ring, the risk model's loadings and factor variances and the ADMM
+``rho`` stay whole. That is the JAX package's rule
+(``serve/frontend.py::_online_state_specs``, which shards a leaf whose LAST
+dim has ``N`` entries) wherever no other dim of the state equals ``N``.
+:func:`shard_date_slice` does the same for an arriving date.
 """
 
 from __future__ import annotations
@@ -39,13 +51,15 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
 from factormodeling_tpu_torch.backtest.mvo import QP_DTYPE
 from factormodeling_tpu_torch.solvers.admm_qp import ADMMWarmState
 
 __all__ = ["AdvanceOutputs", "DateSlice", "MarketState", "TenantState",
-           "init_market_state", "init_tenant_state", "stack_tenant_states",
+           "check_asset_divisible", "init_market_state", "init_tenant_state", "online_leaf_dims",
+           "shard_date_slice", "shard_online_state", "stack_tenant_states",
            "tenant_state_lane"]
 
 
@@ -214,3 +228,124 @@ def tenant_state_lane(ts: TenantState, lane: int) -> TenantState:
         warm_ring=warm(ts.warm_ring, lambda a: a[lane]),
         long_pnl_by_name=ts.long_pnl_by_name[lane],
         short_pnl_by_name=ts.short_pnl_by_name[lane])
+
+
+# ------------------------------------------------------ asset placement
+
+#: the market fields whose last dim is the asset axis
+_MARKET_ASSETS = ("factors_tail", "returns_tail", "cap_tail", "invest_tail",
+                  "universe_tail", "lb_ring")
+#: the per-name tenant carries (the ADMM warm states' ``z``/``u`` too)
+_TENANT_ASSETS = ("w_prev", "book_carry", "traded_prev", "long_pnl_by_name",
+                  "short_pnl_by_name")
+
+
+def _map_leaves(state, fn):
+    """``state`` with each tensor leaf replaced by ``fn(path, leaf,
+    assets, lanes)``: ``assets`` whether its last dim is the asset axis,
+    ``lanes`` whether its first is a session's lane axis (tenant
+    leaves). ``state`` is a :class:`MarketState`, a :class:`TenantState`
+    or a :class:`DateSlice`; ``None`` leaves stay ``None``."""
+    def put(path, leaf, assets, lanes=False):
+        return None if leaf is None else fn(path, leaf, assets, lanes)
+
+    if isinstance(state, MarketState):
+        rm = state.risk_model
+        return dataclasses.replace(
+            state,
+            **{k: put(k, getattr(state, k), True) for k in _MARKET_ASSETS},
+            stats_ring={k: put(f"stats_ring/{k}", v, False)
+                        for k, v in state.stats_ring.items()},
+            fr_ring=put("fr_ring", state.fr_ring, False),
+            # (loadings [N, k], factor_var [k], idio [N])
+            risk_model=None if rm is None else tuple(
+                put(f"risk_model/{i}", a, i == 2) for i, a in enumerate(rm)))
+    if isinstance(state, TenantState):
+        def warm(name, w):
+            return None if w is None else ADMMWarmState(*(
+                put(f"{name}/{k}", getattr(w, k), k != "rho", True)
+                for k in ADMMWarmState._fields))
+
+        return dataclasses.replace(
+            state,
+            **{k: put(k, getattr(state, k), True, True)
+               for k in _TENANT_ASSETS},
+            warm=warm("warm", state.warm),
+            warm_ring=warm("warm_ring", state.warm_ring))
+    if isinstance(state, DateSlice):
+        return DateSlice(*(put(k, v, k != "factor_ret")
+                           for k, v in zip(DateSlice._fields, state)))
+    raise TypeError(f"not an online state: {type(state).__name__}")
+
+
+def online_leaf_dims(state, asset_axis: str = "assets",
+                     config_axis: str | None = None) -> dict:
+    """``{path: dims}`` for every tensor leaf of ``state`` (module docs):
+    ``dims`` names the mesh axis each dim lies along (None: whole), the
+    asset axis on an asset leaf's last dim and, for a stacked
+    :class:`TenantState`, ``config_axis`` on the lane dim, the JAX
+    package's ``_online_state_specs`` form. Paths are ``field``,
+    ``field/key`` (a stat ring) and ``field/index`` (the risk model)."""
+    out = {}
+
+    def dims(path, leaf, assets, lanes):
+        d = [None] * leaf.ndim
+        if lanes and leaf.ndim:
+            d[0] = config_axis
+        if assets:
+            d[-1] = asset_axis
+        out[path] = tuple(d)
+        return leaf
+
+    _map_leaves(state, dims)
+    return out
+
+
+def check_asset_divisible(n_assets: int, mesh, asset_axis: str) -> int:
+    """The asset axis's size; a ValueError when it does not divide
+    ``n_assets``."""
+    from factormodeling_tpu_torch.parallel.mesh import axis_size
+
+    size = axis_size(mesh, asset_axis)
+    if n_assets % size:
+        raise ValueError(
+            f"{n_assets} assets are not divisible by the mesh's "
+            f"'{asset_axis}' axis ({size}); pad the asset axis or pick a "
+            f"mesh whose asset axis divides N")
+    return size
+
+
+def shard_online_state(state, mesh, asset_axis: str = "assets"):
+    """This rank's blocks of ``state`` (a :class:`MarketState`, stacked or
+    single :class:`TenantState`, or :class:`DateSlice`, on any device;
+    numpy leaves too): each asset leaf's ``N/s`` columns, every other leaf
+    whole, on the mesh's device (module docs)."""
+    from factormodeling_tpu_torch.parallel.mesh import (_block, axis_index,
+                                                        mesh_device)
+
+    dev = mesh_device(mesh)
+    probe = state.returns if isinstance(state, DateSlice) else (
+        state.returns_tail if isinstance(state, MarketState)
+        else state.w_prev)
+    n = int(np.shape(probe)[-1])
+    size = check_asset_divisible(n, mesh, asset_axis)
+    cols = _block(n, size, axis_index(mesh, asset_axis))
+
+    def block(path, leaf, assets, lanes):
+        t = torch.as_tensor(np.asarray(leaf) if not isinstance(
+            leaf, torch.Tensor) else leaf).to(dev)
+        if not assets:
+            return t
+        return t[..., cols].contiguous()
+
+    return _map_leaves(state, block)
+
+
+def shard_date_slice(date_slice: DateSlice, mesh,
+                     asset_axis: str = "assets") -> DateSlice:
+    """One arriving date's blocks: ``factors [F, N]``, ``returns``,
+    ``cap_flag``, ``investability`` and ``universe`` as this rank's ``N/s``
+    columns, ``factor_ret [F]`` whole (the JAX package's
+    ``_shard_date_slice``)."""
+    return shard_online_state(date_slice, mesh, asset_axis)
+

@@ -19,10 +19,18 @@ runs, on the same seeded float64 inputs:
   (``step.gather_outputs``) and held the same way, each call's ledger
   kept, the equal step's first call under a ``RunReport(comms=True)``
   (the placement rows), then prints ``DIST_ASSET_OK <rank>``;
+- the asset-sharded online advance (``make_online_step(mesh=)`` on a flat
+  ``("assets",)`` mesh, every layout mode) for the JAX package's online
+  ladder (:data:`ONLINE_LADDER`) on a NaN and a ragged market and a
+  risk-model cell, each held against the rank's unsharded advance, with
+  the state's held shapes and placements and each run's comms ledger,
+  then prints ``DIST_ONLINE_OK <rank>``;
 - then the comms ledgers, an ``all_reduce``, the layout chooser, the
-  sharded sweep, date-sharded streaming, the sharded ``TenantServer``
-  (its dispatches on the stored blocks, counting whole-panel gathers) and
-  the divisibility errors.
+  sharded sweep, date-sharded streaming, the sharded ``TenantServer`` on
+  a ``("configs", "assets")`` and an ``("assets",)`` mesh (its
+  dispatches on the stored blocks, counting whole-panel gathers, and its
+  online sessions on their state's blocks) and the divisibility
+  errors.
 
 Each rank writes what it computed to ``<out_dir>/rank<r>.pt`` (numpy
 arrays and plain values), which the tests compare with the JAX package's
@@ -85,6 +93,32 @@ MIXED = {"metrics/rank_ic": "gather", "ops/rank": "gather",
          "backtest/weights": "reshard"}
 PLANS = MODES + ("mixed",)
 
+#: the online advance's cases: the JAX package's ladder
+#: (``tests/test_asset_sharding.py``) on ``ONLINE_D`` dates of
+#: ``ONLINE_N`` assets, and a risk-model turnover cell; ``F, T, R, LB, k``
+#: all differ from ``N`` (the placement rule is the JAX package's there)
+ONLINE_NAMES = ("a_eq", "a_flx", "b_long", "b_short")
+ONLINE_D, ONLINE_N = 12, 16
+ONLINE_LADDER = {
+    "equal": dict(),
+    "linear": dict(),
+    "mvo": dict(sim_static=(("mvo_batch", 4), ("qp_iters", 40))),
+    "mvo_turnover": dict(sim_static=(("qp_iters", 40),)),
+}
+ONLINE_RISK = dict(method="mvo_turnover", sim_static=(
+    ("qp_iters", 40), ("covariance", "risk_model"), ("risk_factors", 3),
+    ("risk_lookback", 8), ("risk_refit_every", 4)))
+ONLINE_CELLS = tuple((m, mk) for m in ONLINE_LADDER
+                     for mk in ("nan", "ragged")) + (("risk", "ragged"),)
+#: a session's lanes (``advance_tenant.lanes``): knobs a lane, the lanes
+#: split over the asset ranks under ``reshard`` (4 divides 2 and 4)
+ONLINE_LANES = {"max_weight": (0.3, 0.4, 0.5, 0.6),
+                "turnover_penalty": (0.05, 0.1, 0.2, 0.4)}
+#: the cells whose held state shapes the ranks record: plain MVO's warm
+#: ring, the turnover scan's warm state, the risk model
+ONLINE_SHAPE_CELLS = (("mvo", "nan"), ("mvo_turnover", "ragged"),
+                      ("risk", "ragged"))
+
 
 class DistributedUnsupported(RuntimeError):
     """The installed torch cannot run multi-process collectives on the
@@ -111,6 +145,43 @@ def market(seed: int = 7):
     invest = np.ones((D, N))
     universe = rng.uniform(size=(D, N)) > 0.05
     return factors, returns, factor_ret, cap, invest, universe
+
+
+def online_market(ragged: bool, seed: int = 19):
+    """The online cases' float64 market (the JAX package's
+    ``tests/test_asset_sharding.py::_online_market``, seeded here):
+    ``(factors [F, D, N], returns, factor_ret [D, F], cap, invest,
+    universe)``."""
+    rng = np.random.default_rng(seed + int(ragged))
+    f, d, n = len(ONLINE_NAMES), ONLINE_D, ONLINE_N
+    factors = rng.normal(size=(f, d, n))
+    factors[rng.uniform(size=factors.shape) < 0.1] = np.nan
+    returns = rng.normal(scale=0.02, size=(d, n))
+    fr = rng.normal(scale=0.01, size=(d, f))
+    cap = rng.integers(1, 4, size=(d, n)).astype(float)
+    invest = np.ones((d, n))
+    universe = np.ones((d, n), dtype=bool)
+    if ragged:
+        for j in range(0, n, 3):
+            a = int(rng.integers(2, d - 4))
+            universe[a:a + 2, j] = False
+        returns = np.where(universe, returns, np.nan)
+    return factors, returns, fr, cap, invest, universe
+
+
+def online_config(method: str) -> dict:
+    """The ``TenantConfig`` keywords of an online cell (``"risk"`` is the
+    risk-model turnover cell)."""
+    kw = ONLINE_RISK if method == "risk" else dict(method=method,
+                                                    **ONLINE_LADDER[method])
+    return dict(window=4, lookback_period=6, **kw)
+
+
+#: the advance rows the cases compare: held to 1e-12 (expected bitwise),
+#: equal, and the P&L scalars to 1e-12
+ONLINE_ROWS = ("selection", "signal", "weights")
+ONLINE_EXACT = ("long_count", "short_count", "solver_ok", "ready")
+ONLINE_PNL = ("log_return", "turnover")
 
 
 def _np(t):
@@ -224,6 +295,154 @@ def _asset_leg(raw, res: dict) -> None:
                 res[f"{key}/ledger"] = _ops(ledger)
 
 
+def _online_rows(outs) -> dict:
+    """An advance's outputs over the dates as ``{field: [D, ...]}``."""
+    return {k: np.stack([np.asarray(_np(getattr(o, k)) if not isinstance(
+        getattr(o, k), bool) else getattr(o, k)) for o in outs])
+        for k in ONLINE_ROWS + ONLINE_EXACT + ONLINE_PNL}
+
+
+def _online_gap(got: dict, want: dict) -> dict:
+    """Per field: the largest gap (NaN where both are NaN; inf where one
+    is), whether the rows are bitwise equal."""
+    out = {}
+    for k, w in want.items():
+        g = got[k]
+        g64, w64 = np.asarray(g, dtype=float), np.asarray(w, dtype=float)
+        nan = np.isnan(g64) | np.isnan(w64)
+        gap = float(np.max(np.abs(np.where(nan, 0.0, g64 - w64)),
+                           initial=0.0))
+        if (np.isnan(g64) != np.isnan(w64)).any():
+            gap = float("inf")
+        out[k] = {"gap": gap, "bitwise": bool(np.array_equal(
+            np.nan_to_num(g64, nan=7.0), np.nan_to_num(w64, nan=7.0)))}
+    return out
+
+
+def _shapes(state) -> dict:
+    """``{path: shape}`` of an online state's tensor leaves."""
+    from factormodeling_tpu_torch.online.state import _map_leaves
+
+    out = {}
+
+    def note(path, leaf, assets, lanes):
+        out[path] = tuple(leaf.shape)
+        return leaf
+
+    _map_leaves(state, note)
+    return out
+
+
+def _online_leg(res: dict) -> None:
+    """The asset-sharded online advance against the unsharded one (module
+    docs): per cell and layout mode the rows' gaps, the ledger, and for
+    :data:`ONLINE_SHAPE_CELLS` the held shapes and placements."""
+    from factormodeling_tpu_torch.obs import comms
+    from factormodeling_tpu_torch.online import DateSlice, make_online_step
+    from factormodeling_tpu_torch.online.state import (online_leaf_dims,
+                                                       stack_tenant_states)
+    from factormodeling_tpu_torch.parallel import (AssetSpecPlan,
+                                                   make_asset_mesh)
+    from factormodeling_tpu_torch.serve import TenantConfig
+
+    mesh = make_asset_mesh(device="cpu")
+    res["online/mesh_shape"] = tuple(mesh.shape)
+    f, n = len(ONLINE_NAMES), ONLINE_N
+    _online_lanes(mesh, res)
+    for method, mk in ONLINE_CELLS:
+        raw = online_market(mk == "ragged")
+        tmpl = TenantConfig(**online_config(method)).normalized(f, 2)
+        slices = [DateSlice(raw[0][:, t], raw[1][t], raw[2][t], raw[3][t],
+                            raw[4][t], raw[5][t]) for t in range(ONLINE_D)]
+        cell = f"online/{method}/{mk}"
+
+        def run(**kw):
+            init, adv = make_online_step(
+                names=ONLINE_NAMES, template=tmpl, n_assets=n,
+                has_universe=True, stats_tail=8, device="cpu", **kw)
+            mstate, tstate = init()
+            outs, ops, sharded = [], [], "mesh" in kw
+            for ds in slices:
+                if sharded:
+                    ds = adv.shard_date_slice(ds)
+                # the advance's collectives (the outputs' gathers are the
+                # caller's)
+                with comms.recording(mesh) as ledger:
+                    (mstate, tstate), out = adv(tmpl, mstate, tstate, ds)
+                ops += ledger.ops
+                outs.append(adv.gather_outputs(out) if sharded else out)
+            return _online_rows(outs), ops, (mstate, tstate, adv)
+
+        plain, ops, _ = run()
+        res[f"{cell}/plain"] = plain
+        res[f"{cell}/plain/ledger"] = [op._asdict() for op in ops]
+        for mode in MODES:
+            got, ops, (mstate, tstate, adv) = run(
+                mesh=mesh, plan=AssetSpecPlan(mesh, default=mode))
+            res[f"{cell}/{mode}"] = got
+            res[f"{cell}/{mode}/gap"] = _online_gap(got, plain)
+            res[f"{cell}/{mode}/ledger"] = [op._asdict() for op in ops]
+            if mode == "auto" and (method, mk) in ONLINE_SHAPE_CELLS:
+                stacked = stack_tenant_states([tstate, tstate])
+                res[f"{cell}/held"] = {
+                    "market": _shapes(mstate), "tenant": _shapes(stacked),
+                    "slice": _shapes(adv.shard_date_slice(slices[0])),
+                    "market_dims": online_leaf_dims(mstate, "assets",
+                                                    "configs"),
+                    "tenant_dims": online_leaf_dims(stacked, "assets",
+                                                    "configs"),
+                    "slice_dims": online_leaf_dims(slices[0], "assets")}
+
+
+def _online_lanes(mesh, res: dict) -> None:
+    """A session of :data:`ONLINE_LANES` lanes (plain MVO's warm ring and
+    the turnover scan) on the ragged market, sharded in every mode against
+    the unsharded lanes."""
+    from factormodeling_tpu_torch.online import (DateSlice,
+                                                 online_step_parts)
+    from factormodeling_tpu_torch.online.advance import (
+        gather_advance_outputs)
+    from factormodeling_tpu_torch.online.state import (shard_date_slice,
+                                                       stack_tenant_states)
+    from factormodeling_tpu_torch.parallel import AssetSpecPlan
+    from factormodeling_tpu_torch.serve import TenantConfig, stack_configs
+
+    f = len(ONLINE_NAMES)
+    raw = online_market(True)
+    slices = [DateSlice(raw[0][:, t], raw[1][t], raw[2][t], raw[3][t],
+                        raw[4][t], raw[5][t]) for t in range(ONLINE_D)]
+    for method in ("mvo", "mvo_turnover"):
+        kw = online_config(method)
+        lanes = stack_configs([
+            TenantConfig(**kw, max_weight=mw,
+                         turnover_penalty=tp).normalized(f, 2)
+            for mw, tp in zip(*ONLINE_LANES.values())])
+        tmpl = TenantConfig(**kw).normalized(f, 2)
+
+        def run(**kw):
+            im, it, am, at = online_step_parts(
+                names=ONLINE_NAMES, template=tmpl, n_assets=ONLINE_N,
+                has_universe=True, stats_tail=8, device="cpu", **kw)
+            mstate = im()
+            tstates = stack_tenant_states(
+                [it() for _ in ONLINE_LANES["max_weight"]])
+            outs = []
+            for ds in slices:
+                if kw:
+                    ds = shard_date_slice(ds, mesh)
+                mstate, octx = am(mstate, ds)
+                tstates, out = at.lanes(lanes, tstates, octx)
+                outs.append(gather_advance_outputs(out, mesh) if kw
+                            else out)
+            return _online_rows(outs)
+
+        plain = run()
+        for mode in MODES:
+            got = run(mesh=mesh, plan=AssetSpecPlan(mesh, default=mode))
+            res[f"online/lanes/{method}/{mode}/gap"] = _online_gap(got,
+                                                                   plain)
+
+
 def _rest(raw, res: dict, tmp: str) -> None:
     import torch
 
@@ -320,6 +539,8 @@ def _rest(raw, res: dict, tmp: str) -> None:
 
     # the sharded server: a rung-8 dispatch of 5 tenants, then 6 dates of
     # advance_all, against the unsharded server
+    from factormodeling_tpu_torch.parallel import make_asset_mesh
+
     smesh = make_mesh(("configs", "assets"), device="cpu")
     panels = dict(factors=factors, returns=returns, factor_ret=factor_ret,
                   cap_flag=cap, investability=invest, universe=universe)
@@ -331,6 +552,9 @@ def _rest(raw, res: dict, tmp: str) -> None:
                                 top_k=2, **turnover))
     servers = {"mesh": TenantServer(names=NAMES, pad_ladder=(1, 4, 8),
                                     mesh=smesh, **panels),
+               "assets": TenantServer(names=NAMES, pad_ladder=(1, 4, 8),
+                                      mesh=make_asset_mesh(device="cpu"),
+                                      **panels),
                "plain": TenantServer(names=NAMES, pad_ladder=(1, 4, 8),
                                      device="cpu", **panels)}
     for label, server in servers.items():
@@ -344,15 +568,19 @@ def _rest(raw, res: dict, tmp: str) -> None:
         res[f"serve/{label}/fingerprint"] = server.panels_fingerprint()
         res[f"serve/{label}"] = [_out_arrays(r.output) for r in served]
         res[f"serve/{label}/stats"] = server.serving_stats()["mesh_shape"]
-        server.online_begin(configs[:4])
+        server.online_begin(configs)
         rows = []
         for t in range(6):
             adv = server.advance_all(DateSlice(
                 factors[:, t], returns[t], factor_ret[t], cap[t], invest[t],
                 universe[t]))
             rows.append([(bool(a.output.ready), _np(a.output.weights),
-                          _np(a.output.signal)) for a in adv])
+                          _np(a.output.signal), float(a.output.log_return),
+                          float(a.output.turnover)) for a in adv])
         res[f"advance/{label}"] = rows
+        res[f"advance/{label}/held"] = [
+            (_shapes(sess["mstate"]), _shapes(sess["tstates"]))
+            for sess in server._online.values()]
 
     # divisibility errors
     errors = {}
@@ -399,6 +627,8 @@ def worker(rank: int, n_proc: int, store_dir: str, out_dir: str) -> None:
         print(f"DIST_OK {rank}", flush=True)
         _asset_leg(raw, res)
         print(f"DIST_ASSET_OK {rank}", flush=True)
+        _online_leg(res)
+        print(f"DIST_ONLINE_OK {rank}", flush=True)
         _rest(raw, res, tempfile.mkdtemp(dir=out_dir))
         res["modules"] = sorted(m for m in sys.modules
                                 if m in ("jax", "factormodeling_tpu")
@@ -414,7 +644,7 @@ def worker(rank: int, n_proc: int, store_dir: str, out_dir: str) -> None:
 def launch(timeout: float = 300.0, n_proc: int = _NPROC,
            out_dir: str | None = None) -> str:
     """Spawn ``n_proc`` worker processes and raise unless every one
-    prints ``DIST_OK`` and ``DIST_ASSET_OK``; returns the directory the
+    prints ``DIST_OK``, ``DIST_ASSET_OK`` and ``DIST_ONLINE_OK``; returns the directory the
     ranks wrote their results to (``out_dir``, or a fresh temporary
     one)."""
     out_dir = out_dir or tempfile.mkdtemp()
@@ -454,7 +684,8 @@ def launch(timeout: float = 300.0, n_proc: int = _NPROC,
         log.close()
     failed = [(r, p, out) for r, (p, out) in enumerate(zip(procs, outs))
               if p.returncode != 0 or f"DIST_OK {r}" not in out
-              or f"DIST_ASSET_OK {r}" not in out]
+              or f"DIST_ASSET_OK {r}" not in out
+              or f"DIST_ONLINE_OK {r}" not in out]
     if failed:
         for r, out in enumerate(outs):
             reason = unsupported_reason(out)

@@ -49,10 +49,18 @@ signal and weights come back as asset blocks and are gathered for the
 demux. A bucket's real lanes split over the ``"configs"`` axis (each
 rank computes its block of lanes) and the lanes' outputs are gathered, so
 every rank returns every tenant's result. An online session's lanes split
-the same way: each rank advances the tenant state of its own lanes, the
-market advance runs on every rank on the whole date slice. The mesh joins
-the cache key (``serve/tenant.mesh_key``), so two meshes never share a
-built step.
+the same way, and its carried state is held as asset blocks too: each
+rank keeps the session's market state and its own lanes' tenant states
+as their ``N/S`` columns by the JAX package's leaf rule
+(``online/state.shard_online_state``: the tails, the covariance ring, the
+idiosyncratic variances and every per-name carry; the stat and
+factor-return rings, the loadings and ``rho`` whole), ``advance_all``
+cuts the arriving date's blocks once a call, each session advances on
+them (``online/advance.py`` over the mesh: its seven ``online/*`` stages
+form their rows under the all-``auto`` plan) and the rows' ``signal`` and
+``weights`` are gathered over the asset axis, then the lanes over the
+config axis, for the demux. The mesh joins the cache key
+(``serve/tenant.mesh_key``), so two meshes never share a built step.
 """
 
 from __future__ import annotations
@@ -192,14 +200,12 @@ class TenantServer:
         from factormodeling_tpu_torch.parallel.asset_shard import \
             asset_in_shardings
 
+        from factormodeling_tpu_torch.online.state import \
+            check_asset_divisible
+
         if self._asset_axis not in tuple(self.mesh.mesh_dim_names):
             return panels
-        size = axis_size(self.mesh, self._asset_axis)
-        if self.n_assets % size:
-            raise ValueError(
-                f"{self.n_assets} assets are not divisible by the mesh's "
-                f"'{self._asset_axis}' axis ({size}); pad the asset axis or "
-                f"pick a mesh whose asset axis divides N")
+        check_asset_divisible(self.n_assets, self.mesh, self._asset_axis)
         self._placements = asset_in_shardings(self.mesh, None,
                                               self._asset_axis)
         return tuple(None if p is None else pl.shard(p, self.device)
@@ -459,8 +465,9 @@ class TenantServer:
         :class:`~factormodeling_tpu_torch.online.state.MarketState` and one
         :class:`~factormodeling_tpu_torch.online.state.TenantState` a real
         lane. Each session's advance is one callable in the shared LRU
-        (built on the first :meth:`advance_all`). The online package is
-        imported here, on first use.
+        (built on the first :meth:`advance_all`). On an asset mesh the
+        states are this rank's asset blocks (module docs). The online
+        package is imported here, on first use.
 
         Returns ``{"buckets": ..., "tenants": ...}``."""
         from factormodeling_tpu_torch.online.advance import (lane_outputs,
@@ -487,7 +494,9 @@ class TenantServer:
             im, it, am, at = online_step_parts(
                 names=self.names, template=template, n_assets=n_assets,
                 dtype=dtype, has_universe=has_universe,
-                stats_tail=stats_tail, device=self.device)
+                stats_tail=stats_tail, device=self.device,
+                mesh=self.mesh if self._placements is not None else None,
+                asset_axis=self._asset_axis)
 
             def batched(lanes, mstate, tstates, date_slice, _am=am,
                         _at=at.lanes):
@@ -536,7 +545,8 @@ class TenantServer:
         session's lanes.
         Returns one :class:`TenantAdvance` per config given to
         :meth:`online_begin`, in its order; ``output.ready`` is False on
-        the very first date.
+        the very first date. On an asset mesh the date's blocks are cut
+        once a call and every row comes back whole.
 
         ``meter``: a
         :class:`~factormodeling_tpu_torch.obs.metering.CostMeter`; each
@@ -552,6 +562,12 @@ class TenantServer:
         if not self._online:
             raise RuntimeError("advance_all before online_begin — open an "
                                "online session first")
+        if self._placements is not None:
+            from factormodeling_tpu_torch.online.state import \
+                shard_date_slice
+
+            date_slice = shard_date_slice(date_slice, self.mesh,
+                                          self._asset_axis)
         if date is None:
             date = self._advance_ordinal
         self._advance_ordinal += 1
@@ -572,7 +588,7 @@ class TenantServer:
                              session["rung"],
                              wall_s=time.perf_counter() - t0)
             session["mstate"], session["tstates"] = mstate2, tstates2
-            if self._lanes_split():
+            if self._placements is not None or self._lanes_split():
                 outs = self._gather_outputs(outs, session)
             self._stats["dispatch_executions"] += 1
             self._stats["logical_dispatches"] += 1
@@ -593,14 +609,24 @@ class TenantServer:
         return results
 
     def _gather_outputs(self, outs, session) -> list:
-        """Every member's advance row from each rank's own lanes: the rows
-        are stacked, gathered over the config axis and split again (the
-        date's ``ready``/``day`` are the market's, equal on every rank)."""
+        """Every member's whole advance row from each rank's own lanes and
+        asset blocks: the rows are stacked, their ``signal`` and
+        ``weights`` gathered over the asset axis, the lanes over the
+        config axis, and split again (the date's ``ready``/``day`` are the
+        market's, equal on every rank)."""
         own = list(outs)
         stacked = _stack(own, self.device)
-        gathered = self._gather_lanes(stacked, session["per"])
-        return [tree_lane(gathered, i)._replace(ready=own[0].ready,
-                                                day=own[0].day)
+        if self._placements is not None:
+            from factormodeling_tpu_torch.online.advance import \
+                gather_advance_outputs
+
+            with obs_stage("serve/tenants"):
+                stacked = gather_advance_outputs(stacked, self.mesh,
+                                                 self._asset_axis)
+        if self._lanes_split():
+            stacked = self._gather_lanes(stacked, session["per"])
+        return [tree_lane(stacked, i)._replace(ready=own[0].ready,
+                                               day=own[0].day)
                 for i in range(len(session["members"]))]
 
     def _mesh_shape(self):

@@ -37,7 +37,18 @@ shapes.
   chunks, a disk source); the linear research and the composite.
 - ``TenantServer(mesh=...)``: ``serve`` (no whole-panel gather on a
   dispatch) and ``advance_all`` against the unsharded server, the panels'
-  fingerprint equal.
+  fingerprint equal; on the ``("configs", "assets")`` mesh and an
+  ``("assets",)`` mesh its online sessions hold their state as asset
+  blocks, and ``advance_all`` of the four equal tenants and the turnover
+  tenant matches the JAX package's sharded server.
+- The asset-sharded online advance (``make_online_step(mesh=)``) for the
+  JAX package's online ladder on a NaN and a ragged market and a
+  risk-model cell, in every layout mode, against the unsharded advance
+  (selection, signal and weights 1e-12 and in fact bitwise; counts and
+  verdicts equal; the P&L scalars 1e-12), a session's lanes split over
+  the asset ranks, the JAX package's sharded advance for its two tier-1
+  cells, the state held as blocks by the JAX package's leaf rule, and the
+  collectives all under the ``online/*`` stages.
 - The divisibility errors; the ranks' modules hold no JAX.
 """
 
@@ -60,6 +71,7 @@ from factormodeling_tpu.parallel import (AssetSpecPlan as JaxPlan,
 from factormodeling_tpu.parallel import sweep as jsweep
 from factormodeling_tpu.parallel.asset_shard import \
     _STAGE_LEDGER_SCOPES as JAX_SCOPES
+from factormodeling_tpu_torch.online.advance import ONLINE_STAGES
 from factormodeling_tpu_torch.parallel import _dist_check as dc
 from factormodeling_tpu_torch.selection.driver import selection_metric_needs
 from tests.torch_threads import torch_one_thread  # noqa: F401
@@ -536,22 +548,318 @@ def test_sharded_server_matches_unsharded(world):
     """``serve`` on the mesh server (its dispatches run the bucket's step
     on the stored asset blocks, with no whole-panel gather) gives the
     unsharded server's outputs, and its panels' fingerprint is the
-    unsharded server's."""
+    unsharded server's; ``advance_all`` on the ``("configs", "assets")``
+    and the ``("assets",)`` servers gives the unsharded server's rows
+    (weights and signal 1e-12, the P&L 1e-12)."""
     assert world[0]["serve/mesh/stats"] == dict(
         zip(("configs", "assets"), {2: (2, 1), 4: (2, 2)}[len(world)]))
+    assert world[0]["serve/assets/stats"] == {"assets": len(world)}
     assert world[0]["serve/plain/stats"] is None
     for r in world:
-        assert r["serve/mesh/market_panels_calls"] == 0
-        assert r["serve/mesh/fingerprint"] == r["serve/plain/fingerprint"]
+        for label in ("mesh", "assets"):
+            assert r[f"serve/{label}/market_panels_calls"] == 0
+            assert r[f"serve/{label}/fingerprint"] == \
+                r["serve/plain/fingerprint"]
     for got, want in zip(world[0]["serve/mesh"], world[0]["serve/plain"]):
         for k, v in want.items():
             _close(got[k], v, 1e-12, k)
-    for got_rows, want_rows in zip(world[0]["advance/mesh"],
-                                   world[0]["advance/plain"]):
-        for (ready, w, sig), (ready2, w2, sig2) in zip(got_rows, want_rows):
-            assert ready == ready2
-            _close(w, w2, 1e-12, "weights")
-            _close(sig, sig2, 1e-12, "signal")
+    for label in ("mesh", "assets"):
+        for r in world:
+            for got_rows, want_rows in zip(r[f"advance/{label}"],
+                                           r["advance/plain"]):
+                assert len(got_rows) == 5
+                for got, want in zip(got_rows, want_rows):
+                    assert got[0] == want[0]
+                    for i, what in ((1, "weights"), (2, "signal"),
+                                    (3, "log_return"), (4, "turnover")):
+                        _close(got[i], want[i], 1e-12, f"{label} {what}")
+
+
+def test_sharded_server_holds_its_online_state_as_asset_blocks(world):
+    """Each session's market state and lane states are this rank's asset
+    columns: ``N/s`` on the asset leaves (``s`` the mesh's asset axis),
+    whole elsewhere; the tail is never a whole ``[F, T, N]`` where the
+    axis splits."""
+    for label, s in (("mesh", {2: 1, 4: 2}[len(world)]),
+                     ("assets", len(world))):
+        for r in world:
+            for market, tenant in r[f"advance/{label}/held"]:
+                assert market["factors_tail"] == (dc.F, 8, dc.N // s)
+                for path in ("returns_tail", "cap_tail", "invest_tail",
+                             "universe_tail", "lb_ring"):
+                    if path in market:
+                        assert market[path][-1] == dc.N // s, path
+                assert market["fr_ring"][-1] == dc.F
+                for path, shape in tenant.items():
+                    assert shape[-1] == (dc.N // s if not path.endswith(
+                        "rho") else shape[-1]), path
+
+
+def _jax_server_rows(n):
+    """The JAX package's sharded ``TenantServer`` on a ``("configs",
+    "assets")`` mesh of ``n`` virtual devices: 6 dates of ``advance_all``
+    for the four equal tenants and the turnover tenant."""
+    key = ("server", n)
+    if key not in _jax_cache:
+        from factormodeling_tpu.online.state import DateSlice as JaxSlice
+        from factormodeling_tpu.serve.frontend import \
+            TenantServer as JaxServer
+        from factormodeling_tpu.serve.tenant import TenantConfig as JaxCfg
+
+        factors, returns, factor_ret, cap, invest, universe = RAW
+        cfgs = [JaxCfg(window=dc.WINDOW, icir_threshold=-1.0, top_k=k,
+                       pct=0.2 + 0.05 * k) for k in (1, 2, 3, 4)]
+        cfgs.append(JaxCfg(window=dc.WINDOW, icir_threshold=-1.0, top_k=2,
+                           method="mvo_turnover", lookback_period=6,
+                           max_weight=0.5, sim_static=(("qp_iters", 30),)))
+        server = JaxServer(
+            names=dc.NAMES, factors=factors, returns=returns,
+            factor_ret=factor_ret, cap_flag=cap, investability=invest,
+            universe=universe, pad_ladder=(1, 4, 8),
+            mesh=jax_asset_mesh(("configs", "assets"), n_devices=n))
+        server.online_begin(cfgs)
+        rows = []
+        for t in range(6):
+            adv = server.advance_all(JaxSlice(
+                factors=jnp.asarray(factors[:, t]),
+                returns=jnp.asarray(returns[t]),
+                factor_ret=jnp.asarray(factor_ret[t]),
+                cap_flag=jnp.asarray(cap[t]),
+                investability=jnp.asarray(invest[t]),
+                universe=jnp.asarray(universe[t])))
+            rows.append([(bool(a.output.ready),
+                          np.asarray(a.output.weights),
+                          np.asarray(a.output.signal),
+                          float(a.output.log_return),
+                          float(a.output.turnover)) for a in adv])
+        _jax_cache[key] = rows
+    return _jax_cache[key]
+
+
+def test_sharded_server_online_matches_jax_sharded_server(world):
+    """``advance_all`` on the port's ``("configs", "assets")`` server
+    against the JAX package's sharded server on the same mesh shape: the
+    rows of every finalized date at 1e-12, the P&L at 1e-12 (the first
+    date finalizes nothing: its placeholders differ by package)."""
+    want = _jax_server_rows(len(world))
+    for got_rows, want_rows in zip(world[0]["advance/mesh"], want):
+        for got, w in zip(got_rows, want_rows):
+            assert got[0] == w[0]
+            if not got[0]:
+                continue
+            for i, what in ((1, "weights"), (2, "signal"),
+                            (3, "log_return"), (4, "turnover")):
+                _close(got[i], w[i], 1e-12, what)
+
+
+# --------------------------------------------- the sharded online advance
+
+
+def _online_cell_ids():
+    return [f"{m}-{mk}" for m, mk in dc.ONLINE_CELLS]
+
+
+@pytest.mark.parametrize("cell", dc.ONLINE_CELLS, ids=_online_cell_ids())
+def test_online_advance_sharded_matches_unsharded(world, cell):
+    """Every layout mode on every rank: the rows (selection, signal,
+    weights) at 1e-12, in fact bitwise; counts, verdicts and readiness
+    equal; the P&L scalars at 1e-12 (summed over the asset blocks)."""
+    method, market = cell
+    assert tuple(world[0]["online/mesh_shape"]) == (len(world),)
+    for r in world:
+        for mode in dc.MODES:
+            gap = r[f"online/{method}/{market}/{mode}/gap"]
+            for k in dc.ONLINE_ROWS:
+                assert gap[k]["bitwise"], (mode, k, gap[k])
+            for k in dc.ONLINE_EXACT:
+                assert gap[k]["gap"] == 0.0, (mode, k)
+            for k in dc.ONLINE_PNL:
+                assert gap[k]["gap"] <= 1e-12, (mode, k, gap[k])
+    # every rank gathers the same rows
+    for r in world[1:]:
+        for k, v in world[0][f"online/{method}/{market}/auto"].items():
+            np.testing.assert_array_equal(
+                r[f"online/{method}/{market}/auto"][k], v)
+
+
+@pytest.mark.parametrize("method", ["mvo", "mvo_turnover"])
+def test_online_lanes_sharded_match_unsharded(world, method):
+    """A session of four lanes (knobs a lane; under ``reshard`` the lanes
+    split over the asset ranks, their warm states brought to the solve's
+    rows and back) against the unsharded lanes."""
+    for r in world:
+        for mode in dc.MODES:
+            gap = r[f"online/lanes/{method}/{mode}/gap"]
+            for k in dc.ONLINE_ROWS + dc.ONLINE_EXACT:
+                assert gap[k]["bitwise"], (mode, k, gap[k])
+            for k in dc.ONLINE_PNL:
+                assert gap[k]["gap"] <= 1e-12, (mode, k, gap[k])
+
+
+def _jax_online(method, market, n):
+    """The JAX package's ``make_online_step`` under ``jax.jit`` on
+    asset-sharded inputs over a flat ``("assets",)`` mesh of ``n`` virtual
+    devices (``tests/test_asset_sharding.py``'s run)."""
+    key = ("online", method, market, n)
+    if key not in _jax_cache:
+        from jax.sharding import NamedSharding, PartitionSpec
+
+        from factormodeling_tpu.online.advance import make_online_step
+        from factormodeling_tpu.online.state import DateSlice as JaxSlice
+        from factormodeling_tpu.serve.tenant import TenantConfig as JaxCfg
+
+        mesh = jax_asset_mesh(n_devices=n)
+        raw = dc.online_market(market == "ragged")
+        template = JaxCfg(**dc.online_config(method)).normalized(
+            len(dc.ONLINE_NAMES), 2)
+        init_fn, advance_fn = make_online_step(
+            names=dc.ONLINE_NAMES, template=template, n_assets=dc.ONLINE_N,
+            has_universe=True, stats_tail=8)
+        step = jax.jit(advance_fn)
+        mstate, tstate = init_fn()
+
+        def put(a):
+            dims = [None] * np.ndim(a)
+            if np.ndim(a) and np.shape(a)[-1] == dc.ONLINE_N:
+                dims[-1] = "assets"
+            return jax.device_put(a, NamedSharding(mesh,
+                                                   PartitionSpec(*dims)))
+
+        outs = []
+        for t in range(dc.ONLINE_D):
+            ds = jax.tree_util.tree_map(put, JaxSlice(
+                factors=jnp.asarray(raw[0][:, t]),
+                returns=jnp.asarray(raw[1][t]),
+                factor_ret=jnp.asarray(raw[2][t]),
+                cap_flag=jnp.asarray(raw[3][t]),
+                investability=jnp.asarray(raw[4][t]),
+                universe=jnp.asarray(raw[5][t])))
+            (mstate, tstate), out = step(template, mstate, tstate, ds)
+            outs.append(out)
+        _jax_cache[key] = {k: np.stack([np.asarray(getattr(o, k))
+                                        for o in outs])
+                           for k in dc.ONLINE_ROWS + dc.ONLINE_EXACT
+                           + dc.ONLINE_PNL}
+    return _jax_cache[key]
+
+
+@pytest.mark.parametrize("cell", [("equal", "nan"),
+                                  ("mvo_turnover", "ragged")],
+                         ids=["equal-nan", "mvo_turnover-ragged"])
+def test_online_advance_matches_jax_sharded_advance(world, cell):
+    """The JAX package's two tier-1 cells: its sharded advance against the
+    port's (every mode), the rows at 1e-12, counts and verdicts equal,
+    the P&L at 1e-12."""
+    method, market = cell
+    want = _jax_online(method, market, len(world))
+    ready = want["ready"].astype(bool)
+    for mode in dc.MODES:
+        got = world[0][f"online/{method}/{market}/{mode}"]
+        np.testing.assert_array_equal(got["ready"].astype(bool), ready)
+        for k in dc.ONLINE_ROWS + dc.ONLINE_PNL:
+            _close(got[k][ready], want[k][ready], 1e-12, f"{mode} {k}")
+        for k in dc.ONLINE_EXACT:
+            np.testing.assert_array_equal(
+                np.asarray(got[k][ready]).astype(np.int64),
+                np.asarray(want[k][ready]).astype(np.int64), err_msg=k)
+
+
+def _jax_leaf_dims(method, rung, n):
+    """The JAX package's ``_online_state_specs`` over its own online state
+    for ``method``: ``{path: dims}`` for the market state, the stacked
+    tenant state of ``rung`` lanes and a date slice."""
+    from factormodeling_tpu.online.advance import online_step_parts
+    from factormodeling_tpu.online.state import DateSlice as JaxSlice
+    from factormodeling_tpu.serve.frontend import TenantServer as JaxServer
+    from factormodeling_tpu.serve.tenant import TenantConfig as JaxCfg
+
+    template = JaxCfg(**dc.online_config(method)).normalized(
+        len(dc.ONLINE_NAMES), 2)
+    im, it, _, _ = online_step_parts(
+        names=dc.ONLINE_NAMES, template=template, n_assets=dc.ONLINE_N,
+        has_universe=True, stats_tail=8)
+    one = it()
+    stacked = jax.tree_util.tree_map(lambda *xs: jnp.stack(xs),
+                                     *([one] * rung))
+    host = type("Host", (), {})()
+    host.mesh = jax_asset_mesh(("configs", "assets"), n_devices=n)
+    host._asset_axis, host._config_axis = "assets", "configs"
+    mspec, tspec = JaxServer._online_state_specs(host, rung, dc.ONLINE_N)
+    raw = dc.online_market(True)
+    ds = JaxSlice(*(jnp.asarray(a) for a in (
+        raw[0][:, 0], raw[1][0], raw[2][0], raw[3][0], raw[4][0],
+        raw[5][0])))
+
+    def table(tree, spec):
+        out = {}
+        for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+            if not np.ndim(leaf):
+                continue          # the day and version counters
+            name = "/".join(str(getattr(k, "name", getattr(
+                k, "key", getattr(k, "idx", k)))) for k in path)
+            dims = tuple(spec(leaf).spec) if spec else ()
+            out[name] = dims + (None,) * (np.ndim(leaf) - len(dims))
+        return out
+
+    def slice_spec(leaf):
+        from jax.sharding import PartitionSpec
+
+        last = "assets" if np.shape(leaf)[-1] == dc.ONLINE_N else None
+        return type("S", (), {"spec": PartitionSpec(
+            *([None] * (np.ndim(leaf) - 1) + [last]))})()
+
+    return (table(im(), mspec), table(stacked, tspec),
+            table(ds, slice_spec))
+
+
+@pytest.mark.parametrize("cell", dc.ONLINE_SHAPE_CELLS,
+                         ids=[f"{m}-{mk}" for m, mk in dc.ONLINE_SHAPE_CELLS])
+def test_online_state_is_held_as_blocks_by_the_jax_rule(world, cell):
+    """Every asset leaf of the market state, the lanes' states and the
+    date slice is this rank's ``N/s`` columns, every other leaf whole (no
+    rank holds a whole ``[F, T, N]`` tail), and each leaf's placement is
+    the one the JAX package's ``_online_state_specs`` (its
+    ``_shard_date_slice`` for the slice) gives it."""
+    method, market = cell
+    s = len(world)
+    jm, jt, js = _jax_leaf_dims(method, 2, s)
+    for r in world:
+        held = r[f"online/{method}/{market}/held"]
+        assert held["market_dims"] == jm
+        assert held["tenant_dims"] == jt
+        assert held["slice_dims"] == js
+        for kind in ("market", "tenant", "slice"):
+            dims = held[f"{kind}_dims"]
+            assert set(held[kind]) == set(dims)
+            for path, shape in held[kind].items():
+                want = dc.ONLINE_N // s if dims[path][-1] == "assets" \
+                    else None
+                if want is not None:
+                    assert shape[-1] == want, (kind, path, shape)
+                else:
+                    assert shape[-1:] != (dc.ONLINE_N,), (kind, path)
+        tail = held["market"]["factors_tail"]
+        assert tail == (len(dc.ONLINE_NAMES), 8, dc.ONLINE_N // s)
+
+
+def test_online_collectives_lie_under_the_online_stages(world):
+    """The sharded advance's collectives are all charged to the
+    ``online/*`` stage that contains them (the ledger's outermost known
+    scope), under every mode; the unsharded advance issues none."""
+    seen = set()
+    for method, market in dc.ONLINE_CELLS:
+        cell = f"online/{method}/{market}"
+        assert world[0][f"{cell}/plain/ledger"] == []
+        for mode in dc.MODES:
+            ops = world[0][f"{cell}/{mode}/ledger"]
+            assert ops, (cell, mode)
+            for op in ops:
+                assert op["stage"] in ONLINE_STAGES, (cell, mode, op)
+                assert op["op_name"].startswith(op["stage"]), op
+                seen.add(op["stage"])
+    # selection and context are replicated: no collective
+    assert seen == {"online/ingest", "online/daily_stats", "online/blend",
+                    "online/solve", "online/shift_pnl"}
 
 
 def test_divisibility_errors(world):

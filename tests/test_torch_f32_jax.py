@@ -4,8 +4,11 @@ Hopper, the fused normalization chain ``cs_zscore_group_neutralize`` (K5's
 function) and ``daily_factor_stats``'s IC and rank-IC (K1's); and the
 modules the serving lanes run, ``composite_weighted`` under a group tilt,
 ``icir_top`` with ``finalize_selection``, the ``equal`` and ``linear``
-backtests, and a lane-batched ``equal`` bucket (``[C]`` knobs) against
-``jax.vmap`` of the JAX backtest.
+backtests, a lane-batched ``equal`` bucket (``[C]`` knobs) against
+``jax.vmap`` of the JAX backtest, and the online advance
+(``make_online_step``, float32 panels) for the ``equal`` and ``linear``
+schemes over ``ONLINE_DATES`` dates against the JAX package's jitted
+advance. The QP schemes solve in float64 and are not held here.
 
 The test suite runs JAX in x64 (conftest), so the JAX side runs in a child
 interpreter with x64 never enabled, the idiom of ``tests/test_compat_f32.py``,
@@ -28,12 +31,15 @@ from factormodeling_tpu_torch import ops
 from factormodeling_tpu_torch.backtest import (SimulationSettings,
                                                run_simulation)
 from factormodeling_tpu_torch.backtest.settings import lane_knobs
-from factormodeling_tpu_torch.composite import composite_weighted
+from factormodeling_tpu_torch.composite import (composite_weighted,
+                                                prefix_group_ids)
 from factormodeling_tpu_torch.metrics import daily_factor_stats
+from factormodeling_tpu_torch.online import DateSlice, make_online_step
 from factormodeling_tpu_torch.selection import (finalize_selection,
                                                 icir_top_selector)
 from factormodeling_tpu_torch.selection.selectors import SelectionContext
 from factormodeling_tpu_torch.ops import _cuda_fused as cf
+from factormodeling_tpu_torch.serve import TenantConfig
 from tests.torch_threads import torch_one_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
@@ -47,6 +53,10 @@ NAMES = ("mom_eq", "mom_flx", "val_long", "val_short", "qual_flx")
 WINDOW = 6
 #: the lane-batched equal bucket's knobs, one a lane
 LANES = dict(pct=[0.15, 0.25, 0.35], tcost_scale=[1.0, 0.5, 2.0])
+#: the online advance's dates and its config (both schemes)
+ONLINE_DATES = 12
+ONLINE = dict(window=4, lookback_period=6, top_k=2, icir_threshold=-1.0)
+ONLINE_ROWS = ("selection", "signal", "weights", "log_return", "turnover")
 
 _CHILD = r"""
 import os, sys
@@ -106,6 +116,29 @@ w, r, lc = jax.jit(jax.vmap(lambda g, p, c: sim(g, method="equal", pct=p,
                                                 tcost_scale=c)))(
     jnp.asarray(d["sig"]), jnp.asarray(d["pct"]), jnp.asarray(d["tc"]))
 out["lanes_w"], out["lanes_r"], out["lanes_lc"] = map(np.asarray, (w, r, lc))
+
+from factormodeling_tpu.online import DateSlice, make_online_step
+from factormodeling_tpu.serve.tenant import TenantConfig
+
+for m in ("equal", "linear"):
+    tmpl = TenantConfig(method=m, **{online!r}).normalized(
+        {n_names}, {groups}, dtype=np.float32)
+    init, adv = make_online_step(names={names!r}, template=tmpl,
+                                 n_assets=d["ret"].shape[1],
+                                 dtype=jnp.float32, has_universe=True)
+    adv = jax.jit(adv)
+    ms, ts = init()
+    rows = []
+    for t in range({online_dates}):
+        (ms, ts), o = adv(tmpl, ms, ts, DateSlice(
+            factors=jnp.asarray(d["bf"][:, t]), returns=jnp.asarray(d["ret"][t]),
+            factor_ret=jnp.asarray(d["fr"][t]), cap_flag=jnp.asarray(d["cap"][t]),
+            investability=jnp.asarray(d["inv"][t]),
+            universe=jnp.asarray(d["uni"][t])))
+        rows.append(o)
+    for k in {online_rows!r} + ("long_count",):
+        out[f"on_{{m}}_{{k}}"] = np.stack([np.asarray(getattr(o, k))
+                                         for o in rows[1:]])
 assert all(v.dtype != np.float64 for v in out.values())
 np.savez({outputs!r}, **out)
 """
@@ -155,6 +188,31 @@ def _held(got, want, name):
     assert worst <= TOL_SMOOTH, f"{name}: max |d| {worst} > {TOL_SMOOTH}"
 
 
+def _groups() -> int:
+    return len(prefix_group_ids(NAMES)[1])
+
+
+def _online_rows(t, method):
+    """The port's float32 online advance over the first ONLINE_DATES
+    dates: ``{field: [dates - 1, ...]}`` of the finalized rows."""
+    tmpl = TenantConfig(method=method, **ONLINE).normalized(
+        len(NAMES), _groups(), dtype=np.float32)
+    init, adv = make_online_step(names=NAMES, template=tmpl,
+                                 n_assets=t["ret"].shape[1],
+                                 dtype=torch.float32, has_universe=True,
+                                 device="cpu")
+    ms, ts = init()
+    rows = []
+    for d in range(ONLINE_DATES):
+        (ms, ts), o = adv(tmpl, ms, ts, DateSlice(
+            t["bf"][:, d], t["ret"][d], t["fr"][d], t["cap"][d],
+            t["inv"][d], t["uni"][d]))
+        rows.append(o)
+    assert rows[-1].signal.dtype == torch.float32
+    return {k: np.stack([getattr(o, k).numpy() for o in rows[1:]])
+            for k in ONLINE_ROWS + ("long_count",)}
+
+
 def test_float32_port_matches_jax_x64_off(tmp_path):
     data = _inputs()
     inputs, outputs = tmp_path / "in.npz", tmp_path / "out.npz"
@@ -162,10 +220,11 @@ def test_float32_port_matches_jax_x64_off(tmp_path):
     env = {k: v for k, v in os.environ.items() if k != "JAX_ENABLE_X64"}
     env["JAX_PLATFORMS"] = "cpu"
     proc = subprocess.run(
-        [sys.executable, "-c", _CHILD.format(repo=str(REPO), g=G,
-                                             names=NAMES, window=WINDOW,
-                                             inputs=str(inputs),
-                                             outputs=str(outputs))],
+        [sys.executable, "-c", _CHILD.format(
+            repo=str(REPO), g=G, names=NAMES, window=WINDOW,
+            inputs=str(inputs), outputs=str(outputs), online=ONLINE,
+            n_names=len(NAMES), groups=_groups(),
+            online_dates=ONLINE_DATES, online_rows=ONLINE_ROWS)],
         capture_output=True, text=True, env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     want = np.load(outputs)
@@ -217,3 +276,13 @@ def test_float32_port_matches_jax_x64_off(tmp_path):
     _held(w.numpy(), want["lanes_w"], "equal lanes weights")
     _held(r.numpy(), want["lanes_r"], "equal lanes log_return")
     np.testing.assert_array_equal(lc.numpy(), want["lanes_lc"])
+
+    # the online advance, float32 panels, against the JAX package's
+    for method in ("equal", "linear"):
+        got = _online_rows(t, method)
+        for k in ONLINE_ROWS:
+            _held(got[k], want[f"on_{method}_{k}"], f"online {method} {k}")
+        np.testing.assert_array_equal(got["long_count"],
+                                      want[f"on_{method}_long_count"])
+        # the selection reaches its window: some rows are blended
+        assert np.count_nonzero(got["selection"]) > 0
