@@ -36,7 +36,14 @@ Phases, in order (any failure exits non-zero before the last line):
    post-sort route (``torch.sort`` + K1) and an edge panel of widths 128 to
    8192 that takes every layout of its sort network; the FP32 probe (K6)
    against its plain version, then its rate at [64, 50400, 128] through
-   ``fp32_probe.measure``;
+   ``fp32_probe.measure``; then the seeded draws (``threefry``, the JAX
+   package's streams): a float32 uniform and a 64-bit ``randint`` at the
+   research step's [50, 1332, 1000] on the card, timed, each bitwise the
+   CPU's draw of its first 2**20 counters and the card's draw made in
+   chunks of 2**20 counters; a bounded uniform (a span no power of two,
+   whose multiply-add is emulated) bitwise the CPU's and path 3's
+   [1000, 28] risk sketch (``normal``) within 4 ulp of the CPU's, in
+   float32 and float64;
 4. three paths of ``build_research_step`` at F=50 factors, D=1332 dates,
    N=1000 assets (data from ``--seed``), icir_top selection, zscore blend,
    ``solver_kernel="fused"``: (1) mvo_turnover with the sample covariance,
@@ -101,7 +108,8 @@ Phases, in order (any failure exits non-zero before the last line):
    dropped dates and collapsed universe dates at every stage, under a
    policy with every guard on: finite P&L, leg sums and the weight cap on
    active unheld days, its ``DegradeStats`` equal to a host recount from
-   the drawn masks, the same cell on the host CPU at path 1's weight
+   the drawn masks (the JAX package's draws at the seed), the same cell on
+   the host CPU, its masks bitwise the card's, at path 1's weight
    gate), K1 once and K2 two segments a date in each run; (9b) an
    ``OnlineEngine`` for path 1's tenant fed the first 166 of those dates
    one at a time (cut from 333 to make room for path 12),
@@ -1410,6 +1418,95 @@ def fp32_probe_phase(torch) -> dict:
                 library_ms=None)
 
 
+# the seeded-draw phase: the research step's [F, D, N] on the card, the
+# CPU's draw of its first DRAW_PREFIX counters, chunks of DRAW_PREFIX
+DRAW_PREFIX, DRAW_SPAN = 1 << 20, 1332
+# a bounded uniform whose span is no power of two (the emulated fused
+# multiply-add); path 3's sketch: N names by its 20 risk factors plus the
+# default oversampling of 8, within DRAW_NORMAL_ULP of the CPU's (the
+# normal's log is each device's)
+DRAW_BOUNDS, DRAW_SKETCH, DRAW_NORMAL_ULP = (-2.5, 3.7), (N, 20 + 8), 4
+
+
+def _ulps(torch, a, b) -> int:
+    """The largest distance in units in the last place between two float
+    tensors of one type (on the CPU)."""
+    it = torch.int32 if a.dtype == torch.float32 else torch.int64
+    lo = torch.iinfo(it).min
+
+    def line(x):   # the sign-magnitude bits onto one ordered line
+        x = x.contiguous().view(it).to(torch.int64)
+        return torch.where(x < 0, lo - x, x)
+
+    return int((line(a) - line(b)).abs().max())
+
+
+def draw_phase(torch, fmt, smi: str) -> dict:
+    """JAX's threefry streams on the card (``fmt.threefry``): a float32
+    uniform and a 64-bit ``randint`` in [0, DRAW_SPAN) at [F, D, N] under
+    path 9a's first fault lane, timed; each bitwise the CPU's draw of its
+    first DRAW_PREFIX counters (the counters are the flat index, whatever
+    the shape) and the card's draw made in chunks of DRAW_PREFIX counters;
+    a uniform on DRAW_BOUNDS bitwise the CPU's and path 3's sketch within
+    DRAW_NORMAL_ULP of the CPU's, in float32 and float64. Returns the
+    milliseconds of each timed draw."""
+    tf = fmt.threefry
+    key = fmt.rng.lane_key("fault/nan_burst", R_FAULTS["seed"], 0)
+    shape = (F, D, N)
+
+    def uniform(**kw):
+        return tf.uniform(key, shape, torch.float32, device="cuda", **kw)
+
+    def randint(**kw):
+        return tf.randint(key, shape, 0, DRAW_SPAN, torch.int64,
+                          device="cuda", **kw)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    tf.uniform(key, (1 << 16,), torch.float32, device="cuda")   # warm-up
+    u, u_ms = timed(uniform)
+    r, r_ms = timed(randint)
+    u_h = tf.uniform(key, (DRAW_PREFIX,), torch.float32, device="cpu")
+    r_h = tf.randint(key, (DRAW_PREFIX,), 0, DRAW_SPAN, torch.int64,
+                     device="cpu")
+    prefix = (_bytes_equal(u.reshape(-1)[:DRAW_PREFIX], u_h)
+              and _bytes_equal(r.reshape(-1)[:DRAW_PREFIX], r_h))
+    chunked = (torch.equal(u.view(torch.int32),
+                           uniform(chunk=DRAW_PREFIX).view(torch.int32))
+               and torch.equal(r, randint(chunk=DRAW_PREFIX)))
+    in_range = (float(u.min()) >= 0.0 and float(u.max()) < 1.0
+                and int(r.min()) >= 0 and int(r.max()) < DRAW_SPAN)
+    bounded = all(_bytes_equal(
+        tf.uniform(key, (DRAW_PREFIX,), dt, *DRAW_BOUNDS, device="cuda"),
+        tf.uniform(key, (DRAW_PREFIX,), dt, *DRAW_BOUNDS, device="cpu"))
+        for dt in (torch.float32, torch.float64))
+    sketch = tf.seed_key(0)   # the risk model's default seed, path 3's
+    normal_ulps = {str(dt).split(".")[-1]: _ulps(
+        torch, tf.normal(sketch, DRAW_SKETCH, dt, device="cuda").cpu(),
+        tf.normal(sketch, DRAW_SKETCH, dt, device="cpu"))
+        for dt in (torch.float32, torch.float64)}
+    log(f"phase draws ({smi}): uniform float32 {list(shape)} "
+        f"{u_ms:.2f} ms, randint int64 [0, {DRAW_SPAN}) {r_ms:.2f} ms "
+        f"(chunks of {tf.CHUNK} counters); the first {DRAW_PREFIX} counters "
+        f"bitwise the CPU's: {prefix}; bitwise the card's draw in chunks of "
+        f"{DRAW_PREFIX}: {chunked}; in range: {in_range}; a uniform on "
+        f"{list(DRAW_BOUNDS)} (float32, float64) bitwise the CPU's: "
+        f"{bounded}; normal {list(DRAW_SKETCH)} (path 3's sketch) ulps from "
+        f"the CPU's: {json.dumps(normal_ulps)} (limit {DRAW_NORMAL_ULP})")
+    if not (prefix and chunked and in_range and bounded):
+        raise AssertionError("draws: the card's threefry draws part from "
+                             "the CPU's or from their chunked form")
+    if max(normal_ulps.values()) > DRAW_NORMAL_ULP:
+        raise AssertionError(f"draws: the card's normal parts from the "
+                             f"CPU's by {normal_ulps} ulps")
+    return dict(uniform_ms=u_ms, randint_ms=r_ms)
+
+
 def _scoring_run(torch, fmt, inputs, dev: str):
     """Path 5 once on ``dev``: the metric table, then one research step per
     selector with equal-weight backtests. Returns (table, outputs, seconds
@@ -2289,26 +2386,27 @@ def _run_resil_step(torch, fmt, inputs, cfg, build=None, **kw):
 
 
 def _resil_recount(fmt, arrays, spec, pol, out) -> dict:
-    """DegradeStats recounted on the host from the drawn masks (numpy, the
-    lanes' own draws) and the run's diagnostics: quarantined dates from
-    the faulted factors' in-universe NaN share, held dates from the
-    collapsed universe's counts, carried dates from the run's solver
-    acceptance, clamped cells from the clamped signal."""
-    from factormodeling_tpu_torch.rng import lane_rng
-
+    """DegradeStats recounted on the host from the drawn masks (the lanes'
+    threefry draws, the JAX package's, made on the card at the default
+    width) and the run's diagnostics: quarantined dates from the faulted
+    factors' in-universe NaN share, held dates from the collapsed
+    universe's counts, carried dates from the run's solver acceptance,
+    clamped cells from the clamped signal."""
     factors, _, _, _, _, universe = arrays
     f, d, n = factors.shape
-    thr = np.float32(spec.nan_rate)
 
     def draw(kind, size):
-        return lane_rng(f"fault/{kind}", spec.seed, 0).uniform(size=size)
+        return fmt.threefry.uniform(fmt.rng.lane_key(f"fault/{kind}",
+                                                     spec.seed, 0),
+                                    size, device="cuda").cpu().numpy()
 
-    nan = np.isnan(factors) | (draw("nan_burst", factors.shape) < thr)
+    nan = np.isnan(factors) | (draw("nan_burst", factors.shape)
+                               < np.float32(spec.nan_rate))
     nan &= ~(draw("inf_spike", factors.shape) < np.float32(spec.inf_rate))
-    dropped = draw("drop_day", d) < np.float64(np.float32(spec.drop_rate))
+    dropped = draw("drop_day", (d,)) < np.float32(spec.drop_rate)
     nan[:, dropped] = True
-    collapsed = (lane_rng("fault/universe_collapse", spec.seed, 0)
-                 .uniform(size=d) < np.float64(np.float32(spec.collapse_rate)))
+    collapsed = (draw("universe_collapse", (d,))
+                 < np.float32(spec.collapse_rate))
     uni = universe.copy()
     rank = np.cumsum(uni, axis=1)
     uni[collapsed] &= rank[collapsed] <= spec.collapse_keep
@@ -2337,8 +2435,8 @@ def resil_path(torch, fmt, seed: int) -> dict:
     held bitwise to it; then one chaos cell (R_FAULTS under R_POLICY), with
     finite P&L, the leg sums and the weight cap on active unheld days, its
     DegradeStats against a host recount from the drawn masks, and the same
-    cell on the host CPU (the same masks, by the host draw) at path 1's
-    weight gate. Returns the clean output, its seconds, and the kernels'
+    cell on the host CPU (the same masks: the CPU's threefry draws are the
+    card's) at path 1's weight gate. Returns the clean output, its seconds, and the kernels'
     launches in each card run."""
     from factormodeling_tpu_torch.metrics import _cuda_rank_ic as rk
     from factormodeling_tpu_torch.ops import _cuda_admm as ak
@@ -2429,7 +2527,8 @@ def resil_path(torch, fmt, seed: int) -> dict:
             and got["carry_fallback_days"] and got["clamped_cells"]):
         raise AssertionError(f"resil chaos: a guard never engaged: {got}")
 
-    # the same chaos cell on the host CPU: the same masks by the host draw
+    # the same chaos cell on the host CPU: the same masks (threefry draws
+    # the card's bits on the CPU)
     inputs_h, cfg_h = fmt.convert(*arrays, names=factor_names(F),
                                   window=WINDOW, select_method="icir_top",
                                   blend_method="zscore", sim_kwargs=sim,
@@ -3712,7 +3811,8 @@ SC_ADV = dict(seed=11, window_len=20, nan_rate=0.01, inf_rate=0.005,
               outlier_rate=0.005, stale_rate=0.2, drop_rate=0.1,
               collapse_rate=0.1, collapse_keep=50)
 # 2 adversarial paths on the first SC_CPU_DATES dates, card against the
-# host CPU from the same host draws, at path 5's gates
+# host CPU from the same draws (the CPU's threefry bits are the card's), at
+# path 5's gates
 # (``_scenario_cpu_check``); 333 until the sharded online session joined
 # 13d, then 166 to keep the script's time
 SC_CPU_PATHS, SC_CPU_DATES = 2, 166
@@ -3744,14 +3844,16 @@ def _legs(w):
 def _adversarial_host_check(spec, d: int, n: int) -> None:
     """Every day and cell draw of every path lies inside the path's
     window."""
+    from factormodeling_tpu_torch.scenarios import path_key
+
     for p in range(SC_PATHS):
-        key = (spec.seed, p)
+        key = path_key(spec, p)
         in_win, stale, drop, collapse = spec.schedule(key, d)
         if (stale | drop | collapse)[~in_win].any():
             raise AssertionError(f"scenarios: path {p} day draws outside "
                                  "its window")
-        for m in spec.cell_masks(key, (d, n), in_win):
-            if m is not None and m[~in_win].any():
+        for m in spec.cell_masks(key, (d, n), in_win, device="cuda"):
+            if m is not None and bool(m.cpu().numpy()[~in_win].any()):
                 raise AssertionError(f"scenarios: path {p} cell draws "
                                      "outside its window")
 
@@ -3818,7 +3920,7 @@ def scenario_path(torch, fmt, seed: int) -> dict:
     }
     boot = families["bootstrap"][0]
     for p in range(SC_PATHS):
-        idx = boot.day_index((boot.seed, p), D)
+        idx = boot.day_index(scenarios.path_key(boot, p), D)
         if not ((idx >= 0) & (idx < D)).all():
             raise AssertionError(f"scenarios: bootstrap path {p} day index "
                                  "out of range")
@@ -3877,7 +3979,7 @@ def _scenario_cpu_check(torch, fmt, arrays, names, tpl, family) -> None:
         dsel = (card.selection.cpu() - host.selection).abs().max(-1).values
         share = float((dsel > P5_DW_TOL).double().mean())
         legs = leg_differences(torch, card, host)
-        in_win = spec.schedule((spec.seed, p), SC_CPU_DATES)[0]
+        in_win = spec.schedule(scenarios.path_key(spec, p), SC_CPU_DATES)[0]
         window = torch.from_numpy(in_win | np.roll(in_win, 1))
         w_c = card.sim.weights.nan_to_num().cpu()
         w_h = host.sim.weights.nan_to_num()
@@ -4957,6 +5059,9 @@ def main() -> int:
     kernels["fp32_probe"] = fp32_probe_phase(torch)
     log(f"rank-sort and probe kernel phases: {time.perf_counter() - t0:.1f} s "
         f"wall")
+    t0 = time.perf_counter()
+    draw_phase(torch, fmt, smi)
+    log(f"draw phase: {time.perf_counter() - t0:.1f} s wall")
     launches = {}
     for path in PATHS:
         launches[path], out, secs = path_phase(torch, args.seed, path,

@@ -30,7 +30,7 @@ import importlib
 from factormodeling_tpu_torch import (analytics, backtest, composite, metrics,
                                       multimanager, obs, online, ops, panel,
                                       parallel, resil, risk, rng, selection,
-                                      serve, solvers)
+                                      serve, solvers, threefry)
 from factormodeling_tpu_torch.backtest import SimulationSettings, run_simulation
 from factormodeling_tpu_torch.convert import (ResearchConfig, convert,
                                               convert_warm_state)
@@ -40,7 +40,8 @@ __all__ = ["ResearchConfig", "SimulationSettings", "analytics", "backtest",
            "build_research_step", "compat", "composite", "convert",
            "convert_warm_state", "io", "metrics", "multimanager", "obs",
            "online", "ops", "panel", "parallel", "resil", "result_summary",
-           "risk", "rng", "run_simulation", "selection", "serve", "solvers"]
+           "risk", "rng", "run_simulation", "selection", "serve", "solvers",
+           "threefry"]
 
 
 def __getattr__(name):

@@ -4,8 +4,9 @@
 ``[D, N]`` grid, computed by the port on a device (``device=None`` is the
 card; ``device="cpu"`` asks for the CPU; ``Simulation`` and
 ``multi_manager`` read it from ``SimulationSettings.device``) and realigned
-to the caller's index. Panels densify to float64 always (``_convert``),
-where the JAX package's compat densifies to float32 unless x64 is on.
+to the caller's index. Panels densify at JAX's float width (``_convert``):
+float64 where ``torch.get_default_dtype()`` is float64, float32 where it
+is float32, as the JAX package's compat follows ``jax_enable_x64``.
 
 Modules: ``operations`` (the 28 reference ops), ``factor_selector``
 (``single_factor_metrics``, ``FactorSelector``), ``factor_selection_methods``

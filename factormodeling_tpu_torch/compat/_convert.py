@@ -5,9 +5,13 @@ The reference's data model is a (date, symbol)-MultiIndex Series; the dense
 analog is ``values [D, N]`` with NaN holes plus a ``universe [D, N]`` mask.
 A :class:`PanelVocab` pins one sorted (dates, symbols) vocabulary so every
 panel of a call densifies onto the same grid and results realign to the
-caller's own index. Values densify to float64, the reference's pandas
-precision. Vocabularies and row codes are cached on the identity of the
-pandas indexes (:class:`_IdentityCache`), as the JAX package caches them.
+caller's own index. Values densify at JAX's float width: float64 where
+``torch.get_default_dtype()`` is float64 (the counterpart of the JAX
+package's ``jax_enable_x64``, under which the test suite's pandas oracles
+compare), float32 where it is float32, the production width the JAX
+package densifies to with x64 off. Vocabularies and row codes are cached
+on the identity of the pandas indexes (:class:`_IdentityCache`), as the
+JAX package caches them.
 The JAX package's ``jit_kernel`` (one compiled trace per compat call site)
 has no counterpart: PyTorch runs the ops eagerly.
 """
@@ -22,6 +26,7 @@ import torch
 
 from factormodeling_tpu_torch._device import resolve_device
 from factormodeling_tpu_torch.panel import _index_level
+from factormodeling_tpu_torch.threefry import numpy_dtype
 
 __all__ = ["PanelVocab", "densify_stack", "level_values", "roundtrip"]
 
@@ -114,8 +119,9 @@ class PanelVocab:
             self.symbols.get_indexer(level_values(index, "symbol", 1))))
 
     def densify(self, s: pd.Series) -> tuple[np.ndarray, np.ndarray]:
-        """(values [D, N] float64 with NaN holes, universe [D, N] bool)."""
-        values = np.full(self.shape, np.nan)
+        """(values [D, N] at JAX's float width with NaN holes, universe
+        [D, N] bool)."""
+        values = np.full(self.shape, np.nan, dtype=numpy_dtype())
         universe = np.zeros(self.shape, dtype=bool)
         di, si = self.codes(s.index)
         keep = (di >= 0) & (si >= 0)
@@ -165,9 +171,10 @@ class PanelVocab:
 
 def densify_stack(factors_df: pd.DataFrame, vocab: PanelVocab):
     """Every column of a long-format frame on the vocabulary's grid:
-    ``(stack [F, D, N] float64, universe [D, N])``, the universe the union
-    of the columns' own."""
-    stack = np.empty((factors_df.shape[1],) + vocab.shape)
+    ``(stack [F, D, N] at JAX's float width, universe [D, N])``, the universe
+    the union of the columns' own."""
+    stack = np.empty((factors_df.shape[1],) + vocab.shape,
+                     dtype=numpy_dtype())
     universe = np.zeros(vocab.shape, dtype=bool)
     for i, col in enumerate(factors_df.columns):
         vals, uni = vocab.densify(factors_df[col])
@@ -178,8 +185,9 @@ def densify_stack(factors_df: pd.DataFrame, vocab: PanelVocab):
 
 def roundtrip(series: pd.Series, fn, name=None, *, device=None) -> pd.Series:
     """Densify -> ``fn(values, universe)`` -> realign, the unary-op wrapper:
-    ``fn`` gets float64 and bool ``[D, N]`` tensors on ``device`` (``None``
-    is the card) and returns a dense ``[D, N]`` tensor."""
+    ``fn`` gets JAX's float width and bool ``[D, N]`` tensors on
+    ``device`` (``None`` is the card) and returns a dense ``[D, N]``
+    tensor."""
     dev = resolve_device(device)
     vocab = PanelVocab.from_indexes(series.index)
     values, universe = vocab.densify(series)

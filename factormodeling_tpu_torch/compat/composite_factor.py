@@ -3,7 +3,8 @@
 blends and the two plotting helpers, over pandas panels.
 
 The blends run in :mod:`factormodeling_tpu_torch.composite` on ``device``
-(``None`` is the card) from float64 panels; this module converts formats
+(``None`` is the card) from panels densified at JAX's float width
+(``threefry.numpy_dtype()``); this module converts formats
 and keeps the reference's output conventions (static: NaN-preserving Series
 on the panel index; weighted: zero-filled on the full panel index).
 """
@@ -19,9 +20,11 @@ from factormodeling_tpu_torch.analytics.plots import (
     plot_quantile_backtests as _plot_quantiles,
 )
 from factormodeling_tpu_torch.analytics.quantile import quantile_backtest_log
-from factormodeling_tpu_torch.compat._convert import PanelVocab, densify_stack
+from factormodeling_tpu_torch.compat._convert import (PanelVocab,
+                                                     densify_stack)
 from factormodeling_tpu_torch.composite import (composite_static,
                                                 composite_weighted)
+from factormodeling_tpu_torch.threefry import numpy_dtype
 
 __all__ = ["composite_factor_calculation", "weighted_composite_factor",
            "plot_factor_distributions", "plot_quantile_backtests_log"]
@@ -59,7 +62,8 @@ def weighted_composite_factor(factors_df: pd.DataFrame,
     names = list(selection_df.columns)
     vocab = PanelVocab.from_indexes(factors_df.index)
     stack, universe = _stack(factors_df, names, vocab, dev)
-    sel = selection_df.reindex(vocab.dates).fillna(0.0).to_numpy(dtype=float)
+    sel = selection_df.reindex(vocab.dates).fillna(0.0).to_numpy(
+        dtype=numpy_dtype())
     comp = composite_weighted(stack, tuple(names),
                               torch.tensor(sel, device=dev), method=method,
                               universe=universe)

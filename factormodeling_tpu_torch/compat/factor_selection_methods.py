@@ -24,6 +24,7 @@ from factormodeling_tpu_torch.selection.shrinkage import \
     ledoit_wolf_shrinkage as _lw_dense
 from factormodeling_tpu_torch.solvers.admm_qp import (BoxQPProblem,
                                                       admm_solve_dense)
+from factormodeling_tpu_torch.threefry import numpy_dtype
 
 __all__ = ["icir_top_selector", "factor_momentum_selector",
            "ledoit_wolf_shrinkage", "mvo_selector", "pca_selector",
@@ -60,7 +61,7 @@ def factor_momentum_selector(metrics_df, factors_win, returns_win,
 def ledoit_wolf_shrinkage(returns, device=None):
     """Constant-correlation Ledoit-Wolf shrunk covariance of a [T, F]
     window (DataFrame in, DataFrame out), in closed form on ``device``."""
-    arr = torch.tensor(np.asarray(returns, dtype=float))
+    arr = torch.tensor(np.asarray(returns, dtype=numpy_dtype()))
     out = _lw_dense(arr.to(resolve_device(device))).cpu().numpy()
     if isinstance(returns, pd.DataFrame):
         return pd.DataFrame(out, index=returns.columns, columns=returns.columns)
@@ -83,7 +84,7 @@ def mvo_selector(metrics_df, factors_win, returns_win, factor_ret_win, today,
     cap = min(max_weight, 1.0)
 
     def t(a):
-        return torch.as_tensor(np.asarray(a, dtype=float), device=dev)
+        return torch.as_tensor(np.asarray(a, dtype=numpy_dtype()), device=dev)
 
     prob = BoxQPProblem(q=t(-mu), lo=t(np.zeros(f)), hi=t(np.full(f, cap)),
                         E=t(np.ones((1, f))), b=t(np.ones(1)),

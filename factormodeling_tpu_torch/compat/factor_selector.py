@@ -11,7 +11,8 @@ processed range ``dates[window:-1]``, row renormalization, the cached
 result); the built-in methods go through the port's dense rolling path,
 custom methods registered in ``FACTOR_SELECTION_METHODS`` through the
 reference's per-date plugin loop. Both take ``device`` (``None`` is the
-card) and densify to float64, the reference's pandas precision, so the
+card) and densify at JAX's float width (``threefry.numpy_dtype()``): float64,
+the reference's pandas precision, under the float64 default, where the
 dense path's rank-IC takes the float64 route (never the float32-only fused
 kernel).
 """
@@ -33,6 +34,7 @@ from factormodeling_tpu_torch.metrics.factor_metrics import (METRIC_COLUMNS,
                                                              aggregate_metrics,
                                                              daily_factor_stats)
 from factormodeling_tpu_torch.selection.driver import rolling_selection
+from factormodeling_tpu_torch.threefry import numpy_dtype
 
 logger = logging.getLogger(__name__)
 
@@ -123,7 +125,7 @@ class FactorSelector:
         rets, _ = vocab.densify(self.returns)
         fr = np.array(self.factor_ret_df.reindex(index=dates,
                                                  columns=self.factor_cols),
-                      dtype=float)
+                      dtype=numpy_dtype())
         # exposures already shifted once at init; the metrics path adds the
         # reference's second in-metrics shift
         weights = rolling_selection(

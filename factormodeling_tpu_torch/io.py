@@ -42,8 +42,8 @@ import numpy as np
 import torch
 
 from factormodeling_tpu_torch._device import host_array, resolve_device
-from factormodeling_tpu_torch.panel import (FactorPanel, Panel, _densify_long,
-                                            _np_dtype)
+from factormodeling_tpu_torch.panel import FactorPanel, Panel, _densify_long
+from factormodeling_tpu_torch.threefry import numpy_dtype
 
 __all__ = [
     "ArtifactStore",
@@ -175,7 +175,7 @@ def load_factor_returns(path: str | Path, *, date_col: str = "date",
         df = df.assign(**{date_col: pd.to_datetime(df[date_col])})
         df = df.set_index(date_col)
     df = df.sort_index()
-    values = df.to_numpy(dtype=_np_dtype(dtype), na_value=np.nan)
+    values = df.to_numpy(dtype=numpy_dtype(dtype), na_value=np.nan)
     return FactorReturns(torch.tensor(values, device=dev),
                          df.index.to_numpy(), tuple(df.columns))
 

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from factormodeling_tpu_torch._device import host_array, resolve_device
+from factormodeling_tpu_torch.threefry import numpy_dtype
 
 __all__ = ["Panel", "FactorPanel", "from_long", "panel_to_long"]
 
@@ -59,10 +60,6 @@ def _index_level(index, name: str, position: int):
     return index.get_level_values(position)
 
 
-def _np_dtype(dtype: torch.dtype) -> np.dtype:
-    return torch.empty((), dtype=dtype).numpy().dtype
-
-
 def _densify_long(df, columns, dtype: torch.dtype):
     """One pass over a (date, symbol)-indexed long frame -> stacked
     ``[C, D, N]`` numpy values of ``dtype`` + shared universe + vocabularies:
@@ -78,7 +75,7 @@ def _densify_long(df, columns, dtype: torch.dtype):
     d, n = len(dates), len(symbols)
     universe = np.zeros((d, n), dtype=bool)
     universe[date_idx, sym_idx] = True
-    np_dtype = _np_dtype(dtype)
+    np_dtype = numpy_dtype(dtype)
     stacked = np.full((len(columns), d, n), np.nan, dtype=np_dtype)
     for i, col in enumerate(columns):
         stacked[i, date_idx, sym_idx] = pd.to_numeric(
@@ -255,7 +252,7 @@ def from_long(dates_idx, symbols_idx, values, *, n_dates=None,
         raise ValueError(
             "negative index codes (e.g. pandas Categorical codes for NaN keys) "
             "would silently wrap; drop NaN-keyed rows before densifying")
-    vals = np.asarray(values, dtype=_np_dtype(dtype))
+    vals = np.asarray(values, dtype=numpy_dtype(dtype))
     d = int(n_dates if n_dates is not None else dates_idx.max() + 1)
     n = int(n_symbols if n_symbols is not None else symbols_idx.max() + 1)
     dense = np.full((d, n), np.nan, dtype=vals.dtype)

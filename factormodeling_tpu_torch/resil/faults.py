@@ -20,16 +20,17 @@ Cell faults apply first, then staleness, then drops, the JAX package's
 order: a dropped day is dropped whatever else hit it, and a stale day
 re-serves the (possibly corrupted) previous day.
 
-The draws. The JAX package draws its uniforms with ``jax.random`` under
-``rng.lane_key``, which torch cannot reproduce. Here the same-shaped
-uniforms come from ``rng.lane_rng(f"fault/{kind}", seed, stage_idx)`` on
-the host (float64), are compared with the class's threshold there, and only
-the boolean masks move to the tensor's device, once per class and stage:
-a CPU run and a card run corrupt the same cells. A class whose threshold is
-0 draws nothing (no uniform in [0, 1) falls below 0), so ``FaultSpec.off()``
-returns every tensor unchanged. :func:`_inject_with` and
-:func:`_collapse_with` apply given uniforms: the tests feed them the JAX
-package's draws and hold the result bitwise to its ``inject``.
+The draws are the JAX package's: each class draws its uniforms with
+:func:`~factormodeling_tpu_torch.threefry.uniform` under
+``rng.lane_key(f"fault/{kind}", seed, stage_idx)``, at JAX's default width
+(``torch.get_default_dtype()``, the counterpart of ``jax_enable_x64``), a
+cell class at the tensor's shape on the tensor's device and a day class
+``[D]``; the comparisons with each class's threshold take the JAX
+package's types. So a spec corrupts the JAX package's cells on the CPU and
+on the card alike. A class whose threshold is 0 draws nothing (no uniform
+in [0, 1) falls below 0), so ``FaultSpec.off()`` returns every tensor
+unchanged. :func:`_inject_with` and :func:`_collapse_with` apply given
+uniforms (tensors or host arrays).
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ import numpy as np
 import torch
 
 from factormodeling_tpu_torch import rng as rng_lanes
+from factormodeling_tpu_torch import threefry
 
 __all__ = ["DISPATCH_FAULT_CLASSES", "FAULT_CLASSES", "INJECT_STAGES",
            "DispatchFault", "DispatchFaultPlan", "FaultSpec", "inject",
@@ -190,37 +192,52 @@ class DispatchFaultPlan:
 
 
 def _thresholds(spec: FaultSpec, stage_idx: int, dtype: torch.dtype) -> dict:
-    """Each class's mask threshold at one stage, computed in the JAX
-    package's types: a cell class compares against ``gate * rate`` in the
-    tensor's type, a day class against the same product in float64."""
-    xdt = torch.empty((), dtype=dtype).numpy().dtype
+    """Each class's mask threshold at one stage, in the JAX package's types
+    for a tensor of ``dtype`` and uniforms of the default width: a cell
+    class compares against ``gate * rate`` in the tensor's type, a day
+    class against the gate times the rate in the uniforms' type."""
+    xdt = threefry.numpy_dtype(dtype)
+    ddt = np.promote_types(xdt, threefry.numpy_dtype())
     gate = np.asarray(spec.stage_gate[stage_idx], np.float32).astype(xdt)
     out = {kind: gate * np.asarray(getattr(spec, rate), np.float32).astype(xdt)
            for kind, rate in _CELL_CLASSES}
-    out.update({kind: np.float64(gate) * np.float64(getattr(spec, rate))
+    out.update({kind: gate.astype(ddt) * np.asarray(getattr(spec, rate),
+                                                    np.float32).astype(ddt)
                 for kind, rate in _DAY_CLASSES})
     return out
 
 
+def _key(spec, stage_idx: int, kind: str) -> tuple:
+    """A class's key at one stage. The JAX package keys on the spec's int32
+    seed leaf, whose key is ``(0, seed mod 2**32)``."""
+    return rng_lanes.lane_key(f"fault/{kind}", int(spec.seed) & 0xFFFFFFFF,
+                              stage_idx)
+
+
 def _draws(spec: FaultSpec, stage_idx: int, shape, date_axis: int,
-           thresholds: dict) -> dict:
-    """The host uniforms of every class whose threshold is positive: the
-    tensor's shape for a cell class, ``[D]`` for a day class."""
+           thresholds: dict, device) -> dict:
+    """The uniforms of every class whose threshold is positive: the
+    tensor's shape for a cell class, ``[D]`` for a day class, on
+    ``device``."""
     d = shape[date_axis]
     out = {}
     for kind, _ in _CELL_CLASSES + _DAY_CLASSES:
         if thresholds[kind] > 0:
-            size = d if kind in dict(_DAY_CLASSES) else tuple(shape)
-            out[kind] = rng_lanes.lane_rng(f"fault/{kind}", spec.seed,
-                                           stage_idx).uniform(size=size)
+            size = (d,) if kind in dict(_DAY_CLASSES) else tuple(shape)
+            out[kind] = threefry.uniform(_key(spec, stage_idx, kind), size,
+                                         device=device)
     return out
 
 
 def _mask(u, thresh, device) -> torch.Tensor:
-    """``u < thresh`` on the device: numpy uniforms compare on the host and
-    move as booleans; tensor uniforms compare where they lie."""
+    """``u < thresh`` on the device, compared in the promoted type of the
+    two as the JAX package compares: tensor uniforms where they lie, host
+    uniforms on the host (their booleans then move)."""
     if isinstance(u, torch.Tensor):
-        return (u < float(thresh)).to(device)
+        cmp = torch.promote_types(u.dtype, torch.from_numpy(
+            np.asarray(thresh)).dtype)
+        t = torch.tensor(float(thresh), dtype=cmp, device=u.device)
+        return (u.to(cmp) < t).to(device)
     return torch.from_numpy(np.asarray(u) < thresh).to(device)
 
 
@@ -247,7 +264,7 @@ def _inject_with(stage_idx: int, x: torch.Tensor, spec: FaultSpec,
         x = torch.where(_mask(uniforms["inf_spike"], thr["inf_spike"], dev),
                         spike, x)
     if "outlier" in uniforms:
-        xdt = torch.empty((), dtype=x.dtype).numpy().dtype
+        xdt = threefry.numpy_dtype(x.dtype)
         scale = float(np.power(np.asarray(10.0, xdt),
                                np.asarray(spec.outlier_mag, xdt)))
         blast = (torch.nan_to_num(x) + 1.0) * scale
@@ -277,7 +294,7 @@ def inject(stage: str, x, spec: FaultSpec | None, *, date_axis: int = 0):
         return x
     idx = INJECT_STAGES.index(stage)
     draws = _draws(spec, idx, x.shape, date_axis % x.ndim,
-                   _thresholds(spec, idx, x.dtype))
+                   _thresholds(spec, idx, x.dtype), x.device)
     if not draws:
         return x
     return _inject_with(idx, x, spec, draws, date_axis=date_axis)
@@ -287,7 +304,7 @@ def _collapse_with(universe: torch.Tensor, spec: FaultSpec,
                    u) -> torch.Tensor:
     """Collapse the dates whose uniform ``u[d]`` falls below the rate to the
     first ``collapse_keep`` members."""
-    day = _mask(u, np.float64(spec.collapse_rate), universe.device)
+    day = _mask(u, np.float32(spec.collapse_rate), universe.device)
     rank = torch.cumsum(universe.to(torch.int32), dim=1)
     collapsed = universe & (rank <= spec.collapse_keep)
     return torch.where(day[:, None], collapsed, universe)
@@ -299,8 +316,8 @@ def inject_universe(universe, spec: FaultSpec | None):
     an input). Identity when either is None or the rate is 0."""
     if spec is None or universe is None or not spec.collapse_rate > 0:
         return universe
-    u = rng_lanes.lane_rng("fault/universe_collapse", spec.seed,
-                           0).uniform(size=universe.shape[0])
+    u = threefry.uniform(_key(spec, 0, "universe_collapse"),
+                         (universe.shape[0],), device=universe.device)
     return _collapse_with(universe, spec, u)
 
 

@@ -13,12 +13,11 @@ randomized subspace iteration (Halko et al.) finds the top-k components with
 O(D N k) matmul work and is what ``method="auto"`` picks when
 ``k + oversample < min(D, N) // 4``.
 
-Randomized PCA draws its Gaussian sketch with a ``torch.Generator`` seeded
-from ``seed`` on the CPU in float64 (:func:`_sketch`), then moves it to the
-panel's device, so the CPU and the card see the same numbers. They are not
-the JAX package's numbers (``jax.random`` cannot be reproduced), so the
-components agree with the JAX package's only to within the subspace
-iteration's convergence; the tests swap the JAX draw in.
+Randomized PCA draws its Gaussian sketch as the JAX package does,
+``jax.random.normal(jax.random.key(seed), (n, l))`` at the centred panel's
+dtype (:func:`_sketch`, through :mod:`~factormodeling_tpu_torch.threefry`
+on the panel's device): the same numbers to a few ulp on the CPU and on
+the card.
 
 ``eigh``, ``qr`` and ``svd`` may pick other column signs than XLA's: compare
 sign-invariant quantities (``B diag(f) B'``, ``factor_var``, ``idio_var``).
@@ -30,6 +29,7 @@ from typing import NamedTuple
 
 import torch
 
+from factormodeling_tpu_torch import threefry
 from factormodeling_tpu_torch.ops._linalg import spd_solve
 from factormodeling_tpu_torch.selection.shrinkage import (
     ledoit_wolf_shrinkage, masked_pairwise_cov)
@@ -125,11 +125,10 @@ def _demean_fill(returns: torch.Tensor, valid: torch.Tensor | None):
 
 
 def _sketch(n: int, l: int, seed: int, dtype, device) -> torch.Tensor:
-    """The randomized PCA's ``[n, l]`` standard-normal test matrix, drawn on
-    the CPU in float64 from ``seed`` so every device sees the same one."""
-    gen = torch.Generator().manual_seed(int(seed))
-    q = torch.randn((n, l), generator=gen, dtype=torch.float64)
-    return q.to(dtype=dtype, device=device)
+    """The randomized PCA's ``[n, l]`` standard-normal test matrix: the JAX
+    package's draw under ``seed``, in ``dtype`` on ``device``."""
+    return threefry.normal(threefry.seed_key(seed), (n, l), dtype,
+                           device=device)
 
 
 def _pca_centered(c: torch.Tensor, k: int, method: str, oversample: int,

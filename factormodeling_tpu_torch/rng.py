@@ -1,21 +1,25 @@
-"""The seeded-RNG lane registry, host side (port of the numpy part of
-``factormodeling_tpu/rng.py``; ``lane_key``, its ``jax.random`` half, has
-no counterpart here).
+"""The seeded-RNG lane registry (port of ``factormodeling_tpu/rng.py``).
 
 Every deterministic random stream draws under a NAMED LANE with a
 registry-unique integer id (``LANES``, checked at import). The ids are the
-JAX package's, so :func:`lane_rng` of a lane, seed and indices is the same
-``np.random.default_rng`` stream in both packages: it is seeded on the
-tuple ``(lane_id, seed, *indices)``, the SeedSequence entropy-pool path, so
-distinct lanes are independent streams, not offsets of one stream. The
-fault injectors (:mod:`factormodeling_tpu_torch.resil.faults`) draw their
-masks from these lanes on the host, so a CPU run and a card run corrupt the
-same cells.
+JAX package's, and so are the two derivations, one per RNG world:
+
+- :func:`lane_key`: a threefry key (:mod:`factormodeling_tpu_torch.threefry`)
+  for the draws the JAX package makes with ``jax.random`` (fault masks,
+  scenario paths): ``seed_key(seed)`` folded with the caller's indices in
+  order, then the lane id last, so a lane, seed and indices give the JAX
+  package's bits on the CPU and on the card alike;
+- :func:`lane_rng`: an ``np.random.default_rng`` generator for host-side
+  draws (arrival traces, dispatch-fault plans), seeded on the tuple
+  ``(lane_id, seed, *indices)``, the SeedSequence entropy-pool path, so
+  distinct lanes are independent streams, not offsets of one stream.
 """
 
 from __future__ import annotations
 
-__all__ = ["LANES", "lane_id", "lane_rng", "lane_seed"]
+from factormodeling_tpu_torch import threefry
+
+__all__ = ["LANES", "lane_id", "lane_key", "lane_rng", "lane_seed"]
 
 #: every named lane and its registry-unique id. Fault-class lanes keep
 #: their pre-registry values (bit-compat contract, module docs); new lanes
@@ -63,6 +67,16 @@ def lane_id(name: str) -> int:
     except KeyError:
         raise ValueError(f"unknown RNG lane {name!r}; registered lanes: "
                          f"{sorted(LANES)}") from None
+
+
+def lane_key(name: str, seed: int, *indices: int) -> tuple:
+    """The threefry key of one lane: ``seed_key(seed)`` folded with each
+    index in order, then the lane id last (the JAX package's
+    ``lane_key``)."""
+    key = threefry.seed_key(seed)
+    for ix in indices:
+        key = threefry.fold_in(key, ix)
+    return threefry.fold_in(key, lane_id(name))
 
 
 def lane_seed(name: str, seed: int, *indices: int) -> tuple:

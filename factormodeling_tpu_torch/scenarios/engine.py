@@ -35,8 +35,9 @@ serving layer's tenant body: each sub-batch of at most ``map_chunk`` paths
 stacks its market views and per-path selection contexts along a path axis
 and runs the tenant body once (the bootstrap and adversarial families),
 so the backtest's day loop and its solves run once for all of them. The
-draws are made on the host (:mod:`.spec`); only masks and indices move to
-the device.
+draws are the JAX package's (:mod:`.spec`): the scalar and per-date ones on
+the host, whose masks and indices move to the device, the cell draws on the
+market's device.
 
 **Chunking and resume**: paths dispatch in host-loop chunks; the per-chunk
 path metrics fold into
@@ -71,6 +72,7 @@ from factormodeling_tpu_torch.serve.batched import (one_lane,
                                                     tenant_step_parts,
                                                     tree_lane)
 from factormodeling_tpu_torch.serve.tenant import _VALUE_LEAVES
+from factormodeling_tpu_torch.threefry import numpy_dtype
 
 __all__ = ["ScenarioResult", "make_scenario_runner", "make_scenario_step",
            "run_scenarios"]
@@ -212,7 +214,8 @@ def make_scenario_step(*, names, template, family: str,
                                            days), device=dev)
             take = lambda x, axis=0: x.index_select(axis, idx)  # noqa: E731
         masks = tuple(None if m is None else torch.as_tensor(m, device=dev)
-                      for m in spec.cell_masks(key, returns.shape, in_win))
+                      for m in spec.cell_masks(key, returns.shape, in_win,
+                                               device=dev))
         f_view = spec.apply_cells(take(factors, 1), masks)
         # the RETURN panel takes only the NaN mask: a corrupt return
         # observation is a MISSING observation (the NaN-aware pnl path
@@ -270,8 +273,12 @@ def make_scenario_step(*, names, template, family: str,
                                                  policy=policy)
                 for ps in batches:
                     p = len(ps)
-                    r_views = torch.stack([spec.transform_returns(
-                        path_key(spec, i), returns) for i in ps])
+                    # every path's break and intensity in one host pass
+                    breaks, intensity = spec.draws(path_key(spec, ps), d,
+                                                   returns.dtype)
+                    r_views = torch.stack([
+                        spec.apply(returns, s, u)
+                        for s, u in zip(breaks, intensity)])
                     out = tenant_body.simulate(
                         _lanes_of(tenant, p), sel.expand(p, *sel.shape[1:]),
                         signal.expand(p, *signal.shape[1:]), r_views,
@@ -449,7 +456,7 @@ def run_scenarios(*, names, template, spec, policy=None, factors, returns,
 
     names = tuple(names)
     n_groups = len(prefix_group_ids(names)[1])
-    dtype = torch.empty((), dtype=panels[1].dtype).numpy().dtype
+    dtype = numpy_dtype(panels[1].dtype)
     tenant = template.normalized(len(names), n_groups, dtype=dtype)
     tag = tag or f"scenarios/{family}"
 

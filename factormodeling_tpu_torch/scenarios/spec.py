@@ -23,18 +23,21 @@ float32), so the identity setting reproduces the base market bit for bit:
   stale/drop/universe-collapse draws and per-cell NaN/Inf/outlier
   corruption of the ``[D, N]`` market surface inside the window.
 
-The draws. The JAX package draws every quantity with ``jax.random`` under
-``rng.lane_key``, which torch cannot reproduce. Here each family draws on
-the host from :func:`~factormodeling_tpu_torch.rng.lane_rng` under the JAX
-package's lane names, indexed by ``(seed, path)``: a path's draws are the
-same on the CPU and on the card, two families at one seed never share a
-stream, and adding a draw to one family never reshuffles another's. Each
-family's ``apply`` seam takes the drawn numbers (block starts; the break
-date and intensity; the window uniform and the day and cell uniforms) and
-keeps the JAX package's arithmetic on them, so the tests feed it the JAX
-package's own draws and hold the result to its transform. A rate of 0
-draws nothing (no uniform in [0, 1) falls below 0): :meth:`RegimeSpec.off`
-and :meth:`AdversarialSpec.off` return every panel unchanged.
+The draws are the JAX package's: each path's root key is
+``rng.lane_key("scenario/path", seed, path_ix)`` and every family sub-draw
+folds its own registered lane under it, drawn with
+:mod:`~factormodeling_tpu_torch.threefry` at the JAX package's shapes and
+widths (the default width follows ``torch.get_default_dtype()``, the
+counterpart of ``jax_enable_x64``), so two families at one seed never
+share a stream and a seed gives the JAX package's paths on the CPU and on
+the card. The scalar and per-date draws are made on the host (the regime's
+for every path of a dispatch at once, under a batch of path keys); the
+cell draws at the market's shape on the device the caller names. Each family's
+``apply`` seam takes the drawn numbers (block starts; the break date and
+intensity; the window uniform and the day and cell uniforms) and keeps the
+JAX package's arithmetic on them. A rate of 0 draws nothing (no uniform in
+[0, 1) falls below 0): :meth:`RegimeSpec.off` and
+:meth:`AdversarialSpec.off` return every panel unchanged.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ import numpy as np
 import torch
 
 from factormodeling_tpu_torch import rng as rng_lanes
+from factormodeling_tpu_torch import threefry
 
 __all__ = ["SCENARIO_FAMILIES", "AdversarialSpec", "BootstrapSpec",
            "RegimeSpec", "family_of", "path_key"]
@@ -56,14 +60,19 @@ def _f32(v) -> float:
 
 
 def path_key(spec, path_ix) -> tuple:
-    """A path's draw key: ``(seed, path index)``. Each family draws its
-    quantities from ``rng.lane_rng(lane, seed, path_ix)`` under its own
-    registered lane (:func:`_sub`)."""
-    return int(spec.seed), int(path_ix)
+    """A path's root threefry key: seed x path index under the registered
+    ``scenario/path`` lane; an array of path indices gives the batch of
+    their keys. The JAX package keys on the spec's int32 seed leaf, whose
+    key is ``(0, seed mod 2**32)``. Family sub-draws fold their own lanes
+    under it (:func:`_sub`)."""
+    path_ix = (np.asarray(path_ix, np.int64) if np.ndim(path_ix)
+               else int(path_ix))
+    return rng_lanes.lane_key("scenario/path", int(spec.seed) & 0xFFFFFFFF,
+                              path_ix)
 
 
-def _sub(key, lane: str):
-    return rng_lanes.lane_rng(lane, *key)
+def _sub(key, lane: str) -> tuple:
+    return threefry.fold_in(key, rng_lanes.lane_id(lane))
 
 
 def _scalar(v, dtype, device):
@@ -100,17 +109,21 @@ class BootstrapSpec:
         return cls(seed=int(seed), block_len=int(block_len))
 
     def draws(self, key, d: int) -> np.ndarray:
-        """``int64[D]`` block starts, one per possible block slot."""
-        return _sub(key, "scenario/bootstrap").integers(0, d, size=d)
+        """``[D]`` block starts, one per possible block slot, at the default
+        integer width."""
+        return threefry.randint(_sub(key, "scenario/bootstrap"), (d,), 0, d,
+                                device="cpu").numpy()
 
     def apply(self, starts, d: int) -> np.ndarray:
-        """The resampled day indices from drawn block ``starts``."""
+        """The resampled day indices from drawn block ``starts``, in their
+        integer width."""
         length = max(int(self.block_len), 1)
-        days = np.arange(d)
-        return (np.asarray(starts)[days // length] + days % length) % d
+        starts = np.asarray(starts)
+        days = np.arange(d, dtype=starts.dtype)
+        return (starts[days // length] + days % length) % d
 
     def day_index(self, key, d: int) -> np.ndarray:
-        """``int64[D]`` resampled day indices for one path (host)."""
+        """``[D]`` resampled day indices for one path (host)."""
         return self.apply(self.draws(key, d), d)
 
 
@@ -150,16 +163,19 @@ class RegimeSpec:
         exact in IEEE arithmetic, so every path is the base market."""
         return cls.make(seed=seed)
 
-    def draws(self, key, d: int) -> tuple:
-        """``(s, u)``: the break date and the intensity (float64)."""
-        s = int(_sub(key, "scenario/regime_break").integers(0, d))
-        u = float(_sub(key, "scenario/regime_intensity").random())
-        return s, u
+    def draws(self, key, d: int, dtype: torch.dtype) -> tuple:
+        """``(s, u)``: the break date and the intensity, drawn in ``dtype``
+        (the return panel's) as Python numbers; lists of them, a path
+        each, under a batch of path keys."""
+        s = threefry.randint(_sub(key, "scenario/regime_break"), (), 0, d,
+                             device="cpu")
+        u = threefry.uniform(_sub(key, "scenario/regime_intensity"), (),
+                             dtype, device="cpu")
+        return s.tolist(), u.tolist()
 
     def apply(self, returns: torch.Tensor, s: int, u: float) -> torch.Tensor:
         """The regime transform of the ``[D, N]`` return panel at drawn
-        ``(s, u)``, in the panel's dtype (``u`` rounds to it, as the JAX
-        package draws it in that dtype)."""
+        ``(s, u)``, in the panel's dtype (``u`` is drawn in it)."""
         dt, dev = returns.dtype, returns.device
         d = returns.shape[0]
         after = (torch.arange(d, device=dev) >= s)[:, None]
@@ -178,7 +194,8 @@ class RegimeSpec:
 
     def transform_returns(self, key, returns: torch.Tensor) -> torch.Tensor:
         """Per-path regime transform of the ``[D, N]`` return panel."""
-        return self.apply(returns, *self.draws(key, returns.shape[0]))
+        return self.apply(returns, *self.draws(key, returns.shape[0],
+                                               returns.dtype))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -224,28 +241,28 @@ class AdversarialSpec:
 
     # ------------------------------------------------------------ the draws
 
-    def window_draw(self, key):
-        """The window-start uniform, float32 in [0, 1) (the JAX package's
-        default dtype for it)."""
-        return _sub(key, "scenario/adv_window").random(dtype=np.float32)
+    def window_draw(self, key) -> np.ndarray:
+        """The window-start uniform in [0, 1), at the default width."""
+        return threefry.uniform(_sub(key, "scenario/adv_window"), (),
+                                device="cpu").numpy()
 
     def day_draws(self, key, d: int) -> tuple:
-        """``(stale, drop, collapse)`` float64 ``[D]`` uniforms, ``None``
-        for a class whose rate is 0."""
-        return tuple(None if rate == 0.0 else _sub(key, lane).random(d)
-                     for lane, rate in (
-                         ("scenario/adv_stale", self.stale_rate),
-                         ("scenario/adv_drop", self.drop_rate),
-                         ("scenario/adv_collapse", self.collapse_rate)))
+        """``(stale, drop, collapse)`` ``[D]`` uniforms at the default
+        width, ``None`` for a class whose rate is 0."""
+        return tuple(None if rate == 0.0 else threefry.uniform(
+            _sub(key, lane), (d,), device="cpu").numpy()
+            for lane, rate in (("scenario/adv_stale", self.stale_rate),
+                               ("scenario/adv_drop", self.drop_rate),
+                               ("scenario/adv_collapse", self.collapse_rate)))
 
-    def cell_draws(self, key, shape) -> tuple:
-        """``(nan, inf, outlier)`` float64 uniforms of ``shape``, ``None``
-        for a class whose rate is 0."""
-        return tuple(None if rate == 0.0 else _sub(key, lane).random(shape)
-                     for lane, rate in (
-                         ("scenario/adv_nan", self.nan_rate),
-                         ("scenario/adv_inf", self.inf_rate),
-                         ("scenario/adv_outlier", self.outlier_rate)))
+    def cell_draws(self, key, shape, *, device) -> tuple:
+        """``(nan, inf, outlier)`` uniforms of ``shape`` at the default
+        width on ``device``, ``None`` for a class whose rate is 0."""
+        return tuple(None if rate == 0.0 else threefry.uniform(
+            _sub(key, lane), tuple(shape), device=device)
+            for lane, rate in (("scenario/adv_nan", self.nan_rate),
+                               ("scenario/adv_inf", self.inf_rate),
+                               ("scenario/adv_outlier", self.outlier_rate)))
 
     # --------------------------------------------------- the apply seams
 
@@ -281,26 +298,31 @@ class AdversarialSpec:
                                    self.day_draws(key, d), d)
 
     def apply_cell_masks(self, cell_u, in_win) -> tuple:
-        """The three bool ``[D, N]`` host masks (NaN burst, Inf spike,
-        outlier blast) inside the window from drawn cell uniforms, each
-        compared with its rate in the uniform's dtype."""
-        win = np.asarray(in_win)[:, None]
+        """The three bool ``[D, N]`` masks (NaN burst, Inf spike, outlier
+        blast) inside the window from drawn cell uniforms, each compared
+        with its rate in the uniform's dtype: tensors where the uniforms
+        lie, host arrays for host uniforms."""
         out = []
         for uniform, rate in zip(cell_u, (self.nan_rate, self.inf_rate,
                                           self.outlier_rate)):
             if uniform is None:
                 out.append(None)
-                continue
-            uniform = np.asarray(uniform)
-            out.append(win & (uniform < uniform.dtype.type(rate)))
+            elif isinstance(uniform, torch.Tensor):
+                win = torch.as_tensor(in_win, device=uniform.device)[:, None]
+                out.append(win & (uniform < rate))
+            else:
+                uniform = np.asarray(uniform)
+                out.append(np.asarray(in_win)[:, None]
+                           & (uniform < uniform.dtype.type(rate)))
         return tuple(out)
 
-    def cell_masks(self, key, shape, in_win) -> tuple:
-        """The cell masks of one path, drawn once at the ``[D, N]``
-        market-surface granularity: a corrupt symbol-date observation
-        poisons the return panel and every factor computed from it.
-        ``None`` stands for an all-False mask (a rate of 0)."""
-        return self.apply_cell_masks(self.cell_draws(key, shape), in_win)
+    def cell_masks(self, key, shape, in_win, *, device) -> tuple:
+        """The cell masks of one path on ``device``, drawn once at the
+        ``[D, N]`` market-surface granularity: a corrupt symbol-date
+        observation poisons the return panel and every factor computed
+        from it. ``None`` stands for an all-False mask (a rate of 0)."""
+        return self.apply_cell_masks(
+            self.cell_draws(key, shape, device=device), in_win)
 
     def apply_cells(self, x: torch.Tensor, masks) -> torch.Tensor:
         """Apply the cell masks (bool tensors on ``x``'s device, or None) to

@@ -19,6 +19,7 @@ import pandas as pd
 import pytest
 import torch
 from tests.torch_threads import torch_one_thread  # noqa: F401
+from tests.torch_x64 import torch_float64_module  # noqa: F401
 
 matplotlib.use("Agg")
 import matplotlib.pyplot as plt  # noqa: E402

@@ -19,6 +19,7 @@ from factormodeling_tpu_torch.compat import factor_selector as fs
 from factormodeling_tpu_torch.compat._convert import (PanelVocab,
                                                       level_values, roundtrip)
 from tests.torch_threads import torch_one_thread  # noqa: F401
+from tests.torch_x64 import torch_float64_module  # noqa: F401
 
 TOL = 1e-10
 

@@ -16,6 +16,7 @@ import torch
 from factormodeling_tpu.compat import operations as jop
 from factormodeling_tpu_torch.compat import operations as top
 from tests.torch_threads import torch_one_thread  # noqa: F401
+from tests.torch_x64 import torch_float64_module  # noqa: F401
 
 D, N = 24, 14
 

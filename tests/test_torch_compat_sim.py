@@ -22,6 +22,7 @@ from factormodeling_tpu.compat import portfolio_simulation as jax_ps
 from factormodeling_tpu_torch.compat import decay as port_decay
 from factormodeling_tpu_torch.compat import portfolio_simulation as port_ps
 from tests.torch_threads import torch_one_thread  # noqa: F401
+from tests.torch_x64 import torch_float64_module  # noqa: F401
 
 D, N = 30, 24
 METHODS = {

@@ -10,33 +10,60 @@ backtests, a lane-batched ``equal`` bucket (``[C]`` knobs) against
 schemes over ``ONLINE_DATES`` dates against the JAX package's jitted
 advance. The QP schemes solve in float64 and are not held here.
 
+Then the rest of the float32 surface:
+
+- the seeded draws at the x64-off widths: 32-bit bits, float32 uniforms
+  with and without bounds and int32 ``randint`` bitwise, float32 normals
+  within ``NORMAL_ULP``; fault injection with every class on and the
+  scenario families' draws bitwise at the float32 default;
+- every op of the ops package not held above, and ``cs_ols``, on
+  ``tests/test_torch_ops.py``'s panels at unit scale, each output held to
+  ``TOL_SMOOTH`` relative to its scale; the same panels at
+  ``OP_BIG_SCALE``, where float32 rounding grows with the values: the
+  port's float32 distance from its float64 answer within ``BIG_FACTOR``
+  times the JAX package's plus ``BIG_SLACK``;
+- the metric tables (``single_factor_metrics``, ``aggregate_metrics``,
+  ``rolling_metrics``) and the momentum, ``mvo``, ``pca`` and
+  ``regression`` selectors;
+- the compat layer at the float32 default: ``tests/test_compat_f32.py``'s
+  six ops at its tolerances and its ``mvo_turnover`` simulation at its
+  leg-sum gate, float32 in flight and realigned on the caller's index.
+
 The test suite runs JAX in x64 (conftest), so the JAX side runs in a child
 interpreter with x64 never enabled, the idiom of ``tests/test_compat_f32.py``,
-and hands its outputs back as an ``.npz`` (one child for every case). Both
-sides get the same seeded float32 inputs. The outputs are held to the
-smooth-statistics tier of ``tools/device_goldens.py::check``
-(``TOL_SMOOTH``, 3e-4), with NaN at the same cells and the pair and leg
-counts exact.
+and hands its outputs back as an ``.npz`` (one child for the module, each
+of its functions traced once). Both sides get the same seeded float32
+inputs. The outputs are held to the smooth-statistics tier of
+``tools/device_goldens.py::check`` (``TOL_SMOOTH``, 3e-4), with NaN at the
+same cells and the pair and leg counts exact.
 """
 
+import json
 import os
 import subprocess
 import sys
 from pathlib import Path
 
 import numpy as np
+import pytest
 import torch
 
-from factormodeling_tpu_torch import ops
+from factormodeling_tpu_torch import ops, resil, scenarios
+from factormodeling_tpu_torch import threefry as tf
 from factormodeling_tpu_torch.backtest import (SimulationSettings,
                                                run_simulation)
 from factormodeling_tpu_torch.backtest.settings import lane_knobs
 from factormodeling_tpu_torch.composite import (composite_weighted,
                                                 prefix_group_ids)
-from factormodeling_tpu_torch.metrics import daily_factor_stats
+from factormodeling_tpu_torch.metrics import (aggregate_metrics,
+                                              daily_factor_stats,
+                                              rolling_metrics,
+                                              single_factor_metrics)
 from factormodeling_tpu_torch.online import DateSlice, make_online_step
+from factormodeling_tpu_torch.resil import faults
 from factormodeling_tpu_torch.selection import (finalize_selection,
-                                                icir_top_selector)
+                                                icir_top_selector,
+                                                rolling_selection)
 from factormodeling_tpu_torch.selection.selectors import SelectionContext
 from factormodeling_tpu_torch.ops import _cuda_fused as cf
 from factormodeling_tpu_torch.serve import TenantConfig
@@ -58,6 +85,94 @@ ONLINE_DATES = 12
 ONLINE = dict(window=4, lookback_period=6, top_k=2, icir_threshold=-1.0)
 ONLINE_ROWS = ("selection", "signal", "weights", "log_return", "turnover")
 
+#: the seeded draws: seeds, shapes (the last odd and above 2**16 elements),
+#: uniform bounds and randint spans, as in tests/test_torch_threefry.py
+DRAW_SEEDS = (0, 1, 7, 2**31 - 1)
+DRAW_SHAPES = ((), (1,), (7,), (5, 7, 3), (263, 257))
+DRAW_BOUNDS = ((0.0, 1.0), (-2.5, 3.7))
+DRAW_SPANS = (1, 3, 1332)
+NORMAL_ULP = 4
+#: fault injection with every class on, at each stage
+CHAOS = dict(seed=11, nan_rate=0.05, inf_rate=0.05, outlier_rate=0.05,
+             outlier_mag=6.0, stale_rate=0.2, drop_rate=0.2,
+             collapse_rate=0.3, collapse_keep=3)
+FAULT_STAGES = (("ops/factors_raw", 1), ("selection/rolling", 0),
+                ("composite/blend", 0))
+FAULT_SHAPES = ((3, 40, 16), (40, 5), (40, 16))
+SCEN = dict(boot=dict(seed=5, block_len=10),
+            regime=dict(seed=7, vol_scale=2.0, mean_shift=-0.005,
+                        corr_tighten=0.4),
+            adv=dict(seed=3, window_len=20, nan_rate=0.05, inf_rate=0.02,
+                     outlier_rate=0.05, stale_rate=0.3, drop_rate=0.2,
+                     collapse_rate=0.2))
+#: every op of the ops package that the float32 differential held nowhere
+#: before, and cs_ols: ``m`` the ops module, ``a`` the inputs, ``G`` the
+#: groups
+OP_GROUPS = 5
+OPS = {
+    "ts_sum": "m.ts_sum(a['x'], 5, universe=a['uni'])",
+    "ts_mean": "m.ts_mean(a['x'], 4)",
+    "ts_std": "m.ts_std(a['x'], 5, universe=a['uni'])",
+    "ts_zscore": "m.ts_zscore(a['x'], 5)",
+    "ts_rank": "m.ts_rank(a['x'], 6, universe=a['uni'])",
+    "ts_diff": "m.ts_diff(a['x'], 5)",
+    "ts_delay": "m.ts_delay(a['x'], 5, universe=a['uni'])",
+    "ts_decay": "m.ts_decay(a['stack'], 9, universe=a['uni'])",
+    "ts_backfill": "m.ts_backfill(a['x'], universe=a['uni'])",
+    "cs_rank": "m.cs_rank(a['x'], universe=a['uni'], method='average')",
+    "cs_winsor": "m.cs_winsor(a['x'], (0.05, 0.9), min_valid=8, "
+                 "universe=a['uni'])",
+    "cs_filter_center": "m.cs_filter_center(a['x'], (0.2, 0.6), "
+                        "universe=a['uni'])",
+    "cs_zscore": "m.cs_zscore(a['stack'], a['uni'])",
+    "cs_bool": "m.cs_bool(a['x'] > 0.1, a['x'], a['y'])",
+    "cs_mean": "m.cs_mean(a['x'], a['uni'])",
+    "market_neutralize": "m.market_neutralize(a['x'], a['uni'])",
+    "sign": "m.sign(a['x'])",
+    "power": "m.power(a['x'], 3)",
+    "log": "m.log(a['x'])",
+    "abs_": "m.abs_(a['x'])",
+    "clip": "m.clip(a['x'], -0.5, 0.75)",
+    "bucket": "m.bucket(a['unit'])",
+    "group_mean": "m.group_mean(a['x'], a['gid'], G)",
+    "group_neutralize": "m.group_neutralize(a['stack'], a['gid'], G)",
+    "group_normalize": "m.group_normalize(a['x'], a['gid'], G)",
+    "group_rank_normalized": "m.group_rank_normalized(a['stack'], "
+                             "a['gid'], G)",
+    "cs_ols": "m.cs_ols(a['y'], a['stack'], universe=a['uni'], ridge=0.05)",
+    "cs_regression": "m.cs_regression(a['y'], a['x'], 'resid', "
+                     "universe=a['uni'])",
+    "ts_regression_fast": "m.ts_regression_fast(a['y'], a['x'], 6, lag=2, "
+                          "rettype=2, universe=a['uni'])",
+    "forward_fill": "m.forward_fill(a['x'])",
+    "masked_shift": "m.masked_shift(a['x'], a['uni'], 2)",
+    "rolling_sum": "m.rolling_sum(a['y'], 4)",
+    "shift": "m.shift(a['x'], 3)",
+}
+#: the ill-conditioned case: the panels scaled by OP_BIG_SCALE, where
+#: float32 rounding, not the formulation, parts the two packages: the
+#: port's float32 distance from the port's float64 answer is held to
+#: BIG_FACTOR times the JAX package's plus BIG_SLACK
+OP_BIG_SCALE, OP_SCALED = 1e3, ("x", "y", "stack")
+BIG_FACTOR, BIG_SLACK = 2.0, 1e-6
+#: the metric tables' rolling window and the four further selectors (the
+#: factor_momentum selector is registered as "momentum")
+METRIC_WINDOW = 10
+SELECTORS = {"momentum": {}, "mvo": dict(qp_iters=500),
+             "pca": {}, "regression": {}}
+#: tests/test_compat_f32.py's six compat ops (name: op, args, its atol)
+COMPAT_OPS = {"ts_mean": ("ts_mean", (5,), 1e-5),
+              "ts_zscore": ("ts_zscore", (5,), 1e-4),
+              "ts_rank": ("ts_rank", (5,), 1e-5),
+              "cs_rank": ("cs_rank", (), 1e-6),
+              "cs_zscore": ("cs_zscore", (), 1e-4),
+              "market_neutralize": ("market_neutralize", (), 1e-4)}
+COMPAT_SIM = dict(method="mvo_turnover", max_weight=0.4, lookback_period=6,
+                  plot=False, output_returns=True)
+#: its gate on the simulation: leg sums within 1e-2 of 1 past the first
+#: 8 (warm-up) dates
+COMPAT_LEG_TOL, COMPAT_WARMUP = 1e-2, 8
+
 _CHILD = r"""
 import os, sys
 sys.path.insert(0, {repo!r})
@@ -72,11 +187,12 @@ from factormodeling_tpu import ops
 from factormodeling_tpu.metrics import daily_factor_stats
 
 d = np.load({inputs!r})
-z = ops.cs_zscore_group_neutralize(jnp.asarray(d["x"]), jnp.asarray(d["gid"]),
-                                   {g}, universe=jnp.asarray(d["uni"]))
-st = daily_factor_stats(jnp.asarray(d["fac"]), jnp.asarray(d["ret"]),
-                        universe=jnp.asarray(d["uni"]),
-                        stats=("ic", "rank_ic"))
+z = jax.jit(lambda x, gid, uni: ops.cs_zscore_group_neutralize(
+    x, gid, {g}, universe=uni))(jnp.asarray(d["x"]), jnp.asarray(d["gid"]),
+                                jnp.asarray(d["uni"]))
+st = jax.jit(lambda f, r, uni: daily_factor_stats(
+    f, r, universe=uni, stats=("ic", "rank_ic")))(
+    jnp.asarray(d["fac"]), jnp.asarray(d["ret"]), jnp.asarray(d["uni"]))
 out = dict(z=np.asarray(z), ic=np.asarray(st["ic"]),
            rank_ic=np.asarray(st["rank_ic"]), n_pairs=np.asarray(st["n_pairs"]))
 
@@ -139,8 +255,139 @@ for m in ("equal", "linear"):
     for k in {online_rows!r} + ("long_count",):
         out[f"on_{{m}}_{{k}}"] = np.stack([np.asarray(getattr(o, k))
                                          for o in rows[1:]])
+"""
+
+
+_CHILD_MORE = r"""
+import json
+import pandas as pd
+from jax import random
+
+from factormodeling_tpu import resil, scenarios as jsc
+from factormodeling_tpu.metrics import (aggregate_metrics, rolling_metrics,
+                                        single_factor_metrics)
+from factormodeling_tpu.selection import rolling_selection
+
+cfg = json.load(open(sys.argv[1]))
+
+# the seeded draws at the x64-off widths (float32, int32), one trace
+shapes = [tuple(sh) for sh in cfg["shapes"]]
+
+
+@jax.jit
+def draws(key):
+    res = {}
+    for i, shape in enumerate(shapes):
+        res[f"{i}_bits"] = random.bits(key, shape, jnp.uint32)
+        for j, (lo, hi) in enumerate(cfg["bounds"]):
+            res[f"{i}_u{j}"] = random.uniform(key, shape, minval=lo,
+                                              maxval=hi)
+        for span in cfg["spans"]:
+            res[f"{i}_r{span}"] = random.randint(key, shape, 5, 5 + span)
+        res[f"{i}_n"] = random.normal(key, shape)
+    return res
+
+
+for seed in cfg["seeds"]:
+    for k, v in draws(random.PRNGKey(seed)).items():
+        out[f"draw_{seed}_{k}"] = np.asarray(v)
+
+# fault injection and the scenario draws at the same seeds
+fs = resil.FaultSpec.make(**cfg["chaos"])
+boot = jsc.BootstrapSpec.make(**cfg["boot"])
+reg = jsc.RegimeSpec.make(**cfg["regime"])
+adv = jsc.AdversarialSpec.make(**cfg["adv"])
+dd, nn = d["ret"].shape
+
+
+@jax.jit
+def seeded(xs, uni, ret):
+    faulted = [resil.inject(stage, x, fs, date_axis=axis)
+               for x, (stage, axis) in zip(xs, cfg["stages"])]
+    paths = []
+    for p in range(2):
+        k = jsc.path_key(adv, p)
+        sched = adv.schedule(k, dd)
+        paths.append((boot.day_index(jsc.path_key(boot, p), dd),
+                      reg.transform_returns(jsc.path_key(reg, p), ret),
+                      sched, adv.cell_masks(k, (dd, nn), sched[0])))
+    return faulted, resil.inject_universe(uni, fs), paths
+
+
+faulted, fault_uni, paths = seeded(
+    [jnp.asarray(d[f"fault_x{i}"]) for i in range(len(cfg["stages"]))],
+    jnp.asarray(d["fault_uni"]), jnp.asarray(d["ret"]))
+for i, x in enumerate(faulted):
+    out[f"fault_{i}"] = np.asarray(x)
+out["fault_uni"] = np.asarray(fault_uni)
+for p, (idx, regime, sched, cells) in enumerate(paths):
+    out[f"boot_{p}"], out[f"regime_{p}"] = np.asarray(idx), np.asarray(regime)
+    for j, m in enumerate(sched):
+        out[f"adv_{p}_s{j}"] = np.asarray(m)
+    for j, m in enumerate(cells):
+        out[f"adv_{p}_c{j}"] = np.asarray(m)
+
+# every op, unit scale and at the ill-conditioned scale, in one trace
+every_op = jax.jit(lambda a: {
+    name: eval(expr, dict(m=ops, G=cfg["groups"], a=a))
+    for name, expr in cfg["ops"].items()})
+for scale in ("unit", "big"):
+    res = every_op({k: jnp.asarray(d[f"op_{scale}_{k}"])
+                    for k in cfg["op_inputs"]})
+    for name, r in res.items():
+        for j, v in enumerate(r if isinstance(r, tuple) else (r,)):
+            out[f"op_{scale}_{name}_{j}"] = np.asarray(v)
+
+# the metric tables and the selectors
+fac, ret = jnp.asarray(d["fac"]), jnp.asarray(d["ret"])
+uni_m = jnp.asarray(d["uni"])
+
+
+@jax.jit
+def tables(fac, ret, uni):
+    daily = daily_factor_stats(fac, ret, shift_periods=2, universe=uni)
+    return dict(sfm=single_factor_metrics(fac, ret, universe=uni),
+                agg=aggregate_metrics(daily),
+                roll=rolling_metrics(daily, cfg["window"]))
+
+
+for tag, table in tables(fac, ret, uni_m).items():
+    for k, v in table.items():
+        out[f"{tag}_{k}"] = np.asarray(v)
+for method, kw in cfg["selectors"].items():
+    out["sel_" + method] = np.asarray(jax.jit(
+        lambda f, r, fr, u, method=method, kw=kw: rolling_selection(
+            f, r, fr, cfg["window"], method=method, method_kwargs=kw,
+            universe=u))(jnp.asarray(d["bf"]), ret, jnp.asarray(d["fr"]),
+                         uni_m))
+
+# the compat layer at its production width
+sys.path.insert(0, cfg["repo"])
+from factormodeling_tpu.compat import operations as cops
+from factormodeling_tpu.compat import portfolio_simulation as csim
+from tests import pandas_oracle as po
+
+arr, universe = d["c_arr"], d["c_uni"]
+x = po.dense_to_long(arr, universe)
+for name, (op, args) in cfg["compat_ops"].items():
+    got = getattr(cops, op)(x, *args)
+    assert got.dtype == np.float32 and got.index.equals(x.index), name
+    out["compat_" + name] = got.to_numpy()
+cd, cn = arr.shape
+st = csim.SimulationSettings(
+    returns=po.dense_to_long(d["c_ret"]),
+    cap_flag=po.dense_to_long(np.ones((cd, cn))),
+    investability_flag=po.dense_to_long(np.ones((cd, cn))),
+    factors_df=pd.DataFrame(index=po.dense_to_long(d["c_sig"]).index),
+    **cfg["compat_sim"])
+sim = csim.Simulation("f32", po.dense_to_long(d["c_sig"]), st)
+res = sim.run()
+out["compat_sim_log_return"] = res["log_return"].to_numpy(np.float32)
+w, _ = sim._daily_trade_list()
+out["compat_sim_w"] = po.long_to_dense(w, cd, cn).astype(np.float32)
+
 assert all(v.dtype != np.float64 for v in out.values())
-np.savez({outputs!r}, **out)
+np.savez(sys.argv[2], **out)
 """
 
 
@@ -213,22 +460,79 @@ def _online_rows(t, method):
             for k in ONLINE_ROWS + ("long_count",)}
 
 
-def test_float32_port_matches_jax_x64_off(tmp_path):
-    data = _inputs()
-    inputs, outputs = tmp_path / "in.npz", tmp_path / "out.npz"
+def _extra_inputs(seed=20261018):
+    """The inputs of the child's second part: fault panels, the op panels
+    at unit scale and at OP_BIG_SCALE, and the compat panels
+    (``tests/test_compat_f32.py``'s market)."""
+    rng = np.random.default_rng(seed)
+    out = {f"fault_x{i}": rng.normal(size=shape).astype(np.float32)
+           for i, shape in enumerate(FAULT_SHAPES)}
+    out["fault_uni"] = rng.uniform(size=FAULT_SHAPES[2]) > 0.2
+    unit = _op_inputs(rng)
+    for k, v in unit.items():
+        out[f"op_unit_{k}"] = v
+        out[f"op_big_{k}"] = (v * np.float32(OP_BIG_SCALE)
+                              if k in OP_SCALED else v)
+    c = np.random.default_rng(20260802)
+    cd, cn = 24, 13
+    arr = np.round(c.normal(size=(cd, cn)) * 2) / 2      # half-integer ties
+    arr[c.uniform(size=arr.shape) < 0.12] = np.nan
+    uni = c.uniform(size=arr.shape) < 0.9
+    uni[0, :] = True
+    uni[:, 0] = True
+    out.update(c_arr=arr, c_uni=uni,
+               c_ret=c.normal(scale=0.02, size=(cd, cn)),
+               c_sig=c.normal(size=(cd, cn)))
+    return out
+
+
+def _op_inputs(rng, d=30, n=16, f=3):
+    """``tests/test_torch_ops.py``'s panels in float32: NaNs, ties, a
+    constant window, an all-NaN date, a ragged universe, group id -1."""
+    x = rng.normal(size=(d, n))
+    x[rng.uniform(size=x.shape) < 0.12] = np.nan
+    x[:, 1] = np.round(x[:, 1] * 2) / 2
+    x[2] = np.round(x[2])
+    x[5:12, 4] = 1.25
+    x[7] = np.nan
+    y = 0.5 * np.nan_to_num(x) + rng.normal(scale=0.3, size=(d, n))
+    y[rng.uniform(size=y.shape) < 0.08] = np.nan
+    stack = rng.normal(size=(f, d, n))
+    stack[rng.uniform(size=stack.shape) < 0.1] = np.nan
+    uni = rng.uniform(size=(d, n)) > 0.15
+    uni[:, 0] = True
+    uni[9, :] = False
+    gid = rng.integers(-1, OP_GROUPS - 1, size=(d, n)).astype(np.int32)
+    return dict(x=x.astype(np.float32), y=y.astype(np.float32),
+                stack=stack.astype(np.float32), uni=uni, gid=gid,
+                unit=rng.uniform(-0.1, 1.2, size=(d, n)).astype(np.float32))
+
+
+@pytest.fixture(scope="module")
+def jax_f32(tmp_path_factory):
+    """One x64-off child for the module: ``(inputs, the JAX package's
+    outputs)``."""
+    tmp = tmp_path_factory.mktemp("f32")
+    data = dict(_inputs(), **_extra_inputs())
+    inputs, outputs, cfg = tmp / "in.npz", tmp / "out.npz", tmp / "cfg.json"
     np.savez(inputs, **data)
+    cfg.write_text(json.dumps(_child_config()))
     env = {k: v for k, v in os.environ.items() if k != "JAX_ENABLE_X64"}
     env["JAX_PLATFORMS"] = "cpu"
+    code = _CHILD.format(
+        repo=str(REPO), g=G, names=NAMES, window=WINDOW,
+        inputs=str(inputs), outputs=str(outputs), online=ONLINE,
+        n_names=len(NAMES), groups=_groups(),
+        online_dates=ONLINE_DATES, online_rows=ONLINE_ROWS) + _CHILD_MORE
     proc = subprocess.run(
-        [sys.executable, "-c", _CHILD.format(
-            repo=str(REPO), g=G, names=NAMES, window=WINDOW,
-            inputs=str(inputs), outputs=str(outputs), online=ONLINE,
-            n_names=len(NAMES), groups=_groups(),
-            online_dates=ONLINE_DATES, online_rows=ONLINE_ROWS)],
-        capture_output=True, text=True, env=env, timeout=300)
+        [sys.executable, "-c", code, str(cfg), str(outputs)],
+        capture_output=True, text=True, env=env, timeout=420)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    want = np.load(outputs)
+    return data, dict(np.load(outputs))
 
+
+def test_float32_port_matches_jax_x64_off(jax_f32):
+    data, want = jax_f32
     t = {k: torch.from_numpy(v) for k, v in data.items()}
     z = ops.cs_zscore_group_neutralize(t["x"], t["gid"], G,
                                        universe=t["uni"])
@@ -286,3 +590,212 @@ def test_float32_port_matches_jax_x64_off(tmp_path):
                                       want[f"on_{method}_long_count"])
         # the selection reaches its window: some rows are blended
         assert np.count_nonzero(got["selection"]) > 0
+
+
+def _child_config() -> dict:
+    return dict(
+        repo=str(REPO), seeds=DRAW_SEEDS, shapes=DRAW_SHAPES,
+        bounds=DRAW_BOUNDS, spans=DRAW_SPANS, chaos=CHAOS,
+        stages=FAULT_STAGES, groups=OP_GROUPS, ops=OPS,
+        op_inputs=["x", "y", "stack", "uni", "gid", "unit"],
+        window=METRIC_WINDOW, selectors=SELECTORS,
+        compat_ops={k: (op, args) for k, (op, args, _) in COMPAT_OPS.items()},
+        compat_sim=COMPAT_SIM, **SCEN)
+
+
+def _same_bits(got: torch.Tensor, want: np.ndarray) -> bool:
+    got = got.numpy()
+    return (got.dtype == want.dtype and got.shape == want.shape
+            and got.tobytes() == want.tobytes())
+
+
+def _ulps(got: np.ndarray, want: np.ndarray) -> int:
+    a = got.view(np.int32).astype(np.int64)
+    b = want.view(np.int32).astype(np.int64)
+    a = np.where(a < 0, np.iinfo(np.int32).min - a, a)
+    b = np.where(b < 0, np.iinfo(np.int32).min - b, b)
+    return int(np.abs(a - b).max(initial=0))
+
+
+@pytest.mark.parametrize("seed", DRAW_SEEDS)
+def test_float32_draws_are_jax_s(jax_f32, seed):
+    """The x64-off widths: 32-bit bits, float32 uniforms with and without
+    bounds, int32 randint bitwise; float32 normals within NORMAL_ULP."""
+    _, want = jax_f32
+    key = tf.seed_key(seed)
+    for i, shape in enumerate(DRAW_SHAPES):
+        tag = f"draw_{seed}_{i}"
+        bits = tf.random_bits(key, 32, shape, device="cpu")
+        assert np.array_equal(bits.numpy(),
+                              want[tag + "_bits"].astype(np.int64))
+        for j, (lo, hi) in enumerate(DRAW_BOUNDS):
+            assert _same_bits(tf.uniform(key, shape, torch.float32, lo, hi,
+                                         device="cpu"), want[f"{tag}_u{j}"])
+        for span in DRAW_SPANS:
+            assert _same_bits(tf.randint(key, shape, 5, 5 + span,
+                                         torch.int32, device="cpu"),
+                              want[f"{tag}_r{span}"])
+        got = tf.normal(key, shape, torch.float32, device="cpu").numpy()
+        assert got.dtype == want[tag + "_n"].dtype
+        assert _ulps(got, want[tag + "_n"]) <= NORMAL_ULP
+
+
+def test_float32_faults_and_scenarios_are_jax_s(jax_f32):
+    """At the float32 default (the port's counterpart of x64 off), fault
+    masks and scenario draws are the JAX package's bitwise, the regime
+    path's returns to TOL_SMOOTH."""
+    data, want = jax_f32
+    assert torch.get_default_dtype() == torch.float32
+    spec = resil.FaultSpec.make(**CHAOS)
+    for i, (stage, axis) in enumerate(FAULT_STAGES):
+        got = faults.inject(stage, torch.from_numpy(data[f"fault_x{i}"]),
+                            spec, date_axis=axis)
+        assert _same_bits(got, want[f"fault_{i}"]), stage
+    got = faults.inject_universe(torch.from_numpy(data["fault_uni"]), spec)
+    np.testing.assert_array_equal(got.numpy(), want["fault_uni"])
+    boot = scenarios.BootstrapSpec.make(**SCEN["boot"])
+    reg = scenarios.RegimeSpec.make(**SCEN["regime"])
+    adv = scenarios.AdversarialSpec.make(**SCEN["adv"])
+    ret = torch.from_numpy(data["ret"])
+    d, n = ret.shape
+    for p in range(2):
+        idx = boot.day_index(scenarios.path_key(boot, p), d)
+        assert idx.dtype == want[f"boot_{p}"].dtype
+        np.testing.assert_array_equal(idx, want[f"boot_{p}"])
+        _held(reg.transform_returns(scenarios.path_key(reg, p), ret).numpy(),
+              want[f"regime_{p}"], f"regime path {p}")
+        key = scenarios.path_key(adv, p)
+        sched = adv.schedule(key, d)
+        for j, m in enumerate(sched):
+            np.testing.assert_array_equal(m, want[f"adv_{p}_s{j}"])
+        for j, m in enumerate(adv.cell_masks(key, (d, n), sched[0],
+                                             device="cpu")):
+            np.testing.assert_array_equal(m.numpy(), want[f"adv_{p}_c{j}"])
+
+
+def _scaled_held(got, want, name):
+    """``_held`` relative to the output's scale (its largest finite
+    magnitude, 1 for an all-zero output)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape, name
+    assert np.array_equal(np.isnan(got), np.isnan(want)), name
+    fin = np.isfinite(want)
+    assert np.array_equal(got[~fin], want[~fin], equal_nan=True), name
+    scale = max(float(np.abs(want[fin]).max(initial=0.0)), 1.0)
+    worst = float(np.abs(got[fin] - want[fin]).max(initial=0.0))
+    assert worst <= TOL_SMOOTH * scale, (
+        f"{name}: max |d| {worst} > {TOL_SMOOTH} x {scale}")
+
+
+def _port_op(name, data, scale, dtype):
+    a = {k: torch.from_numpy(data[f"op_{scale}_{k}"]) for k in
+         ("x", "y", "stack", "uni", "gid", "unit")}
+    a = {k: v.to(dtype) if v.is_floating_point() else v for k, v in a.items()}
+    out = eval(OPS[name], dict(m=ops, G=OP_GROUPS, a=a))
+    return out if isinstance(out, tuple) else (out,)
+
+
+@pytest.mark.parametrize("name", list(OPS))
+def test_float32_ops_match_jax(jax_f32, name):
+    data, want = jax_f32
+    for j, got in enumerate(_port_op(name, data, "unit", torch.float32)):
+        w = want[f"op_unit_{name}_{j}"]
+        if w.dtype.kind in "iub":
+            np.testing.assert_array_equal(got.numpy(), w)
+        else:
+            assert got.dtype == torch.float32, name
+            _scaled_held(got.numpy(), w, name)
+
+
+@pytest.mark.parametrize("name", list(OPS))
+def test_float32_ill_conditioned_ops_within_jax_s_rounding(jax_f32, name):
+    """Inputs at OP_BIG_SCALE: the port's float32 answer is as far from
+    the port's float64 answer (same inputs, widened exactly) as the JAX
+    package's float32 answer, within BIG_FACTOR and BIG_SLACK."""
+    data, want = jax_f32
+    got32 = _port_op(name, data, "big", torch.float32)
+    got64 = _port_op(name, data, "big", torch.float64)
+    for j, (g32, g64) in enumerate(zip(got32, got64)):
+        w32 = want[f"op_big_{name}_{j}"]
+        g32, g64 = g32.numpy(), g64.numpy()
+        if w32.dtype.kind in "iub":
+            np.testing.assert_array_equal(g32, w32)
+            continue
+        both = np.isfinite(g64) & np.isfinite(w32) & np.isfinite(g32)
+        ours = float(np.abs(g32[both] - g64[both]).max(initial=0.0))
+        theirs = float(np.abs(w32[both].astype(np.float64)
+                              - g64[both]).max(initial=0.0))
+        assert ours <= BIG_FACTOR * theirs + BIG_SLACK, (
+            f"{name}: port f32 {ours} from f64, JAX f32 {theirs}")
+        assert np.array_equal(np.isnan(g32), np.isnan(w32)), name
+
+
+def test_float32_metric_tables_match_jax(jax_f32):
+    data, want = jax_f32
+    fac, ret = torch.from_numpy(data["fac"]), torch.from_numpy(data["ret"])
+    uni = torch.from_numpy(data["uni"])
+    tables = {"sfm": single_factor_metrics(fac, ret, universe=uni)}
+    daily = daily_factor_stats(fac, ret, shift_periods=2, universe=uni)
+    tables["agg"] = aggregate_metrics(daily)
+    tables["roll"] = rolling_metrics(daily, METRIC_WINDOW)
+    for tag, table in tables.items():
+        keys = sorted(k[len(tag) + 1:] for k in want
+                      if k.startswith(tag + "_"))
+        assert sorted(table) == keys, tag
+        for k, v in table.items():
+            assert v.dtype == torch.float32, (tag, k)
+            _scaled_held(v.numpy(), want[f"{tag}_{k}"], f"{tag} {k}")
+
+
+@pytest.mark.parametrize("method", list(SELECTORS))
+def test_float32_selectors_match_jax(jax_f32, method):
+    data, want = jax_f32
+    t = {k: torch.from_numpy(data[k]) for k in ("bf", "ret", "fr", "uni")}
+    got = rolling_selection(t["bf"], t["ret"], t["fr"], METRIC_WINDOW,
+                            method=method, method_kwargs=SELECTORS[method],
+                            universe=t["uni"])
+    assert got.dtype == torch.float32
+    _scaled_held(got.numpy(), want["sel_" + method], method)
+    assert np.count_nonzero(got.numpy()) > 0
+
+
+def test_float32_compat_matches_jax(jax_f32):
+    """The compat ops and a compat ``mvo_turnover`` simulation at the
+    float32 default against the JAX package's x64-off compat, at
+    ``tests/test_compat_f32.py``'s tolerances and gates, with the float32
+    dtype contract."""
+    import pandas as pd
+
+    from factormodeling_tpu_torch.compat import operations as cops
+    from factormodeling_tpu_torch.compat import portfolio_simulation as csim
+    from tests import pandas_oracle as po
+
+    data, want = jax_f32
+    x = po.dense_to_long(data["c_arr"], data["c_uni"])
+    for name, (op, args, atol) in COMPAT_OPS.items():
+        got = getattr(cops, op)(x, *args, device="cpu")
+        assert got.dtype == np.float32 and got.index.equals(x.index), name
+        g, w = got.to_numpy(float), want["compat_" + name].astype(float)
+        assert np.array_equal(np.isnan(g), np.isnan(w)), name
+        np.testing.assert_allclose(np.nan_to_num(g), np.nan_to_num(w),
+                                   atol=atol, rtol=0, err_msg=name)
+    cd, cn = data["c_arr"].shape
+    sig = po.dense_to_long(data["c_sig"])
+    st = csim.SimulationSettings(
+        returns=po.dense_to_long(data["c_ret"]),
+        cap_flag=po.dense_to_long(np.ones((cd, cn))),
+        investability_flag=po.dense_to_long(np.ones((cd, cn))),
+        factors_df=pd.DataFrame(index=sig.index), device="cpu", **COMPAT_SIM)
+    sim = csim.Simulation("f32", sig, st)
+    lr = sim.run()["log_return"].to_numpy(np.float64)
+    assert np.isfinite(np.nansum(lr))
+    w, _ = sim._daily_trade_list()
+    wd = po.long_to_dense(w, cd, cn)
+    live = ~np.isnan(wd).all(axis=1)
+    live[:COMPAT_WARMUP] = False
+    for book in (wd, want["compat_sim_w"].astype(np.float64)):
+        longs = np.where(np.nan_to_num(book) > 0, np.nan_to_num(book),
+                         0).sum(axis=1)[live]
+        assert (np.abs(longs - 1.0) < COMPAT_LEG_TOL).all()
+    _held(lr, want["compat_sim_log_return"], "compat log_return")
+    _held(wd, want["compat_sim_w"], "compat weights")

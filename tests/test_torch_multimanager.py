@@ -35,6 +35,7 @@ from factormodeling_tpu_torch.compat import multi_manager as port_cmm
 from factormodeling_tpu_torch.compat import portfolio_simulation as port_ps
 from factormodeling_tpu_torch.parallel import sweep as tsweep
 from tests.torch_threads import torch_one_thread  # noqa: F401
+from tests.torch_x64 import torch_float64_module  # noqa: F401
 
 F, D, N = 4, 30, 16
 TOL = 1e-12

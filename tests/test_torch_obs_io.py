@@ -43,6 +43,7 @@ from factormodeling_tpu_torch import panel as tpanel
 from factormodeling_tpu_torch.compat import portfolio_simulation as port_ps
 from factormodeling_tpu_torch.obs import latency as tlat
 from tests.torch_threads import torch_one_thread  # noqa: F401
+from tests.torch_x64 import torch_float64_module  # noqa: F401
 
 D, N, F = 12, 6, 3
 

@@ -19,8 +19,9 @@
   on the 90% quantile, so the jitted blend parts from the op-by-op one (and from the
   port) on that row; XLA also folds the finite fraction's division by the
   cell count into a reciprocal product (one float32 ulp).
-- The watchdog's verdict on a faulted run (the JAX package's draws fed to
-  the port) equal to the jitted JAX step's: the same first stage and
+- The watchdog's verdict on a faulted run (the port drawing the JAX
+  package's masks at the same seed, at the float64 default) equal to the
+  jitted JAX step's: the same first stage and
   dropped stages, the finite fractions within that ulp.
 - ``ADMMResult.residual_traj`` and ``iters_to_converge``: None unless the
   solve collects; under ``probing()`` (read where the solve starts) the
@@ -39,17 +40,16 @@ import torch
 
 import factormodeling_tpu_torch as fmt
 from factormodeling_tpu import resil as jresil
-from factormodeling_tpu import rng as jrng
 from factormodeling_tpu.obs import probes as jprobes
 from factormodeling_tpu.parallel import build_research_step as jax_build
 from factormodeling_tpu.solvers import admm_solve_dense as jax_dense
 from factormodeling_tpu.solvers import admm_solve_lowrank as jax_lowrank
 from factormodeling_tpu_torch.obs import probes
-from factormodeling_tpu_torch.resil import faults
 from factormodeling_tpu_torch.solvers import (admm_solve_dense,
                                               admm_solve_lowrank)
 from tests.test_torch_admm import _jax_prob, _problem, _torch_prob
 from tests.torch_threads import torch_one_thread  # noqa: F401
+from tests.torch_x64 import torch_float64  # noqa: F401
 
 T = torch.from_numpy
 #: float32 sums of the same cells in two orders: relative rounding of the
@@ -227,21 +227,6 @@ def test_probed_step_tallies_iterations_and_moves_no_output(stepped):
     assert rep.add_probes("step", None) is None
 
 
-def _jax_draws(jspec):
-    def draws(spec, stage_idx, shape, date_axis, thresholds):
-        d = shape[date_axis]
-        out = {}
-        for kind in ("nan_burst", "inf_spike", "outlier"):
-            out[kind] = np.asarray(jax.random.uniform(
-                jrng.lane_key(f"fault/{kind}", jspec.seed, stage_idx),
-                tuple(shape)))
-        for kind in ("stale_repeat", "drop_day"):
-            out[kind] = np.asarray(jax.random.uniform(
-                jrng.lane_key(f"fault/{kind}", jspec.seed, stage_idx), (d,)))
-        return {k: v for k, v in out.items() if thresholds[k] > 0}
-    return draws
-
-
 _FAULT_SIM = dict(SIM, qp_iters=40)
 
 
@@ -269,11 +254,10 @@ def _clean_profiles():
 
 @pytest.mark.parametrize("fault", [dict(nan_rate=0.05),
                                    dict(stale_rate=0.25)])
-def test_watchdog_on_a_faulted_run_is_jax_s(monkeypatch, fault):
+def test_watchdog_on_a_faulted_run_is_jax_s(torch_float64, fault):
     arrays, port, clean, base, jbase = _clean_profiles()
     spec_kw = dict(seed=3, **fault)
     jspec = jresil.FaultSpec.make(**spec_kw)
-    monkeypatch.setattr(faults, "_draws", _jax_draws(jspec))
     got = port(*map(T, arrays), fault_spec=fmt.resil.FaultSpec.make(
         **spec_kw))
     want = _jax_faulted_step()(*map(jnp.asarray, arrays), fault_spec=jspec)

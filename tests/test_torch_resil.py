@@ -1,15 +1,17 @@
 """The port's resilience layer against the JAX package, on the CPU in float64
 (float32 where the JAX tests use it), with seeded numpy inputs.
 
-- Fault injection: the port draws its uniforms on the host, the JAX package
-  with ``jax.random``; fed the JAX package's own uniforms through the
+- Fault injection: the port draws the JAX package's uniforms (threefry
+  under ``rng.lane_key``); fed the JAX package's own uniforms through the
   private seam (``faults._inject_with`` / ``_collapse_with``), the port's
-  application is bitwise the JAX ``inject`` for every class and stage.
+  application is bitwise the JAX ``inject`` for every class and stage, and
+  its own draws are the JAX package's.
 - The policy's guards bitwise: quarantine, clamp, and the hold pass (a
   gather where the JAX package scans) on drawn hold masks with day 0 held.
 - ``run_simulation`` with a policy for all four schemes; the default policy
   is bitwise no policy.
-- The faulted, policied research step with the JAX package's draws, and its
+- The faulted, policied research step at the JAX package's seed (the port
+  drawing its own masks, at the float64 default), and its
   ``StageCounters``.
 - Snapshots written by either package load in the other; ``fingerprint``;
   corruption, version skew and the meta guard; the retry schedule; the
@@ -45,6 +47,7 @@ from factormodeling_tpu_torch.resil import policy
 from factormodeling_tpu_torch.serve import TenantConfig
 from tests.torch_isolation import reset_process_telemetry  # noqa: F401
 from tests.torch_threads import torch_one_thread  # noqa: F401
+from tests.torch_x64 import torch_float64  # noqa: F401
 
 T = torch.from_numpy
 NAMES = ("mom_flx", "val_flx", "qual_long", "size_short", "mom_eq")
@@ -122,7 +125,7 @@ def test_universe_collapse_is_bitwise_jax_on_its_draws():
     assert (got.numpy().sum(1) <= np.maximum(uni.sum(1), 0)).all()
 
 
-def test_host_draws_are_seeded_lanes_and_off_is_identity():
+def test_host_draws_are_seeded_lanes_and_off_is_identity(torch_float64):
     rng = np.random.default_rng(5)
     x = T(rng.normal(size=(D, N)))
     assert faults.inject("composite/blend", x, None) is x
@@ -137,11 +140,15 @@ def test_host_draws_are_seeded_lanes_and_off_is_identity():
     da = torch.isnan(ya).all(1)
     db = torch.isnan(yb).all(1)
     assert torch.equal(da, db) and bool(da.any())
-    # a lane's draw is the host lane registry's stream, JAX's numbers
-    u = fmt.rng.lane_rng("fault/drop_day", 2, 2).uniform(size=D)
-    ju = jrng.lane_rng("fault/drop_day", 2, 2).uniform(size=D)
-    np.testing.assert_array_equal(u, ju)
-    np.testing.assert_array_equal(da.numpy(), u < np.float32(0.2))
+    # a lane's draw is the JAX package's: threefry under its lane key
+    u = fmt.threefry.uniform(fmt.rng.lane_key("fault/drop_day", 2, 2), (D,),
+                             device="cpu")
+    ju = jax.random.uniform(jrng.lane_key("fault/drop_day", 2, 2), (D,))
+    assert _bytes(u) == _bytes(ju)
+    np.testing.assert_array_equal(da.numpy(), u.numpy() < np.float32(0.2))
+    jspec = jresil.FaultSpec.make(seed=2, nan_rate=0.2, drop_rate=0.2)
+    assert _bytes(ya) == _bytes(jresil.inject("composite/blend",
+                                              jnp.asarray(x.numpy()), jspec))
 
 
 def test_spec_constructors_staleness_canary_and_dispatch_plan():
@@ -316,22 +323,9 @@ _POLICY = dict(min_universe=6, quarantine_nan_frac=0.5, clamp_absmax=4.0,
                carry_fallback=True)
 
 
-def _jax_draws(jspec):
-    """The port's host draw swapped for the JAX package's uniforms."""
-    def draws(spec, stage_idx, shape, date_axis, thresholds):
-        u = _jax_uniforms(jspec, stage_idx, tuple(shape), date_axis)
-        return {k: v for k, v in u.items() if thresholds[k] > 0}
-    return draws
-
-
-def test_faulted_policied_step_matches_jax(monkeypatch):
+def test_faulted_policied_step_matches_jax(torch_float64):
     arrays = _step_inputs()
     jspec = jresil.FaultSpec.make(**_CHAOS)
-    monkeypatch.setattr(faults, "_draws", _jax_draws(jspec))
-    u = np.asarray(jax.random.uniform(
-        jrng.lane_key("fault/universe_collapse", jspec.seed, 0), (D,)))
-    monkeypatch.setattr(fmt.rng, "lane_rng", lambda name, seed, *ix: (
-        type("G", (), {"uniform": lambda self, size: u})()))
     step = fmt.build_research_step(
         names=NAMES, window=WINDOW, sim_kwargs=_STEP_SIM,
         collect_counters=True, device="cpu")

@@ -1,12 +1,13 @@
 """The port's scenario engine against the JAX package, on the CPU in float64,
 with seeded numpy inputs (a 6 x 120 x 40 market, 4 paths).
 
-The port draws its scenario quantities on the host from the JAX package's
-RNG lanes; the JAX package draws them with ``jax.random``. Here the JAX
-package's own draws (read off its ``path_key`` and lanes) go through each
-family's ``apply`` seam, which first reproduces the JAX package's
-``day_index``, ``transform_returns``, ``schedule``, ``cell_masks`` and
-``apply_cells`` on them; then:
+The port draws the JAX package's scenario quantities (threefry under its
+``path_key`` and lanes, at the float64 default the module sets, the
+counterpart of the suite's x64). The JAX package's own draws (read off its
+``path_key`` and lanes) go through each family's ``apply`` seam, which
+reproduces the JAX package's ``day_index``, ``transform_returns``,
+``schedule``, ``cell_masks`` and ``apply_cells`` on them, and the port's
+own draws are the JAX package's; then, with the port drawing its own:
 
 - each family's per-path metrics against the JAX package's scenario
   runner (one jitted runner a family, built once for the module), with and
@@ -56,6 +57,7 @@ from factormodeling_tpu_torch.serve import TenantConfig
 from factormodeling_tpu_torch.serve.batched import make_tenant_research_step
 from tests.torch_isolation import reset_process_telemetry  # noqa: F401
 from tests.torch_threads import torch_one_thread  # noqa: F401
+from tests.torch_x64 import torch_float64_module  # noqa: F401
 
 NAMES = ("mom_eq", "val_flx", "qual_long", "size_short", "rev_flx", "mom_flx")
 F, D, N, P = len(NAMES), 120, 40, 4
@@ -103,53 +105,31 @@ def _lane(key, lane):
     return random.fold_in(key, jrng.lane_id(lane))
 
 
-def jax_drawn(family, kw):
-    """The port's spec of ``family`` whose draw methods return the JAX
-    package's draws for the same seed and path (the seam the tests feed)."""
+def jax_draws(family, kw, p):
+    """The JAX package's draws of ``family`` for path ``p``, in the form
+    each port family's ``apply`` seam takes."""
     jspec = jsc.SCENARIO_FAMILIES[family].make(**kw)
-    base = scenarios.SCENARIO_FAMILIES[family]
-
-    def jkey(key):
-        return jsc.path_key(jspec, key[1])
-
+    k = jsc.path_key(jspec, p)
     if family == "bootstrap":
-        def draws(self, key, d):
-            # block b starts at day b * L: its first index is its start
-            idx = np.asarray(jspec.day_index(jkey(key), d))
-            starts = np.zeros(d, np.int64)
-            first = idx[::int(self.block_len)]
-            starts[:len(first)] = first
-            return starts
-        methods = {"draws": draws}
-    elif family == "regime":
-        def draws(self, key, d):
-            k = jkey(key)
-            return (int(random.randint(_lane(k, "scenario/regime_break"), (),
-                                       0, d)),
-                    float(random.uniform(_lane(k, "scenario/regime_intensity"),
-                                         (), dtype=jnp.float64)))
-        methods = {"draws": draws}
-    else:
-        def window_draw(self, key):
-            return np.asarray(random.uniform(
-                _lane(jkey(key), "scenario/adv_window"), ()))
+        return np.asarray(random.randint(_lane(k, "scenario/bootstrap"),
+                                         (D,), 0, D))
+    if family == "regime":
+        return (int(random.randint(_lane(k, "scenario/regime_break"), (),
+                                   0, D)),
+                float(random.uniform(_lane(k, "scenario/regime_intensity"),
+                                     (), dtype=jnp.float64)))
+    return (np.asarray(random.uniform(_lane(k, "scenario/adv_window"), ())),
+            tuple(np.asarray(random.uniform(_lane(k, lane), (D,)))
+                  for lane in ("scenario/adv_stale", "scenario/adv_drop",
+                               "scenario/adv_collapse")),
+            tuple(np.asarray(random.uniform(_lane(k, lane), (D, N)))
+                  for lane in ("scenario/adv_nan", "scenario/adv_inf",
+                               "scenario/adv_outlier")))
 
-        def day_draws(self, key, d):
-            return tuple(np.asarray(random.uniform(_lane(jkey(key), lane),
-                                                   (d,)))
-                         for lane in ("scenario/adv_stale",
-                                      "scenario/adv_drop",
-                                      "scenario/adv_collapse"))
 
-        def cell_draws(self, key, shape):
-            return tuple(np.asarray(random.uniform(_lane(jkey(key), lane),
-                                                   tuple(shape)))
-                         for lane in ("scenario/adv_nan", "scenario/adv_inf",
-                                      "scenario/adv_outlier"))
-        methods = {"window_draw": window_draw, "day_draws": day_draws,
-                   "cell_draws": cell_draws}
-    cls = type(f"JaxDrawn{base.__name__}", (base,), methods)
-    return cls(**vars(base.make(**kw))), jspec
+def _spec(family, kw=None):
+    return scenarios.SCENARIO_FAMILIES[family].make(
+        **(SPECS[family] if kw is None else kw))
 
 
 @pytest.fixture(scope="module")
@@ -231,37 +211,40 @@ def test_risk_rows_state_and_merges_are_jax_exactly(levels):
 def test_seams_reproduce_the_jax_transforms_on_its_draws():
     tp = _torch_panels()
     # bootstrap: the day indices
-    spec, jspec = jax_drawn("bootstrap", SPECS["bootstrap"])
+    spec = _spec("bootstrap")
+    jspec = jsc.BootstrapSpec.make(**SPECS["bootstrap"])
     for p in range(P):
         want = np.asarray(jspec.day_index(jsc.path_key(jspec, p), D))
-        got = spec.day_index(scenarios.path_key(spec, p), D)
+        got = spec.apply(jax_draws("bootstrap", SPECS["bootstrap"], p), D)
         np.testing.assert_array_equal(got, want)
         assert ((0 <= got) & (got < D)).all()
     # regime: the transformed returns
-    spec, jspec = jax_drawn("regime", SPECS["regime"])
+    spec = _spec("regime")
+    jspec = jsc.RegimeSpec.make(**SPECS["regime"])
     for p in range(P):
         want = np.asarray(jspec.transform_returns(jsc.path_key(jspec, p),
                                                   jnp.asarray(
                                                       MARKET["returns"])))
-        got = spec.transform_returns(scenarios.path_key(spec, p),
-                                     tp["returns"]).numpy()
+        got = spec.apply(tp["returns"], *jax_draws(
+            "regime", SPECS["regime"], p)).numpy()
         # a few ulps of returns ~0.02: the cross-sectional mean sums in
         # another order
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-16)
     # adversarial, every class: schedule, cell masks, the corrupted views
     kw = dict(SPECS["adversarial"], inf_rate=0.02, outlier_rate=0.05,
               window_len=30)
-    spec, jspec = jax_drawn("adversarial", kw)
+    spec = _spec("adversarial", kw)
+    jspec = jsc.AdversarialSpec.make(**kw)
     for p in range(P):
         jkey = jsc.path_key(jspec, p)
-        key = scenarios.path_key(spec, p)
+        u_win, day_u, cell_u = jax_draws("adversarial", kw, p)
         want = [np.asarray(m) for m in jspec.schedule(jkey, D)]
-        got = spec.schedule(key, D)
+        got = spec.apply_schedule(u_win, day_u, D)
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, w)
         assert not (got[1] | got[2] | got[3])[~got[0]].any()
         jmasks = jspec.cell_masks(jkey, (D, N), jnp.asarray(want[0]))
-        masks = spec.cell_masks(key, (D, N), got[0])
+        masks = spec.apply_cell_masks(cell_u, got[0])
         for g, w in zip(masks, jmasks):
             np.testing.assert_array_equal(g, np.asarray(w))
             assert not g[~got[0]].any()
@@ -271,6 +254,11 @@ def test_seams_reproduce_the_jax_transforms_on_its_draws():
                 spec.apply_cells(tp[x], tm).numpy(),
                 np.asarray(jspec.apply_cells(jnp.asarray(MARKET[x]),
                                              jmasks)))
+        # the port's own draws are the JAX package's
+        key = scenarios.path_key(spec, p)
+        for g, w in zip(spec.cell_masks(key, (D, N), got[0], device="cpu"),
+                        masks):
+            np.testing.assert_array_equal(g.numpy(), w)
         # the blend of the blasted view, against the JAX package's
         # op-by-op blend
         f_view = spec.apply_cells(tp["factors"], tm)
@@ -288,19 +276,28 @@ def test_host_draws_are_seeded_lanes_and_off_is_identity():
     tp = _torch_panels()
     boot = scenarios.BootstrapSpec.make(seed=5, block_len=10)
     i0 = boot.day_index(scenarios.path_key(boot, 0), D)
-    assert np.array_equal(i0, boot.day_index((5, 0), D))
-    assert not np.array_equal(i0, boot.day_index((5, 1), D))
+    jboot = jsc.BootstrapSpec.make(seed=5, block_len=10)
+    np.testing.assert_array_equal(
+        i0, np.asarray(jboot.day_index(jsc.path_key(jboot, 0), D)))
+    assert not np.array_equal(i0, boot.day_index(scenarios.path_key(boot, 1),
+                                                 D))
     reg = scenarios.RegimeSpec.make(**SPECS["regime"])
-    assert reg.draws((7, 0), D) == reg.draws((7, 0), D)
-    assert reg.draws((7, 0), D) != reg.draws((7, 1), D)
+    key0, key1 = (scenarios.path_key(reg, p) for p in (0, 1))
+    assert reg.draws(key0, D, torch.float64) == reg.draws(key0, D,
+                                                          torch.float64)
+    assert reg.draws(key0, D, torch.float64) != reg.draws(key1, D,
+                                                          torch.float64)
+    assert reg.draws(key0, D, torch.float64) == jax_draws(
+        "regime", SPECS["regime"], 0)
     for p in range(3):
-        key = (0, p)
+        off = scenarios.AdversarialSpec.off()
+        key = scenarios.path_key(off, p)
         assert torch.equal(scenarios.RegimeSpec.off().transform_returns(
             key, tp["returns"]), tp["returns"])
-        off = scenarios.AdversarialSpec.off()
         in_win, *days = off.schedule(key, D)
         assert in_win.sum() == 20 and not any(d.any() for d in days)
-        assert off.cell_masks(key, (D, N), in_win) == (None, None, None)
+        assert off.cell_masks(key, (D, N), in_win,
+                              device="cpu") == (None, None, None)
     assert scenarios.family_of(reg) == "regime"
     with pytest.raises(TypeError):
         scenarios.family_of(object())
@@ -319,7 +316,7 @@ def test_host_draws_are_seeded_lanes_and_off_is_identity():
                          ids=["no_policy", "policy"])
 @pytest.mark.parametrize("family", list(SPECS))
 def test_path_metrics_match_jax(jax_runs, family, with_policy):
-    spec, _ = jax_drawn(family, SPECS[family])
+    spec = _spec(family)
     step = scenarios.make_scenario_step(names=NAMES,
                                         template=TenantConfig(**TENANT),
                                         family=family)
@@ -343,7 +340,7 @@ def test_path_metrics_match_jax(jax_runs, family, with_policy):
 
 @pytest.mark.parametrize("family", list(SPECS))
 def test_report_rows_match_jax(jax_runs, family):
-    spec, _ = jax_drawn(family, SPECS[family])
+    spec = _spec(family)
     rep = obs.RunReport("scen")
     res = scenarios.run_scenarios(
         names=NAMES, template=TenantConfig(**TENANT), spec=spec,
