@@ -246,7 +246,22 @@ Phases, in order (any failure exits non-zero before the last line):
    finite and positive, and the failure form for the parallel turnover
    step, whose sweeps read the host; (14c) ``obs.compile_stats()`` of every
    instrumented entry point the script called, none retraced;
-14. one ``kernels`` JSON line; then the last line
+14. path 15, the chaos matrix (``python -m factormodeling_tpu_torch.chaos``'s
+   presets, called in process on the card) at F=50, N=1000 on the
+   matrix's own panel (no NaN cells; its attribution tables assume none):
+   (15a) every fault class x every policy with equal weights over
+   all 1332 dates, then the ``mvo_turnover`` column under ``full`` on the
+   first 32 dates, fused, each cell's invariants and watchdog stage held,
+   two turnover cells against the same cell on the host CPU (the degrade
+   counters exact, the weights at path 1's gate); (15b) the serving preset
+   (``linear``, 10a's tenants at rung 8, the first 333 dates); (15c) the
+   online preset (9b's tenant with the matrix's window and lookback of 8,
+   16 dates a cell); (15d) the scenario preset
+   (``equal``, 4 paths a family, the first 166 dates); a line a cell with
+   its verdict, wall and launches; then the CLI with ``--device cuda``
+   killed after cell 1 (``_FMT_CHAOS_DIE_AFTER_CELL``) and resumed, its
+   verdict byte-equal to a straight run's;
+15. one ``kernels`` JSON line; then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs one card and exits non-zero, printing no result, without one or
@@ -5000,6 +5015,216 @@ def compile_stats_path() -> None:
                              f"retraced {bad}")
 
 
+# path 15: the chaos matrix (factormodeling_tpu_torch.chaos) at full width
+# on the matrix's own panel (chaos.make_inputs at F x D x N). 15a: every
+# fault class x policy with equal weights on all D dates, then the
+# mvo_turnover column under "full" on the first P15_TURNOVER_DATES, fused
+# (cut in depth from 64: ~2.5-3 s a turnover cell on 64 dates, against
+# ~0.2 s an equal cell on 1332); 15b: serving (linear, 10a's tenants) on
+# the first P15_SERVE_DATES; 15c: online (9b's tenant), P15_ONLINE_DATES a
+# cell; 15d: scenarios (equal), P15_SCEN_PATHS paths a family on the first
+# P15_SCEN_DATES. The matrix's own window and lookback (8) everywhere but
+# 15b, whose tenants bring theirs (60).
+P15_WINDOW = 8
+P15_TURNOVER_DATES = 32
+P15_SERVE_DATES = 333
+P15_ONLINE_DATES = 16
+P15_SCEN_DATES, P15_SCEN_PATHS = 166, 4
+#: the turnover cells held against the same cell on the host CPU (the same
+#: threefry masks): counters exact, weights at path 1's DW_TOL / DW_SHARE
+P15_CPU_CELLS = ("chaos/nan_burst/full", "chaos/universe_collapse/full")
+P15_COUNTERS = ("quarantined_days", "held_days", "carry_fallback_days",
+                "clamped_cells", "degrade_events", "solver_fallback_days")
+#: the card's kill/resume: the CLI's equal matrix of 4 cells at full width
+#: on P15_KILL_DATES dates (cut from 333), killed right after cell 1's
+#: snapshot; two interpreters' start-ups are most of its wall
+P15_KILL_DATES = 166
+P15_KILL_GRID = dict(faults=["nan_burst", "universe_collapse"],
+                     policies=["default", "guard"])
+
+
+class _CellLog:
+    """Path 15's progress callback: each message (a cell's verdict line) on
+    a line of its own with the wall and the K1 / K2 single-lane / K2 lane
+    launches since the previous line."""
+
+    def __init__(self, torch, rk, ak, tag: str):
+        self.torch, self.rk, self.ak, self.tag = torch, rk, ak, tag
+        torch.cuda.synchronize()
+        self.t, self.seen = time.perf_counter(), segment_counts(rk, ak)
+
+    def __call__(self, msg: str) -> None:
+        self.torch.cuda.synchronize()
+        now, counts = time.perf_counter(), segment_counts(self.rk, self.ak)
+        delta = {k: counts[k] - self.seen[k] for k in counts}
+        log(f"path 15{self.tag} {msg}; {now - self.t:.3f} s; launches "
+            f"{json.dumps(delta)}")
+        self.t, self.seen = now, counts
+
+
+def _degrade_counts(counters) -> dict:
+    return {k: int(getattr(counters, k)) for k in P15_COUNTERS}
+
+
+def chaos_path(torch, fmt, seed: int) -> dict:
+    """Path 15: ``factormodeling_tpu_torch.chaos``'s four presets on the card
+    at F=50, N=1000 on path 1's inputs (15a-15d above): every cell must hold
+    its invariants and, in the research matrix, the watchdog's
+    ``EXPECT_STAGE``; K1 launches in every preset and K2 in the turnover
+    column; the ``P15_CPU_CELLS`` turnover cells equal their CPU runs
+    (counters exact, weights at ``DW_TOL`` on all but ``DW_SHARE`` of
+    days); then the CLI on the card (``python -m
+    factormodeling_tpu_torch.chaos --device cuda``) killed after cell 1
+    and resumed, its verdict byte-equal to a straight run's. Returns the
+    presets' launches."""
+    import dataclasses
+    import tempfile
+
+    from factormodeling_tpu_torch import chaos
+    from factormodeling_tpu_torch.metrics import _cuda_rank_ic as rk
+    from factormodeling_tpu_torch.ops import _cuda_admm as ak
+    from factormodeling_tpu_torch.serve import TenantConfig
+
+    # the matrix's own panel at full width, not path 1's: its tables
+    # (EXPECT_STAGE, ONLINE_SENTRY) hold on a panel with no NaN cell. On
+    # path 1's 3% NaN cells a stale date also moves NaN cells, which the
+    # watchdog names at ops/factors_raw before the staleness canary, and a
+    # collapsed universe moves the NaN-share gauge the sentry watches: in
+    # both packages alike (tests/test_torch_chaos.py holds that)
+    names, arrays = chaos.make_inputs(F, D, N, seed)
+
+    def cut(d):
+        return names, tuple(a[:, :d] if a.ndim == 3 else a[:d]
+                            for a in arrays)
+
+    held = {}
+
+    def keep(cell, out, spec, policy):
+        if cell in P15_CPU_CELLS:
+            held[cell] = (out.sim.weights.cpu(), _degrade_counts(out.counters),
+                          spec, policy)
+
+    configs = [dataclasses.replace(c, method="linear")
+               for c in serving_configs(fmt, 24)]
+    # 9b's tenant with the matrix's window and lookback: a 60-date window
+    # leaves nothing to serve on P15_ONLINE_DATES dates
+    tenant_9b = TenantConfig(method="mvo_turnover", window=P15_WINDOW,
+                             lookback_period=P15_WINDOW, top_k=5,
+                             icir_threshold=0.03, max_weight=MAX_WEIGHT,
+                             pct=0.1, turnover_penalty=0.1,
+                             sim_static={"solver_kernel": "fused"})
+    runs = (
+        ("a", f"research matrix, equal, {D} dates", chaos.run_chaos,
+         dict(market=(names, arrays), method="equal", window=P15_WINDOW)),
+        ("a", f"mvo_turnover under full, {P15_TURNOVER_DATES} dates",
+         chaos.run_chaos,
+         dict(market=cut(P15_TURNOVER_DATES), method="mvo_turnover",
+              window=P15_WINDOW, policies=["full"],
+              sim_kwargs=dict(solver_kernel="fused"), on_cell=keep)),
+        ("b", f"serving, linear, 10a's tenants, {P15_SERVE_DATES} dates",
+         chaos.run_serving_chaos,
+         dict(market=cut(P15_SERVE_DATES), method="linear",
+              n_requests=len(configs), configs=configs)),
+        ("c", f"online, 9b's tenant, {P15_ONLINE_DATES} dates a cell",
+         chaos.run_online_chaos,
+         dict(market=cut(P15_ONLINE_DATES), template=tenant_9b)),
+        ("d", f"scenarios, equal, {P15_SCEN_PATHS} paths a family, "
+              f"{P15_SCEN_DATES} dates", chaos.run_scenario_chaos,
+         dict(market=cut(P15_SCEN_DATES), method="equal",
+              window=P15_WINDOW, n_paths=P15_SCEN_PATHS)))
+    rk.launches = ak.launches = ak.lane_launches = 0
+    by_run = []
+    for tag, what, run, kw in runs:
+        before = segment_counts(rk, ak)
+        t0 = time.perf_counter()
+        verdict = run(device="cuda", progress=_CellLog(torch, rk, ak, tag),
+                      **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = segment_counts(rk, ak)
+        got = {k: after[k] - before[k] for k in after}
+        by_run.append((what, got))
+        log(f"path 15{tag} {what}: {verdict['cells']} cells, "
+            f"{len(verdict['failed'])} failing, {wall:.1f} s wall; launches "
+            f"{json.dumps(got)}")
+        if not verdict["ok"]:
+            raise AssertionError(
+                f"path 15{tag} {what}: failing cells " + "; ".join(
+                    f"{c}: {verdict['results'][c]['violations'][:3]}"
+                    for c in verdict["failed"]))
+        if got["rank_ic_postsort"] < verdict["cells"]:
+            raise AssertionError(f"path 15{tag} {what}: K1 launched "
+                                 f"{got['rank_ic_postsort']} times for "
+                                 f"{verdict['cells']} cells")
+    launches = segment_counts(rk, ak)
+    if not by_run[1][1]["admm_segment"]:
+        raise AssertionError("path 15a: the turnover column never launched "
+                             "K2")
+
+    # the held turnover cells on the host CPU: the same masks and policy
+    t0 = time.perf_counter()
+    step = chaos.matrix_step(names=names, window=P15_WINDOW,
+                             method="mvo_turnover",
+                             n_dates=P15_TURNOVER_DATES,
+                             sim_kwargs=dict(solver_kernel="fused"),
+                             device="cpu")
+    host_args = tuple(torch.from_numpy(a) for a in cut(P15_TURNOVER_DATES)[1])
+    for cell in P15_CPU_CELLS:
+        w, counts, spec, policy = held[cell]
+        host = step(*host_args, fault_spec=spec, policy=policy)
+        host_counts = _degrade_counts(host.counters)
+        dw = (w.nan_to_num() - host.sim.weights.nan_to_num()).abs() \
+            .max(-1).values
+        share = float((dw > DW_TOL).double().mean())
+        log(f"path 15a {cell} on the CPU: counters {json.dumps(host_counts)} "
+            f"(card {json.dumps(counts)}); weights max |dw| "
+            f"{float(dw.max()):.3e}, share of days > {DW_TOL}: {share:.4f} "
+            f"(limit {DW_SHARE})")
+        if host_counts != counts:
+            raise AssertionError(f"path 15a {cell}: card counters {counts}, "
+                                 f"CPU {host_counts}")
+        if not share <= DW_SHARE:
+            raise AssertionError(f"path 15a {cell}: card and CPU weights "
+                                 f"differ on {share:.2%} of days")
+    log(f"path 15a CPU cells: {time.perf_counter() - t0:.1f} s wall")
+
+    # the CLI on the card, killed after cell 1's snapshot and resumed
+    t0 = time.perf_counter()
+    straight = json.dumps(chaos.run_chaos(
+        shape=(F, P15_KILL_DATES, N), method="equal", device="cuda",
+        progress=lambda _m: None, **P15_KILL_GRID), sort_keys=True) + "\n"
+    with tempfile.TemporaryDirectory(prefix="chaos15-") as tmp:
+        ck = os.path.join(tmp, "chaos.ckpt")
+        cli = [sys.executable, "-m", "factormodeling_tpu_torch.chaos",
+               "--device", "cuda", "--json", "--shape",
+               f"{F},{P15_KILL_DATES},{N}", "--method", "equal",
+               "--faults", ",".join(P15_KILL_GRID["faults"]),
+               "--policies", ",".join(P15_KILL_GRID["policies"]),
+               "--checkpoint", ck]
+        env = {k: v for k, v in os.environ.items()
+               if k != "_FMT_CHAOS_DIE_AFTER_CELL"}
+        killed = subprocess.run(cli, cwd=ROOT, capture_output=True,
+                                text=True, timeout=300,
+                                env={**env, "_FMT_CHAOS_DIE_AFTER_CELL": "1"})
+        resumed = subprocess.run(cli, cwd=ROOT, capture_output=True,
+                                 text=True, timeout=300, env=env)
+    log(f"path 15 kill/resume on the card ({F} x {P15_KILL_DATES} x {N}, "
+        f"4 cells): killed rc {killed.returncode}, resumed rc "
+        f"{resumed.returncode}, resumed verdict byte-equal to straight "
+        f"{resumed.stdout == straight}; {time.perf_counter() - t0:.1f} s "
+        f"wall")
+    if killed.returncode != 137 or "dying after cell 1" not in killed.stderr:
+        raise AssertionError(f"path 15 kill: rc {killed.returncode}\n"
+                             f"{killed.stderr[-2000:]}")
+    if resumed.returncode != 0 or "resumed 2/4 cells" not in resumed.stderr:
+        raise AssertionError(f"path 15 resume: rc {resumed.returncode}\n"
+                             f"{resumed.stderr[-2000:]}")
+    if resumed.stdout != straight:
+        raise AssertionError(f"path 15 resume: verdict {resumed.stdout!r} "
+                             f"against straight {straight!r}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5183,28 +5408,34 @@ def main() -> int:
     log(f"path 14d phase: {time.perf_counter() - t0:.1f} s wall")
     compile_stats_path()
     log(f"path 14 (14a within 13a): {time.perf_counter() - t14:.1f} s wall")
+    t0 = time.perf_counter()
+    launches["chaos"] = chaos_path(torch, fmt, args.seed)
+    log(f"path 15 (15a-15d, CPU cells, kill/resume): "
+        f"{time.perf_counter() - t0:.1f} s wall")
     # each kernel's launches on the paths that run its form: K1 once in each
     # of paths 1-3, in path 8a's icir_top selection and in path 9a's clean
     # step, once a date in path 9b's online advance, once a dispatch in
     # paths 10a, 10b and 10e, once a date in path 10d's session, once a
     # dispatch in paths 12a-12c, once a chunk in 12d-12e, once in 13a, once
     # a run in 13c, once a dispatch and a date in 13d's server and once a
-    # date in its single-tenant sharded advance, once a chunk in 13e
-    # and once in 14b's profiled run
+    # date in its single-tenant sharded advance, once a chunk in 13e,
+    # once in 14b's profiled run, and once a step, dispatch, date or
+    # scenario dispatch in path 15's presets
     k1 = {p: launches[p]["rank_ic_postsort"] for p in
           (*PATHS, "multimanager", "resil", "online", "serve",
            "serve_turnover", "serve_parallel", "advance_all", "scenarios",
            "scenarios_resume",
            "scenarios_turnover", "north_star", "north_star_host",
            "mesh_step", "mesh_asset", "mesh_serve", "mesh_stream",
-           "devtime")}
+           "devtime", "chaos")}
     kernels["rank_ic_postsort"]["launches"] = sum(k1.values())
     kernels["rank_ic_postsort"]["launches_by_path"] = k1
     kernels["rank_ic_postsort"].update(k1_north)
     # the segment's single-lane launches: path 1, the sequential suffixes
     # of paths 6-7 and 10e (a date with one lane past its start), path 9a's
     # clean step, path 9b's advance, paths 13a, 13c (the scan's runs), 13d's
-    # single-tenant sharded advance and 14b; its collect=1 form: path 9a's probed inert and chaos steps and
+    # single-tenant sharded advance, 14b and path 15a's turnover column;
+    # its collect=1 form: path 9a's probed inert and chaos steps and
     # path 11a's probed tally run; its lane launches: path 2's chunks and
     # 13c's plain-MVO runs, the seed and sweep chunks of paths 6-7 and 10e,
     # and the lane-batched day loops: path 10b's bucket (its real tenants,
@@ -5213,11 +5444,11 @@ def main() -> int:
     single = {p: launches[p]["admm_segment"] for p in
               ("turnover", "turnover_parallel", "turnover_parallel_decoupled",
                "serve_parallel", "resil", "online", "mesh_step",
-               "mesh_asset", "mesh_serve", "devtime")}
+               "mesh_asset", "mesh_serve", "devtime", "chaos")}
     lanes = {p: launches[p]["admm_segment_lanes"] for p in
              ("mvo", "turnover_parallel", "turnover_parallel_decoupled",
               "serve_turnover", "serve_parallel", "advance_all",
-              "scenarios_turnover", "mesh_asset", "mesh_serve")}
+              "scenarios_turnover", "mesh_asset", "mesh_serve", "chaos")}
     kernels["admm_segment"]["launches"] = sum(single.values())
     kernels["admm_segment"]["launches_by_path"] = single
     kernels["admm_segment_lanes"]["launches"] = sum(lanes.values())

@@ -27,6 +27,8 @@ caller asks for ``device="cpu"``.
 
 import importlib
 
+__version__ = "0.1.0"
+
 from factormodeling_tpu_torch import (analytics, backtest, composite, metrics,
                                       multimanager, obs, online, ops, panel,
                                       parallel, resil, risk, rng, selection,
@@ -34,14 +36,15 @@ from factormodeling_tpu_torch import (analytics, backtest, composite, metrics,
 from factormodeling_tpu_torch.backtest import SimulationSettings, run_simulation
 from factormodeling_tpu_torch.convert import (ResearchConfig, convert,
                                               convert_warm_state)
+from factormodeling_tpu_torch.panel import FactorPanel, Panel
 from factormodeling_tpu_torch.parallel import build_research_step, result_summary
 
-__all__ = ["ResearchConfig", "SimulationSettings", "analytics", "backtest",
-           "build_research_step", "compat", "composite", "convert",
-           "convert_warm_state", "io", "metrics", "multimanager", "obs",
-           "online", "ops", "panel", "parallel", "resil", "result_summary",
-           "risk", "rng", "run_simulation", "selection", "serve", "solvers",
-           "threefry"]
+__all__ = ["FactorPanel", "Panel", "ResearchConfig", "SimulationSettings",
+           "analytics", "backtest", "build_research_step", "compat",
+           "composite", "convert", "convert_warm_state", "io", "metrics",
+           "multimanager", "obs", "online", "ops", "panel", "parallel",
+           "resil", "result_summary", "risk", "rng", "run_simulation",
+           "selection", "serve", "solvers", "threefry"]
 
 
 def __getattr__(name):

@@ -32,7 +32,9 @@ same dispatch under traffic:
   log, clock, estimator, sketches, pending set, attempt counter, stale
   cache) is snapshotted through ``resil.checkpoint`` after every
   dispatch; a resumed drain serves no request twice, loses none, and its
-  verdict log is byte-equal to an uninterrupted one.
+  verdict log is byte-equal to an uninterrupted one. The
+  ``_FMT_SERVE_DIE_AFTER_DISPATCH`` environment hook exits 137 right after
+  the N-th dispatch's snapshot (the chaos matrix's serving kill).
 
 The seconds charged a dispatch come from ``service_model`` (default: the
 estimator's estimate), not from the wall clock; the dispatches themselves
@@ -53,6 +55,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -94,6 +97,16 @@ SHED = "SHED"
 DEADLINE_MISS = "DEADLINE_MISS"
 FAILED = "FAILED"
 VERDICTS = (SERVED, SHED, DEADLINE_MISS, FAILED)
+
+#: test hook (the chaos matrix's ``_FMT_CHAOS_DIE_AFTER_CELL`` one level
+#: down): exit 137 without cleanup right after the snapshot that follows
+#: this 0-based process-wide dispatch index, the mid-drain kill of the
+#: resume differential. Read only when checkpointing is on.
+_DIE_ENV = "_FMT_SERVE_DIE_AFTER_DISPATCH"
+
+#: the process-wide dispatch tally the die hook reads (not queue state: a
+#: resumed run starts its own tally)
+_dispatch_tally = 0
 
 
 # ------------------------------------------------------------ virtual time
@@ -959,13 +972,21 @@ def run_queued(server, requests, *, admission=None, service_model=None,
 
     def _finish_dispatch(downgraded) -> None:
         nonlocal dispatch_idx
+        global _dispatch_tally
         counters["dispatches"] += 1
         server._note_logical_dispatch()
         if downgraded:
             counters["rung_downgrades"] += 1
         dispatch_idx += 1
+        _dispatch_tally += 1
         if ck is not None:
             ck.maybe_save(dispatch_idx - 1, _state(), meta=ck_meta)
+            die_after = os.environ.get(_DIE_ENV)
+            if die_after is not None and _dispatch_tally - 1 == int(die_after):
+                print(f"serve_queued: dying after dispatch "
+                      f"{_dispatch_tally - 1} ({_DIE_ENV} test hook)",
+                      flush=True)
+                os._exit(137)
 
     def _state() -> dict:
         # EVERY bucket, in dict order, INCLUDING emptied ones: pick_dispatch

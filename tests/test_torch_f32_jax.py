@@ -173,6 +173,22 @@ COMPAT_SIM = dict(method="mvo_turnover", max_weight=0.4, lookback_period=6,
 #: 8 (warm-up) dates
 COMPAT_LEG_TOL, COMPAT_WARMUP = 1e-2, 8
 
+#: the float32 paths the card runs (chip_smoke.py paths 4, 8a-8b, 12a,
+#: 12d-12e): the equal scheme, the decay windows, the combos of the sweep
+#: and its chunk, the streamed chunk, the scenario tenant and its paths
+PATHS_SIM = dict(method="equal", pct=0.2)
+DECAY_WINDOWS = (0, 2, 5, 9)
+COMBOS = ((0, 1, 2), (1, 3, 4), (0, 2, 4), (2, 3, 4), (0, 0, 1))
+COMBO_BATCH = 2
+STREAM_CHUNK = 2
+SCEN_TENANT = dict(method="equal", window=WINDOW, lookback_period=WINDOW,
+                   top_k=3, icir_threshold=-1.0, pct=0.2)
+SCEN_PATHS = 4
+#: the chaos matrix's tier-1 smoke (tests/test_chaos.py's SMOKE) over every
+#: fault class and policy
+CHAOS_SMOKE = dict(shape=(4, 28, 12), window=6, method="equal", rate=0.08,
+                   day_rate=0.25, seed=11)
+
 _CHILD = r"""
 import os, sys
 sys.path.insert(0, {repo!r})
@@ -385,6 +401,70 @@ res = sim.run()
 out["compat_sim_log_return"] = res["log_return"].to_numpy(np.float32)
 w, _ = sim._daily_trade_list()
 out["compat_sim_w"] = po.long_to_dense(w, cd, cn).astype(np.float32)
+"""
+
+
+_CHILD_PATHS = r"""
+# the float32 paths the card runs: the decay sweep, the multi-manager
+# backtest, the combo sweep, the streamed stats and composite, the static
+# blend, the scenario engine's path metrics, and the chaos matrix's smoke
+from factormodeling_tpu.analytics import decay_sensitivity
+from factormodeling_tpu.composite import composite_static
+from factormodeling_tpu.multimanager import run_multimanager_backtest
+from factormodeling_tpu.parallel import streaming as jst
+from factormodeling_tpu.parallel import sweep as jsweep
+from factormodeling_tpu.serve import TenantConfig
+
+bf, ret_p = jnp.asarray(d["bf"]), jnp.asarray(d["ret"])
+
+
+def eq_settings():
+    return SimulationSettings(returns=ret_p, cap_flag=jnp.asarray(d["cap"]),
+                              investability_flag=jnp.asarray(d["inv"]),
+                              universe=uni_m, **cfg["paths_sim"])
+
+
+dec = decay_sensitivity(jnp.asarray(d["sig"][0]), eq_settings(),
+                        cfg["decay_windows"], universe=uni_m)
+for k in ("log_return", "annualized_return", "sharpe"):
+    out["path_decay_" + k] = np.asarray(getattr(dec, k))
+mm = jax.jit(run_multimanager_backtest)(bf, jnp.asarray(d["mm_fw"]),
+                                        eq_settings())
+out["path_mm_weights"] = np.asarray(mm.weights)
+out["path_mm_long_count"] = np.asarray(mm.long_count)
+for k in mm.result._fields:
+    out["path_mm_result_" + k] = np.asarray(getattr(mm.result, k))
+cw = jsweep.combo_weight_matrix(np.asarray(cfg["combos"]), bf.shape[0])
+sw = jax.jit(lambda f, w, s: jsweep.manager_sweep(
+    f, w, s, combo_batch=cfg["combo_batch"]))(bf, cw, eq_settings())
+for k in sw._fields:
+    out["path_sweep_" + k] = np.asarray(getattr(sw, k))
+src, sl = jst.host_array_source(d["bf"], cfg["chunk"])
+for k, v in jst.streamed_factor_stats(src, len(sl), ret_p, universe=uni_m,
+                                      shift_periods=2).items():
+    out["path_stream_" + k] = np.asarray(v)
+out["path_stream_composite"] = np.asarray(jst.streamed_weighted_composite(
+    src, [jnp.asarray(d["stream_w"][s]) for s in sl], universe=uni_m))
+# op by op: under jit XLA's float32 rank blend parts from the op-by-op
+# blend (and from its float64 answer) by ~7.5e-3 on this market, the
+# recorded reference behaviour; the port follows the op-by-op blend
+for m in ("zscore", "rank"):
+    out["path_static_" + m] = np.asarray(composite_static(
+        bf, cfg["names"], m, universe=uni_m))
+scen = jsc.run_scenarios(
+    names=cfg["names"], template=TenantConfig(**cfg["scen_tenant"]),
+    spec=jsc.RegimeSpec.make(**cfg["regime"]), n_paths=cfg["scen_paths"],
+    chunk=cfg["scen_paths"], factors=bf, returns=ret_p,
+    factor_ret=jnp.asarray(d["fr"]), cap_flag=jnp.asarray(d["cap"]),
+    investability=jnp.asarray(d["inv"]), universe=uni_m)
+out["path_scen_rows"] = np.asarray(json.dumps(scen.rows, sort_keys=True,
+                                              default=float))
+
+sys.path.insert(0, os.path.join(cfg["repo"], "tools"))
+import chaos as jchaos
+
+smoke = jchaos.run_chaos(progress=lambda _m: None, **cfg["chaos_smoke"])
+out["chaos_smoke"] = np.asarray(json.dumps(smoke, sort_keys=True))
 
 assert all(v.dtype != np.float64 for v in out.values())
 np.savez(sys.argv[2], **out)
@@ -486,6 +566,20 @@ def _extra_inputs(seed=20261018):
     return out
 
 
+def _path_inputs(seed=20261019, d=40):
+    """The card paths' weights: the multi-manager backtest's daily factor
+    weights (a NaN weight and a date without weights, as the float64
+    differential has them) and the streamed composite's ``[F, D]``."""
+    rng = np.random.default_rng(seed)
+    f = len(NAMES)
+    fw = rng.uniform(size=(d, f)).astype(np.float32)
+    fw /= fw.sum(1, keepdims=True)
+    fw[7, 2] = np.nan
+    fw[3] = 0.0
+    return dict(mm_fw=fw,
+                stream_w=rng.random((f, d)).astype(np.float32))
+
+
 def _op_inputs(rng, d=30, n=16, f=3):
     """``tests/test_torch_ops.py``'s panels in float32: NaNs, ties, a
     constant window, an all-NaN date, a ragged universe, group id -1."""
@@ -513,7 +607,7 @@ def jax_f32(tmp_path_factory):
     """One x64-off child for the module: ``(inputs, the JAX package's
     outputs)``."""
     tmp = tmp_path_factory.mktemp("f32")
-    data = dict(_inputs(), **_extra_inputs())
+    data = dict(_inputs(), **_extra_inputs(), **_path_inputs())
     inputs, outputs, cfg = tmp / "in.npz", tmp / "out.npz", tmp / "cfg.json"
     np.savez(inputs, **data)
     cfg.write_text(json.dumps(_child_config()))
@@ -523,7 +617,8 @@ def jax_f32(tmp_path_factory):
         repo=str(REPO), g=G, names=NAMES, window=WINDOW,
         inputs=str(inputs), outputs=str(outputs), online=ONLINE,
         n_names=len(NAMES), groups=_groups(),
-        online_dates=ONLINE_DATES, online_rows=ONLINE_ROWS) + _CHILD_MORE
+        online_dates=ONLINE_DATES, online_rows=ONLINE_ROWS) + _CHILD_MORE \
+        + _CHILD_PATHS
     proc = subprocess.run(
         [sys.executable, "-c", code, str(cfg), str(outputs)],
         capture_output=True, text=True, env=env, timeout=420)
@@ -600,7 +695,10 @@ def _child_config() -> dict:
         op_inputs=["x", "y", "stack", "uni", "gid", "unit"],
         window=METRIC_WINDOW, selectors=SELECTORS,
         compat_ops={k: (op, args) for k, (op, args, _) in COMPAT_OPS.items()},
-        compat_sim=COMPAT_SIM, **SCEN)
+        compat_sim=COMPAT_SIM, names=NAMES, paths_sim=PATHS_SIM,
+        decay_windows=DECAY_WINDOWS, combos=COMBOS, combo_batch=COMBO_BATCH,
+        chunk=STREAM_CHUNK, scen_tenant=SCEN_TENANT, scen_paths=SCEN_PATHS,
+        chaos_smoke=CHAOS_SMOKE, **SCEN)
 
 
 def _same_bits(got: torch.Tensor, want: np.ndarray) -> bool:
@@ -799,3 +897,121 @@ def test_float32_compat_matches_jax(jax_f32):
         assert (np.abs(longs - 1.0) < COMPAT_LEG_TOL).all()
     _held(lr, want["compat_sim_log_return"], "compat log_return")
     _held(wd, want["compat_sim_w"], "compat weights")
+
+
+def _port_paths(data) -> dict:
+    """The port's float32 outputs of ``_CHILD_PATHS``' paths, keyed as the
+    child keys the JAX package's."""
+    from factormodeling_tpu_torch.analytics import decay_sensitivity
+    from factormodeling_tpu_torch.composite import composite_static
+    from factormodeling_tpu_torch.multimanager import \
+        run_multimanager_backtest
+    from factormodeling_tpu_torch.parallel import streaming as pst
+    from factormodeling_tpu_torch.parallel import sweep as psweep
+
+    t = {k: torch.from_numpy(data[k]) for k in
+         ("bf", "ret", "cap", "inv", "uni", "sig", "fr", "mm_fw")}
+    settings = SimulationSettings(returns=t["ret"], cap_flag=t["cap"],
+                                  investability_flag=t["inv"],
+                                  universe=t["uni"], **PATHS_SIM)
+    out = {}
+    dec = decay_sensitivity(t["sig"][0], settings, DECAY_WINDOWS,
+                            universe=t["uni"])
+    for k in ("log_return", "annualized_return", "sharpe"):
+        out["path_decay_" + k] = getattr(dec, k)
+    mm = run_multimanager_backtest(t["bf"], t["mm_fw"], settings,
+                                   device="cpu")
+    out["path_mm_weights"], out["path_mm_long_count"] = (mm.weights,
+                                                         mm.long_count)
+    for k in mm.result._fields:
+        out["path_mm_result_" + k] = getattr(mm.result, k)
+    cw = psweep.combo_weight_matrix(np.asarray(COMBOS), len(NAMES),
+                                    device="cpu")
+    sw = psweep.manager_sweep(t["bf"], cw, settings, combo_batch=COMBO_BATCH,
+                              device="cpu")
+    for k in sw._fields:
+        out["path_sweep_" + k] = getattr(sw, k)
+    src, sl = pst.host_array_source(data["bf"], STREAM_CHUNK)
+    for k, v in pst.streamed_factor_stats(src, len(sl), t["ret"],
+                                          universe=t["uni"], shift_periods=2,
+                                          device="cpu").items():
+        out["path_stream_" + k] = v
+    out["path_stream_composite"] = pst.streamed_weighted_composite(
+        src, [torch.from_numpy(data["stream_w"][s]) for s in sl],
+        universe=t["uni"], device="cpu")
+    for m in ("zscore", "rank"):
+        out["path_static_" + m] = composite_static(t["bf"], NAMES, m,
+                                                   universe=t["uni"])
+    return out
+
+
+#: the paths' outputs held exactly: the counts
+PATH_COUNTS = ("path_stream_n_pairs",)
+
+
+@pytest.fixture(scope="module")
+def port_paths(jax_f32):
+    return _port_paths(jax_f32[0])
+
+
+@pytest.mark.parametrize("path", ("decay", "mm", "sweep", "stream",
+                                  "static"))
+def test_float32_card_paths_match_jax(jax_f32, port_paths, path):
+    """The paths the card runs in float32 (the decay sweep, the
+    multi-manager backtest, the combo sweep, the streamed stats and
+    composite, the static blend) against the JAX package's x64-off run, at
+    ``TOL_SMOOTH`` relative to each output's scale, the counts exact."""
+    _, want = jax_f32
+    keys = sorted(k for k in want if k.startswith(f"path_{path}_"))
+    assert keys and keys == sorted(k for k in port_paths
+                                   if k.startswith(f"path_{path}_"))
+    for k in keys:
+        got = port_paths[k]
+        if got.is_floating_point() and k not in PATH_COUNTS:
+            assert got.dtype == torch.float32, k
+            _scaled_held(got.numpy(), want[k], k)
+        else:
+            np.testing.assert_array_equal(got.numpy(), want[k], err_msg=k)
+
+
+def test_float32_scenario_path_metrics_match_jax(jax_f32):
+    """The scenario engine's risk rows (regime family, the equal tenant)
+    over float32 panels against the JAX package's x64-off rows: each
+    number at ``TOL_SMOOTH`` relative to its scale, the path counts
+    exact."""
+    data, want = jax_f32
+    t = {k: torch.from_numpy(data[k]) for k in
+         ("bf", "ret", "fr", "cap", "inv", "uni")}
+    res = scenarios.run_scenarios(
+        names=NAMES, template=TenantConfig(**SCEN_TENANT),
+        spec=scenarios.RegimeSpec.make(**SCEN["regime"]),
+        n_paths=SCEN_PATHS, chunk=SCEN_PATHS, factors=t["bf"],
+        returns=t["ret"], factor_ret=t["fr"], cap_flag=t["cap"],
+        investability=t["inv"], universe=t["uni"], device="cpu")
+    ref = json.loads(str(want["path_scen_rows"]))
+    assert [r["metric"] for r in res.rows] == [r["metric"] for r in ref]
+    for got, exp in zip(res.rows, ref):
+        assert got["paths"] == exp["paths"] == SCEN_PATHS
+        for k in ("var", "es", "p50", "lo", "hi"):
+            _scaled_held(np.asarray(got[k], np.float64),
+                         np.asarray(exp[k], np.float64),
+                         f"{exp['metric']} {k}")
+
+
+def test_float32_chaos_smoke_verdict_is_jax_s(jax_f32):
+    """The chaos matrix's smoke over every fault class and policy at the
+    float32 default: each cell's verdict, watchdog stage and counters
+    exactly the JAX package's x64-off matrix's."""
+    from factormodeling_tpu_torch import chaos
+
+    _, want = jax_f32
+    ref = json.loads(str(want["chaos_smoke"]))
+    got = chaos.run_chaos(device="cpu", progress=lambda _m: None,
+                          **CHAOS_SMOKE)
+    assert sorted(got["results"]) == sorted(ref["results"])
+    assert (got["ok"], got["cells"], got["failed"]) == (
+        ref["ok"], ref["cells"], ref["failed"])
+    for cell, exp in ref["results"].items():
+        res = got["results"][cell]
+        assert {k: v for k, v in res.items() if k != "violations"} == \
+            {k: v for k, v in exp.items() if k != "violations"}, cell
